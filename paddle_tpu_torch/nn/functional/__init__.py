@@ -1,0 +1,2 @@
+"""Functionals of the port (the ported subset of ``paddle_tpu.nn.functional``)."""
+from .attention import scaled_dot_product_attention  # noqa: F401

@@ -1,0 +1,96 @@
+"""Attention functionals of the port (``paddle_tpu/nn/functional/attention.py``).
+
+Kernel selection goes through :mod:`paddle_tpu_torch.ops.registry`; two
+kernels are defined here:
+
+- ``sdpa``: the scaled-dot-product entry point. Impls: ``flash`` (kernel K1:
+  no mask, no dropout, self-attention) and the ``xla`` fallback, the plain
+  composite, named as in the reference.
+- ``attention_core``: GPT's packed-qkv causal core. Impls: ``flash`` (K1 over
+  strided views of the packed projection, no copy) and the ``xla`` fallback.
+
+The reference's ``flash_packed`` and ``flash_flat_gqa`` impls run kernel K3,
+which is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...framework.flags import flag
+from ...ops import registry as _registry
+from ...ops.flash_attention import flash_attention_available, flash_attention_fwd
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """q/k/v: ``[batch, seq, heads, head_dim]`` (paddle layout). Dispatches
+    through the ``sdpa`` registry kernel; ``generator`` draws the dropout
+    mask."""
+    p = dropout_p if training else 0.0
+    return _registry.dispatch("sdpa", query, key, value, attn_mask, is_causal, p, generator)
+
+
+def _dropout(probs, p, generator):
+    keep = torch.rand(probs.shape, generator=generator, device=probs.device) >= p
+    return torch.where(keep, probs / (1.0 - p), torch.zeros((), dtype=probs.dtype, device=probs.device))
+
+
+def _sdpa_reference(q, k, v, mask=None, causal=False, dropout_p=0.0, generator=None):
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, D]
+    logits = (qh @ kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        cm = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
+        logits = logits.masked_fill(~cm, -1e30)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, -1e30)
+        else:
+            logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    if dropout_p > 0.0:
+        probs = _dropout(probs, dropout_p, generator)
+    return (probs @ vh).transpose(1, 2)
+
+
+def _sdpa_flash_available(q, k, v, mask, causal, dropout_p, generator):
+    return (mask is None and dropout_p == 0.0 and flag("FLAGS_use_flash_attention")
+            and q.dtype == k.dtype == v.dtype and tuple(v.shape) == tuple(q.shape)
+            and q.device.type == k.device.type == v.device.type
+            and flash_attention_available(tuple(q.shape), tuple(k.shape), q.dtype, q.device.type))
+
+
+def _sdpa_flash(q, k, v, mask, causal, dropout_p, generator):
+    return flash_attention_fwd(q, k, v, causal)[0]
+
+
+_registry.define_kernel("sdpa", flags=("FLAGS_use_flash_attention", "FLAGS_flash_flat"))
+_registry.register("sdpa", "flash", _sdpa_flash, available=_sdpa_flash_available,
+                   doc="CUDA flash-attention forward K1 (self-attn, no mask/dropout, d in 64/128)")
+_registry.register("sdpa", "xla", _sdpa_reference, fallback=True,
+                   doc="plain PyTorch composite (any mask/dropout/shape)")
+
+
+def _core_flash_available(qkv, dropout_p, generator):
+    b, s, _, h, d = qkv.shape
+    return (dropout_p == 0.0 and flag("FLAGS_use_flash_attention")
+            and flash_attention_available((b, s, h, d), None, qkv.dtype, qkv.device.type))
+
+
+def _core_flash(qkv, dropout_p, generator):
+    # strided views of the packed projection: the kernel takes any strides
+    # with a unit head-dim stride, so no .contiguous() copy is made
+    return flash_attention_fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True)[0]
+
+
+def _core_xla(qkv, dropout_p, generator):
+    return _sdpa_reference(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], None, True, dropout_p, generator)
+
+
+_registry.define_kernel("attention_core", flags=("FLAGS_use_flash_attention", "FLAGS_flash_flat"))
+_registry.register("attention_core", "flash", _core_flash, available=_core_flash_available,
+                   doc="CUDA flash-attention forward K1 over packed-qkv views")
+_registry.register("attention_core", "xla", _core_xla, fallback=True,
+                   doc="plain PyTorch composite over packed-qkv slices (handles attention dropout)")

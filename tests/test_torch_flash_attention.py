@@ -1,0 +1,150 @@
+"""Kernel K1 of the port (``paddle_tpu_torch.ops.flash_attention``).
+
+On the CPU the port's plain ``(out, lse)`` is held against ``paddle_tpu``'s
+Pallas forward ``_flash_fwd`` run through the Pallas interpreter, with blocks
+shrunk below the sequence so the streaming loop and the causal tile skip run
+(as ``tests/test_flash_interpret.py`` does). The ``cuda``-marked tests hold
+the CUDA kernel against the plain version on the card; they skip where there
+is no card. JAX is imported only where it is installed (a machine with a
+card may have none); the tests that need it skip without it.
+"""
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops import flash_attention as jfa
+except ImportError:  # no JAX installed: only the cuda tests can run
+    jnp = jfa = None
+
+from paddle_tpu_torch.ops import flash_attention as fa
+
+B, S, H, D = 2, 128, 2, 64
+BLOCK = 64  # < S: the Pallas kernel streams more than one K/V tile
+
+
+def _needs_jax():
+    if jfa is None:
+        pytest.skip("needs jax and paddle_tpu for the reference")
+
+
+@pytest.fixture
+def interpret_small_blocks():
+    _needs_jax()
+    prior = jfa.set_interpret(True)
+    saved = (jfa._BLOCK_Q, jfa._BLOCK_K)
+    jfa._BLOCK_Q = jfa._BLOCK_K = BLOCK
+    yield
+    jfa.set_interpret(prior)
+    jfa._BLOCK_Q, jfa._BLOCK_K = saved
+
+
+def _qkv(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_matches_pallas_forward(interpret_small_blocks, causal):
+    q, k, v = _qkv((B, S, H, D))
+    want_out, want_lse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal)
+    out, lse = fa.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)), causal)
+    assert out.shape == (B, S, H, D) and out.dtype == torch.float32
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=5e-6, rtol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=5e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_ragged_seq_matches_reference(causal):
+    """A ragged s (no multiple of any tile) against paddle_tpu's jnp
+    reference; lse against a float64 numpy logsumexp."""
+    _needs_jax()
+    s = 100
+    q, k, v = _qkv((2, s, 3, 64), seed=1)
+    want = jfa._reference_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal)
+    out, lse = fa.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=5e-6, rtol=1e-5)
+    logits = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64)) / 8.0
+    if causal:
+        logits = np.where(np.tril(np.ones((s, s), bool)), logits, -np.inf)
+    mx = logits.max(-1, keepdims=True)
+    want_lse = (mx + np.log(np.exp(logits - mx).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=5e-6, rtol=1e-5)
+
+
+def test_availability_predicate():
+    ok = fa.flash_attention_available
+    assert ok((2, 1024, 16, 64))
+    assert ok((2, 1000, 16, 128), dtype=torch.bfloat16)  # ragged s is fine on the card
+    assert ok((1, 1, 1, 64))
+    assert ok((2, 64, 2, 64), device_type="cpu")          # CPU tensors take the plain version
+    assert not ok((2, 128, 2, 32))                        # d outside the compiled head dims
+    assert not ok((2, 128, 2, 96))
+    assert not ok((2, 128, 2, 64), dtype=torch.float16)
+    assert not ok((2, 128, 2, 64), (2, 64, 2, 64))        # cross-length attention
+    assert not ok((2, 128, 64))
+    assert not ok((2, 128, 70000, 64))                    # heads beyond grid.y
+    assert not ok((2, 128, 2, 64), device_type="mps")
+
+
+def test_cpu_path_is_counted_nowhere_and_forward_only():
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv((1, 64, 2, 64)))
+    before = fa.flash_attention_fwd.launches
+    out, _ = fa.flash_attention_fwd(q, k, v, True)
+    assert fa.flash_attention_fwd.launches == before
+    with pytest.raises(NotImplementedError, match="K2"):
+        out.sum().backward()
+
+
+# ------------------------------------------------------------ on the card
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain version in true f32
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 128, 2, 64), (2, 1000, 3, 128), (1, 77, 2, 64)])
+def test_kernel_matches_plain_on_card(card, shape, causal, dtype):
+    """f32: atol 1e-5 / rtol 1e-4 (f32 FMA sums in another order). bf16: the
+    kernel's bf16 output against the plain version in f32 on the same bf16
+    inputs, atol 2e-2 (one bf16 rounding of values of order 1); its lse is
+    computed in f32 from those inputs and held to the f32 tolerance."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(card, dt) for x in _qkv(shape, seed=2))
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    assert out.dtype == dt and out.shape == shape and lse.shape == (shape[0], shape[2], shape[1])
+    want_out, want_lse = fa._reference_attention(q.float(), k.float(), v.float(), causal)
+    atol = 1e-5 if dtype == "float32" else 2e-2
+    rtol = 1e-4 if dtype == "float32" else 0.0
+    torch.testing.assert_close(out.float(), want_out, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_packed_qkv_strides_on_card(card):
+    """q, k, v as strided views of one packed [b, s, 3, h, d] projection, as
+    the ``attention_core`` wrapper passes them: no copy, same result."""
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((2, 256, 3, 4, 64)).astype(np.float32)).to(card)
+    out, lse = fa.flash_attention_fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True)
+    want_out, want_lse = fa._reference_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True)
+    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-4)
+    q_strided_d = torch.zeros((2, 256, 4, 128), device=card)[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        fa.flash_attention_fwd(q_strided_d, qkv[:, :, 1], qkv[:, :, 2], True)
