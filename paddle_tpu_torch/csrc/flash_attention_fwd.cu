@@ -23,46 +23,19 @@
 // (mma.sync / wgmma), no TMA, no pipelining of the tile loads, so it runs
 // far below the bf16 tensor-core bound. Those are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-
-struct Strides {
-  long long b, s, h;
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Rows row0 .. row0+63 of head (bi, hi) into dst[64][D + 4] as f32; rows at
-// or past s are zero. Neighbouring threads read neighbouring d.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, Strides st,
-                                          int bi, int hi, int row0, int s) {
-  constexpr int kPitch = D + 4;
-  const T* base = src + bi * st.b + hi * st.h;
-  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
-    const int r = e / D;
-    const int c = e % D;
-    const int row = row0 + r;
-    dst[r * kPitch + c] = row < s ? to_float(base[row * st.s + c]) : 0.f;
-  }
-}
+using flash::comp;
+using flash::from_float;
+using flash::load_tile;
+using flash::Strides;
+constexpr int kBlockQ = flash::kTile;
+constexpr int kBlockK = flash::kTile;
+constexpr int kThreads = flash::kThreads;
 
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
@@ -74,10 +47,6 @@ __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 template <int D>

@@ -7,6 +7,10 @@ a ``paddle_tpu`` state_dict loads by name with no transposes
 full-sequence forward runs each block's attention through the
 ``attention_core`` registry kernel (the CUDA flash kernel K1 on the card).
 
+Training differentiates the same trunk: attention's gradient runs the CUDA
+kernel K2, LayerNorm's is closed-form, and :class:`GPTPretrainingCriterion`
+is the fused softmax cross entropy.
+
 The cache half serves decoding: a static ``[L, b, H, S, dh]`` KV cache that
 is updated IN PLACE (the reference returns new arrays from
 ``dynamic_update_slice``; here the writes land in the caller's tensors and
@@ -29,6 +33,7 @@ from ..framework.device import resolve_device
 from ..ops import registry
 from ..ops.layer_norm import layer_norm_fused
 from ..nn.functional import attention as _attention  # noqa: F401  (registers sdpa / attention_core)
+from ..nn.functional.loss import cross_entropy
 
 
 class GPTConfig:
@@ -42,9 +47,9 @@ class GPTConfig:
         if not stacked:
             raise NotImplementedError(
                 "the per-layer GPTBlock trunk (stacked=False, needed by GPT-MoE) is not "
-                "ported yet; see ROADMAP.md")
+                "ported yet (ROADMAP.md, Queue 1 item 9)")
         if recompute:
-            raise NotImplementedError("recompute comes with the training slice of the port")
+            raise NotImplementedError("recompute is not ported yet (ROADMAP.md, Queue 1 item 5)")
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple of num_heads {num_heads}")
         self.vocab_size = vocab_size
@@ -125,11 +130,13 @@ def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=
 
 def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None):
     """Whole-trunk forward: the layer loop of the reference at pp = 1, no
-    recompute."""
+    recompute. The stacked parameters are unbound once, so their gradient is
+    one ``stack`` of the per-layer gradients, not L zero-filled ``[L, ...]``
+    buffers added up."""
     h = x
-    for i in range(params[0].shape[0]):
-        h = _block_apply(tuple(p[i] for p in params), h, num_heads=num_heads,
-                         attn_dropout=attn_dropout, generator=generator)
+    for lp in zip(*(p.unbind(0) for p in params)):
+        h = _block_apply(lp, h, num_heads=num_heads, attn_dropout=attn_dropout,
+                         generator=generator)
     return h
 
 
@@ -163,7 +170,9 @@ class GPTBlockStack(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         if self.training and (cfg.dropout > 0.0 or cfg.attn_dropout > 0.0):
-            raise NotImplementedError("dropout in training comes with the training slice of the port")
+            raise NotImplementedError(
+                "dropout in training is not ported yet (ROADMAP.md, Queue 1 item 5): "
+                "set dropout and attn_dropout to 0, or call eval()")
         return _stack_forward(x, [getattr(self, n) for n in self._order], num_heads=cfg.num_heads)
 
 
@@ -251,6 +260,23 @@ class GPTForPretraining(nn.Module):
         return (stack, g.embeddings.word_embeddings.weight.detach(),
                 g.embeddings.position_embeddings.weight.detach(),
                 g.final_norm.weight.detach(), g.final_norm.bias.detach())
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Next-token cross entropy: per-token CE with ``ignore_index=-100`` (the
+    single-device ``ParallelCrossEntropy``), then the mean over tokens, or
+    the mean under ``loss_mask``. The GPT-MoE ``(logits, aux)`` input waits
+    for the MoE slice."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        if isinstance(logits, (tuple, list)):
+            raise NotImplementedError(
+                "GPT-MoE (logits, aux) outputs are not ported yet (ROADMAP.md, Queue 1 item 9)")
+        per_tok = cross_entropy(logits, labels, reduction="none", ignore_index=-100)
+        if loss_mask is not None:
+            m = loss_mask.reshape(per_tok.shape).to(per_tok.dtype)
+            return (per_tok * m).sum() / m.sum()
+        return per_tok.mean()
 
 
 # ------------------------------------------------------------------ KV cache

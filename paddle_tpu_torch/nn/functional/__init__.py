@@ -1,2 +1,3 @@
 """Functionals of the port (the ported subset of ``paddle_tpu.nn.functional``)."""
 from .attention import scaled_dot_product_attention  # noqa: F401
+from .loss import cross_entropy  # noqa: F401

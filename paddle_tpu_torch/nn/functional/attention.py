@@ -3,11 +3,12 @@
 Kernel selection goes through :mod:`paddle_tpu_torch.ops.registry`; two
 kernels are defined here:
 
-- ``sdpa``: the scaled-dot-product entry point. Impls: ``flash`` (kernel K1:
-  no mask, no dropout, self-attention) and the ``xla`` fallback, the plain
-  composite, named as in the reference.
-- ``attention_core``: GPT's packed-qkv causal core. Impls: ``flash`` (K1 over
-  strided views of the packed projection, no copy) and the ``xla`` fallback.
+- ``sdpa``: the scaled-dot-product entry point. Impls: ``flash`` (kernels
+  K1 forward and K2 backward: no mask, no dropout, self-attention) and the
+  ``xla`` fallback, the plain composite, named as in the reference.
+- ``attention_core``: GPT's packed-qkv causal core. Impls: ``flash`` (K1 and
+  K2 over strided views of the packed projection, no copy; the gradient lands
+  in one packed tensor) and the ``xla`` fallback.
 
 The reference's ``flash_packed`` and ``flash_flat_gqa`` impls run kernel K3,
 which is not ported yet.
@@ -20,7 +21,8 @@ import torch
 
 from ...framework.flags import flag
 from ...ops import registry as _registry
-from ...ops.flash_attention import flash_attention_available, flash_attention_fwd
+from ...ops.flash_attention import (flash_attention_available, flash_attention_bwd,
+                                   flash_attention_fwd)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
@@ -68,7 +70,7 @@ def _sdpa_flash(q, k, v, mask, causal, dropout_p, generator):
 
 _registry.define_kernel("sdpa", flags=("FLAGS_use_flash_attention", "FLAGS_flash_flat"))
 _registry.register("sdpa", "flash", _sdpa_flash, available=_sdpa_flash_available,
-                   doc="CUDA flash-attention forward K1 (self-attn, no mask/dropout, d in 64/128)")
+                   doc="CUDA flash attention K1 + K2 (self-attn, no mask/dropout, d in 64/128)")
 _registry.register("sdpa", "xla", _sdpa_reference, fallback=True,
                    doc="plain PyTorch composite (any mask/dropout/shape)")
 
@@ -79,10 +81,33 @@ def _core_flash_available(qkv, dropout_p, generator):
             and flash_attention_available((b, s, h, d), None, qkv.dtype, qkv.device.type))
 
 
+class _PackedCausalFlash(torch.autograd.Function):
+    """Causal K1 over the q, k, v views of one packed ``[b, s, 3, h, d]``
+    projection, whose backward has K2 write dq, dk and dv through strides
+    into slices of ONE packed gradient (three ``select`` backwards would each
+    zero-fill a qkv-sized buffer and add them)."""
+
+    @staticmethod
+    def forward(ctx, qkv):
+        # strided views: the kernels take any strides with a unit head-dim
+        # stride, so no .contiguous() copy is made
+        out, lse = flash_attention_fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True)
+        ctx.save_for_backward(qkv, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dqkv = torch.empty_like(qkv)
+        flash_attention_bwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], out, lse, dout, True,
+                            grads=(dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2]))
+        return dqkv
+
+
 def _core_flash(qkv, dropout_p, generator):
-    # strided views of the packed projection: the kernel takes any strides
-    # with a unit head-dim stride, so no .contiguous() copy is made
-    return flash_attention_fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True)[0]
+    return _PackedCausalFlash.apply(qkv)
 
 
 def _core_xla(qkv, dropout_p, generator):
@@ -91,6 +116,6 @@ def _core_xla(qkv, dropout_p, generator):
 
 _registry.define_kernel("attention_core", flags=("FLAGS_use_flash_attention", "FLAGS_flash_flat"))
 _registry.register("attention_core", "flash", _core_flash, available=_core_flash_available,
-                   doc="CUDA flash-attention forward K1 over packed-qkv views")
+                   doc="CUDA flash attention K1 + K2 over packed-qkv views, one packed gradient")
 _registry.register("attention_core", "xla", _core_xla, fallback=True,
                    doc="plain PyTorch composite over packed-qkv slices (handles attention dropout)")

@@ -1,17 +1,20 @@
-"""Flash-attention forward (kernel K1): the CUDA kernel, its plain version and
-its availability rule.
+"""Flash attention (kernels K1 and K2): the CUDA kernels, their plain
+versions, their availability rule and the autograd pair.
 
 Counterpart of ``paddle_tpu/ops/flash_attention.py``, whose ``_flash_fwd``
-launches the Pallas kernel ``_fwd_kernel``; here :func:`flash_attention_fwd`
-launches ``csrc/flash_attention_fwd.cu``. q, k, v are ``[b, s, h, d]``; the
-result is ``out`` ``[b, s, h, d]`` in the input dtype and ``lse``
-``[b, h, s]`` f32 (``m + log l`` in scaled-logit units, which the backward
-kernel K2 will read).
+launches the Pallas kernel ``_fwd_kernel`` and whose ``_flash_bwd`` launches
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; here :func:`flash_attention_fwd`
+launches ``csrc/flash_attention_fwd.cu`` (K1) and :func:`flash_attention_bwd`
+launches ``csrc/flash_attention_bwd.cu`` (K2). q, k, v are ``[b, s, h, d]``;
+the forward gives ``out`` ``[b, s, h, d]`` in the input dtype and ``lse``
+``[b, h, s]`` f32 (``m + log l`` in scaled-logit units), which the backward
+reads. ``_FlashAttention`` is the counterpart of the reference's
+``jax.custom_vjp`` ``_flash``: its forward saves ``(q, k, v, out, lse)`` and
+its backward runs K2.
 
-A CPU tensor takes the plain version :func:`_reference_attention`. A CUDA
-tensor launches the kernel or raises: there is no fallback. The backward
-kernel K2 comes with the training slice, so a gradient through this function
-raises ``NotImplementedError``.
+A CPU tensor takes the plain versions :func:`_reference_attention` and
+:func:`_reference_attention_bwd`. A CUDA tensor launches the kernel or
+raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -31,11 +34,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_available(q_shape, k_shape=None, dtype=torch.float32, device_type="cuda") -> bool:
-    """Whether the kernel takes this self-attention call: q (and k, if given)
-    ``[b, s, h, d]`` with equal shapes, ``d`` in :data:`HEAD_DIMS`, ``dtype``
-    in :data:`DTYPES`, ``b`` and ``h`` within the launch grid, on a CUDA or
-    CPU device (a CPU tensor runs the plain version). Shape, dtype and device
-    only: never whether the kernel builds."""
+    """Whether the kernels take this self-attention call, forward (K1) and
+    backward (K2) alike: q (and k, if given) ``[b, s, h, d]`` with equal
+    shapes, ``d`` in :data:`HEAD_DIMS`, ``dtype`` in :data:`DTYPES`, ``b`` and
+    ``h`` within the launch grid, on a CUDA or CPU device (a CPU tensor runs
+    the plain versions). Shape, dtype and device only: never whether the
+    kernel builds."""
     if len(q_shape) != 4 or (k_shape is not None and tuple(k_shape) != tuple(q_shape)):
         return False
     b, s, h, d = q_shape
@@ -101,26 +105,120 @@ def _forward(q, k, v, causal):
     raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
 
 
-class _FlashForward(torch.autograd.Function):
+class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         out, lse = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash attention backward is kernel K2, which comes with the training slice; "
-            "the port's flash kernel is forward-only")
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:  # e.g. the expanded gradient of a sum
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention_fwd(q, k, v, causal=False):
     """K1: ``(out [b, s, h, d], lse [b, h, s] f32)`` of causal or full
     self-attention with scale ``1/sqrt(d)``. Launches the CUDA kernel on CUDA
     tensors (counted in ``flash_attention_fwd.launches``), the plain version
-    on CPU tensors."""
-    return _FlashForward.apply(q, k, v, bool(causal))
+    on CPU tensors. Differentiable in q, k and v: the gradient runs K2."""
+    return _FlashAttention.apply(q, k, v, bool(causal))
 
 
 flash_attention_fwd.launches = 0
+
+
+def _reference_attention_bwd(q, k, v, out, lse, dout, causal):
+    """The plain version of K2: the FlashAttention-2 backward from ``lse``
+    and ``di = rowsum(dO o O)``, in f32, by matmuls. Returns ``(dq, dk, dv)``
+    ``[b, s, h, d]`` in the input dtype."""
+    qh, kh, vh, oh, gh = (t.transpose(1, 2).float() for t in (q, k, v, out, dout))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp((qh @ kh.transpose(-1, -2)) * scale - lse.float()[..., None])
+    if causal:
+        s = p.shape[-1]
+        p = p.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=q.device).tril(), 0.0)
+    di = (gh * oh).sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ gh
+    ds = p * (gh @ vh.transpose(-1, -2) - di)
+    dq = (ds @ kh) * scale
+    dk = (ds.transpose(-1, -2) @ qh) * scale
+    return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = _cuda.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, grads):
+    tensors = (q, k, v, out, dout)
+    if len({t.device for t in tensors + (lse,)}) != 1:
+        raise ValueError("flash_attention_bwd: q, k, v, out, lse, dout on different devices")
+    if len({t.dtype for t in tensors}) != 1 or q.dtype not in DTYPES or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: the kernel takes float32 or bfloat16 q, k, v, out, "
+                        f"dout of one dtype and a float32 lse; got "
+                        f"{[str(t.dtype) for t in tensors]}, lse {lse.dtype}")
+    b, s, h, d = q.shape
+    if not flash_attention_available(tuple(q.shape), tuple(k.shape), q.dtype, "cuda") \
+            or any(tuple(t.shape) != tuple(q.shape) for t in (v, out, dout)) \
+            or tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"flash_attention_bwd: the kernel takes equal [b, s, h, d] shapes with d "
+                         f"in {HEAD_DIMS} and lse [b, h, s]; got q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} out{tuple(out.shape)} "
+                         f"dout{tuple(dout.shape)} lse{tuple(lse.shape)}")
+    if grads is None:
+        grads = tuple(torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    elif any(tuple(g.shape) != tuple(q.shape) or g.dtype != q.dtype or g.device != q.device
+             for g in grads):
+        raise ValueError("flash_attention_bwd: dq, dk, dv buffers must match q's shape, dtype "
+                         "and device")
+    if any(t.stride(-1) != 1 for t in tensors + tuple(grads)):
+        raise ValueError("flash_attention_bwd: the kernel needs unit stride on the head dim")
+    lse = lse.contiguous()
+    di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq, dk, dv = grads
+    strides = (ctypes.c_longlong * 24)(*(x for t in tensors + tuple(grads) for x in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                           dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), b, s, h, d, strides, int(bool(causal)),
+                           _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {rc}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, grads=None):
+    """K2: ``(dq, dk, dv)`` ``[b, s, h, d]`` of :func:`flash_attention_fwd`
+    given its ``out`` and ``lse`` and the output gradient ``dout``. Launches
+    the CUDA kernel on CUDA tensors (counted in
+    ``flash_attention_bwd.launches``), the plain version on CPU tensors.
+    ``grads``, if given, is three ``[b, s, h, d]`` buffers (any strides with a
+    unit head-dim stride, e.g. slices of one packed ``[b, s, 3, h, d]``
+    gradient) that receive dq, dk and dv, and are returned."""
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, out, lse, dout, causal, grads)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    result = _reference_attention_bwd(q, k, v, out, lse, dout, causal)
+    if grads is None:
+        return result
+    for buf, val in zip(grads, result):
+        buf.copy_(val)
+    return tuple(grads)
+
+
+flash_attention_bwd.launches = 0

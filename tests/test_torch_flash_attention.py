@@ -1,10 +1,11 @@
-"""Kernel K1 of the port (``paddle_tpu_torch.ops.flash_attention``).
+"""Kernels K1 and K2 of the port (``paddle_tpu_torch.ops.flash_attention``).
 
-On the CPU the port's plain ``(out, lse)`` is held against ``paddle_tpu``'s
-Pallas forward ``_flash_fwd`` run through the Pallas interpreter, with blocks
-shrunk below the sequence so the streaming loop and the causal tile skip run
-(as ``tests/test_flash_interpret.py`` does). The ``cuda``-marked tests hold
-the CUDA kernel against the plain version on the card; they skip where there
+On the CPU the port's plain ``(out, lse)`` and ``(dq, dk, dv)`` are held
+against ``paddle_tpu``'s Pallas ``_flash_fwd`` and ``_flash_bwd`` run through
+the Pallas interpreter, with blocks shrunk below the sequence so the
+streaming loops and the causal tile skips run (as
+``tests/test_flash_interpret.py`` does). The ``cuda``-marked tests hold the
+CUDA kernels against the plain versions on the card; they skip where there
 is no card. JAX is imported only where it is installed (a machine with a
 card may have none); the tests that need it skip without it.
 """
@@ -19,7 +20,9 @@ try:
 except ImportError:  # no JAX installed: only the cuda tests can run
     jnp = jfa = None
 
+from paddle_tpu_torch.nn.functional import attention as attn
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import registry
 
 B, S, H, D = 2, 128, 2, 64
 BLOCK = 64  # < S: the Pallas kernel streams more than one K/V tile
@@ -91,12 +94,85 @@ def test_availability_predicate():
 
 
 def test_cpu_path_is_counted_nowhere_and_forward_only():
+    """The CPU path launches nothing, forward or backward, and its backward
+    (once forward-only, now the plain K2) equals autograd through the plain
+    forward. The name is kept from the forward-only days of the port."""
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv((1, 64, 2, 64)))
-    before = fa.flash_attention_fwd.launches
+    before = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
     out, _ = fa.flash_attention_fwd(q, k, v, True)
-    assert fa.flash_attention_fwd.launches == before
-    with pytest.raises(NotImplementedError, match="K2"):
-        out.sum().backward()
+    out.sum().backward()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == before
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa._reference_attention(q2, k2, v2, True)[0].sum().backward()
+    for got, want in ((q, q2), (k, k2), (v, v2)):
+        torch.testing.assert_close(got.grad, want.grad, atol=2e-5, rtol=1e-4)
+
+
+# gradients: the reference's tolerance for its own kernel pair
+# (tests/test_flash_interpret.py), true f32 on both sides
+GRAD_ATOL, GRAD_RTOL = 2e-5, 1e-4
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_bwd_matches_pallas_backward(interpret_small_blocks, causal):
+    """``_reference_attention_bwd`` against the Pallas ``_flash_bwd`` on the
+    same q, k, v, out, lse and dout (out and lse from the Pallas forward)."""
+    q, k, v = _qkv((B, S, H, D))
+    dout = np.random.default_rng(7).standard_normal((B, S, H, D)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jout, jlse = jfa._flash_fwd(jq, jk, jv, causal)
+    want = jfa._flash_bwd(jq, jk, jv, jout, jlse, jnp.asarray(dout), causal)
+    got = fa._reference_attention_bwd(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, jout)),
+        torch.from_numpy(np.array(jlse)[..., 0]), torch.from_numpy(dout), causal)
+    for g, w in zip(got, want):
+        assert g.shape == (B, S, H, D) and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("s", [128, 100])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_bwd_matches_autograd_of_plain_forward(s, causal):
+    """The closed-form backward against autograd through
+    ``_reference_attention``, at a tile-friendly and a ragged s."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv((2, s, 3, 64), seed=4))
+    dout = torch.from_numpy(np.random.default_rng(5).standard_normal((2, s, 3, 64)).astype(np.float32))
+    out, lse = fa._reference_attention(q, k, v, causal)
+    got = fa._reference_attention_bwd(q, k, v, out, lse, dout, causal)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa._reference_attention(*leaves, causal)[0].backward(dout)
+    for g, leaf in zip(got, leaves):
+        torch.testing.assert_close(g, leaf.grad, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def test_packed_core_gradient_lands_in_one_tensor(monkeypatch):
+    """``attention_core``/``flash`` over a packed ``[b, s, 3, h, d]`` qkv: K2
+    gets three slices of ONE packed gradient buffer, which becomes the
+    gradient of qkv, equal to the plain ``xla`` core's."""
+    rng = np.random.default_rng(6)
+    base = torch.from_numpy(rng.standard_normal((2, 96, 3, 2, 64)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 96, 2, 64)).astype(np.float32))
+    seen = []
+    real_bwd = attn.flash_attention_bwd
+
+    def spy(*args, grads=None, **kw):
+        seen.append(grads)
+        return real_bwd(*args, grads=grads, **kw)
+
+    monkeypatch.setattr(attn, "flash_attention_bwd", spy)
+    registry.clear_cache()
+    qkv = base.clone().requires_grad_()
+    assert registry.select("attention_core", qkv, 0.0, None).name == "flash"
+    registry.dispatch("attention_core", qkv, 0.0, None).backward(g)
+    (grads,) = seen
+    packed = grads[0]._base
+    assert packed is not None and tuple(packed.shape) == tuple(qkv.shape)
+    assert all(t._base is packed for t in grads)
+    assert [t.data_ptr() - packed.data_ptr() for t in grads] == [
+        i * packed.stride(2) * packed.element_size() for i in range(3)]
+    ref = base.clone().requires_grad_()
+    attn._core_xla(ref, 0.0, None).backward(g)
+    torch.testing.assert_close(qkv.grad, ref.grad, atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 # ------------------------------------------------------------ on the card
@@ -148,3 +224,55 @@ def test_kernel_reads_packed_qkv_strides_on_card(card):
     q_strided_d = torch.zeros((2, 256, 4, 128), device=card)[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
         fa.flash_attention_fwd(q_strided_d, qkv[:, :, 1], qkv[:, :, 2], True)
+
+
+def _bwd_inputs(shape, dt, causal, device, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dt)
+                     for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 128, 2, 64), (2, 1000, 3, 128), (1, 77, 2, 64)])
+def test_bwd_kernel_matches_plain_on_card(card, shape, causal, dtype):
+    """K2 against ``_reference_attention_bwd`` on the same q, k, v, out, lse
+    and dout. f32: atol 2e-5 / rtol 1e-4 (f32 sums in another order). bf16:
+    the kernel's bf16 gradients against the plain version in f32 on the same
+    bf16 inputs, atol 2e-2 / rtol 1e-2 (one bf16 rounding of the result is
+    2**-8 relative; gradients reach a few units)."""
+    dt = getattr(torch, dtype)
+    q, k, v, out, lse, dout = _bwd_inputs(shape, dt, causal, card, seed=8)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa._reference_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse,
+                                       dout.float(), causal)
+    atol, rtol = (2e-5, 1e-4) if dtype == "float32" else (2e-2, 1e-2)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == shape
+        torch.testing.assert_close(g.float(), w, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_writes_packed_qkv_strides_on_card(card):
+    """Through ``attention_core``/``flash`` on the card: K1 reads, and K2
+    writes, strided slices of packed ``[b, s, 3, h, d]`` tensors; the packed
+    gradient equals the plain ``xla`` core's."""
+    rng = np.random.default_rng(9)
+    base = torch.from_numpy(rng.standard_normal((2, 200, 3, 4, 64)).astype(np.float32)).to(card)
+    g = torch.from_numpy(rng.standard_normal((2, 200, 4, 64)).astype(np.float32)).to(card)
+    registry.clear_cache()
+    qkv = base.clone().requires_grad_()
+    before = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    registry.dispatch("attention_core", qkv, 0.0, None).backward(g)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = base.clone().requires_grad_()
+    attn._core_xla(ref, 0.0, None).backward(g)
+    torch.testing.assert_close(qkv.grad, ref.grad, atol=2e-5, rtol=1e-4)

@@ -35,11 +35,19 @@ def _run(args, cwd, timeout=180):
                           text=True, timeout=timeout)
 
 
+# modules of the training slice that the import check must reach
+TRAINING_MODULES = {"paddle_tpu_torch.jit", "paddle_tpu_torch.jit.train_step",
+                    "paddle_tpu_torch.optimizer", "paddle_tpu_torch.optimizer.optimizer",
+                    "paddle_tpu_torch.optimizer.functional", "paddle_tpu_torch.optimizer.lr",
+                    "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.nn.functional.loss"}
+
+
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
-    n_modules = len(list(pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")))
+    names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    assert TRAINING_MODULES <= names, sorted(TRAINING_MODULES - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(n_modules) and n_modules >= 15
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 23
 
 
 def test_entry_points_raise_without_cuda_and_device():
