@@ -31,15 +31,32 @@ non-zero and prints no result. Phases, one JSON line each:
 7. ``train_check``: one f32 step of the same model at batch 2 through
    ``attention_core``/``flash`` and through the plain ``xla`` impl from the
    same weights: the losses and every parameter's gradient agree.
+8. ``moe_kernels`` (run after phase 3): kernels K4 (the grouped expert-FFN
+   forward) and K4b (its backward) against their plain PyTorch versions at
+   the GPT-MoE step's full-width shape, f32 and bf16, plus an H <= 512
+   case, a capacity that is no multiple of the kernels' tile and a case
+   ragged in every dimension; with the times of the kernel and the plain
+   version beside the bound (no single PyTorch call computes a grouped
+   FFN, so there is no library time).
+9. ``moe_train``: the GPT-MoE step of ``bench.py:_measure_moe`` at full
+   width: f32 ``TrainStep`` over ``AdamW``, ids ``[8, 1024]``, GShard
+   jitter on, 2 warm-up and 5 timed steps, through the ``moe`` kernel's
+   ``pallas_sorted`` impl (K4/K4b) and then through ``moe=dense``; losses
+   finite and falling, K4 and K4b launched once per MoE layer and step, K1
+   and K2 once per layer and step; one step of each traced.
+10. ``moe_check``: one f32 step at batch 2 through ``pallas_sorted`` and
+    through ``dense`` from the same weights and routing seeds: the losses,
+    every gradient and the eval logits agree.
 
-Phases 4, 5 and 6 are the main path: the kernel counts are set to 0 just
-before each of them and read just after it. Then one JSON line lists every
-kernel with its launches in those runs, and the last line is the
-``{"ok": true, ...}`` result.
+Phases 4, 5, 6 and 9 (its ``pallas_sorted`` run) are the main path: the
+kernel counts are set to 0 just before each of them and read just after
+it. Then one JSON line lists every kernel with its launches in those runs,
+and the last line is the ``{"ok": true, ...}`` result.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -89,6 +106,53 @@ K1 = dict(name="flash_attention_fwd", route="cuda",
 K2 = dict(name="flash_attention_bwd", route="cuda",
           source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
           replaces="paddle_tpu/ops/flash_attention.py:237")
+K4 = dict(name="moe_grouped_ffn_fwd", route="cuda",
+          source="paddle_tpu_torch/csrc/moe_grouped_ffn_fwd.cu",
+          replaces="paddle_tpu/ops/moe_pallas.py:324")
+K4B = dict(name="moe_grouped_ffn_bwd", route="cuda",
+           source="paddle_tpu_torch/csrc/moe_grouped_ffn_bwd.cu",
+           replaces="paddle_tpu/ops/moe_pallas.py:370")
+KERNELS = (K1, K2, K4, K4B)
+
+# the GPT-MoE of bench.py:_measure_moe (bench.py:304): h 1024, 8 layers, 16
+# heads, 8 experts in every second block, capacity factor 2.0; its step is
+# f32 AdamW (lr 1e-4) at ids [8, 1024]
+MOE_CFG = dict(vocab_size=50304, hidden_size=1024, num_layers=8, num_heads=16, max_seq_len=1024,
+               moe=8, moe_every=2, moe_capacity_factor=2.0)
+MOE_TRAIN = dict(batch=8, seq=1024, lr=1e-4, warmup=2, steps=5, check_batch=2)
+# K4 and K4b against their plain versions, for each output (y, s, dx, dw1,
+# db1, dw2, db2): the largest |kernel - plain| over the largest |plain|.
+# f32: 2e-5 (true f32 on both sides, sums of up to 4096 terms in another
+# order). bf16: 1e-2, the kernel's bf16 outputs against the plain version in
+# f32 on the same bf16 inputs (the kernel rounds h, dh and its outputs to
+# bf16, 2**-8 relative each).
+MOE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# one f32 step through pallas_sorted against one through dense from the same
+# weights and routing seeds: the loss (about ln V) within rtol 1e-5, each
+# gradient within a relative L2 error of 1e-4, the eval logits within
+# atol 1e-4 / rtol 1e-4 (the expert FFN's f32 sums in another order, carried
+# through 8 layers)
+MOE_CHECK_TOL = dict(loss_rtol=1e-5, grad_rel_l2_max=1e-4, logits_atol=1e-4, logits_rtol=1e-4)
+NO_LIBRARY = "none (no single PyTorch call computes a grouped FFN)"
+
+
+def launch_counters():
+    """Each kernel's wrapper, whose ``launches`` counts its kernel's
+    launches."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import moe_pallas as mp
+
+    return {K1["name"]: fa.flash_attention_fwd, K2["name"]: fa.flash_attention_bwd,
+            K4["name"]: mp.moe_grouped_ffn_fwd, K4B["name"]: mp.moe_grouped_ffn_bwd}
+
+
+def reset_launches():
+    for wrapper in launch_counters().values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {name: wrapper.launches for name, wrapper in launch_counters().items()}
 
 
 def emit(**fields):
@@ -137,7 +201,7 @@ def phase_device():
 def phase_build():
     from paddle_tpu_torch.ops import _cuda
 
-    names = [K1["name"], K2["name"]]
+    names = [K["name"] for K in KERNELS]
     seconds = _cuda.build(names)
     ptxas = {n: [ln.strip() for ln in _cuda.library_path(n).with_name(
         _cuda.library_path(n).name + ".log").read_text().splitlines()
@@ -374,6 +438,10 @@ def _model_flops_per_step(cfg, batch, seq):
 
 def _kernel_group(name):
     """The group of a device kernel by its name, for the step's breakdown."""
+    if "moe_ffn_fwd_gemm" in name:
+        return "K4 moe_grouped_ffn_fwd"
+    if "moe_ffn_bwd_gemm" in name:
+        return "K4b moe_grouped_ffn_bwd"
     if "flash_fwd_kernel" in name:
         return "K1 flash_attention_fwd"
     if "bwd_dq_kernel" in name or "bwd_dkv_kernel" in name or "bwd_di_kernel" in name:
@@ -428,7 +496,6 @@ def phase_train():
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
     from paddle_tpu_torch.observability import metrics
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import registry
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -441,7 +508,7 @@ def phase_train():
                         generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
     registry.clear_cache()
     metrics.reset_counters("kernels.")
-    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     losses = [float(step(ids, ids)["loss"]) for _ in range(TRAIN["warmup"])]
     torch.cuda.synchronize()
@@ -450,8 +517,7 @@ def phase_train():
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     losses += [float(x) for x in timed]
-    launches = {K1["name"]: fa.flash_attention_fwd.launches,
-                K2["name"]: fa.flash_attention_bwd.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     # one more step, traced: where its time goes (outside the counted steps)
     breakdown = profile_step(step, ids, ids)
@@ -462,7 +528,8 @@ def phase_train():
     bound_ms = 1e3 * _model_flops_per_step(cfg, b, s) / PEAK_FLOPS[torch.bfloat16]
     ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
           and picked == {"kernels.attention_core.picked": 1, "kernels.attention_core.fallback": 0}
-          and per_step == {K1["name"]: cfg.num_layers, K2["name"]: cfg.num_layers}
+          and per_step == {K1["name"]: cfg.num_layers, K2["name"]: cfg.num_layers,
+                           K4["name"]: 0, K4B["name"]: 0}
           and all(p.dtype == torch.float32 for p in model.parameters()))
     emit(phase="train", ok=ok, ids=[b, s], amp_level="O2", losses=losses, attention_core=picked,
          launches=launches, launches_per_step=per_step, seconds=seconds, ms_per_step=ms_per_step,
@@ -519,18 +586,303 @@ def phase_train_check():
         raise AssertionError("train_check phase failed: flash and xla steps disagree")
 
 
+def moe_ffn_bound(E, cap, D, H, dtype, backward=False):
+    """The least time (ms) the card needs for K4 or K4b over ``E * cap``
+    rows: the larger of the bytes it must move over the memory rate, and its
+    matmul flops over the peak rate for the dtype. Forward: xg, w1, b1, w2,
+    b2 read once, y and the f32 s written once; 2 products, 4 R D H flops.
+    Backward: xg, w1, w2, dy and the f32 s read once, dx, dw1, db1, dw2, db2
+    written once; 4 products, 8 R D H flops."""
+    elem = torch.finfo(dtype).bits // 8
+    R = E * cap
+    weights = 2 * E * D * H + E * (D + H)
+    if backward:
+        nbytes = (2 * R * D + 2 * E * D * H) * elem + R * H * 4 + (R * D + weights) * elem
+    else:
+        nbytes = (R * D + weights + R * D) * elem + R * H * 4
+    flops = (8 if backward else 4) * R * D * H
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _moe_cases():
+    full = (8, 4096, 1024, 4096)  # the GPT-MoE step's call: E, cap, D, H
+    cases = [(*full, dt, "gelu") for dt in (torch.float32, torch.bfloat16)]
+    # H <= 512 (the reference's single-hidden-tile kernels) and a capacity
+    # that is no multiple of the 128-row tile
+    cases += [(8, 4096, 1024, 512, dt, "gelu") for dt in (torch.float32, torch.bfloat16)]
+    cases += [(8, 1000, 1024, 4096, dt, "gelu") for dt in (torch.float32, torch.bfloat16)]
+    # ragged in every dimension, and the other activations
+    cases += [(3, 77, 200, 328, torch.float32, "relu"), (3, 77, 200, 328, torch.bfloat16, "silu")]
+    return cases
+
+
+def phase_moe_kernels():
+    """K4 and K4b against their plain versions; returns the rows of the main
+    path's call ([8 x 4096, 1024] rows, H 4096, f32 gelu, as the GPT-MoE
+    step makes it)."""
+    from paddle_tpu_torch.ops import moe_pallas as mp
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    main, failures = {}, []
+    for E, cap, D, H, dt, act in _moe_cases():
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dt)
+
+        args = (rand(E * cap, D), rand(E, D, H, scale=D ** -0.5), rand(E, 1, H, scale=0.1),
+                rand(E, H, D, scale=H ** -0.5), rand(E, 1, D, scale=0.1))
+        dy = rand(E * cap, D)
+        before = read_launches()
+        y, s = mp.moe_grouped_ffn_fwd(*args, act)
+        grads = mp.moe_grouped_ffn_bwd(*args, s, dy, act)
+        torch.cuda.synchronize()
+        after = read_launches()
+        ref = [t.float() for t in args]
+        want_y, want_s = mp._reference_ffn_fwd(*ref, act)
+        want = (want_y, want_s) + mp._reference_ffn_bwd(*ref, want_s, dy.float(), act)
+        got = (y, s) + tuple(grads)
+        names = ("y", "s", "dx", "dw1", "db1", "dw2", "db2")
+        abs_err = {n: (g.float() - w).abs().max().item() for n, g, w in zip(names, got, want)}
+        rel_err = {n: abs_err[n] / w.abs().max().item() for n, w in zip(names, want)}
+        del want, want_y, want_s, ref
+        fwd_ok = all(bool(torch.isfinite(g).all()) for g in got) and all(
+            rel_err[n] <= MOE_TOL[dt] for n in names[:2])
+        bwd_ok = all(rel_err[n] <= MOE_TOL[dt] for n in names[2:])
+        launched = {K4["name"]: after[K4["name"]] - before[K4["name"]],
+                    K4B["name"]: after[K4B["name"]] - before[K4B["name"]]}
+        big = E * cap * D * H > 1e9
+        timing = {
+            K4["name"]: (cuda_ms(lambda: mp.moe_grouped_ffn_fwd(*args, act), iters=5 if big else 20),
+                         cuda_ms(lambda: mp._reference_ffn_fwd(*args, act), iters=3, warmup=1),
+                         moe_ffn_bound(E, cap, D, H, dt)),
+            K4B["name"]: (cuda_ms(lambda: mp.moe_grouped_ffn_bwd(*args, s, dy, act),
+                                  iters=5 if big else 20),
+                          cuda_ms(lambda: mp._reference_ffn_bwd(*args, s, dy, act), iters=3,
+                                  warmup=1),
+                          moe_ffn_bound(E, cap, D, H, dt, backward=True)),
+        }
+        del y, s, grads, got, dy, args
+        for K, ok, outs in ((K4, fwd_ok, names[:2]), (K4B, bwd_ok, names[2:])):
+            ms, plain_ms, (bound_ms, bound_by) = timing[K["name"]]
+            flops = (4 if K is K4 else 8) * E * cap * D * H
+            row = dict(shape=[E * cap, D, H], experts=E, capacity=cap, dtype=str(dt).split(".")[-1],
+                       activation=act, max_abs_err=max(abs_err[n] for n in outs),
+                       rel_err={n: rel_err[n] for n in outs}, rel_tol=MOE_TOL[dt],
+                       ok=ok and launched[K["name"]] == 1, launches=launched[K["name"]], ms=ms,
+                       plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY, bound_ms=bound_ms,
+                       bound_by=bound_by, tflops=flops / ms / 1e9)
+            emit(phase="moe_kernels", kernel=K["name"], **row)
+            if not row["ok"]:
+                failures.append((K["name"], row["shape"], row["dtype"]))
+            if (E, cap, D, H, dt, act) == (8, 4096, 1024, 4096, torch.float32, "gelu"):
+                main[K["name"]] = row
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"K4/K4b disagree with their plain versions in {failures}")
+    return main
+
+
+def _moe_flops_per_step(cfg, batch, seq):
+    """Flops of one GPT-MoE training step as it runs: the dense trunk and
+    LM head as in :func:`_model_flops_per_step`, but the FFN weights of the
+    dense blocks only, plus each MoE block's expert FFN over its padded
+    ``E * capacity`` rows (2 products forward, 4 backward) and its gate."""
+    D, F, L, E = cfg.hidden_size, cfg.ffn_hidden_size, cfg.num_layers, cfg.moe_num_experts
+    n_moe = L // cfg.moe_every
+    tokens = batch * seq
+    cap = max(1, math.ceil(tokens * cfg.moe_top_k * cfg.moe_capacity_factor / E))
+    n_matmul = L * 4 * D * D + (L - n_moe) * 2 * D * F + n_moe * D * E + cfg.vocab_size * D
+    pairs = seq * (seq + 1) // 2
+    attention = 12 * batch * cfg.num_heads * (D // cfg.num_heads) * pairs * L
+    experts = n_moe * 12 * E * cap * D * F
+    return 6 * n_matmul * tokens + attention + experts
+
+
+def expert_fill(model, ids):
+    """The share of the expert FFN's ``E * capacity`` rows that hold a
+    dispatched token, per MoE layer, in one training-mode forward of
+    ``ids``: each layer's routing is recomputed from its input and its
+    generator's state before the forward, so the jitter draws are the ones
+    the forward made. The rest of the rows are padding that K4/K4b compute
+    all the same."""
+    from paddle_tpu_torch.distributed.moe import MoELayer, jitter_drop_mask
+
+    seen = []
+
+    def hook(layer, args):
+        seen.append((layer, args[0].detach(), layer.generator.get_state()))
+
+    layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+    handles = [m.register_forward_pre_hook(hook) for m in layers]
+    try:
+        with torch.no_grad():
+            model(ids)
+    finally:
+        for h in handles:
+            h.remove()
+    fills = []
+    with torch.no_grad():
+        for layer, x, state in seen:
+            tokens = x.reshape(-1, x.shape[-1])
+            gate_vals, gate_idx = torch.topk(torch.softmax(layer.gate.score(tokens), -1),
+                                             layer.top_k, dim=-1)
+            dispatched = gate_idx.reshape(-1)
+            if layer.training and layer.gate.random_routing and layer.top_k >= 2:
+                gen = torch.Generator(device=tokens.device)
+                gen.set_state(state)
+                dispatched = gate_idx[~jitter_drop_mask(gate_vals, gen)]
+            cap = layer.capacity(tokens.shape[0])
+            counts = torch.bincount(dispatched, minlength=layer.num_experts).clamp(max=cap)
+            fills.append(float(counts.sum()) / (layer.num_experts * cap))
+    return fills
+
+
+def phase_moe_train():
+    """bench.py's GPT-MoE step at full width: f32 TrainStep over AdamW, 2
+    warm-up and 5 timed steps (synchronised) on one ids batch with labels =
+    ids, GShard jitter on, through ``pallas_sorted`` and then ``moe=dense``
+    (a fresh model from the same seed each); one more step of each traced.
+    Returns the kernel launches of the ``pallas_sorted`` run's 7 steps."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(**MOE_CFG)
+    b, s = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    n_moe = cfg.num_layers // cfg.moe_every
+    n_steps = MOE_TRAIN["warmup"] + MOE_TRAIN["steps"]
+    ids = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 6))
+    flops = _moe_flops_per_step(cfg, b, s)
+    bound_ms = 1e3 * flops / PEAK_FLOPS[torch.float32]
+    runs, main_launches = {}, None
+    for path, overrides in (("pallas_sorted", ""), ("dense", "moe=dense")):
+        set_flags({"FLAGS_kernel_overrides": overrides})
+        try:
+            registry.clear_cache()
+            metrics.reset_counters("kernels.")
+            model = GPTForPretraining(cfg, seed=SEED)
+            step = TrainStep(model, AdamW(learning_rate=MOE_TRAIN["lr"],
+                                          parameters=model.parameters()),
+                             GPTPretrainingCriterion())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            losses = [float(step(ids, ids)["loss"]) for _ in range(MOE_TRAIN["warmup"])]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed = [step(ids, ids)["loss"] for _ in range(MOE_TRAIN["steps"])]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            losses += [float(x) for x in timed]
+            peak = torch.cuda.max_memory_allocated()
+            picked = metrics.counters("kernels.moe.")
+            breakdown = profile_step(step, ids, ids)
+            fill = expert_fill(model, ids)
+        finally:
+            set_flags({"FLAGS_kernel_overrides": ""})
+        ms_per_step = 1e3 * seconds / MOE_TRAIN["steps"]
+        per_step = {k: v / n_steps for k, v in launches.items()}
+        want = {K1["name"]: cfg.num_layers, K2["name"]: cfg.num_layers,
+                K4["name"]: n_moe if path == "pallas_sorted" else 0,
+                K4B["name"]: n_moe if path == "pallas_sorted" else 0}
+        ok = (all(np.isfinite(losses)) and losses[-1] < losses[0] and per_step == want
+              and picked == {"kernels.moe.picked": int(path == "pallas_sorted"),
+                             "kernels.moe.fallback": int(path == "dense")})
+        runs[path] = dict(ok=ok, losses=losses, moe_kernel=picked, launches=launches,
+                          launches_per_step=per_step, seconds=seconds, ms_per_step=ms_per_step,
+                          tokens_per_s=b * s * MOE_TRAIN["steps"] / seconds,
+                          max_memory_allocated=peak, bound_share=bound_ms / ms_per_step,
+                          expert_row_fill=fill, profile=breakdown)
+        if path == "pallas_sorted":
+            main_launches = launches
+        del model, step
+        torch.cuda.empty_cache()
+    ok = all(r["ok"] for r in runs.values())
+    emit(phase="moe_train", ok=ok, ids=[b, s], config=MOE_CFG, dtype="float32",
+         flops_per_step=flops, flops_bound_ms=bound_ms, **runs)
+    if not ok:
+        raise AssertionError("moe_train phase failed")
+    return main_launches
+
+
+def phase_moe_check():
+    """One f32 step of the full-width GPT-MoE at batch 2 through
+    ``pallas_sorted`` (K4 + K4b) and through ``dense``, from the same
+    weights and routing seeds: the losses, every gradient and the eval
+    logits (taken before the step) agree."""
+    from paddle_tpu_torch.distributed.moe import MoELayer
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(**MOE_CFG)
+    model = GPTForPretraining(cfg, seed=SEED + 7)
+    start = {n: t.clone() for n, t in model.state_dict().items()}
+    ids = torch.randint(0, cfg.vocab_size, (MOE_TRAIN["check_batch"], MOE_TRAIN["seq"]),
+                        device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 8))
+
+    def run(overrides):
+        model.load_state_dict(start)
+        registry.clear_cache()
+        set_flags({"FLAGS_kernel_overrides": overrides})
+        try:
+            before = read_launches()
+            model.eval()
+            with torch.no_grad():
+                logits = model(ids)[0]
+            model.train()
+            for m in model.modules():
+                if isinstance(m, MoELayer):
+                    m.generator.manual_seed(m.seed)
+            step = TrainStep(model, AdamW(learning_rate=MOE_TRAIN["lr"],
+                                          parameters=model.parameters()),
+                             GPTPretrainingCriterion())
+            loss = float(step(ids, ids)["loss"])
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            after = read_launches()
+            return loss, grads, logits, {k: after[k] - before[k] for k in (K4["name"], K4B["name"])}
+        finally:
+            set_flags({"FLAGS_kernel_overrides": ""})
+
+    loss_k, g_k, logits_k, n_k = run("")
+    loss_d, g_d, logits_d, n_d = run("moe=dense")
+    rel = {n: (float((g_k[n] - g_d[n]).norm() / g_d[n].norm()) if g_d[n].norm() > 0
+               else float(g_k[n].norm())) for n in g_d}
+    worst = max(rel, key=rel.get)
+    diff = (logits_k - logits_d).abs()
+    tol = MOE_CHECK_TOL
+    n_moe = cfg.num_layers // cfg.moe_every
+    ok = (n_k == {K4["name"]: 2 * n_moe, K4B["name"]: n_moe}  # eval forward + step
+          and n_d == {K4["name"]: 0, K4B["name"]: 0}
+          and abs(loss_k - loss_d) <= tol["loss_rtol"] * abs(loss_d)
+          and rel[worst] <= tol["grad_rel_l2_max"]
+          and bool((diff <= tol["logits_atol"] + tol["logits_rtol"] * logits_d.abs()).all()))
+    emit(phase="moe_check", ok=ok, ids=list(ids.shape), loss_pallas_sorted=loss_k,
+         loss_dense=loss_d, grad_rel_l2_worst=rel[worst], worst=worst,
+         grad_rel_l2_moe={n: r for n, r in rel.items() if ".moe." in n},
+         logits_max_abs_err=diff.max().item(), launches_pallas_sorted=n_k, **tol)
+    if not ok:
+        raise AssertionError("moe_check phase failed: pallas_sorted and dense steps disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card", file=sys.stderr)
         return 1
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
-    from paddle_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
-    rows = {K1["name"]: phase_k1(), K2["name"]: phase_k2()}
+    rows = {K1["name"]: phase_k1(), K2["name"]: phase_k2(), **phase_moe_kernels()}
 
     model = GPTForPretraining(GPTConfig(**SERVE_CFG), seed=SEED).eval()
     ids = torch.randint(0, SERVE_CFG["vocab_size"], (8, 1024), device="cuda",
@@ -541,24 +893,30 @@ def main() -> int:
     by_path = {}
     for path, run in (("forward", lambda: phase_forward(model, ids)),
                       ("serve", lambda: phase_serve(model))):
-        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        reset_launches()
         run()
-        by_path[path] = {K1["name"]: fa.flash_attention_fwd.launches,
-                         K2["name"]: fa.flash_attention_bwd.launches}
+        by_path[path] = read_launches()
     del model
     torch.cuda.empty_cache()
     by_path["train"] = phase_train()
     torch.cuda.empty_cache()
     phase_train_check()
+    torch.cuda.empty_cache()
+    by_path["moe_train"] = phase_moe_train()
+    torch.cuda.empty_cache()
+    phase_moe_check()
 
     keys = ("shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(K, launches=sum(p[K["name"]] for p in by_path.values()),
                     launches_by_path={path: p[K["name"]] for path, p in by_path.items()},
-                    **{k: rows[K["name"]][k] for k in keys}) for K in (K1, K2)]
+                    **{k: rows[K["name"]][k] for k in keys if k in rows[K["name"]]})
+               for K in KERNELS]
     emit(kernels=kernels)
-    # K1 runs in the forward and in training, K2 in training
-    expected = {"forward": [K1["name"]], "train": [K1["name"], K2["name"]]}
+    # K1 runs in the forward and in training, K2 in training, K4 and K4b in
+    # the GPT-MoE step
+    expected = {"forward": [K1["name"]], "train": [K1["name"], K2["name"]],
+                "moe_train": [K["name"] for K in KERNELS]}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]
     if missing:
         raise AssertionError(f"the main path launched these kernels no time: {missing}")

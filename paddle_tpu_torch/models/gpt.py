@@ -1,25 +1,32 @@
 """GPT decoder-only language model of the port (``paddle_tpu/models/gpt.py``).
 
-The trunk is :class:`GPTBlockStack`: all L blocks as ``[L, ...]``-stacked
-parameters with the reference's names and its ``[in, out]`` weight layout, so
-a ``paddle_tpu`` state_dict loads by name with no transposes
-(:func:`paddle_tpu_torch.utils.convert.state_dict_from_paddle_tpu`). The
-full-sequence forward runs each block's attention through the
+Two trunks, as in the reference. The default is :class:`GPTBlockStack`: all
+L blocks as ``[L, ...]``-stacked parameters with the reference's names and
+its ``[in, out]`` weight layout, so a ``paddle_tpu`` state_dict loads by name
+with no transposes (:func:`paddle_tpu_torch.utils.convert.state_dict_from_paddle_tpu`).
+Its full-sequence forward runs each block's attention through the
 ``attention_core`` registry kernel (the CUDA flash kernel K1 on the card).
+``GPTConfig(stacked=False)`` builds the per-layer trunk of :class:`GPTBlock`
+modules instead, which GPT-MoE needs (``GPTConfig(moe=E)``): every
+``moe_every``-th block swaps its dense FFN for a
+:class:`~paddle_tpu_torch.distributed.moe.MoELayer` (the grouped-FFN CUDA
+kernels K4/K4b on the card), its attention goes through ``sdpa``, and
+:class:`GPTForPretraining` returns ``(logits, aux)``.
 
-Training differentiates the same trunk: attention's gradient runs the CUDA
-kernel K2, LayerNorm's is closed-form, and :class:`GPTPretrainingCriterion`
-is the fused softmax cross entropy.
+Training differentiates either trunk: attention's gradient runs the CUDA
+kernel K2, LayerNorm's is closed-form, the expert FFN's runs K4b, and
+:class:`GPTPretrainingCriterion` is the fused softmax cross entropy (plus
+the MoE aux loss).
 
-The cache half serves decoding: a static ``[L, b, H, S, dh]`` KV cache that
-is updated IN PLACE (the reference returns new arrays from
-``dynamic_update_slice``; here the writes land in the caller's tensors and
-the functions return only what is new). Prefill and decode attend over the
-cache in plain PyTorch, as the reference's jnp does.
+The cache half serves decoding on the stacked trunk: a static
+``[L, b, H, S, dh]`` KV cache that is updated IN PLACE (the reference
+returns new arrays from ``dynamic_update_slice``; here the writes land in
+the caller's tensors and the functions return only what is new). Prefill and
+decode attend over the cache in plain PyTorch, as the reference's jnp does.
+As in the reference, ``generate()`` and serving need the stacked trunk.
 
-Not ported yet: the per-layer ``GPTBlock`` trunk and GPT-MoE
-(``stacked=False``), recompute, dropout in training, the int8 KV packs,
-chunked prefill and export; see ``ROADMAP.md``.
+Not ported yet: recompute, dropout in training, the int8 KV packs, chunked
+prefill and export; see ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -29,25 +36,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.moe import MoELayer
 from ..framework.device import resolve_device
 from ..ops import registry
 from ..ops.layer_norm import layer_norm_fused
-from ..nn.functional import attention as _attention  # noqa: F401  (registers sdpa / attention_core)
+from ..nn.functional.attention import scaled_dot_product_attention
 from ..nn.functional.loss import cross_entropy
 
 
 class GPTConfig:
-    """Hyperparameters; the constructor takes the keys of the reference's
-    ``to_dict()``. ``use_flash`` is kept for that parity only: the registry
-    picks the attention kernel."""
+    """Hyperparameters with the reference's names. ``use_flash`` is kept for
+    parity only: the registry picks the attention kernel.
+
+    GPT-MoE: ``moe=E`` is the one-knob spelling, as in the reference: it
+    sets ``moe_num_experts = E`` and the per-layer trunk (``stacked=False``),
+    and every ``moe_every``-th block (blocks ``moe_every - 1``,
+    ``2*moe_every - 1``, ...) swaps its dense FFN for a top-``moe_top_k``
+    GShard MoE layer at capacity factor ``moe_capacity_factor``."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
                  ffn_hidden_size=None, max_seq_len=1024, dropout=0.0, attn_dropout=0.0,
-                 initializer_range=0.02, use_flash=True, stacked=True, recompute=False):
-        if not stacked:
-            raise NotImplementedError(
-                "the per-layer GPTBlock trunk (stacked=False, needed by GPT-MoE) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 9)")
+                 initializer_range=0.02, use_flash=True, stacked=True, recompute=False,
+                 moe=0, moe_num_experts=0, moe_every=2, moe_top_k=2, moe_capacity_factor=1.25):
+        if moe:
+            moe_num_experts = moe_num_experts or int(moe)
+            stacked = False
+        if moe_num_experts and stacked:
+            raise ValueError("GPT-MoE needs stacked=False (heterogeneous layers)")
+        if moe_num_experts and moe_every < 1:
+            raise ValueError(f"moe_every must be >= 1, got {moe_every}")
         if recompute:
             raise NotImplementedError("recompute is not ported yet (ROADMAP.md, Queue 1 item 5)")
         if hidden_size % num_heads:
@@ -64,8 +81,15 @@ class GPTConfig:
         self.use_flash = use_flash
         self.stacked = stacked
         self.recompute = recompute
+        self.moe_num_experts = moe_num_experts
+        self.moe_every = moe_every
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
 
     def to_dict(self):
+        """Constructor kwargs. Unlike the reference's, they include the MoE
+        knobs, so ``GPTConfig(**cfg.to_dict())`` rebuilds a GPT-MoE config
+        (ROADMAP.md, Queue 3)."""
         return dict(
             vocab_size=self.vocab_size, hidden_size=self.hidden_size,
             num_layers=self.num_layers, num_heads=self.num_heads,
@@ -73,6 +97,8 @@ class GPTConfig:
             dropout=self.dropout, attn_dropout=self.attn_dropout,
             initializer_range=self.initializer_range, use_flash=self.use_flash,
             stacked=self.stacked, recompute=self.recompute,
+            moe_num_experts=self.moe_num_experts, moe_every=self.moe_every,
+            moe_top_k=self.moe_top_k, moe_capacity_factor=self.moe_capacity_factor,
         )
 
     @staticmethod
@@ -169,26 +195,125 @@ class GPTBlockStack(nn.Module):
 
     def forward(self, x):
         cfg = self.cfg
-        if self.training and (cfg.dropout > 0.0 or cfg.attn_dropout > 0.0):
-            raise NotImplementedError(
-                "dropout in training is not ported yet (ROADMAP.md, Queue 1 item 5): "
-                "set dropout and attn_dropout to 0, or call eval()")
+        _no_training_dropout(self, cfg)
         return _stack_forward(x, [getattr(self, n) for n in self._order], num_heads=cfg.num_heads)
 
 
-class GPTModel(nn.Module):
-    """Embedding + N decoder blocks + final LN -> hidden states."""
+def _no_training_dropout(module, cfg):
+    if module.training and (cfg.dropout > 0.0 or cfg.attn_dropout > 0.0):
+        raise NotImplementedError(
+            "dropout in training is not ported yet (ROADMAP.md, Queue 1 item 5): "
+            "set dropout and attn_dropout to 0, or call eval()")
+
+
+class _Linear(nn.Module):
+    """``x @ weight + bias`` with the reference's ``[in, out]`` weight (the
+    single-device case of its Column/RowParallelLinear)."""
+
+    def __init__(self, d_in, d_out, std, device, generator):
+        super().__init__()
+        self.weight = nn.Parameter(_normal((d_in, d_out), std, generator, device))
+        self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+
+    def forward(self, x):
+        return x @ self.weight + self.bias
+
+
+class GPTAttention(nn.Module):
+    """Causal self-attention of the per-layer trunk: the qkv projection, the
+    ``sdpa`` registry kernel (K1 forward and K2 backward on the card, over
+    strided views of the projection) and the output projection. The
+    reference's cache branches serve its decoder, which needs the stacked
+    trunk; they are not carried."""
 
     def __init__(self, cfg: GPTConfig, device, generator):
         super().__init__()
+        self.num_heads = cfg.num_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        std = cfg.initializer_range
+        self.qkv_proj = _Linear(cfg.hidden_size, 3 * cfg.hidden_size, std, device, generator)
+        self.out_proj = _Linear(cfg.hidden_size, cfg.hidden_size, std, device, generator)
+        self.attn_dropout = cfg.attn_dropout
+
+    def forward(self, x):
+        b, s, d = x.shape
+        q, k, v = self.qkv_proj(x).reshape(b, s, 3, self.num_heads, self.head_dim).unbind(2)
+        out = scaled_dot_product_attention(q, k, v, is_causal=True, dropout_p=self.attn_dropout,
+                                           training=self.training)
+        return self.out_proj(out.reshape(b, s, d))
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN decoder block of the per-layer trunk: attention, then the
+    dense GELU FFN or, with ``use_moe``, a GShard :class:`MoELayer` whose
+    routing generator is seeded ``seed``."""
+
+    def __init__(self, cfg: GPTConfig, device, generator, use_moe=False, seed=0):
+        super().__init__()
+        std = cfg.initializer_range
+        D, Ff = cfg.hidden_size, cfg.ffn_hidden_size
+        self.cfg = cfg
+        self.norm1 = nn.LayerNorm(D, device=device)
+        self.attn = GPTAttention(cfg, device, generator)
+        self.norm2 = nn.LayerNorm(D, device=device)
+        self.moe = None
+        if use_moe:
+            self.moe = MoELayer(D, Ff, num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.moe_capacity_factor, device=device,
+                                generator=generator, seed=seed)
+        else:
+            self.ffn1 = _Linear(D, Ff, std, device, generator)
+            self.ffn2 = _Linear(Ff, D, std, device, generator)
+
+    def forward(self, x):
+        _no_training_dropout(self, self.cfg)
+        n1, n2 = self.norm1, self.norm2
+        x = x + self.attn(layer_norm_fused(x, n1.weight, n1.bias, n1.eps))
+        x2 = layer_norm_fused(x, n2.weight, n2.bias, n2.eps)
+        if self.moe is not None:
+            return x + self.moe(x2)
+        return x + self.ffn2(F.gelu(self.ffn1(x2), approximate="tanh"))
+
+
+class GPTModel(nn.Module):
+    """Embedding + N decoder blocks + final LN -> hidden states. The blocks
+    are a :class:`GPTBlockStack` (``cfg.stacked``) or a ``ModuleList`` of
+    :class:`GPTBlock`; the MoE blocks' routing generators are seeded
+    ``seed + 1 + layer``."""
+
+    def __init__(self, cfg: GPTConfig, device, generator, seed=0):
+        super().__init__()
         self.cfg = cfg
         self.embeddings = GPTEmbeddings(cfg, device, generator)
-        self.layers = GPTBlockStack(cfg, device, generator)
+        if cfg.stacked:
+            self.layers = GPTBlockStack(cfg, device, generator)
+        else:
+            self.layers = nn.ModuleList([
+                GPTBlock(cfg, device, generator,
+                         use_moe=bool(cfg.moe_num_experts) and (i + 1) % cfg.moe_every == 0,
+                         seed=seed + 1 + i)
+                for i in range(cfg.num_layers)])
         self.final_norm = nn.LayerNorm(cfg.hidden_size, device=device)
 
     def forward(self, input_ids, position_ids=None):
-        h = self.layers(self.embeddings(input_ids, position_ids))
+        h = self.embeddings(input_ids, position_ids)
+        if isinstance(self.layers, GPTBlockStack):
+            h = self.layers(h)
+        else:
+            for blk in self.layers:
+                h = blk(h)
         return layer_norm_fused(h, self.final_norm.weight, self.final_norm.bias, self.final_norm.eps)
+
+    @property
+    def moe_aux_loss(self):
+        """Sum of the MoE gates' load-balancing losses from the last forward
+        (None without MoE blocks)."""
+        total = None
+        if not isinstance(self.layers, GPTBlockStack):
+            for blk in self.layers:
+                if blk.moe is not None:
+                    total = blk.moe.aux_loss if total is None else total + blk.moe.aux_loss
+        return total
 
 
 class GPTForPretraining(nn.Module):
@@ -200,11 +325,16 @@ class GPTForPretraining(nn.Module):
         super().__init__()
         device = resolve_device(device)
         generator = torch.Generator(device=device).manual_seed(int(seed))
-        self.gpt = GPTModel(cfg, device, generator)
+        self.gpt = GPTModel(cfg, device, generator, seed=int(seed))
 
     def forward(self, input_ids, position_ids=None):
+        """Logits ``[b, s, V]``; for GPT-MoE ``(logits, aux)``, the gates'
+        summed balancing loss riding the outputs as in the reference."""
         h = self.gpt(input_ids, position_ids)
-        return h @ self.gpt.embeddings.word_embeddings.weight.T
+        logits = h @ self.gpt.embeddings.word_embeddings.weight.T
+        if self.gpt.cfg.moe_num_experts:
+            return logits, self.gpt.moe_aux_loss
+        return logits
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, do_sample=False, temperature=1.0, top_k=0,
@@ -254,8 +384,11 @@ class GPTForPretraining(nn.Module):
     def _decode_params(self):
         """The decode-path parameter pack ``(stack, wte, wpe, fnw, fnb)``,
         ``stack`` in ``GPTBlockStack._order``; detached views of the
-        parameters."""
+        parameters. Decoding needs the stacked trunk, as in the reference."""
         g = self.gpt
+        if not isinstance(g.layers, GPTBlockStack):
+            raise NotImplementedError(
+                "generate() requires the stacked trunk (GPTConfig(stacked=True))")
         stack = tuple(getattr(g.layers, n).detach() for n in g.layers._order)
         return (stack, g.embeddings.word_embeddings.weight.detach(),
                 g.embeddings.position_embeddings.weight.detach(),
@@ -265,18 +398,24 @@ class GPTForPretraining(nn.Module):
 class GPTPretrainingCriterion(nn.Module):
     """Next-token cross entropy: per-token CE with ``ignore_index=-100`` (the
     single-device ``ParallelCrossEntropy``), then the mean over tokens, or
-    the mean under ``loss_mask``. The GPT-MoE ``(logits, aux)`` input waits
-    for the MoE slice."""
+    the mean under ``loss_mask``. For GPT-MoE outputs ``(logits, aux)`` the
+    GShard balancing loss is added with weight ``moe_aux_coef``."""
+
+    def __init__(self, moe_aux_coef=0.01):
+        super().__init__()
+        self.moe_aux_coef = moe_aux_coef
 
     def forward(self, logits, labels, loss_mask=None):
+        aux = None
         if isinstance(logits, (tuple, list)):
-            raise NotImplementedError(
-                "GPT-MoE (logits, aux) outputs are not ported yet (ROADMAP.md, Queue 1 item 9)")
+            logits, aux = logits
         per_tok = cross_entropy(logits, labels, reduction="none", ignore_index=-100)
         if loss_mask is not None:
             m = loss_mask.reshape(per_tok.shape).to(per_tok.dtype)
-            return (per_tok * m).sum() / m.sum()
-        return per_tok.mean()
+            loss = (per_tok * m).sum() / m.sum()
+        else:
+            loss = per_tok.mean()
+        return loss if aux is None else loss + aux * self.moe_aux_coef
 
 
 # ------------------------------------------------------------------ KV cache

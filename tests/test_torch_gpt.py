@@ -119,8 +119,11 @@ def test_convert_checks_names_and_shapes():
 
 
 def test_unported_config_options_raise():
-    with pytest.raises(NotImplementedError):
-        GPTConfig.tiny(stacked=False)
+    # the per-layer trunk is ported (GPT-MoE needs it); recompute is not
+    assert GPTConfig.tiny(stacked=False).stacked is False
+    assert GPTConfig.tiny(moe=4).to_dict()["moe_num_experts"] == 4
+    with pytest.raises(ValueError, match="stacked=False"):
+        GPTConfig.tiny(moe_num_experts=4)
     with pytest.raises(NotImplementedError):
         GPTConfig.tiny(recompute=True)
     cfg = GPTConfig.gpt3_1p3b()

@@ -205,8 +205,15 @@ def test_pretraining_criterion_matches_paddle_tpu(masked):
     tl.backward()
     np.testing.assert_allclose(float(tl), float(jl.numpy()), **VALUE)
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(x.grad.numpy()), **GRAD)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        GPTPretrainingCriterion()((t, torch.zeros(())), torch.from_numpy(labels))
+    # GPT-MoE's (logits, aux) input adds aux * moe_aux_coef (0.01), as the
+    # reference's criterion does
+    aux = np.float32(2.5)
+    jl_moe = JCriterion()((paddle.to_tensor(logits), paddle.to_tensor(aux)), paddle.to_tensor(labels),
+                          None if mask is None else paddle.to_tensor(mask))
+    tl_moe = GPTPretrainingCriterion()((torch.from_numpy(logits), torch.tensor(aux)),
+                                       torch.from_numpy(labels),
+                                       None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(float(tl_moe), float(jl_moe.numpy()), **VALUE)
 
 
 # ------------------------------------------------------------- TrainStep
