@@ -47,11 +47,41 @@ non-zero and prints no result. Phases, one JSON line each:
 10. ``moe_check``: one f32 step at batch 2 through ``pallas_sorted`` and
     through ``dense`` from the same weights and routing seeds: the losses,
     every gradient and the eval logits agree.
+11. ``flat_kernels`` (run after phase 3): kernels K3 (the flat flash
+    forward with an additive bias) and K3b (its backward) against their
+    plain PyTorch versions: BERT-base's padded call (q, k, v views of
+    ``[16, 512, 3, 12, 64]``, bias ``[16, 1, 512, 512]``) in bf16 and f32,
+    a ``[1, 1, s, s]`` bias, causal with a banded bias, GPT's packed causal
+    call with no bias, GQA with ``h_kv = h/4``, a ragged s = 200, a fully
+    masked query row and d = 128; with the times of the kernel, the plain
+    version and ``scaled_dot_product_attention`` with the same mask (a
+    yardstick the port never calls) beside the bound.
+12. ``bert_forward``: the eval forward of BERT-base (``BertConfig()``,
+    random weights from seed 0) on ids ``[16, 512]`` padded per row (lengths
+    from seed 0 in [64, 512], the last row 512) under an additive f32 mask
+    ``[16, 1, 512, 512]``, with ``FLAGS_flash_flat`` on: ``sdpa`` picks
+    ``flash_flat_gqa`` (K3, 12 launches, no K1), and the MLM and NSP
+    logits agree with the same model forced to ``sdpa=xla``.
+13. ``bert_train``: BERT-base MLM + NSP pretraining on that batch as
+    ``bench_suite.py:bench_bert`` runs it (AMP O2 ``TrainStep`` over
+    ``AdamW(1e-4)``; MLM labels on the first 64 tokens), 3 warm-up and 10
+    timed steps: tokens/s (all and non-pad), ms per step, peak memory, the
+    share of the model-flops bound, losses finite and falling, K3 and K3b
+    12 times per step; then one step traced.
+14. ``bert_curves``: the same 13 O2 steps from the same weights through
+    ``sdpa=xla``, whose losses agree with ``bert_train``'s at every step,
+    and in f32 through K3/K3b, shown beside them.
+15. ``bert_check``: one f32 step at batch 2 through ``flash_flat_gqa``
+    (K3 + K3b) and through ``xla`` from the same weights: the losses and
+    every gradient agree.
+16. ``flat_check``: one f32 step of the serving GPT at batch 2 with
+    ``FLAGS_flash_flat`` on, through ``attention_core``/``flash_packed``
+    (K3 + K3b, 16 each) and through ``xla``, as phase 7.
 
-Phases 4, 5, 6 and 9 (its ``pallas_sorted`` run) are the main path: the
-kernel counts are set to 0 just before each of them and read just after
-it. Then one JSON line lists every kernel with its launches in those runs,
-and the last line is the ``{"ok": true, ...}`` result.
+Phases 4, 5, 6, 9 (its ``pallas_sorted`` run), 12, 13 and 16 are the main
+path: the kernel counts are set to 0 just before each of them and read just
+after it. Then one JSON line lists every kernel with its launches in those
+runs, and the last line is the ``{"ok": true, ...}`` result.
 """
 from __future__ import annotations
 
@@ -112,7 +142,11 @@ K4 = dict(name="moe_grouped_ffn_fwd", route="cuda",
 K4B = dict(name="moe_grouped_ffn_bwd", route="cuda",
            source="paddle_tpu_torch/csrc/moe_grouped_ffn_bwd.cu",
            replaces="paddle_tpu/ops/moe_pallas.py:370")
-KERNELS = (K1, K2, K4, K4B)
+K3 = dict(name="flash_flat_fwd", route="cuda", source="paddle_tpu_torch/csrc/flash_flat_fwd.cu",
+          replaces="paddle_tpu/ops/flash_attention_flat.py:236")
+K3B = dict(name="flash_flat_bwd", route="cuda", source="paddle_tpu_torch/csrc/flash_flat_bwd.cu",
+           replaces="paddle_tpu/ops/flash_attention_flat.py:293")
+KERNELS = (K1, K2, K3, K3B, K4, K4B)
 
 # the GPT-MoE of bench.py:_measure_moe (bench.py:304): h 1024, 8 layers, 16
 # heads, 8 experts in every second block, capacity factor 2.0; its step is
@@ -135,14 +169,35 @@ MOE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 MOE_CHECK_TOL = dict(loss_rtol=1e-5, grad_rel_l2_max=1e-4, logits_atol=1e-4, logits_rtol=1e-4)
 NO_LIBRARY = "none (no single PyTorch call computes a grouped FFN)"
 
+# BERT-base MLM pre-training as bench_suite.py:bench_bert runs it (BertConfig(),
+# ids [16, 512], AdamW lr 1e-4, AMP O2), on padded rows: lengths uniform in
+# [64, 512] from seed 0, the last row 512 long
+BERT_TRAIN = dict(batch=16, seq=512, lr=1e-4, warmup=3, steps=10, check_batch=2, mlm_tokens=64)
+# K3 and K3b against their plain versions, for out and dq, dk, dv: the
+# largest |kernel - plain| over the largest |plain|, as MOE_TOL (f32 sums in
+# another order; bf16 results rounded once against the plain version in f32
+# on the same bf16 inputs)
+FLAT_TOL = MOE_TOL
+# K3's row statistics against the plain version's: log l within atol 1e-4,
+# the row max m within 1e-5 of max(1, |m|) (the f32 score of a row whose
+# every key carries the -1e30 bias is about -1e30)
+STATS_TOL = dict(log_l=1e-4, m_rel=1e-5)
+# bert_curves: the 13 O2 losses through K3/K3b against those through
+# sdpa=xla from the same weights, per step within rtol 2e-2 (about five bf16
+# roundings, 2**-8 each: attention's bf16 gradients rounded at other places,
+# carried through 12 AdamW updates)
+BERT_CURVE_RTOL = 2e-2
+
 
 def launch_counters():
     """Each kernel's wrapper, whose ``launches`` counts its kernel's
     launches."""
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_attention_flat as ff
     from paddle_tpu_torch.ops import moe_pallas as mp
 
     return {K1["name"]: fa.flash_attention_fwd, K2["name"]: fa.flash_attention_bwd,
+            K3["name"]: ff.flash_flat_fwd, K3B["name"]: ff.flash_flat_bwd,
             K4["name"]: mp.moe_grouped_ffn_fwd, K4B["name"]: mp.moe_grouped_ffn_bwd}
 
 
@@ -438,6 +493,10 @@ def _model_flops_per_step(cfg, batch, seq):
 
 def _kernel_group(name):
     """The group of a device kernel by its name, for the step's breakdown."""
+    if "flash_flat_fwd_kernel" in name:
+        return "K3 flash_flat_fwd"
+    if "flat_bwd_" in name:
+        return "K3b flash_flat_bwd"
     if "moe_ffn_fwd_gemm" in name:
         return "K4 moe_grouped_ffn_fwd"
     if "moe_ffn_bwd_gemm" in name:
@@ -529,7 +588,7 @@ def phase_train():
     ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
           and picked == {"kernels.attention_core.picked": 1, "kernels.attention_core.fallback": 0}
           and per_step == {K1["name"]: cfg.num_layers, K2["name"]: cfg.num_layers,
-                           K4["name"]: 0, K4B["name"]: 0}
+                           K3["name"]: 0, K3B["name"]: 0, K4["name"]: 0, K4B["name"]: 0}
           and all(p.dtype == torch.float32 for p in model.parameters()))
     emit(phase="train", ok=ok, ids=[b, s], amp_level="O2", losses=losses, attention_core=picked,
          launches=launches, launches_per_step=per_step, seconds=seconds, ms_per_step=ms_per_step,
@@ -541,49 +600,79 @@ def phase_train():
     return launches
 
 
-def phase_train_check():
-    """One f32 step (no AMP) of the full-width model at batch 2, through
-    ``attention_core``/``flash`` (K1 + K2) and through the plain ``xla``
-    impl, from the same weights: the losses and every gradient agree."""
+def check_step_against_xla(phase, model, inputs, labels, loss_fn, xla_override, bwd_kernel,
+                           layers, flat=False):
+    """One f32 step (no AMP) through the kernels and through the plain
+    ``xla`` impl (``xla_override``), from the same weights, with
+    ``FLAGS_flash_flat`` set to ``flat``: the losses and every parameter's
+    gradient agree (``TRAIN_CHECK_TOL``), and ``bwd_kernel`` runs once per
+    each of the model's ``layers`` on the kernel path and never on the
+    plain one."""
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import registry
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = GPTConfig(**SERVE_CFG)
-    model = GPTForPretraining(cfg, seed=SEED + 3)
     start = {n: t.clone() for n, t in model.state_dict().items()}
-    ids = torch.randint(0, cfg.vocab_size, (TRAIN["check_batch"], TRAIN["seq"]), device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(SEED + 4))
 
     def one_step(overrides):
         model.load_state_dict(start)
         registry.clear_cache()
-        set_flags({"FLAGS_kernel_overrides": overrides})
+        set_flags({"FLAGS_kernel_overrides": overrides, "FLAGS_flash_flat": flat})
         try:
-            before = fa.flash_attention_bwd.launches
+            before = read_launches()[bwd_kernel["name"]]
             step = TrainStep(model, AdamW(learning_rate=TRAIN["lr"], parameters=model.parameters()),
-                             GPTPretrainingCriterion())
-            loss = float(step(ids, ids)["loss"])
+                             loss_fn)
+            loss = float(step(inputs, labels)["loss"])
             grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-            return loss, grads, fa.flash_attention_bwd.launches - before
+            return loss, grads, read_launches()[bwd_kernel["name"]] - before
         finally:
-            set_flags({"FLAGS_kernel_overrides": ""})
+            set_flags({"FLAGS_kernel_overrides": "", "FLAGS_flash_flat": False})
+            registry.clear_cache()
 
-    loss_flash, g_flash, k2_flash = one_step("")
-    loss_xla, g_xla, k2_xla = one_step("attention_core=xla")
-    rel = {n: (float((g_flash[n] - g_xla[n]).norm() / g_xla[n].norm()) if g_xla[n].norm() > 0
-               else float(g_flash[n].norm())) for n in g_xla}
+    loss_k, g_k, n_k = one_step("")
+    loss_xla, g_xla, n_xla = one_step(xla_override)
+    rel = {n: (float((g_k[n] - g_xla[n]).norm() / g_xla[n].norm()) if g_xla[n].norm() > 0
+               else float(g_k[n].norm())) for n in g_xla}
     worst = max(rel, key=rel.get)
-    ok = (k2_flash == cfg.num_layers and k2_xla == 0
-          and abs(loss_flash - loss_xla) <= TRAIN_CHECK_TOL["loss_rtol"] * abs(loss_xla)
+    ok = (n_k == layers and n_xla == 0
+          and abs(loss_k - loss_xla) <= TRAIN_CHECK_TOL["loss_rtol"] * abs(loss_xla)
           and rel[worst] <= TRAIN_CHECK_TOL["grad_rel_l2_max"])
-    emit(phase="train_check", ok=ok, ids=list(ids.shape), loss_flash=loss_flash, loss_xla=loss_xla,
-         grad_rel_l2=rel, worst=worst, **TRAIN_CHECK_TOL, k2_launches=k2_flash)
+    emit(phase=phase, ok=ok, ids=list(inputs[0].shape), flash_flat=flat, loss_kernels=loss_k,
+         loss_xla=loss_xla, grad_rel_l2_worst=rel[worst], worst=worst, grad_rel_l2=rel,
+         **TRAIN_CHECK_TOL, bwd_kernel=bwd_kernel["name"], bwd_launches=n_k)
     if not ok:
-        raise AssertionError("train_check phase failed: flash and xla steps disagree")
+        raise AssertionError(f"{phase} phase failed: kernel and xla steps disagree")
+
+
+def _gpt_check_model():
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+
+    model = GPTForPretraining(GPTConfig(**SERVE_CFG), seed=SEED + 3)
+    ids = torch.randint(0, SERVE_CFG["vocab_size"], (TRAIN["check_batch"], TRAIN["seq"]),
+                        device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 4))
+    return model, ids
+
+
+def phase_train_check():
+    """One f32 step of the full-width GPT at batch 2 through
+    ``attention_core``/``flash`` (K1 + K2) and through ``xla``."""
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+
+    model, ids = _gpt_check_model()
+    check_step_against_xla("train_check", model, (ids,), (ids,), GPTPretrainingCriterion(),
+                           "attention_core=xla", K2, SERVE_CFG["num_layers"])
+
+
+def phase_flat_check():
+    """As ``train_check`` with ``FLAGS_flash_flat`` on: ``attention_core``
+    picks ``flash_packed`` (K3 + K3b over the packed projection, no mask),
+    against ``xla``."""
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+
+    model, ids = _gpt_check_model()
+    check_step_against_xla("flat_check", model, (ids,), (ids,), GPTPretrainingCriterion(),
+                           "attention_core=xla", K3B, SERVE_CFG["num_layers"], flat=True)
 
 
 def moe_ffn_bound(E, cap, D, H, dtype, backward=False):
@@ -788,6 +877,7 @@ def phase_moe_train():
         ms_per_step = 1e3 * seconds / MOE_TRAIN["steps"]
         per_step = {k: v / n_steps for k, v in launches.items()}
         want = {K1["name"]: cfg.num_layers, K2["name"]: cfg.num_layers,
+                K3["name"]: 0, K3B["name"]: 0,
                 K4["name"]: n_moe if path == "pallas_sorted" else 0,
                 K4B["name"]: n_moe if path == "pallas_sorted" else 0}
         ok = (all(np.isfinite(losses)) and losses[-1] < losses[0] and per_step == want
@@ -872,6 +962,369 @@ def phase_moe_check():
         raise AssertionError("moe_check phase failed: pallas_sorted and dense steps disagree")
 
 
+def flat_bound(b, s, h, d, dtype, bias, causal, backward=False):
+    """The least time (ms) the card needs for one K3 or K3b call: the larger
+    of the bytes it must move (as :func:`attention_bound`, plus the bias
+    read once) over the memory rate, and the matmul flops of the query-key
+    pairs this call's data leaves live (4 d per pair forward, 10 d
+    backward; a pair under a -1e30 bias entry or above the causal diagonal
+    adds exactly nothing) over the peak rate for the dtype."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = (8 if backward else 4) * b * s * h * d * elem + 2 * b * h * s * 4
+    live = torch.ones((1, 1, s, s), dtype=torch.bool, device="cuda")
+    if bias is not None:
+        nbytes += bias.numel() * bias.element_size()
+        live = live & (bias > -1e29)
+    if causal:
+        live = live & torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+    pairs = int(live.sum()) * (b // live.shape[0]) * h
+    flops = (10 if backward else 4) * d * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def padding_lengths(b, s):
+    """Per-row lengths of the padded BERT batch: uniform in [64, s] from
+    seed 0, the last row s long."""
+    lengths = np.random.default_rng(SEED).integers(64, s + 1, b)
+    lengths[-1] = s
+    return lengths
+
+
+def padding_mask(lengths, s, dtype=torch.float32):
+    """The additive mask ``[b, 1, s, s]``: 0 where key j < len_b, -1e30
+    elsewhere."""
+    lens = torch.as_tensor(lengths, device="cuda")
+    keep = torch.arange(s, device="cuda")[None, None, None, :] < lens[:, None, None, None]
+    return torch.where(keep, 0.0, -1e30).expand(len(lengths), 1, s, s).contiguous().to(dtype)
+
+
+def _flat_cases():
+    """(name, b, s, h, h_kv, d, causal, dtype, bias kind)."""
+    cases = [("bert", 16, 512, 12, 12, 64, False, dt, "padding")
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [("broadcast", 16, 512, 12, 12, 64, False, torch.float32, "broadcast"),
+              ("causal_banded", 8, 1024, 16, 16, 64, True, torch.float32, "banded")]
+    cases += [("gpt_packed", 8, 1024, 16, 16, 64, True, dt, None)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [("gqa", 16, 512, 12, 3, 64, False, torch.float32, "padding"),
+              ("ragged", 16, 200, 12, 12, 64, False, torch.float32, "padding"),
+              ("masked_row", 4, 512, 12, 12, 64, False, torch.float32, "masked_row")]
+    cases += [("d128", 8, 512, 8, 8, 128, False, dt, "padding")
+              for dt in (torch.bfloat16, torch.float32)]
+    return cases
+
+
+def _flat_bias(kind, b, s, dtype, gen):
+    if kind is None:
+        return None
+    if kind == "padding":
+        return padding_mask(padding_lengths(b, s), s, dtype)
+    if kind == "broadcast":
+        return torch.randn((1, 1, s, s), generator=gen, device="cuda").to(dtype)
+    if kind == "banded":  # key >= query - 128
+        band = torch.ones((s, s), dtype=torch.bool, device="cuda").triu(-128)
+        return torch.where(band, 0.0, -1e30)[None, None].to(dtype)
+    mask = padding_mask(padding_lengths(b, s), s, dtype)  # masked_row: query 7 sees no key
+    mask[:, :, 7] = -1e30
+    return mask
+
+
+def phase_flat_kernels():
+    """K3 and K3b against their plain versions; returns the rows of the
+    main path's call (BERT-base's padded bf16 call, as the O2 step makes
+    it)."""
+    from paddle_tpu_torch.ops import flash_attention_flat as ff
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    main, failures = {}, []
+    for name, b, s, h, h_kv, d, causal, dt, kind in _flat_cases():
+        qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(dt)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views, as the models pass them
+        if h_kv < h:  # GQA: K/V heads repeated to h before the kernels, as flash_flat_gqa does
+            kv = torch.randn((b, s, 2, h_kv, d), generator=gen, device="cuda").to(dt)
+            k, v = (kv[:, :, i].repeat_interleave(h // h_kv, dim=2) for i in range(2))
+        dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+        bias = _flat_bias(kind, b, s, dt, gen)
+        before = read_launches()
+        out, stats = ff.flash_flat_fwd(q, k, v, bias, causal)
+        grads = ff.flash_flat_bwd(q, k, v, bias, out, stats, dout, causal)
+        torch.cuda.synchronize()
+        after = read_launches()
+        ref = (q.float(), k.float(), v.float())
+        want_out, want_stats = ff._reference_flat_fwd(*ref, bias, causal)
+        want = ff._reference_flat_bwd(*ref, bias, out.float(), stats, dout.float(), causal)
+        abs_err = {n: (g.float() - w).abs().max().item()
+                   for n, g, w in zip(("out", "dq", "dk", "dv"), (out, *grads), (want_out, *want))}
+        rel = {n: abs_err[n] / w.abs().max().item()
+               for n, w in zip(("out", "dq", "dk", "dv"), (want_out, *want))}
+        abs_err["log_l"] = (stats[1] - want_stats[1]).abs().max().item()
+        abs_err["m"] = (stats[0] - want_stats[0]).abs().max().item()
+        abs_err["m_rel"] = ((stats[0] - want_stats[0]).abs()
+                            / want_stats[0].abs().clamp_min(1.0)).max().item()
+        finite = bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all()) for g in grads)
+        del want_out, want_stats, want, ref
+        # the library yardstick: scaled_dot_product_attention with the same
+        # mask (causal folded into it where there is a bias), forward and
+        # the backward alone
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lib_mask = bias
+        if causal and bias is not None:
+            upper = torch.ones((s, s), dtype=torch.bool, device="cuda").triu(1)
+            lib_mask = bias.masked_fill(upper, float("-inf"))
+        lib_causal = causal and bias is None
+
+        def lib_fwd():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=lib_mask, is_causal=lib_causal)
+
+        lib_out = lib_fwd()
+        gh = dout.transpose(1, 2)
+        big = b * h * s * s > 1e8
+        timing = {
+            K3["name"]: (cuda_ms(lambda: ff.flash_flat_fwd(q, k, v, bias, causal), iters=5 if big else 10),
+                         cuda_ms(lambda: ff._reference_flat_fwd(q, k, v, bias, causal), iters=3, warmup=1),
+                         cuda_ms(lib_fwd, iters=10),
+                         flat_bound(b, s, h, d, dt, bias, causal)),
+            K3B["name"]: (cuda_ms(lambda: ff.flash_flat_bwd(q, k, v, bias, out, stats, dout, causal),
+                                  iters=5 if big else 10),
+                          cuda_ms(lambda: ff._reference_flat_bwd(q, k, v, bias, out, stats, dout, causal),
+                                  iters=3, warmup=1),
+                          cuda_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh,
+                                                              retain_graph=True), iters=10),
+                          flat_bound(b, s, h, d, dt, bias, causal, backward=True)),
+        }
+        del lib_out, qh, kh, vh
+        for K, outs in ((K3, ("out",)), (K3B, ("dq", "dk", "dv"))):
+            ms, plain_ms, library_ms, (bound_ms, bound_by) = timing[K["name"]]
+            launched = after[K["name"]] - before[K["name"]]
+            row = dict(case=name, shape=[b, s, h, d], h_kv=h_kv, causal=causal,
+                       dtype=str(dt).split(".")[-1], bias=None if bias is None else list(bias.shape),
+                       bias_kind=kind, max_abs_err=max(abs_err[n] for n in outs),
+                       rel_err={n: rel[n] for n in outs}, rel_tol=FLAT_TOL[dt],
+                       stats_err=({n: abs_err[n] for n in ("m", "m_rel", "log_l")}
+                                  if K is K3 else None),
+                       stats_tol=STATS_TOL if K is K3 else None,
+                       ok=finite and launched == 1 and all(rel[n] <= FLAT_TOL[dt] for n in outs)
+                       and (K is K3B or all(abs_err[n] <= t for n, t in STATS_TOL.items())),
+                       launches=launched, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       library="torch.nn.functional.scaled_dot_product_attention"
+                               + (" backward" if K is K3B else ""),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            emit(phase="flat_kernels", kernel=K["name"], **row)
+            if not row["ok"]:
+                failures.append((K["name"], name, row["dtype"]))
+            if name == "bert" and dt == torch.bfloat16:
+                main[K["name"]] = row
+        del out, stats, grads, dout, bias, qkv, q, k, v
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"K3/K3b disagree with their plain versions in {failures}")
+    return main
+
+
+def bert_batch(b, s, vocab):
+    """The padded BERT batch, as ``bench_suite.py:bench_bert`` makes its
+    ids and labels (numpy generators seeded 0, 1 and 2; MLM labels on the
+    first 64 tokens, the rest -100), plus explicit token types (zeros),
+    positions (``arange(s)``) and the additive padding mask. Returns
+    ``(inputs, labels, lengths)`` on the card."""
+    ids = np.random.default_rng(0).integers(0, vocab, (b, s)).astype(np.int32)
+    mlm = np.full((b, s), -100, np.int64)
+    n = BERT_TRAIN["mlm_tokens"]
+    mlm[:, :n] = np.random.default_rng(1).integers(0, vocab, (b, n))
+    nsp = np.random.default_rng(2).integers(0, 2, (b,)).astype(np.int64)
+    lengths = padding_lengths(b, s)
+    cuda = lambda a: torch.from_numpy(a).to("cuda")  # noqa: E731
+    inputs = (cuda(ids), torch.zeros((b, s), dtype=torch.int32, device="cuda"),
+              torch.arange(s, dtype=torch.int32, device="cuda"), padding_mask(lengths, s))
+    return inputs, (cuda(mlm), cuda(nsp)), lengths
+
+
+def bert_loss(outs, mlm, nsp):
+    """The criterion over the model's ``(mlm, nsp)`` logits, as
+    ``bench_suite.py:bench_bert`` wraps it."""
+    from paddle_tpu_torch.models.bert import BertPretrainingCriterion
+
+    return BertPretrainingCriterion()(outs[0], outs[1], mlm, nsp)
+
+
+def phase_bert_forward(model, inputs):
+    """BERT-base's eval forward through ``sdpa``/``flash_flat_gqa`` (K3)
+    against the same model forced onto ``sdpa=xla``."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+
+    registry.clear_cache()
+    metrics.reset_counters("kernels.")
+    set_flags({"FLAGS_flash_flat": True})
+    try:
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            mlm, nsp = model(*inputs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in read_launches().items()}
+        picked = metrics.counters("kernels.sdpa.")
+        peak = torch.cuda.max_memory_allocated()
+        set_flags({"FLAGS_kernel_overrides": "sdpa=xla"})
+        with torch.no_grad():
+            ref_mlm, ref_nsp = model(*inputs)
+    finally:
+        set_flags({"FLAGS_kernel_overrides": "", "FLAGS_flash_flat": False})
+        registry.clear_cache()
+    torch.cuda.synchronize()
+    L = len(model.bert.layers)
+    atol, rtol = LOGITS_TOL
+    diffs = {n: (got - want).abs() for n, got, want in (("mlm", mlm, ref_mlm), ("nsp", nsp, ref_nsp))}
+    ok = (picked == {"kernels.sdpa.picked": 1, "kernels.sdpa.fallback": 0}
+          and launched[K3["name"]] == L and launched[K1["name"]] == 0
+          and launched[K3["name"]] == read_launches()[K3["name"]] - before[K3["name"]]  # xla: none
+          and tuple(mlm.shape) == (*inputs[0].shape, model.bert.cfg.vocab_size)
+          and bool(torch.isfinite(mlm).all()) and bool(torch.isfinite(nsp).all())
+          and all(bool((diffs[n] <= atol + rtol * w.abs()).all())
+                  for n, w in (("mlm", ref_mlm), ("nsp", ref_nsp))))
+    emit(phase="bert_forward", ok=ok, ids=list(inputs[0].shape), sdpa=picked,
+         launches=launched, mlm_max_abs_err_vs_xla=diffs["mlm"].max().item(),
+         nsp_max_abs_err_vs_xla=diffs["nsp"].max().item(), atol=atol, rtol=rtol,
+         seconds=seconds, tokens_per_s=inputs[0].numel() / seconds, max_memory_allocated=peak)
+    if not ok:
+        raise AssertionError("bert_forward phase failed")
+
+
+def _bert_flops_per_step(cfg, lengths, seq):
+    """Model flops of one BERT training step: 6 per matmul weight and token
+    (each layer's qkv, out, ffn1 and ffn2 weights, the MLM transform and the
+    tied MLM decoder), plus the non-causal attention matmuls over the pairs
+    the padding mask leaves live (every query row, the keys before its
+    row's length), forward (4 d flops per pair and head) and backward
+    (twice that). The pooler and NSP head act once per sequence and are
+    left out."""
+    D, L, F = cfg.hidden_size, cfg.num_layers, cfg.ffn_hidden_size
+    tokens = len(lengths) * seq
+    n_matmul = L * (4 * D * D + 2 * D * F) + D * D + cfg.vocab_size * D
+    attention = 12 * D * seq * int(np.sum(lengths)) * L
+    return 6 * n_matmul * tokens + attention
+
+
+def phase_bert_train():
+    """BERT-base MLM + NSP pre-training at full width: AMP O2 TrainStep
+    over AdamW on the padded batch, 3 warm-up and 10 timed steps
+    (synchronised), then one step traced. Returns the kernel launches and
+    the losses of the 13 counted steps."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = BertConfig()
+    b, s = BERT_TRAIN["batch"], BERT_TRAIN["seq"]
+    model = BertForPretraining(cfg, seed=SEED)
+    step = TrainStep(model, AdamW(learning_rate=BERT_TRAIN["lr"], parameters=model.parameters()),
+                     bert_loss, amp_level="O2")
+    inputs, labels, lengths = bert_batch(b, s, cfg.vocab_size)
+    registry.clear_cache()
+    metrics.reset_counters("kernels.")
+    set_flags({"FLAGS_flash_flat": True})
+    try:
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(inputs, labels)["loss"]) for _ in range(BERT_TRAIN["warmup"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = [step(inputs, labels)["loss"] for _ in range(BERT_TRAIN["steps"])]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses += [float(x) for x in timed]
+        launches = {k: v - before[k] for k, v in read_launches().items()}
+        peak = torch.cuda.max_memory_allocated()
+        picked = metrics.counters("kernels.sdpa.")
+        breakdown = profile_step(step, inputs, labels)  # outside the counted steps
+    finally:
+        set_flags({"FLAGS_flash_flat": False})
+        registry.clear_cache()
+    n_steps = BERT_TRAIN["warmup"] + BERT_TRAIN["steps"]
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    ms_per_step = 1e3 * seconds / BERT_TRAIN["steps"]
+    flops = _bert_flops_per_step(cfg, lengths, s)
+    bound_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
+    L = cfg.num_layers
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and picked == {"kernels.sdpa.picked": 1, "kernels.sdpa.fallback": 0}
+          and per_step == {K1["name"]: 0, K2["name"]: 0, K3["name"]: L, K3B["name"]: L,
+                           K4["name"]: 0, K4B["name"]: 0}
+          and all(p.dtype == torch.float32 for p in model.parameters()))
+    emit(phase="bert_train", ok=ok, ids=[b, s], amp_level="O2", lengths=lengths.tolist(),
+         losses=losses, sdpa=picked, launches=launches, launches_per_step=per_step,
+         seconds=seconds, ms_per_step=ms_per_step,
+         tokens_per_s=b * s * BERT_TRAIN["steps"] / seconds,
+         nonpad_tokens_per_s=int(np.sum(lengths)) * BERT_TRAIN["steps"] / seconds,
+         max_memory_allocated=peak, model_flops_per_step=flops, model_flops_bound_ms=bound_ms,
+         bound_share=bound_ms / ms_per_step, profile=breakdown)
+    if not ok:
+        raise AssertionError("bert_train phase failed")
+    return launches, losses
+
+
+def phase_bert_curves(kernel_losses):
+    """The loss curve of ``bert_train`` (O2 through K3/K3b) against the same
+    13 steps from the same weights and batch (1) in O2 through ``sdpa=xla``,
+    which must agree within ``BERT_CURVE_RTOL`` at every step, and (2) in
+    f32 through K3/K3b, shown beside them: the first says whether K3b's
+    gradients shape the curve, the second whether the bf16 compute of O2
+    does."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = BertConfig()
+    inputs, labels, _ = bert_batch(BERT_TRAIN["batch"], BERT_TRAIN["seq"], cfg.vocab_size)
+    n_steps = BERT_TRAIN["warmup"] + BERT_TRAIN["steps"]
+
+    def curve(amp_level, overrides):
+        model = BertForPretraining(cfg, seed=SEED)
+        opt = AdamW(learning_rate=BERT_TRAIN["lr"], parameters=model.parameters())
+        step = TrainStep(model, opt, bert_loss, amp_level=amp_level)
+        registry.clear_cache()
+        set_flags({"FLAGS_flash_flat": True, "FLAGS_kernel_overrides": overrides})
+        try:
+            return [float(step(inputs, labels)["loss"]) for _ in range(n_steps)]
+        finally:
+            set_flags({"FLAGS_flash_flat": False, "FLAGS_kernel_overrides": ""})
+            registry.clear_cache()
+
+    xla_o2 = curve("O2", "sdpa=xla")
+    torch.cuda.empty_cache()
+    kernels_f32 = curve(None, "")
+    rel = [abs(a - b) / abs(b) for a, b in zip(kernel_losses, xla_o2)]
+    ok = (len(kernel_losses) == n_steps and all(np.isfinite(xla_o2 + kernels_f32))
+          and max(rel) <= BERT_CURVE_RTOL)
+    emit(phase="bert_curves", ok=ok, losses_kernels_o2=kernel_losses, losses_xla_o2=xla_o2,
+         losses_kernels_f32=kernels_f32, rel_diff_o2=rel, rtol=BERT_CURVE_RTOL)
+    if not ok:
+        raise AssertionError("bert_curves phase failed: the O2 curves of K3/K3b and xla differ")
+
+
+def phase_bert_check():
+    """One f32 step of BERT-base at batch 2 through ``flash_flat_gqa``
+    (K3 + K3b) and through ``sdpa=xla``, from the same weights."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+
+    cfg = BertConfig()
+    model = BertForPretraining(cfg, seed=SEED + 10)
+    inputs, labels, _ = bert_batch(BERT_TRAIN["check_batch"], BERT_TRAIN["seq"], cfg.vocab_size)
+    check_step_against_xla("bert_check", model, inputs, labels, bert_loss, "sdpa=xla", K3B,
+                           cfg.num_layers, flat=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card", file=sys.stderr)
@@ -882,7 +1335,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
-    rows = {K1["name"]: phase_k1(), K2["name"]: phase_k2(), **phase_moe_kernels()}
+    rows = {K1["name"]: phase_k1(), K2["name"]: phase_k2(), **phase_moe_kernels(),
+            **phase_flat_kernels()}
 
     model = GPTForPretraining(GPTConfig(**SERVE_CFG), seed=SEED).eval()
     ids = torch.randint(0, SERVE_CFG["vocab_size"], (8, 1024), device="cuda",
@@ -905,6 +1359,27 @@ def main() -> int:
     by_path["moe_train"] = phase_moe_train()
     torch.cuda.empty_cache()
     phase_moe_check()
+    torch.cuda.empty_cache()
+
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+
+    bert = BertForPretraining(BertConfig(), seed=SEED).eval()
+    bert_inputs, _, _ = bert_batch(BERT_TRAIN["batch"], BERT_TRAIN["seq"], bert.bert.cfg.vocab_size)
+    reset_launches()
+    phase_bert_forward(bert, bert_inputs)
+    by_path["bert_forward"] = read_launches()
+    del bert, bert_inputs
+    torch.cuda.empty_cache()
+    reset_launches()
+    by_path["bert_train"], bert_losses = phase_bert_train()
+    torch.cuda.empty_cache()
+    phase_bert_curves(bert_losses)
+    torch.cuda.empty_cache()
+    phase_bert_check()
+    torch.cuda.empty_cache()
+    reset_launches()
+    phase_flat_check()
+    by_path["flat_check"] = read_launches()
 
     keys = ("shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -914,9 +1389,12 @@ def main() -> int:
                for K in KERNELS]
     emit(kernels=kernels)
     # K1 runs in the forward and in training, K2 in training, K4 and K4b in
-    # the GPT-MoE step
+    # the GPT-MoE step (with K1 and K2), K3 in BERT's forward, K3 and K3b in
+    # BERT's step and in GPT's step with FLAGS_flash_flat on
     expected = {"forward": [K1["name"]], "train": [K1["name"], K2["name"]],
-                "moe_train": [K["name"] for K in KERNELS]}
+                "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
+                "bert_forward": [K3["name"]], "bert_train": [K3["name"], K3B["name"]],
+                "flat_check": [K3["name"], K3B["name"]]}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]
     if missing:
         raise AssertionError(f"the main path launched these kernels no time: {missing}")

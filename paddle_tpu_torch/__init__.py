@@ -5,6 +5,6 @@ It mirrors ``paddle_tpu``'s subpackage layout so each module has one
 counterpart there, and it never imports ``jax`` or ``paddle_tpu``. Every
 Pallas kernel of a ported path is a hand-written CUDA kernel under ``csrc/``,
 built by ``nvcc`` at first use. Entry points (``models.gpt.GPTForPretraining``,
-``inference.DecodeEngine``) run on ``cuda`` unless the caller passes
-``device="cpu"``.
+``models.bert.BertForPretraining``, ``inference.DecodeEngine``) run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -43,5 +43,5 @@ def flag(name: str):
 
 
 define_flag("FLAGS_use_flash_attention", True, "use the hand-written flash-attention kernel where it takes the call")
-define_flag("FLAGS_flash_flat", False, "use the flat-lane packed flash kernels (kernel K3, not ported yet: no implementation reads it)")
+define_flag("FLAGS_flash_flat", False, "route masked/GQA sdpa (impl flash_flat_gqa) and attention_core (impl flash_packed) to the flat flash kernels K3/K3b; off by default, as in the reference")
 define_flag("FLAGS_kernel_overrides", "", "force kernel-registry implementations per kernel, e.g. 'attention_core=xla' (see paddle_tpu_torch.ops.registry); forced impls bypass availability predicates; unknown impl names raise at dispatch")

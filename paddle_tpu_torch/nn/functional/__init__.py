@@ -1,3 +1,4 @@
 """Functionals of the port (the ported subset of ``paddle_tpu.nn.functional``)."""
+from .activation import gelu  # noqa: F401
 from .attention import scaled_dot_product_attention  # noqa: F401
 from .loss import cross_entropy  # noqa: F401

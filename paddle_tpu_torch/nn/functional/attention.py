@@ -1,17 +1,20 @@
 """Attention functionals of the port (``paddle_tpu/nn/functional/attention.py``).
 
 Kernel selection goes through :mod:`paddle_tpu_torch.ops.registry`; two
-kernels are defined here:
+kernels are defined here, with the reference's implementations in its
+order:
 
 - ``sdpa``: the scaled-dot-product entry point. Impls: ``flash`` (kernels
-  K1 forward and K2 backward: no mask, no dropout, self-attention) and the
-  ``xla`` fallback, the plain composite, named as in the reference.
-- ``attention_core``: GPT's packed-qkv causal core. Impls: ``flash`` (K1 and
-  K2 over strided views of the packed projection, no copy; the gradient lands
-  in one packed tensor) and the ``xla`` fallback.
-
-The reference's ``flash_packed`` and ``flash_flat_gqa`` impls run kernel K3,
-which is not ported yet.
+  K1 forward and K2 backward: no mask, no dropout, self-attention),
+  ``flash_flat_gqa`` (kernels K3 and K3b, behind ``FLAGS_flash_flat``: an
+  additive or bool ``[b|1, 1, s, s]`` mask, K/V with ``h_kv | h`` heads, no
+  dropout) and the ``xla`` fallback, the plain composite, named as in the
+  reference.
+- ``attention_core``: GPT's packed-qkv causal core. Impls: ``flash_packed``
+  (K3 and K3b over strided views of the packed projection, behind
+  ``FLAGS_flash_flat``), ``flash`` (K1 and K2 over the same views) and the
+  ``xla`` fallback. Both kernel impls write the gradient into one packed
+  tensor.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import math
 import torch
 
 from ...framework.flags import flag
+from ...ops import flash_attention_flat as _flat
 from ...ops import registry as _registry
 from ...ops.flash_attention import (flash_attention_available, flash_attention_bwd,
                                    flash_attention_fwd)
@@ -68,11 +72,45 @@ def _sdpa_flash(q, k, v, mask, causal, dropout_p, generator):
     return flash_attention_fwd(q, k, v, causal)[0]
 
 
+def _sdpa_flat_available(q, k, v, mask, causal, dropout_p, generator):
+    # masked / GQA envelope: additive or bool [b|1, 1, s, s] masks and
+    # h_kv | h grouped K/V run through K3/K3b when FLAGS_flash_flat is on
+    if mask is None or dropout_p != 0.0 or not flag("FLAGS_use_flash_attention"):
+        return False
+    b, s, h, d = q.shape
+    kv_ok = tuple(k.shape) == tuple(q.shape) or (
+        k.shape[0] == b and k.shape[1] == s and h % k.shape[2] == 0 and k.shape[3] == d)
+    return (_flat.enabled((b, s, 3, h, d), q.dtype, q.device.type) and kv_ok
+            and tuple(v.shape) == tuple(k.shape) and q.dtype == k.dtype == v.dtype
+            and q.device.type == k.device.type == v.device.type == mask.device.type
+            and mask.dtype in (torch.bool, *_flat.BIAS_DTYPES)
+            and _flat.mask_supported(b, s, h, d, tuple(mask.shape)))
+
+
+def _sdpa_flat(q, k, v, mask, causal, dropout_p, generator):
+    if mask.dtype == torch.bool:
+        mask = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device).masked_fill(
+            ~mask, -1e30)
+    return _flat.flash_flat_gqa(q, k, v, causal=causal, mask=mask)
+
+
 _registry.define_kernel("sdpa", flags=("FLAGS_use_flash_attention", "FLAGS_flash_flat"))
 _registry.register("sdpa", "flash", _sdpa_flash, available=_sdpa_flash_available,
                    doc="CUDA flash attention K1 + K2 (self-attn, no mask/dropout, d in 64/128)")
+_registry.register("sdpa", "flash_flat_gqa", _sdpa_flat, available=_sdpa_flat_available,
+                   doc="CUDA flat flash attention K3 + K3b (additive or bool [b|1,1,s,s] mask, "
+                       "h_kv | h grouped K/V)")
 _registry.register("sdpa", "xla", _sdpa_reference, fallback=True,
                    doc="plain PyTorch composite (any mask/dropout/shape)")
+
+
+def _core_flat_available(qkv, dropout_p, generator):
+    return (dropout_p == 0.0 and flag("FLAGS_use_flash_attention")
+            and _flat.enabled(tuple(qkv.shape), qkv.dtype, qkv.device.type))
+
+
+def _core_flat(qkv, dropout_p, generator):
+    return _flat.flash_packed(qkv, causal=True)
 
 
 def _core_flash_available(qkv, dropout_p, generator):
@@ -115,6 +153,9 @@ def _core_xla(qkv, dropout_p, generator):
 
 
 _registry.define_kernel("attention_core", flags=("FLAGS_use_flash_attention", "FLAGS_flash_flat"))
+_registry.register("attention_core", "flash_packed", _core_flat, available=_core_flat_available,
+                   doc="CUDA flat flash attention K3 + K3b over packed-qkv views, one packed "
+                       "gradient")
 _registry.register("attention_core", "flash", _core_flash, available=_core_flash_available,
                    doc="CUDA flash attention K1 + K2 over packed-qkv views, one packed gradient")
 _registry.register("attention_core", "xla", _core_xla, fallback=True,

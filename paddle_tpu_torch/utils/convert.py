@@ -1,9 +1,9 @@
 """Weights from ``paddle_tpu`` to the port.
 
-The port's ``GPTForPretraining`` keeps the reference's parameter names and
-its ``[in, out]`` weight layout, so a state converts name for name with no
-transposes; what is checked is that the names and shapes fit one model.
-Both trunks convert:
+The port's ``GPTForPretraining`` and ``BertForPretraining`` keep the
+reference's parameter names and its ``[in, out]`` weight layout, so a state
+converts name for name with no transposes; what is checked is that the
+names and shapes fit one model. Both GPT trunks convert:
 
 - stacked (``GPTConfig(stacked=True)``): ``gpt.layers.qkv_w`` etc.,
   ``[L, ...]``;
@@ -11,6 +11,11 @@ Both trunks convert:
   ``gpt.layers.N.attn.qkv_proj.weight``, ``gpt.layers.N.ffn1.weight``, ...,
   and in a MoE block ``gpt.layers.N.moe.gate.weight`` and
   ``gpt.layers.N.moe.w1|b1|w2|b2`` in place of the dense FFN.
+
+BERT's names: ``bert.embeddings.{word,position,token_type}_embeddings.weight``,
+``bert.embeddings.norm.*``, ``bert.layers.N.attn.qkv_proj.weight`` etc. (the
+per-layer block names of GPT), ``bert.pooler.*``, ``transform.*``,
+``transform_norm.*`` and ``nsp.*``.
 """
 from __future__ import annotations
 
@@ -81,24 +86,56 @@ def _per_layer_shapes(np_state) -> Dict[str, tuple]:
     return shapes
 
 
+_BERT_WORD = "bert.embeddings.word_embeddings.weight"
+_BERT_LAYER_KEY = re.compile(r"bert\.layers\.(\d+)\.")
+
+
+def _bert_shapes(np_state) -> Dict[str, tuple]:
+    """The names a ``BertForPretraining`` state must hold, with their
+    shapes: L from the highest layer index present, the position and
+    token-type tables' rows and the FFN width from the state."""
+    V, D = np.asarray(np_state[_BERT_WORD]).shape
+    rows = {name: np.asarray(np_state[key]).shape[0] for name in ("position", "token_type")
+            if (key := f"bert.embeddings.{name}_embeddings.weight") in np_state}
+    layers = {int(m.group(1)) for k in np_state if (m := _BERT_LAYER_KEY.match(k))}
+    widths = [np.asarray(v).shape[-1] for k, v in np_state.items() if k.endswith(".ffn1.weight")]
+    Ff = widths[0] if widths else 4 * D
+    shapes = {_BERT_WORD: (V, D),
+              "bert.embeddings.position_embeddings.weight": (rows.get("position", 0), D),
+              "bert.embeddings.token_type_embeddings.weight": (rows.get("token_type", 0), D),
+              "bert.embeddings.norm.weight": (D,), "bert.embeddings.norm.bias": (D,),
+              "bert.pooler.weight": (D, D), "bert.pooler.bias": (D,),
+              "transform.weight": (D, D), "transform.bias": (D,),
+              "transform_norm.weight": (D,), "transform_norm.bias": (D,),
+              "nsp.weight": (D, 2), "nsp.bias": (2,)}
+    for i in range(max(layers) + 1 if layers else 0):
+        for leaf in _BLOCK + _FFN:
+            shapes[f"bert.layers.{i}.{leaf}"] = _leaf_shape(leaf, D, Ff, 0)
+    return shapes
+
+
 def state_dict_from_paddle_tpu(np_state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A ``paddle_tpu`` ``GPTForPretraining`` state_dict (as numpy arrays),
-    of either trunk, as the port's state_dict (CPU tensors;
-    ``load_state_dict`` copies them to the model's device). The trunk is the
+    of either trunk, or a ``BertForPretraining`` one, as the port's
+    state_dict (CPU tensors; ``load_state_dict`` copies them to the model's
+    device). BERT is recognised by its word table's name; a GPT trunk is the
     stacked one when any stacked name is present. Raises ``KeyError`` on a
     missing or extra name and ``ValueError`` on a shape that does not fit
     the others."""
-    stacked = any(f"gpt.layers.{n}" in np_state for n in _STACK) or not any(
-        _LAYER_KEY.match(k) for k in np_state)
-    if stacked:
+    if _BERT_WORD in np_state:
+        family, shapes_of, expected = "BERT", _bert_shapes, set(_bert_shapes(np_state))
+    elif any(f"gpt.layers.{n}" in np_state for n in _STACK) or not any(
+            _LAYER_KEY.match(k) for k in np_state):
+        family, shapes_of = "GPT", _stacked_shapes
         expected = set(_OUTER) | {f"gpt.layers.{n}" for n in _STACK}
     else:
-        expected = set(_per_layer_shapes(np_state))
+        family, shapes_of, expected = "GPT", _per_layer_shapes, set(_per_layer_shapes(np_state))
     missing = sorted(expected - set(np_state))
     extra = sorted(set(np_state) - expected)
     if missing or extra:
-        raise KeyError(f"paddle_tpu GPT state_dict does not match: missing {missing}, extra {extra}")
-    shapes = _stacked_shapes(np_state) if stacked else _per_layer_shapes(np_state)
+        raise KeyError(f"paddle_tpu {family} state_dict does not match: missing {missing}, "
+                       f"extra {extra}")
+    shapes = shapes_of(np_state)
     out = {}
     for name, shape in shapes.items():
         arr = np.asarray(np_state[name])

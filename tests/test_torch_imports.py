@@ -44,23 +44,32 @@ TRAINING_MODULES = {"paddle_tpu_torch.jit", "paddle_tpu_torch.jit.train_step",
 MOE_MODULES = {"paddle_tpu_torch.distributed", "paddle_tpu_torch.distributed.moe",
                "paddle_tpu_torch.ops.moe_pallas", "paddle_tpu_torch.models.gpt",
                "paddle_tpu_torch.utils.convert"}
+# modules of the BERT / masked-attention slice
+BERT_MODULES = {"paddle_tpu_torch.ops.flash_attention_flat", "paddle_tpu_torch.models.bert",
+                "paddle_tpu_torch.distributed.mp_layers", "paddle_tpu_torch.nn.layer",
+                "paddle_tpu_torch.nn.layer.common", "paddle_tpu_torch.nn.layer.norm",
+                "paddle_tpu_torch.nn.initializer", "paddle_tpu_torch.nn.functional.activation"}
 
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
-    assert TRAINING_MODULES | MOE_MODULES <= names, sorted((TRAINING_MODULES | MOE_MODULES) - names)
+    wanted = TRAINING_MODULES | MOE_MODULES | BERT_MODULES
+    assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 26
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 39
 
 
 def test_entry_points_raise_without_cuda_and_device():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour where no CUDA device exists")
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForPretraining(GPTConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BertForPretraining(BertConfig.tiny())
     assert GPTForPretraining(GPTConfig.tiny(), device="cpu").gpt.layers.qkv_w.device.type == "cpu"
 
 

@@ -108,9 +108,13 @@ def test_kernel_table_lists_builtin_kernels():
     by_kernel = {}
     for r in registry.kernel_table():
         by_kernel.setdefault(r["kernel"], []).append(r)
-    for name in ("sdpa", "attention_core"):
+    # the reference's order: the flat kernels' impls (K3/K3b, behind
+    # FLAGS_flash_flat) after flash in sdpa, before it in attention_core
+    impls = {"sdpa": ["flash", "flash_flat_gqa", "xla"],
+             "attention_core": ["flash_packed", "flash", "xla"]}
+    for name, want in impls.items():
         assert name in by_kernel, f"{name} not registered"
-        assert [r["impl"] for r in by_kernel[name]] == ["flash", "xla"]
+        assert [r["impl"] for r in by_kernel[name]] == want
         assert by_kernel[name][-1]["fallback"], f"{name} has no fallback"
 
 
