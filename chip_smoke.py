@@ -10,10 +10,13 @@ non-zero and prints no result. Phases, one JSON line each:
 1. ``device``: the card's name, the device count, and ``nvidia-smi``'s name
    and power limit.
 2. ``build``: every kernel of the path built from source, all ``nvcc``
-   processes started together.
+   processes started together; ptxas's registers and spills, and the
+   tensor-core instructions (``HGMMA``: wgmma, ``HMMA``: mma.sync) of every
+   flash kernel by ``cuobjdump -sass``: each bf16 instance of K1, K2, K3
+   and K3b must hold some.
 3. ``kernels``: kernels K1 (flash-attention forward) and K2 (its backward)
    against their plain PyTorch versions at the main path's shapes, f32 and
-   bf16, causal and not, d = 64 and 128, a ragged s, and (K2) packed-qkv
+   bf16, causal and not, d = 64 and 128, a ragged s, and packed-qkv
    strides; with times of the kernel, the plain version and the one PyTorch
    call that computes the same function
    (``torch.nn.functional.scaled_dot_product_attention``, its backward for
@@ -81,7 +84,8 @@ non-zero and prints no result. Phases, one JSON line each:
 Phases 4, 5, 6, 9 (its ``pallas_sorted`` run), 12, 13 and 16 are the main
 path: the kernel counts are set to 0 just before each of them and read just
 after it. Then one JSON line lists every kernel with its launches in those
-runs, and the last line is the ``{"ok": true, ...}`` result.
+runs (K1 and K3 with a ``bf16_row`` too: their O2 steps' bf16 call), and
+the last line is the ``{"ok": true, ...}`` result.
 """
 from __future__ import annotations
 
@@ -253,7 +257,34 @@ def phase_device():
          nvidia_smi=smi.splitlines()[0], torch=torch.__version__, cuda=torch.version.cuda)
 
 
+def sass_counts(library):
+    """The tensor-core instructions of each kernel of a built library, from
+    ``cuobjdump -sass``: ``{kernel: {"HGMMA": n, "HMMA": n}}``. HGMMA is
+    wgmma (Hopper's warpgroup MMA), HMMA is mma.sync."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _cuda
+
+    tool = Path(_cuda.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            counts[kernel] = {"HGMMA": 0, "HMMA": 0}
+        elif kernel is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    counts[kernel][op] += 1
+    return counts
+
+
 def phase_build():
+    """Builds every kernel, reports ptxas's registers and spills, and counts
+    the tensor-core instructions in the flash kernels' SASS: every bf16
+    instance of K1, K2, K3 and K3b (the ``*_tc`` kernels; the bf16 di
+    pre-kernel is SIMT, as is every f32 instance) must hold HGMMA or HMMA."""
     from paddle_tpu_torch.ops import _cuda
 
     names = [K["name"] for K in KERNELS]
@@ -262,22 +293,40 @@ def phase_build():
         _cuda.library_path(n).name + ".log").read_text().splitlines()
         if "registers" in ln or ("spill" in ln and not ln.strip().startswith("0 bytes stack"))]
         for n in names}
-    emit(phase="build", seconds=seconds, ptxas=ptxas)
+    flash = [K["name"] for K in (K1, K2, K3, K3B)]
+    sass = {n: sass_counts(_cuda.library_path(n)) for n in flash}
+    bf16 = {n: {k: c for k, c in sass[n].items() if "_tc" in k} for n in flash}
+    missing = [n for n in flash if not bf16[n]] + [
+        k for n in flash for k, c in bf16[n].items() if c["HGMMA"] == 0 and c["HMMA"] == 0]
+    emit(phase="build", ok=not missing, seconds=seconds, ptxas=ptxas, sass_tensor_core=sass,
+         bf16_without_tensor_cores=missing)
+    if missing:
+        raise AssertionError(f"bf16 flash kernels without tensor-core instructions: {missing}")
 
 
 def phase_k1():
     """K1 against its plain version; returns the row of the main path's
-    shape ([8, 1024, 16, 64] causal f32, as the forward calls it)."""
+    shape ([8, 1024, 16, 64] causal f32, as the forward calls it) and the
+    row of the O2 training step's call (the same shape in bf16, through
+    views of one packed [b, s, 3, h, d] projection)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    cases = [(8, 1024, 16, 64, causal, dt) for causal in (True, False)
+    cases = [(8, 1024, 16, 64, causal, dt, False) for causal in (True, False)
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [(8, 1024, 16, 128, True, dt) for dt in (torch.float32, torch.bfloat16)]
-    cases += [(8, 1000, 16, 64, True, dt) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(8, 1024, 16, 128, True, dt, False) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(8, 1000, 16, 64, True, dt, False) for dt in (torch.float32, torch.bfloat16)]
+    # views of one packed [b, s, 3, h, d] projection, as attention_core/flash
+    # calls K1 in the forward and the training step
+    cases += [(8, 1024, 16, 64, True, dt, True) for dt in (torch.float32, torch.bfloat16)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main_row, failures = None, []
-    for b, s, h, d, causal, dt in cases:
-        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt) for _ in range(3))
+    main_row, bf16_row, failures = None, None, []
+    for b, s, h, d, causal, dt, packed in cases:
+        if packed:
+            qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(dt)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        else:
+            q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+                       for _ in range(3))
         before = fa.flash_attention_fwd.launches
         out, lse = fa.flash_attention_fwd(q, k, v, causal)
         torch.cuda.synchronize()
@@ -297,17 +346,19 @@ def phase_k1():
             qh, kh, vh, is_causal=causal), iters=10)
         bound_ms, bound_by = attention_bound(b, s, h, d, causal, dt)
         row = dict(shape=[b, s, h, d], causal=causal, dtype=str(dt).split(".")[-1],
-                   max_abs_err=err, lse_max_abs_err=lse_err, atol=atol, rtol=rtol, ok=ok,
-                   launches=launched, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   packed_qkv=packed, max_abs_err=err, lse_max_abs_err=lse_err, atol=atol,
+                   rtol=rtol, ok=ok, launches=launched, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         emit(phase="kernels", kernel=K1["name"], **row)
         if not ok:
             failures.append(row)
-        if (b, s, h, d, causal, dt) == (8, 1024, 16, 64, True, torch.float32):
+        if (b, s, h, d, causal, dt, packed) == (8, 1024, 16, 64, True, torch.float32, False):
             main_row = row
+        if (b, s, h, d, causal, dt, packed) == (8, 1024, 16, 64, True, torch.bfloat16, True):
+            bf16_row = row
     if failures:
         raise AssertionError(f"K1 disagrees with its plain version in {len(failures)} case(s)")
-    return main_row
+    return main_row, bf16_row
 
 
 def _k2_cases():
@@ -1335,8 +1386,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
-    rows = {K1["name"]: phase_k1(), K2["name"]: phase_k2(), **phase_moe_kernels(),
+    k1_row, k1_bf16_row = phase_k1()
+    rows = {K1["name"]: k1_row, K2["name"]: phase_k2(), **phase_moe_kernels(),
             **phase_flat_kernels()}
+    # the bf16 calls of the O2 steps, beside K1's f32 main row (the forward's
+    # call); K3's main row is already BERT's O2 call
+    bf16_rows = {K1["name"]: k1_bf16_row, K3["name"]: rows[K3["name"]]}
 
     model = GPTForPretraining(GPTConfig(**SERVE_CFG), seed=SEED).eval()
     ids = torch.randint(0, SERVE_CFG["vocab_size"], (8, 1024), device="cuda",
@@ -1385,7 +1440,10 @@ def main() -> int:
             "library_ms")
     kernels = [dict(K, launches=sum(p[K["name"]] for p in by_path.values()),
                     launches_by_path={path: p[K["name"]] for path, p in by_path.items()},
-                    **{k: rows[K["name"]][k] for k in keys if k in rows[K["name"]]})
+                    **{k: rows[K["name"]][k] for k in keys if k in rows[K["name"]]},
+                    **({"bf16_row": {k: bf16_rows[K["name"]][k] for k in keys + ("packed_qkv",)
+                                     if k in bf16_rows[K["name"]]}}
+                       if K["name"] in bf16_rows else {}))
                for K in KERNELS]
     emit(kernels=kernels)
     # K1 runs in the forward and in training, K2 in training, K4 and K4b in

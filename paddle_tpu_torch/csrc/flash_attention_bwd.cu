@@ -11,17 +11,22 @@
 // one packed [b, s, 3, h, d] gradient).
 //
 // Design. As in the reference's split, and deterministic (no atomics): a
-// di pre-kernel, a dk/dv kernel per 64-row k tile and a dq kernel per
-// 64-row q tile. Their bodies, shared with K3b (flash_flat_bwd.cu), are in
-// flash_bwd.cuh; K2 is their no-bias instance, with lse as the row max and
-// log l = 0.
+// di pre-kernel, a dk/dv kernel per k tile and a dq kernel per q tile.
+// Their bodies, shared with K3b (flash_flat_bwd.cu), are in flash_bwd.cuh;
+// K2 is their no-bias instance, with lse as the row max and log l = 0.
+// f32 inputs take the SIMT bodies (64-row tiles, f32 FMA); bf16 inputs the
+// Hopper bodies: three warpgroups per block, 128 resident rows, 64-row
+// tiles streamed by TMA, every product on wgmma, P^T / dS^T (dk/dv) and dS
+// (dq) in bf16 registers as the A operand of the product that follows.
 //
-// Bound. Five matmuls of 2*s*s*d flops per (b, h), half of them when
-// causal, against about 9*s*d elements moved: at the training shapes the
-// work is matmul-bound. This is the simple first version: f32 FMA on the
-// CUDA cores, no tensor cores (mma.sync / wgmma), no TMA, no pipelining of
-// the tile loads, so it runs far below the bf16 tensor-core bound. Those are
-// later work.
+// Bound. Five matmuls of 2 d flops per visible pair against q, k, v, out,
+// dout and lse read once and dq, dk, dv written once; at the O2 step's call
+// the flops bound (0.0435 ms bf16) dominates. The split does 7 matmuls (S
+// and dP recomputed in the dq kernel) to stay deterministic; the bf16
+// bodies run them on the tensor cores with the copies in flight behind
+// them.
+
+#include <type_traits>
 
 #include "flash_bwd.cuh"
 
@@ -59,10 +64,78 @@ __global__ void __launch_bounds__(kThreads)
                                      vs, gs, BiasStrides{0, 0}, dqs, causal, scale);
 }
 
+// The bf16 instances: the tensor-core bodies (flash_bwd.cuh, flash::sm90).
+template <int D>
+__global__ void __launch_bounds__(flash::sm90::kThreads, 1)
+    bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                      const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int s, int h, Strides dks, Strides dvs,
+                      int causal, float scale) {
+  flash::sm90::dkv_body_tc<float, D, false>(&tq, &tk, &tv, &tdo, nullptr, BiasStrides{0, 0}, lse,
+                                            nullptr, di, dk, dv, dks, dvs, s, h, causal, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash::sm90::kThreads, 1)
+    bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                     const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int s, int h,
+                     Strides dqs, int causal, float scale) {
+  flash::sm90::dq_body_tc<float, D, false>(&tq, &tk, &tv, &tdo, nullptr, BiasStrides{0, 0}, lse,
+                                           nullptr, di, dq, dqs, s, h, causal, scale);
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* out,
+                      const void* dout, const float* lse, float* di, void* dq, void* dk, void* dv,
+                      int b, int s, int h, const long long* st, int causal, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr int dkv_bytes = flash::sm90::dkv_smem_bytes<D, false>();
+  constexpr int dq_bytes = flash::sm90::dq_smem_bytes<D, false>();
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkv_kernel_tc<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bwd_dq_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_bytes);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((err = flash::sm90::make_map(&tq, q, b, s, h, D, Strides{st[0], st[1], st[2]})) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tk, k, b, s, h, D, Strides{st[3], st[4], st[5]})) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tv, v, b, s, h, D, Strides{st[6], st[7], st[8]})) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tdo, dout, b, s, h, D, Strides{st[12], st[13], st[14]})) !=
+          cudaSuccess)
+    return err;
+  const Strides os{st[9], st[10], st[11]}, gs{st[12], st[13], st[14]};
+  const Strides dqs{st[15], st[16], st[17]}, dks{st[18], st[19], st[20]};
+  const Strides dvs{st[21], st[22], st[23]};
+  const float scale = 1.f / sqrtf((float)D);
+
+  const long long rows = (long long)b * s * h;
+  const int rows_per_block = kThreads / 32;
+  bwd_di_kernel<bf16, D><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), kThreads, 0,
+                           stream>>>(static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+                                     di, b, s, h, os, gs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid((s + 127) / 128, h, b);
+  bwd_dkv_kernel_tc<D><<<grid, flash::sm90::kThreads, dkv_bytes, stream>>>(
+      tq, tk, tv, tdo, lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, h, dks, dvs,
+      causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dq_kernel_tc<D><<<grid, flash::sm90::kThreads, dq_bytes, stream>>>(
+      tq, tk, tv, tdo, lse, di, static_cast<bf16*>(dq), s, h, dqs, causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
-                   const void* dout, const float* lse, float* di, void* dq, void* dk, void* dv,
-                   int b, int s, int h, const long long* st, int causal, cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* out,
+                        const void* dout, const float* lse, float* di, void* dq, void* dk, void* dv,
+                        int b, int s, int h, const long long* st, int causal, cudaStream_t stream) {
   constexpr int dkv_bytes = flash::dkv_smem_bytes<D>(false);
   constexpr int dq_bytes = flash::dq_smem_bytes<D>(false);
   cudaError_t err = cudaFuncSetAttribute(bwd_dkv_kernel<T, D>,
@@ -97,6 +170,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   bwd_dq_kernel<T, D><<<grid, kThreads, dq_bytes, stream>>>(
       qp, kp, vp, gp, lse, di, static_cast<T*>(dq), s, h, qs, ks, vs, gs, dqs, causal, scale);
   return cudaGetLastError();
+}
+
+
+// f32 takes the SIMT bodies, bf16 the tensor-core bodies (di is SIMT for both).
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
+                   const void* dout, const float* lse, float* di, void* dq, void* dk, void* dv,
+                   int b, int s, int h, const long long* st, int causal, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_tc<D>(q, k, v, out, dout, lse, di, dq, dk, dv, b, s, h, st, causal, stream);
+  } else {
+    return launch_simt<T, D>(q, k, v, out, dout, lse, di, dq, dk, dv, b, s, h, st, causal, stream);
+  }
 }
 
 }  // namespace

@@ -1,6 +1,9 @@
 // The flash-attention backward of K2 (flash_attention_bwd.cu) and K3b
-// (flash_flat_bwd.cu): three bodies, which each kernel's __global__
-// functions inline with their own arguments.
+// (flash_flat_bwd.cu): a di pre-kernel body shared by both dtypes, and a
+// dk/dv and a dq body per dtype, which each kernel's __global__ functions
+// inline with their own arguments. f32 takes the SIMT bodies `dkv_body`
+// and `dq_body`, bf16 the tensor-core bodies `sm90::dkv_body_tc` and
+// `sm90::dq_body_tc`.
 //
 // FlashAttention-2 style from the forward's row statistics: with
 // X = Q K^T * scale + bias, P = exp(X - m - log l) (causal and ragged pairs
@@ -11,35 +14,58 @@
 // bias [b|1, 1, s, s] through its strides. q, k, v, out, dout [b, s, h, d]
 // (any strides, unit stride on d) in f32 or bf16; dq, dk, dv in the input
 // dtype through the caller's strides (so the three can be slices of one
-// packed [b, s, 3, h, d] gradient). All arithmetic is f32; a bf16 result is
-// rounded once, at the store. The bias gets no gradient.
+// packed [b, s, 3, h, d] gradient). Accumulation is f32. The f32 bodies
+// round nothing; the bf16 bodies round P before dV and dS before dQ and dK,
+// as the reference does (flash_attention.py:192,225,228,
+// flash_attention_flat.py:207,210), and each result once, at the store. The
+// bias gets no gradient.
 //
-// Design. The TPU kernels keep a head's whole K/V (dq) or Q/dO/stats
+// Split. The TPU kernels keep a head's whole K/V (dq) or Q/dO/stats
 // (dk/dv) in VMEM, or accumulate dq across sequential grid steps; a Hopper
 // block cannot, and blocks run in no order. So, deterministic with no
-// atomics:
+// atomics, for both dtypes (FlashAttention-3's deterministic layout):
 // - `di_body`: di [b, h, s] f32, one warp per row (the reference computes it
-//   in jnp outside its Pallas calls).
-// - `dkv_body`: one block of 256 threads per (b, h, 64-row k tile). K and V
-//   tiles stay in shared memory; the block loops over 64-row q tiles (from
-//   the diagonal when causal) with Q, dO and the bias tile staged,
-//   recomputes X, P, dP and dS for the 64 x 64 tile, and accumulates dK and
-//   dV in f32 registers.
-// - `dq_body`: one block per (b, h, 64-row q tile); Q, dO stay in shared
-//   memory, the block loops over K/V (and bias) tiles up to the diagonal
-//   and accumulates dQ in registers.
-// Thread (ty, tx) owns score rows ty*4..ty*4+3 and keys tx, tx+16, tx+32,
-// tx+48 of a tile, and accumulator rows ty*4..ty*4+3 at columns
-// c*64 + tx*4 + 0..3. Rows and keys past a ragged s are masked here.
+//   in jnp outside its Pallas calls). Memory-bound and small: SIMT for both.
+// - dk/dv: one block per (b, h, k tile), K and V resident, looping over q
+//   tiles (from the diagonal when causal), accumulating dK and dV.
+// - dq: one block per (b, h, q tile), Q and dO resident, looping over K/V
+//   tiles up to the diagonal, accumulating dQ.
+// The split recomputes S and dP in both kernels: 7 matmuls where the bound
+// counts 5 (chip_smoke.py attention_bound), the price of determinism
+// without atomics.
+//
+// f32 design (SIMT). 256 threads per block and 64-row tiles; thread
+// (ty, tx) owns score rows ty*4..ty*4+3 and keys tx, tx+16, tx+32, tx+48 of
+// a tile, and accumulator rows ty*4..ty*4+3 at columns c*64 + tx*4 + 0..3.
 // Shared memory: four 64 x (d+4) f32 tiles plus one (dq) or two (dk/dv)
 // 64 x 68 score tiles and, with a bias, one 64 x 68 bias tile: at most
-// 187,392 bytes (dk/dv, d = 128, bias), under the card's 232,448, opted in
-// above 48 KB.
+// 187,392 bytes (dk/dv, d = 128, bias), opted in above 48 KB. True f32.
+//
+// bf16 design (Hopper tensor cores, flash_sm90.cuh). Three warpgroups per
+// block, 128 resident rows (two consumer warpgroups of 64) against 64-row
+// streamed tiles, as the forward (flash_fwd.cuh): warpgroup 0 (setmaxnreg
+// 24) streams by TMA into a 2-stage mbarrier ring, warpgroups 1 and 2
+// (setmaxnreg 240) run wgmma.
+// - dk/dv works in the transposed space, so P^T and dS^T come out of
+//   wgmma as accumulator fragments whose bf16 rounding is the register A
+//   operand of the next product: S^T = K Q^T and dP^T = V dO^T (shared
+//   memory operands, K-major), then dV += P^T dO and dK += dS^T Q (Q and dO
+//   read MN-major from the same panels). Warp 0 copies the streamed rows'
+//   m, log l and di into the stage beside Q and dO.
+// - dq: S = Q K^T and dP = dO V^T, then dQ += dS K (K MN-major).
+// Registers: at d = 64 a consumer holds dK and dV (32 f32 each), S^T and
+// dP^T (32 each) and their bf16 halves, within the 240 that setmaxnreg
+// gives it. At d = 128 the two accumulators double; the tiles stay 64
+// keys per warpgroup, and ptxas spills a little in the biased instances
+// (their ptxas lines in chip_smoke.py's build phase); d = 64 spills none. The bias is
+// staged through shared memory into the score fragments, as in the
+// forward (flash_sm90.cuh).
 #pragma once
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace flash {
 
@@ -342,5 +368,363 @@ __device__ __forceinline__ void dq_body(const T* __restrict__ q, const T* __rest
       for (int e = 0; e < 4; ++e) g[c * 64 + tx * 4 + e] = from_float<T>(acc[i][c][e] * scale);
   }
 }
+
+namespace sm90 {
+
+// Shared memory of the bf16 dk/dv body: two resident 64 x D K tiles and two
+// V tiles, kStages Q and dO tiles, kStages 1 KiB blocks of row statistics
+// (m, log l, di of the 64 streamed rows), 64 bytes of barriers, with a bias
+// its staging buffers, and 1024 bytes of alignment slack.
+template <int D, bool kBias>
+constexpr int dkv_smem_bytes() {
+  return (4 + 2 * kStages) * tile_bytes<D>() + kStages * 1024 + 64 + bias_smem_bytes<kBias>() +
+         1024;
+}
+
+// Shared memory of the bf16 dq body: two resident Q and two dO tiles,
+// kStages K and V tiles, the barriers, the bias buffers and the slack.
+template <int D, bool kBias>
+constexpr int dq_smem_bytes() {
+  return (4 + 2 * kStages) * tile_bytes<D>() + 64 + bias_smem_bytes<kBias>() + 1024;
+}
+
+// The bf16 dk/dv body of K2 (no bias) and K3b (kBias). Block (b, h, 128-key
+// tile), warpgroups 1 and 2 each own 64 keys, whose K and V tiles stay in
+// shared memory. Warp 0 streams 64-row Q and dO tiles by TMA (from the
+// diagonal when causal) and copies the rows' m, log l and di beside them.
+// Computed in the transposed space, so that P^T and dS^T come out of wgmma
+// as accumulator fragments whose bf16 rounding is the register A operand of
+// the next product:
+//   S^T = K Q^T, P^T = exp(S^T scale (+ bias^T) - m - log l),
+//   dV += P^T dO,  dP^T = V dO^T,  dS^T = P^T o (dP^T - di),  dK += dS^T Q.
+// Q and dO are read K-major for S^T and dP^T and MN-major for dK and dV.
+template <typename BT, int D, bool kBias>
+__device__ __forceinline__ void dkv_body_tc(const CUtensorMap* tq, const CUtensorMap* tk,
+                                            const CUtensorMap* tv, const CUtensorMap* tdo,
+                                            const BT* __restrict__ bias, BiasStrides bst,
+                                            const float* __restrict__ m,
+                                            const float* __restrict__ logl,
+                                            const float* __restrict__ di,
+                                            __nv_bfloat16* __restrict__ dk,
+                                            __nv_bfloat16* __restrict__ dv, Strides dks,
+                                            Strides dvs, int s, int h, int causal, float scale) {
+  constexpr int kTile = tile_bytes<D>();
+  uint8_t* base = smem_base();
+  const uint32_t Ks = smem_u32(base);
+  const uint32_t Vs = Ks + 2 * kTile;
+  const uint32_t Qs = Vs + 2 * kTile;
+  const uint32_t dOs = Qs + kStages * kTile;
+  float* stats = reinterpret_cast<float*>(base + (4 + 2 * kStages) * kTile);  // [kStages][256]
+  const uint32_t bar_kv = smem_u32(stats + kStages * 256);
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  float* bias_bufs = reinterpret_cast<float*>(base + (4 + 2 * kStages) * kTile + kStages * 1024 + 64);
+
+  const int kb = blockIdx.x;  // causal: k tile 0 sees every q tile, so low tiles go first
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int k0 = kb * 128;
+  const long long head = (long long)bi * h + hi;
+  const int n_q = (s + 63) / 64;
+  const int qt_first = causal ? k0 / 64 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(bar_full + 8 * i, 32);  // warp 0's lanes: the statistics, and the TMA bytes
+      mbar_init(bar_empty + 8 * i, kConsumers * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_tx(bar_kv, 4 * kTile);
+        tma_load_tile<D>(Ks, tk, bar_kv, hi, k0, bi);
+        tma_load_tile<D>(Ks + kTile, tk, bar_kv, hi, k0 + 64, bi);
+        tma_load_tile<D>(Vs, tv, bar_kv, hi, k0, bi);
+        tma_load_tile<D>(Vs + kTile, tv, bar_kv, hi, k0 + 64, bi);
+      }
+      for (int t = 0; qt_first + t < n_q; ++t) {
+        const int st = t % kStages;
+        const int q0 = (qt_first + t) * 64;
+        mbar_wait(bar_empty + 8 * st, ((t / kStages) & 1) ^ 1);
+        float* sm = stats + st * 256;
+        for (int i = lane; i < 64; i += 32) {  // rows past s are masked by the consumers
+          const int row = q0 + i;
+          const bool live = row < s;
+          sm[i] = live ? m[head * s + row] : 0.f;
+          sm[64 + i] = live && logl != nullptr ? logl[head * s + row] : 0.f;
+          sm[128 + i] = live ? di[head * s + row] : 0.f;
+        }
+        if (lane == 0) {  // after its own statistics: arriving publishes them
+          mbar_arrive_tx(bar_full + 8 * st, 2 * kTile);
+          tma_load_tile<D>(Qs + st * kTile, tq, bar_full + 8 * st, hi, q0, bi);
+          tma_load_tile<D>(dOs + st * kTile, tdo, bar_full + 8 * st, hi, q0, bi);
+        } else {
+          mbar_arrive(bar_full + 8 * st);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int kw0 = k0 + 64 * w;
+    const int key_lo = kw0 + 16 * (tid / 32) + lane / 4;  // fragment rows (keys) key_lo, key_lo + 8
+    const int c_off = 2 * (lane % 4);
+    const uint32_t k_tile = Ks + w * kTile;
+    const uint32_t v_tile = Vs + w * kTile;
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    // a wholly masked tile (causal: q rows all above the keys) is skipped;
+    // the bias of the next live tile is read while this one's products run
+    const int t_live = causal ? kw0 / 64 - qt_first : 0;
+    uint32_t bv[kBias ? bias_words<BT>() : 1];
+    const bool vec = kBias && bias_vector_ok(bias, bst);
+    if constexpr (kBias) bias_load(bv, bias, bst, bi, (qt_first + t_live) * 64, kw0, s, vec);
+    mbar_wait(bar_kv, 0);
+    for (int t = 0; qt_first + t < n_q; ++t) {
+      const int st = t % kStages;
+      const int q0 = (qt_first + t) * 64;
+      mbar_wait(bar_full + 8 * st, (t / kStages) & 1);
+      if (t >= t_live) {
+        float* buf = bias_bufs + (2 * w + t % 2) * kBiasBuf;
+        if constexpr (kBias) {
+          bias_store<68, BT>(buf, bv);
+          warpgroup_sync(w);
+        }
+        const uint32_t q_tile = Qs + st * kTile;
+        const uint32_t do_tile = dOs + st * kTile;
+        float sT[32], dpT[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sT[i] = dpT[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sT, desc_k(k_tile, kk), desc_k(q_tile, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dpT, desc_k(v_tile, kk), desc_k(do_tile, kk), kk > 0);
+        wgmma_commit();
+        if constexpr (kBias) {
+          if (qt_first + t + 1 < n_q) bias_load(bv, bias, bst, bi, q0 + 64, kw0, s, vec);
+        }
+        wgmma_wait();
+        fence_regs(sT);
+        fence_regs(dpT);
+        float bt[kBias ? 32 : 1];
+        if constexpr (kBias) bias_frag<true>(bt, buf);
+
+        const float* sm = stats + st * 256;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = key_lo + 8 * ((i / 2) % 2);
+          const int col = 8 * (i / 4) + c_off + i % 2;
+          const int row = q0 + col;
+          const bool visible = row < s && key < s && (!causal || key <= row);
+          float x = sT[i] * scale;
+          if constexpr (kBias) x += bt[i];
+          const float p = visible ? exp2f(((x - sm[col]) - sm[64 + col]) * kLog2e) : 0.f;
+          sT[i] = p;
+          dpT[i] = p * (dpT[i] - sm[128 + col]);
+        }
+        // P^T and dS^T rounded to bf16, as the reference rounds P before dV
+        // and dS before dK
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          a_frag<32>(pa[kk], sT, kk);
+          a_frag<32>(da[kk], dpT, kk);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(dv_acc, pa[kk], desc_mn(do_tile, kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(dk_acc, da[kk], desc_mn(q_tile, kk));
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+      }
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = key_lo + 8 * hh;
+      if (key >= s) continue;
+      __nv_bfloat16* gk = dk + bi * dks.b + key * dks.s + hi * dks.h + c_off;
+      __nv_bfloat16* gv = dv + bi * dvs.b + key * dvs.s + hi * dvs.h + c_off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        store_pair(gk + 8 * j, dk_acc[4 * j + 2 * hh] * scale, dk_acc[4 * j + 2 * hh + 1] * scale);
+        store_pair(gv + 8 * j, dv_acc[4 * j + 2 * hh], dv_acc[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// The bf16 dq body of K2 and K3b. Block (b, h, 128-row q tile), heaviest
+// causal tiles first; warpgroups 1 and 2 each own 64 query rows, whose Q and
+// dO tiles stay in shared memory, and read their rows' m, log l and di once.
+// Warp 0 streams 64-key K and V tiles by TMA up to the diagonal:
+//   S = Q K^T, P = exp(S scale (+ bias) - m - log l), dP = dO V^T,
+//   dS = P o (dP - di), dQ += dS K  (K read MN-major, dS as the A operand).
+template <typename BT, int D, bool kBias>
+__device__ __forceinline__ void dq_body_tc(const CUtensorMap* tq, const CUtensorMap* tk,
+                                           const CUtensorMap* tv, const CUtensorMap* tdo,
+                                           const BT* __restrict__ bias, BiasStrides bst,
+                                           const float* __restrict__ m,
+                                           const float* __restrict__ logl,
+                                           const float* __restrict__ di,
+                                           __nv_bfloat16* __restrict__ dq, Strides dqs, int s,
+                                           int h, int causal, float scale) {
+  constexpr int kTile = tile_bytes<D>();
+  uint8_t* base = smem_base();
+  const uint32_t Qs = smem_u32(base);
+  const uint32_t dOs = Qs + 2 * kTile;
+  const uint32_t Ks = dOs + 2 * kTile;
+  const uint32_t Vs = Ks + kStages * kTile;
+  const uint32_t bar_q = Vs + kStages * kTile;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  float* bias_bufs = reinterpret_cast<float*>(base + (4 + 2 * kStages) * kTile + 64);
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int q0 = qb * 128;
+  const long long head = (long long)bi * h + hi;
+  const int n_tiles = (s + 63) / 64;
+  const int n_live = causal ? min(n_tiles, (q0 + 127) / 64 + 1) : n_tiles;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, kConsumers * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(bar_q, 4 * kTile);
+      tma_load_tile<D>(Qs, tq, bar_q, hi, q0, bi);
+      tma_load_tile<D>(Qs + kTile, tq, bar_q, hi, q0 + 64, bi);
+      tma_load_tile<D>(dOs, tdo, bar_q, hi, q0, bi);
+      tma_load_tile<D>(dOs + kTile, tdo, bar_q, hi, q0 + 64, bi);
+      for (int t = 0; t < n_live; ++t) {
+        const int st = t % kStages;
+        mbar_wait(bar_empty + 8 * st, ((t / kStages) & 1) ^ 1);
+        mbar_arrive_tx(bar_full + 8 * st, 2 * kTile);
+        tma_load_tile<D>(Ks + st * kTile, tk, bar_full + 8 * st, hi, t * 64, bi);
+        tma_load_tile<D>(Vs + st * kTile, tv, bar_full + 8 * st, hi, t * 64, bi);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r_lo = q0 + 64 * w + 16 * (tid / 32) + lane / 4;  // fragment rows r_lo, r_lo + 8
+    const int c_off = 2 * (lane % 4);
+    const int w_last = causal ? min(n_tiles - 1, (q0 + 64 * w + 63) / 64) : n_tiles - 1;
+    const uint32_t q_tile = Qs + w * kTile;
+    const uint32_t do_tile = dOs + w * kTile;
+
+    float m_r[2], logl_r[2], di_r[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // rows past s are masked below
+      const int row = r_lo + 8 * hh;
+      m_r[hh] = row < s ? m[head * s + row] : 0.f;
+      logl_r[hh] = row < s && logl != nullptr ? logl[head * s + row] : 0.f;
+      di_r[hh] = row < s ? di[head * s + row] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    // the bias of the next tile, read while this one's products run
+    uint32_t bv[kBias ? bias_words<BT>() : 1];
+    const bool vec = kBias && bias_vector_ok(bias, bst);
+    if constexpr (kBias) bias_load(bv, bias, bst, bi, q0 + 64 * w, 0, s, vec);
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_live; ++t) {
+      const int st = t % kStages;
+      mbar_wait(bar_full + 8 * st, (t / kStages) & 1);
+      if (t <= w_last) {
+        const int k0 = t * 64;
+        float* buf = bias_bufs + (2 * w + t % 2) * kBiasBuf;
+        if constexpr (kBias) {
+          bias_store<72, BT>(buf, bv);
+          warpgroup_sync(w);
+        }
+        const uint32_t k_tile = Ks + st * kTile;
+        const uint32_t v_tile = Vs + st * kTile;
+        float sc[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sc, desc_k(q_tile, kk), desc_k(k_tile, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dp, desc_k(do_tile, kk), desc_k(v_tile, kk), kk > 0);
+        wgmma_commit();
+        if constexpr (kBias) {
+          if (t < w_last) bias_load(bv, bias, bst, bi, q0 + 64 * w, k0 + 64, s, vec);
+        }
+        wgmma_wait();
+        fence_regs(sc);
+        fence_regs(dp);
+        float bt[kBias ? 32 : 1];
+        if constexpr (kBias) bias_frag<false>(bt, buf);
+
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hh = (i / 2) % 2;
+          const int row = r_lo + 8 * hh;
+          const int key = k0 + 8 * (i / 4) + c_off + i % 2;
+          const bool visible = row < s && key < s && (!causal || key <= row);
+          float x = sc[i] * scale;
+          if constexpr (kBias) x += bt[i];
+          const float p = visible ? exp2f(((x - m_r[hh]) - logl_r[hh]) * kLog2e) : 0.f;
+          sc[i] = p * (dp[i] - di_r[hh]);
+        }
+        uint32_t da[4][4];  // dS rounded to bf16, as the reference rounds it before dQ
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) a_frag<32>(da[kk], sc, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(acc, da[kk], desc_mn(k_tile, kk));
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(acc);
+      }
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r_lo + 8 * hh;
+      if (row >= s) continue;
+      __nv_bfloat16* g = dq + bi * dqs.b + row * dqs.s + hi * dqs.h + c_off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store_pair(g + 8 * j, acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+    }
+  }
+}
+
+}  // namespace sm90
 
 }  // namespace flash

@@ -11,18 +11,23 @@
 // Hopper blocks run in no order, so that design would need atomics. K3b is
 // instead K2's deterministic split (flash_bwd.cuh): a di pre-kernel, a dk/dv
 // kernel over k tiles that walks q tiles, and a dq kernel over q tiles that
-// walks k tiles. Both recompute p = exp(s + bias - m - log l) from the same
-// 64 x 64 f32 bias tile, loaded through the bias's strides. dq, dk and dv
+// walks k tiles. Both recompute p = exp(s + bias - m - log l), the bias read
+// through its strides (f32: a 64 x 64 tile staged in shared memory; bf16:
+// each thread's entries into its score fragment). dq, dk and dv
 // are written through the caller's strides, so the packed route's three
 // land in one [b, s, 3, h, d] gradient. Whether there is a bias is a
 // template parameter: the no-bias instances (GPT's packed route) compile the
 // bias code out, as K2's do. Shared memory at d = 128 with a bias: 187,392
-// bytes (dk/dv) and 169,984 (dq), under the card's 232,448.
+// bytes (f32 dk/dv) and 169,984 (f32 dq), under the card's 232,448; the
+// bf16 bodies take 134,184 (dk/dv) and 132,136 (dq) at d = 128.
 //
-// Bound. As K2: five matmuls of 2*s*s*d flops per (b, h) (half causal)
-// against q, k, v, out, dout, the bias and the statistics read once and
-// dq, dk, dv written once; matmul-bound at BERT's and GPT's shapes. The
-// simple first version: f32 FMA on the CUDA cores, no tensor cores, no TMA.
+// Bound. As K2: five matmuls of 2 d flops per visible pair (7 computed,
+// the price of the deterministic split) against q, k, v, out, dout, the
+// bias and the statistics read once and dq, dk, dv written once. f32 runs
+// the SIMT bodies; bf16 the Hopper bodies (TMA-fed rings, wgmma products,
+// flash_bwd.cuh).
+
+#include <type_traits>
 
 #include "flash_bwd.cuh"
 
@@ -63,12 +68,90 @@ __global__ void __launch_bounds__(kThreads)
                                   bst, dqs, causal, scale);
 }
 
+// The bf16 instances: the tensor-core bodies (flash_bwd.cuh, flash::sm90).
+template <typename BT, int D, bool kBias>
+__global__ void __launch_bounds__(flash::sm90::kThreads, 1)
+    flat_bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, const BT* __restrict__ bias,
+                           BiasStrides bst, const float* __restrict__ m,
+                           const float* __restrict__ logl, const float* __restrict__ di,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s,
+                           int h, Strides dks, Strides dvs, int causal, float scale) {
+  flash::sm90::dkv_body_tc<BT, D, kBias>(&tq, &tk, &tv, &tdo, bias, bst, m, logl, di, dk, dv, dks,
+                                         dvs, s, h, causal, scale);
+}
+
+template <typename BT, int D, bool kBias>
+__global__ void __launch_bounds__(flash::sm90::kThreads, 1)
+    flat_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, const BT* __restrict__ bias,
+                          BiasStrides bst, const float* __restrict__ m,
+                          const float* __restrict__ logl, const float* __restrict__ di,
+                          __nv_bfloat16* __restrict__ dq, int s, int h, Strides dqs, int causal,
+                          float scale) {
+  flash::sm90::dq_body_tc<BT, D, kBias>(&tq, &tk, &tv, &tdo, bias, bst, m, logl, di, dq, dqs, s, h,
+                                        causal, scale);
+}
+
+template <typename BT, int D, bool kBias>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* bias,
+                      const void* out, const void* dout, const float* m, const float* logl,
+                      float* di, void* dq, void* dk, void* dv, int b, int s, int h,
+                      const long long* st, const long long* bst_in, int causal,
+                      cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr int dkv_bytes = flash::sm90::dkv_smem_bytes<D, kBias>();
+  constexpr int dq_bytes = flash::sm90::dq_smem_bytes<D, kBias>();
+  cudaError_t err = cudaFuncSetAttribute(flat_bwd_dkv_kernel_tc<BT, D, kBias>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flat_bwd_dq_kernel_tc<BT, D, kBias>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((err = flash::sm90::make_map(&tq, q, b, s, h, D, Strides{st[0], st[1], st[2]})) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tk, k, b, s, h, D, Strides{st[3], st[4], st[5]})) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tv, v, b, s, h, D, Strides{st[6], st[7], st[8]})) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tdo, dout, b, s, h, D, Strides{st[12], st[13], st[14]})) !=
+          cudaSuccess)
+    return err;
+  const Strides os{st[9], st[10], st[11]}, gs{st[12], st[13], st[14]};
+  const Strides dqs{st[15], st[16], st[17]}, dks{st[18], st[19], st[20]};
+  const Strides dvs{st[21], st[22], st[23]};
+  const BiasStrides bst{bst_in[0], bst_in[1]};
+  const BT* bp = static_cast<const BT*>(bias);
+  const float scale = 1.f / sqrtf((float)D);
+
+  const long long rows = (long long)b * s * h;
+  const int rows_per_block = kThreads / 32;
+  flat_bwd_di_kernel<bf16, D><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                                kThreads, 0, stream>>>(static_cast<const bf16*>(out),
+                                                       static_cast<const bf16*>(dout), di, b, s,
+                                                       h, os, gs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid((s + 127) / 128, h, b);
+  flat_bwd_dkv_kernel_tc<BT, D, kBias><<<grid, flash::sm90::kThreads, dkv_bytes, stream>>>(
+      tq, tk, tv, tdo, bp, bst, m, logl, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, h,
+      dks, dvs, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flat_bwd_dq_kernel_tc<BT, D, kBias><<<grid, flash::sm90::kThreads, dq_bytes, stream>>>(
+      tq, tk, tv, tdo, bp, bst, m, logl, di, static_cast<bf16*>(dq), s, h, dqs, causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, typename BT, int D, bool kBias>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const void* out, const void* dout, const float* m, const float* logl,
-                   float* di, void* dq, void* dk, void* dv, int b, int s, int h,
-                   const long long* st, const long long* bst_in, int causal,
-                   cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* bias,
+                        const void* out, const void* dout, const float* m, const float* logl,
+                        float* di, void* dq, void* dk, void* dv, int b, int s, int h,
+                        const long long* st, const long long* bst_in, int causal,
+                        cudaStream_t stream) {
   constexpr int dkv_bytes = flash::dkv_smem_bytes<D>(kBias);
   constexpr int dq_bytes = flash::dq_smem_bytes<D>(kBias);
   cudaError_t err = cudaFuncSetAttribute(flat_bwd_dkv_kernel<T, BT, D, kBias>,
@@ -106,6 +189,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
       qp, kp, vp, gp, bp, m, logl, di, static_cast<T*>(dq), s, h, qs, ks, vs, gs, bst, dqs,
       causal, scale);
   return cudaGetLastError();
+}
+
+// f32 takes the SIMT bodies, bf16 the tensor-core bodies (di is SIMT for both).
+template <typename T, typename BT, int D, bool kBias>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
+                   const void* out, const void* dout, const float* m, const float* logl,
+                   float* di, void* dq, void* dk, void* dv, int b, int s, int h,
+                   const long long* st, const long long* bst, int causal, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_tc<BT, D, kBias>(q, k, v, bias, out, dout, m, logl, di, dq, dk, dv, b, s, h, st,
+                                   bst, causal, stream);
+  } else {
+    return launch_simt<T, BT, D, kBias>(q, k, v, bias, out, dout, m, logl, di, dq, dk, dv, b, s,
+                                        h, st, bst, causal, stream);
+  }
 }
 
 template <typename T, typename BT, bool kBias>

@@ -10,18 +10,25 @@
 // Design. The TPU kernel's "flat lanes", head groups, [b, G, s, hg] lse and
 // one-hot column selects exist for Mosaic's lane rules. On Hopper a flat or
 // packed operand is a [b, s, h, d] view with strides (unit stride on d), so
-// K3 is K1's body (flash_fwd.cuh) with a 64 x 64 f32 bias tile loaded into
-// shared memory beside each K/V tile, through the bias's own strides: batch
-// stride 0 for a [1, 1, s, s] bias, which is never materialised per batch.
+// K3 is K1's bodies (flash_fwd.cuh) plus the bias, read through its own
+// strides (batch stride 0 for a [1, 1, s, s] bias, which is never
+// materialised per batch): the f32 body stages a 64 x 64 f32 bias tile in
+// shared memory beside each K/V tile; the bf16 body reads each thread's
+// bias entries into its score fragment.
 // The bias is added to the f32 scores before the running max; the scale
 // multiplies the f32 scores (the reference scales q in q's dtype, exact only
 // for d = 64). The row statistics are m and log l apart, so K3b's
 // p = exp(x - m - log l) stays exact on a fully masked row. Ragged s is
 // masked here (the reference requires s % block == 0, a TPU rule).
 //
-// Bound. As K1: 4*s*s*d flops per (b, h) against q, k, v, out and the bias
-// moved once; matmul-bound at BERT's and GPT's shapes. The simple first
-// version: f32 FMA on the CUDA cores, no tensor cores, no TMA; later work.
+// Bound. As K1: 4 d flops per visible pair against q, k, v, out and the
+// bias moved once (the bound counts only the pairs the mask leaves live;
+// the kernels compute every pair). f32 runs the SIMT body; bf16 the Hopper
+// body (TMA-fed K/V ring, wgmma products, flash_fwd.cuh), with the bias
+// read by the consumer warpgroups from L2 into their score fragments,
+// the next tile's during this tile's products.
+
+#include <type_traits>
 
 #include "flash_fwd.cuh"
 
@@ -40,10 +47,45 @@ __global__ void __launch_bounds__(flash::kThreads)
   flash::fwd_body<T, BT, D>(q, k, v, bias, out, m, logl, s, h, qs, ks, vs, bst, os, causal, scale);
 }
 
+// The bf16 instances: the tensor-core body (flash_fwd.cuh, flash::sm90),
+// with the bias code compiled in only where there is a bias.
+template <typename BT, int D, bool kBias>
+__global__ void __launch_bounds__(flash::sm90::kThreads, 1)
+    flash_flat_fwd_kernel_tc(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const BT* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ out, float* __restrict__ m,
+                             float* __restrict__ logl, int s, int h, BiasStrides bst, Strides os,
+                             int causal, float scale) {
+  flash::sm90::fwd_body_tc<BT, D, kBias>(&tq, &tk, &tv, bias, bst, out, os, m, logl, s, h, causal,
+                                         scale);
+}
+
+template <typename BT, int D, bool kBias>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* bias, void* out,
+                      float* m, float* logl, int b, int s, int h, const long long* st,
+                      const long long* bst, int causal, cudaStream_t stream) {
+  constexpr int bytes = flash::sm90::fwd_smem_bytes<D, kBias>();
+  cudaError_t err = cudaFuncSetAttribute(flash_flat_fwd_kernel_tc<BT, D, kBias>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if ((err = flash::sm90::make_map(&tq, q, b, s, h, D, Strides{st[0], st[1], st[2]})) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tk, k, b, s, h, D, Strides{st[3], st[4], st[5]})) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tv, v, b, s, h, D, Strides{st[6], st[7], st[8]})) != cudaSuccess)
+    return err;
+  const dim3 grid((s + 127) / 128, h, b);
+  flash_flat_fwd_kernel_tc<BT, D, kBias><<<grid, flash::sm90::kThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<const BT*>(bias), static_cast<__nv_bfloat16*>(out), m, logl, s, h,
+      BiasStrides{bst[0], bst[1]}, Strides{st[9], st[10], st[11]}, causal, 1.f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 template <typename T, typename BT, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
-                   float* m, float* logl, int b, int s, int h, const long long* st,
-                   const long long* bst, int causal, cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* bias,
+                        void* out, float* m, float* logl, int b, int s, int h,
+                        const long long* st, const long long* bst, int causal,
+                        cudaStream_t stream) {
   const int bytes = flash::fwd_smem_bytes<D>(bias != nullptr);
   cudaError_t err = cudaFuncSetAttribute(flash_flat_fwd_kernel<T, BT, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -57,6 +99,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
       static_cast<const BT*>(bias), static_cast<T*>(out), m, logl, s, h, qs, ks, vs,
       BiasStrides{bst[0], bst[1]}, os, causal, 1.f / sqrtf((float)D));
   return cudaGetLastError();
+}
+
+template <typename T, typename BT, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
+                   float* m, float* logl, int b, int s, int h, const long long* st,
+                   const long long* bst, int causal, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {  // bf16: the tensor-core body
+    if (bias != nullptr)
+      return launch_tc<BT, D, true>(q, k, v, bias, out, m, logl, b, s, h, st, bst, causal, stream);
+    return launch_tc<float, D, false>(q, k, v, bias, out, m, logl, b, s, h, st, bst, causal, stream);
+  } else {  // f32: the SIMT body
+    return launch_simt<T, BT, D>(q, k, v, bias, out, m, logl, b, s, h, st, bst, causal, stream);
+  }
 }
 
 template <typename T, typename BT>

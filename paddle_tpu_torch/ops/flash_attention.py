@@ -47,6 +47,27 @@ def flash_attention_available(q_shape, k_shape=None, dtype=torch.float32, device
             and s >= 1 and 1 <= b <= _MAX_GRID_YZ and 1 <= h <= _MAX_GRID_YZ)
 
 
+def check_tma_alignment(who, tensors):
+    """Raise ``ValueError`` unless every bf16 tensor in ``tensors`` (a
+    ``[b, s, h, d]`` operand or gradient buffer) has a 16-byte aligned base
+    address and 16-byte aligned byte strides on its ``b``, ``s`` and ``h``
+    dims (those of length 1 are never stepped, so they are exempt): the
+    bf16 kernels read their operands by TMA, which needs that, and store
+    bf16 pairs. A view of a packed ``[b, s, 3, h, d]`` projection passes;
+    a view offset by a few elements does not. f32 tensors take the SIMT
+    kernels and any strides."""
+    for t in tensors:
+        if t.dtype != torch.bfloat16:
+            continue
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(n > 1 and (st * size) % 16
+                                    for n, st in zip(t.shape[:3], t.stride()[:3])):
+            raise ValueError(f"{who}: a bf16 operand needs a 16-byte aligned base address and "
+                             f"16-byte aligned b, s, h strides (TMA); got shape "
+                             f"{tuple(t.shape)} strides {tuple(t.stride())} at "
+                             f"{t.data_ptr() % 16} bytes past a 16-byte boundary")
+
+
 def _reference_attention(q, k, v, causal):
     """The plain version: ``(out, lse)`` computed in f32 by matmul + softmax."""
     qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
@@ -82,6 +103,7 @@ def _launch(q, k, v, causal):
                          f"d in {HEAD_DIMS}; got q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_fwd: the kernel needs unit stride on the head dim")
+    check_tma_alignment("flash_attention_fwd", (q, k, v))
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -185,6 +207,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, grads):
                          "and device")
     if any(t.stride(-1) != 1 for t in tensors + tuple(grads)):
         raise ValueError("flash_attention_bwd: the kernel needs unit stride on the head dim")
+    check_tma_alignment("flash_attention_bwd", (q, k, v, dout) + tuple(grads))
     lse = lse.contiguous()
     di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = grads

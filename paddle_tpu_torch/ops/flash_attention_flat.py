@@ -37,7 +37,7 @@ import torch
 
 from ..framework.flags import flag
 from . import _cuda
-from .flash_attention import DTYPES, flash_attention_available
+from .flash_attention import DTYPES, check_tma_alignment, flash_attention_available
 
 #: Bias dtypes the kernels are compiled for (a bool mask is converted to
 #: 0 / -1e30 f32 by the caller).
@@ -154,6 +154,7 @@ def _fwd_kernel():
 def _launch_fwd(q, k, v, bias, causal):
     who = "flash_flat_fwd"
     _check_qkv((q, k, v), who)
+    check_tma_alignment(who, (q, k, v))
     b, s, h, d = q.shape
     bias, bias_strides = _check_bias(bias, b, s, q.device, who)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -215,6 +216,7 @@ def _launch_bwd(q, k, v, bias, out, stats, dout, causal, grads):
              or g.stride(-1) != 1 for g in grads):
         raise ValueError("flash_flat_bwd: dq, dk, dv buffers must match q's shape, dtype and "
                          "device, with unit stride on the head dim")
+    check_tma_alignment(who, (q, k, v, dout) + tuple(grads))
     stats = stats.contiguous()
     di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = grads

@@ -276,3 +276,70 @@ def test_bwd_kernel_writes_packed_qkv_strides_on_card(card):
     ref = base.clone().requires_grad_()
     attn._core_xla(ref, 0.0, None).backward(g)
     torch.testing.assert_close(qkv.grad, ref.grad, atol=2e-5, rtol=1e-4)
+
+
+def test_tma_alignment_rule():
+    """The bf16 kernels read q, k, v and dout by TMA and store bf16 pairs:
+    a bf16 operand needs a 16-byte aligned base and 16-byte aligned b, s, h
+    byte strides. Views of a packed projection pass; a view one element
+    past a boundary, or with a row pitch of 68 elements, raises; f32 is
+    exempt (the SIMT kernels take any strides)."""
+    qkv = torch.zeros((2, 64, 3, 2, 64), dtype=torch.bfloat16)
+    fa.check_tma_alignment("test", (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]))
+    fa.check_tma_alignment("test", (torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16)[:, :, :, :],))
+    flat = torch.zeros(2 * 64 * 2 * 64 + 1, dtype=torch.bfloat16)
+    offset = flat[1:].view(2, 64, 2, 64)
+    pitch = torch.zeros((2, 64, 2, 68), dtype=torch.bfloat16)[..., :64]
+    for bad in (offset, pitch):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.check_tma_alignment("test", (qkv[:, :, 0], bad))
+    fa.check_tma_alignment("test", (torch.zeros(2 * 64 * 2 * 64 + 1)[1:].view(2, 64, 2, 64),))
+
+
+# The bf16 kernels' tiling: 128-row q tiles and 64-key K/V tiles, TMA's zero
+# fill past s, lengths on both sides of each tile edge, both head dims.
+# Tolerances as in the bf16 cases above.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129])
+def test_bf16_tiling_edges_on_card(card, s, causal, d):
+    shape = (2, s, 3, d)
+    q, k, v, out, lse, dout = _bwd_inputs(shape, torch.bfloat16, causal, card, seed=20 + s)
+    want_out, want_lse = fa._reference_attention(q.float(), k.float(), v.float(), causal)
+    torch.testing.assert_close(out.float(), want_out, atol=2e-2, rtol=0.0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-4)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    want = fa._reference_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse,
+                                       dout.float(), causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == shape
+        torch.testing.assert_close(g.float(), w, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_packed_qkv_on_card(card):
+    """The O2 step's call: bf16 views of one packed ``[b, s, 3, h, d]``
+    projection through ``attention_core``/``flash``; K1 reads and K2 writes
+    strided slices (TMA over the views' own strides), and both agree with
+    the plain composite in f32 on the same bf16 inputs (bf16 tolerances as
+    above)."""
+    rng = np.random.default_rng(21)
+    base = torch.from_numpy(rng.standard_normal((2, 200, 3, 4, 64)).astype(np.float32)).to(
+        card, torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((2, 200, 4, 64)).astype(np.float32)).to(
+        card, torch.bfloat16)
+    registry.clear_cache()
+    qkv = base.clone().requires_grad_()
+    before = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    out = registry.dispatch("attention_core", qkv, 0.0, None)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = base.float().requires_grad_()
+    want = attn._core_xla(ref, 0.0, None)
+    want.backward(g.float())
+    torch.testing.assert_close(out.float(), want, atol=2e-2, rtol=0.0)
+    torch.testing.assert_close(qkv.grad.float(), ref.grad, atol=2e-2, rtol=1e-2)

@@ -273,14 +273,7 @@ def _card_bias(kind, b, s, device, dtype):
 # bf16: the kernel's bf16 results against the plain version in f32 on the
 # same bf16 inputs, atol 2e-2 (forward) and 2e-2 / rtol 1e-2 (gradients):
 # one bf16 rounding of values of a few units.
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("case", [("padding", (2, 512, 2, 64)), ("broadcast", (2, 200, 3, 64)),
-                                  ("banded", (1, 256, 2, 128)), ("none", (2, 130, 2, 64))])
-def test_kernels_match_plain_on_card(card, case, causal, dtype):
-    kind, shape = case
-    dt = getattr(torch, dtype)
+def _check_kernels_on_card(card, kind, shape, causal, dt):
     b, s, h, d = shape
     qkv = torch.from_numpy(_arrays([(b, s, 3, h, d)], seed=11)[0]).to(card, dt)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views
@@ -296,7 +289,7 @@ def test_kernels_match_plain_on_card(card, case, causal, dtype):
     want_out, want_stats = ff._reference_flat_fwd(q.float(), k.float(), v.float(), bias, causal)
     want = ff._reference_flat_bwd(q.float(), k.float(), v.float(), bias, out.float(), stats,
                                   dout.float(), causal)
-    f32 = dtype == "float32"
+    f32 = dt == torch.float32
     torch.testing.assert_close(out.float(), want_out, atol=1e-5 if f32 else 2e-2, rtol=1e-4 if f32 else 0.0)
     torch.testing.assert_close(stats[1], want_stats[1], atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(stats[0] - want_stats[0], torch.zeros_like(stats[0]), atol=1e-5,
@@ -304,6 +297,38 @@ def test_kernels_match_plain_on_card(card, case, causal, dtype):
     for got, w in zip(grads, want):
         torch.testing.assert_close(got.float(), w, atol=2e-5 if f32 else 2e-2,
                                    rtol=1e-4 if f32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", [("padding", (2, 512, 2, 64)), ("broadcast", (2, 200, 3, 64)),
+                                  ("banded", (1, 256, 2, 128)), ("none", (2, 130, 2, 64))])
+def test_kernels_match_plain_on_card(card, case, causal, dtype):
+    kind, shape = case
+    _check_kernels_on_card(card, kind, shape, causal, getattr(torch, dtype))
+
+
+# The bf16 kernels' tiling: 128-row q tiles and 64-key K/V tiles, TMA's zero
+# fill past s, lengths on both sides of each tile edge, both head dims, with
+# and without a padding bias (whose rows have the odd stride s).
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", ["none", "padding"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129])
+def test_bf16_tiling_edges_on_card(card, s, causal, d, bias):
+    kind = bias if s > 3 else "none"  # the padding bias masks query row 3 whole
+    _check_kernels_on_card(card, kind, (2, s, 2, d), causal, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_broadcast_bias_on_card(card, d):
+    """A ``[1, 1, s, s]`` bias read with batch stride 0 by every batch of
+    the bf16 kernels, causal and not."""
+    for causal in (False, True):
+        _check_kernels_on_card(card, "broadcast", (3, 129, 2, d), causal, torch.bfloat16)
 
 
 @pytest.mark.cuda
