@@ -12,8 +12,10 @@ non-zero and prints no result. Phases, one JSON line each:
 2. ``build``: every kernel of the path built from source, all ``nvcc``
    processes started together; ptxas's registers and spills, and the
    tensor-core instructions (``HGMMA``: wgmma, ``HMMA``: mma.sync) of every
-   flash kernel by ``cuobjdump -sass``: each bf16 instance of K1, K2, K3
-   and K3b must hold some.
+   flash and grouped-FFN kernel by ``cuobjdump -sass``: each bf16 instance
+   of K1, K2, K3 and K3b must hold some; each bf16 instance of K4 and K4b
+   must hold HGMMA and no HMMA, and their f32 instances and small passes
+   none.
 3. ``kernels``: kernels K1 (flash-attention forward) and K2 (its backward)
    against their plain PyTorch versions at the main path's shapes, f32 and
    bf16, causal and not, d = 64 and 128, a ragged s, and packed-qkv
@@ -34,19 +36,24 @@ non-zero and prints no result. Phases, one JSON line each:
 7. ``train_check``: one f32 step of the same model at batch 2 through
    ``attention_core``/``flash`` and through the plain ``xla`` impl from the
    same weights: the losses and every parameter's gradient agree.
-8. ``moe_kernels`` (run after phase 3): kernels K4 (the grouped expert-FFN
+8. ``moe_kernels`` (run after phase 9): kernels K4 (the grouped expert-FFN
    forward) and K4b (its backward) against their plain PyTorch versions at
-   the GPT-MoE step's full-width shape, f32 and bf16, plus an H <= 512
-   case, a capacity that is no multiple of the kernels' tile and a case
-   ragged in every dimension; with the times of the kernel and the plain
-   version beside the bound (no single PyTorch call computes a grouped
-   FFN, so there is no library time).
+   the GPT-MoE step's full-width shape, f32 and bf16: the main call at each
+   MoE layer's live ``rows`` of phase 9's traced step (the routing of the
+   step at seed 0) with junk in the padding rows, then every row live;
+   plus an H <= 512 case, a capacity that is no multiple of the kernels'
+   tile and a case ragged in every dimension; with the times of
+   the kernel and the plain version beside the bound over the padded rows
+   (``bound_ms``) and over the live rows (``bound_live_ms``; no single
+   PyTorch call computes a grouped FFN, so there is no library time).
 9. ``moe_train``: the GPT-MoE step of ``bench.py:_measure_moe`` at full
    width: f32 ``TrainStep`` over ``AdamW``, ids ``[8, 1024]``, GShard
    jitter on, 2 warm-up and 5 timed steps, through the ``moe`` kernel's
    ``pallas_sorted`` impl (K4/K4b) and then through ``moe=dense``; losses
    finite and falling, K4 and K4b launched once per MoE layer and step, K1
-   and K2 once per layer and step; one step of each traced.
+   and K2 once per layer and step; one step of each traced; the share of
+   the f32 flops bound over the padded expert rows and over the live rows,
+   and each MoE layer's ``rows`` at the traced step.
 10. ``moe_check``: one f32 step at batch 2 through ``pallas_sorted`` and
     through ``dense`` from the same weights and routing seeds: the losses,
     every gradient and the eval logits agree.
@@ -84,8 +91,10 @@ non-zero and prints no result. Phases, one JSON line each:
 Phases 4, 5, 6, 9 (its ``pallas_sorted`` run), 12, 13 and 16 are the main
 path: the kernel counts are set to 0 just before each of them and read just
 after it. Then one JSON line lists every kernel with its launches in those
-runs (K1 and K3 with a ``bf16_row`` too: their O2 steps' bf16 call), and
-the last line is the ``{"ok": true, ...}`` result.
+runs (K1 and K3 with a ``bf16_row`` too: their O2 steps' bf16 call; K4 and
+K4b at the first MoE layer's rows of the traced step, whose ``bound_ms``
+counts the live rows, the rows the kernels compute), and the last line is the
+``{"ok": true, ...}`` result.
 """
 from __future__ import annotations
 
@@ -282,9 +291,11 @@ def sass_counts(library):
 
 def phase_build():
     """Builds every kernel, reports ptxas's registers and spills, and counts
-    the tensor-core instructions in the flash kernels' SASS: every bf16
-    instance of K1, K2, K3 and K3b (the ``*_tc`` kernels; the bf16 di
-    pre-kernel is SIMT, as is every f32 instance) must hold HGMMA or HMMA."""
+    the tensor-core instructions in the kernels' SASS: every bf16 instance
+    of K1, K2, K3 and K3b (the ``*_tc`` kernels; the bf16 di pre-kernel is
+    SIMT, as is every f32 instance) must hold HGMMA or HMMA; every bf16
+    instance of K4 and K4b (``*_tc``) HGMMA (wgmma) and no HMMA, and their
+    other kernels (f32 SIMT, the fill and the column sums) neither."""
     from paddle_tpu_torch.ops import _cuda
 
     names = [K["name"] for K in KERNELS]
@@ -294,14 +305,21 @@ def phase_build():
         if "registers" in ln or ("spill" in ln and not ln.strip().startswith("0 bytes stack"))]
         for n in names}
     flash = [K["name"] for K in (K1, K2, K3, K3B)]
-    sass = {n: sass_counts(_cuda.library_path(n)) for n in flash}
-    bf16 = {n: {k: c for k, c in sass[n].items() if "_tc" in k} for n in flash}
-    missing = [n for n in flash if not bf16[n]] + [
-        k for n in flash for k, c in bf16[n].items() if c["HGMMA"] == 0 and c["HMMA"] == 0]
-    emit(phase="build", ok=not missing, seconds=seconds, ptxas=ptxas, sass_tensor_core=sass,
-         bf16_without_tensor_cores=missing)
-    if missing:
-        raise AssertionError(f"bf16 flash kernels without tensor-core instructions: {missing}")
+    moe = [K["name"] for K in (K4, K4B)]
+    sass = {n: sass_counts(_cuda.library_path(n)) for n in flash + moe}
+    bf16 = {n: {k: c for k, c in sass[n].items() if "_tc" in k} for n in flash + moe}
+    missing = [n for n in flash + moe if not bf16[n]] + [
+        k for n in flash for k, c in bf16[n].items() if c["HGMMA"] == 0 and c["HMMA"] == 0] + [
+        k for n in moe for k, c in bf16[n].items() if c["HGMMA"] == 0 or c["HMMA"] > 0]
+    simt_with_tensor_cores = [k for n in moe for k, c in sass[n].items()
+                              if "_tc" not in k and c["HGMMA"] + c["HMMA"] > 0]
+    ok = not missing and not simt_with_tensor_cores
+    emit(phase="build", ok=ok, seconds=seconds, ptxas=ptxas, sass_tensor_core=sass,
+         bf16_without_tensor_cores=missing, simt_with_tensor_cores=simt_with_tensor_cores)
+    if not ok:
+        raise AssertionError(f"bf16 kernels without (or K4/K4b with mma.sync) tensor-core "
+                             f"instructions: {missing}; K4/K4b SIMT kernels with them: "
+                             f"{simt_with_tensor_cores}")
 
 
 def phase_k1():
@@ -548,9 +566,9 @@ def _kernel_group(name):
         return "K3 flash_flat_fwd"
     if "flat_bwd_" in name:
         return "K3b flash_flat_bwd"
-    if "moe_ffn_fwd_gemm" in name:
+    if "moe_ffn_fwd_" in name:
         return "K4 moe_grouped_ffn_fwd"
-    if "moe_ffn_bwd_gemm" in name:
+    if "moe_ffn_bwd_" in name:
         return "K4b moe_grouped_ffn_bwd"
     if "flash_fwd_kernel" in name:
         return "K1 flash_attention_fwd"
@@ -726,60 +744,74 @@ def phase_flat_check():
                            "attention_core=xla", K3B, SERVE_CFG["num_layers"], flat=True)
 
 
-def moe_ffn_bound(E, cap, D, H, dtype, backward=False):
+def moe_ffn_bound(E, cap, D, H, dtype, backward=False, live=None):
     """The least time (ms) the card needs for K4 or K4b over ``E * cap``
-    rows: the larger of the bytes it must move over the memory rate, and its
-    matmul flops over the peak rate for the dtype. Forward: xg, w1, b1, w2,
-    b2 read once, y and the f32 s written once; 2 products, 4 R D H flops.
-    Backward: xg, w1, w2, dy and the f32 s read once, dx, dw1, db1, dw2, db2
-    written once; 4 products, 8 R D H flops."""
+    rows of which ``live`` (default: all) hold a token: the larger of the
+    bytes it must move over the memory rate, and its matmul flops over the
+    peak rate for the dtype. Forward: the live rows of xg and w1, b1, w2, b2
+    read once, y and the f32 s written once (every row); 2 products over the
+    live rows, 4 L D H flops. Backward: the live rows of xg, dy and the f32 s
+    and w1, w2 read once, dx (every row), dw1, db1, dw2, db2 written once; 4
+    products, 8 L D H flops."""
     elem = torch.finfo(dtype).bits // 8
     R = E * cap
+    L = R if live is None else live
     weights = 2 * E * D * H + E * (D + H)
     if backward:
-        nbytes = (2 * R * D + 2 * E * D * H) * elem + R * H * 4 + (R * D + weights) * elem
+        nbytes = (2 * L * D + 2 * E * D * H) * elem + L * H * 4 + (R * D + weights) * elem
     else:
-        nbytes = (R * D + weights + R * D) * elem + R * H * 4
-    flops = (8 if backward else 4) * R * D * H
+        nbytes = (L * D + weights + R * D) * elem + R * H * 4
+    flops = (8 if backward else 4) * L * D * H
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _moe_cases():
+def _moe_cases(step_rows):
+    """(E, cap, D, H, dtype, activation, layer): the main call first, at
+    each MoE layer's live rows in ``step_rows`` (``layer`` indexes it), and
+    then with every row live (``layer`` None)."""
     full = (8, 4096, 1024, 4096)  # the GPT-MoE step's call: E, cap, D, H
-    cases = [(*full, dt, "gelu") for dt in (torch.float32, torch.bfloat16)]
+    cases = [(*full, dt, "gelu", layer) for layer in (*range(len(step_rows)), None)
+             for dt in (torch.float32, torch.bfloat16)]
     # H <= 512 (the reference's single-hidden-tile kernels) and a capacity
     # that is no multiple of the 128-row tile
-    cases += [(8, 4096, 1024, 512, dt, "gelu") for dt in (torch.float32, torch.bfloat16)]
-    cases += [(8, 1000, 1024, 4096, dt, "gelu") for dt in (torch.float32, torch.bfloat16)]
+    cases += [(8, 4096, 1024, 512, dt, "gelu", None) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(8, 1000, 1024, 4096, dt, "gelu", None) for dt in (torch.float32, torch.bfloat16)]
     # ragged in every dimension, and the other activations
-    cases += [(3, 77, 200, 328, torch.float32, "relu"), (3, 77, 200, 328, torch.bfloat16, "silu")]
+    cases += [(3, 77, 200, 328, torch.float32, "relu", None),
+              (3, 77, 200, 328, torch.bfloat16, "silu", None)]
     return cases
 
 
-def phase_moe_kernels():
+def phase_moe_kernels(step_rows):
     """K4 and K4b against their plain versions; returns the rows of the main
-    path's call ([8 x 4096, 1024] rows, H 4096, f32 gelu, as the GPT-MoE
-    step makes it)."""
+    path's call ([8 x 4096, 1024] rows, H 4096, f32 gelu) at the first MoE
+    layer's live rows in ``step_rows`` (each MoE layer's rows per expert at
+    ``moe_train``'s traced step). Every row of xg and dy holds random
+    values: past ``rows[e]`` they are junk that the kernels and the plain
+    versions must ignore."""
     from paddle_tpu_torch.ops import moe_pallas as mp
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     main, failures = {}, []
-    for E, cap, D, H, dt, act in _moe_cases():
+    for E, cap, D, H, dt, act, layer in _moe_cases(step_rows):
         def rand(*shape, scale=1.0):
             return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dt)
 
         args = (rand(E * cap, D), rand(E, D, H, scale=D ** -0.5), rand(E, 1, H, scale=0.1),
                 rand(E, H, D, scale=H ** -0.5), rand(E, 1, D, scale=0.1))
         dy = rand(E * cap, D)
+        rows = None if layer is None else torch.tensor(step_rows[layer], dtype=torch.int32,
+                                                       device="cuda")
+        n_live = E * cap if rows is None else int(rows.sum())
         before = read_launches()
-        y, s = mp.moe_grouped_ffn_fwd(*args, act)
-        grads = mp.moe_grouped_ffn_bwd(*args, s, dy, act)
+        y, s = mp.moe_grouped_ffn_fwd(*args, act, rows)
+        grads = mp.moe_grouped_ffn_bwd(*args, s, dy, act, rows)
         torch.cuda.synchronize()
         after = read_launches()
         ref = [t.float() for t in args]
-        want_y, want_s = mp._reference_ffn_fwd(*ref, act)
-        want = (want_y, want_s) + mp._reference_ffn_bwd(*ref, want_s, dy.float(), act)
+        want_y, want_s = mp._reference_ffn_fwd(*ref, act, rows)
+        want = (want_y, want_s) + mp._reference_ffn_bwd(*ref, want_s, dy.float(), act, rows)
         got = (y, s) + tuple(grads)
         names = ("y", "s", "dx", "dw1", "db1", "dw2", "db2")
         abs_err = {n: (g.float() - w).abs().max().item() for n, g, w in zip(names, got, want)}
@@ -792,29 +824,36 @@ def phase_moe_kernels():
                     K4B["name"]: after[K4B["name"]] - before[K4B["name"]]}
         big = E * cap * D * H > 1e9
         timing = {
-            K4["name"]: (cuda_ms(lambda: mp.moe_grouped_ffn_fwd(*args, act), iters=5 if big else 20),
-                         cuda_ms(lambda: mp._reference_ffn_fwd(*args, act), iters=3, warmup=1),
-                         moe_ffn_bound(E, cap, D, H, dt)),
-            K4B["name"]: (cuda_ms(lambda: mp.moe_grouped_ffn_bwd(*args, s, dy, act),
+            K4["name"]: (cuda_ms(lambda: mp.moe_grouped_ffn_fwd(*args, act, rows),
+                                 iters=5 if big else 20),
+                         cuda_ms(lambda: mp._reference_ffn_fwd(*args, act, rows), iters=3,
+                                 warmup=1),
+                         moe_ffn_bound(E, cap, D, H, dt), moe_ffn_bound(E, cap, D, H, dt,
+                                                                        live=n_live)),
+            K4B["name"]: (cuda_ms(lambda: mp.moe_grouped_ffn_bwd(*args, s, dy, act, rows),
                                   iters=5 if big else 20),
-                          cuda_ms(lambda: mp._reference_ffn_bwd(*args, s, dy, act), iters=3,
+                          cuda_ms(lambda: mp._reference_ffn_bwd(*args, s, dy, act, rows), iters=3,
                                   warmup=1),
-                          moe_ffn_bound(E, cap, D, H, dt, backward=True)),
+                          moe_ffn_bound(E, cap, D, H, dt, backward=True),
+                          moe_ffn_bound(E, cap, D, H, dt, backward=True, live=n_live)),
         }
         del y, s, grads, got, dy, args
         for K, ok, outs in ((K4, fwd_ok, names[:2]), (K4B, bwd_ok, names[2:])):
-            ms, plain_ms, (bound_ms, bound_by) = timing[K["name"]]
-            flops = (4 if K is K4 else 8) * E * cap * D * H
+            ms, plain_ms, (bound_ms, bound_by), (bound_live_ms, bound_live_by) = timing[K["name"]]
+            flops = (4 if K is K4 else 8) * n_live * D * H
             row = dict(shape=[E * cap, D, H], experts=E, capacity=cap, dtype=str(dt).split(".")[-1],
-                       activation=act, max_abs_err=max(abs_err[n] for n in outs),
+                       activation=act, layer=layer, rows=None if rows is None else rows.tolist(),
+                       fill=n_live / (E * cap), max_abs_err=max(abs_err[n] for n in outs),
                        rel_err={n: rel_err[n] for n in outs}, rel_tol=MOE_TOL[dt],
                        ok=ok and launched[K["name"]] == 1, launches=launched[K["name"]], ms=ms,
                        plain_ms=plain_ms, library_ms=None, library=NO_LIBRARY, bound_ms=bound_ms,
-                       bound_by=bound_by, tflops=flops / ms / 1e9)
+                       bound_by=bound_by, bound_live_ms=bound_live_ms, bound_live_by=bound_live_by,
+                       bound_share=bound_ms / ms, bound_live_share=bound_live_ms / ms,
+                       tflops_live_rows=flops / ms / 1e9)
             emit(phase="moe_kernels", kernel=K["name"], **row)
             if not row["ok"]:
-                failures.append((K["name"], row["shape"], row["dtype"]))
-            if (E, cap, D, H, dt, act) == (8, 4096, 1024, 4096, torch.float32, "gelu"):
+                failures.append((K["name"], row["shape"], row["dtype"], row["fill"]))
+            if (E, cap, D, H, dt, act, layer) == (8, 4096, 1024, 4096, torch.float32, "gelu", 0):
                 main[K["name"]] = row
         torch.cuda.empty_cache()
     if failures:
@@ -822,11 +861,12 @@ def phase_moe_kernels():
     return main
 
 
-def _moe_flops_per_step(cfg, batch, seq):
-    """Flops of one GPT-MoE training step as it runs: the dense trunk and
-    LM head as in :func:`_model_flops_per_step`, but the FFN weights of the
-    dense blocks only, plus each MoE block's expert FFN over its padded
-    ``E * capacity`` rows (2 products forward, 4 backward) and its gate."""
+def _moe_flops_per_step(cfg, batch, seq, fills=None):
+    """Flops of one GPT-MoE training step: the dense trunk and LM head as in
+    :func:`_model_flops_per_step`, but the FFN weights of the dense blocks
+    only, plus each MoE block's expert FFN (2 products forward, 4 backward)
+    over its padded ``E * capacity`` rows, or over its live rows where
+    ``fills`` gives each MoE layer's share of them, and its gate."""
     D, F, L, E = cfg.hidden_size, cfg.ffn_hidden_size, cfg.num_layers, cfg.moe_num_experts
     n_moe = L // cfg.moe_every
     tokens = batch * seq
@@ -834,17 +874,18 @@ def _moe_flops_per_step(cfg, batch, seq):
     n_matmul = L * 4 * D * D + (L - n_moe) * 2 * D * F + n_moe * D * E + cfg.vocab_size * D
     pairs = seq * (seq + 1) // 2
     attention = 12 * batch * cfg.num_heads * (D // cfg.num_heads) * pairs * L
-    experts = n_moe * 12 * E * cap * D * F
+    rows = n_moe * E * cap if fills is None else sum(f * E * cap for f in fills)
+    experts = 12 * rows * D * F
     return 6 * n_matmul * tokens + attention + experts
 
 
 def expert_fill(model, ids):
-    """The share of the expert FFN's ``E * capacity`` rows that hold a
-    dispatched token, per MoE layer, in one training-mode forward of
-    ``ids``: each layer's routing is recomputed from its input and its
-    generator's state before the forward, so the jitter draws are the ones
-    the forward made. The rest of the rows are padding that K4/K4b compute
-    all the same."""
+    """Per MoE layer, the live rows of each expert (the dispatch's ``rows``,
+    which K4/K4b compute) and their share of the ``E * capacity`` rows, in
+    one training-mode forward of ``ids``: each layer's routing is
+    recomputed from its input and its generator's state before the forward,
+    so the jitter draws are the ones the forward made. Returns
+    ``(fills, rows)``."""
     from paddle_tpu_torch.distributed.moe import MoELayer, jitter_drop_mask
 
     seen = []
@@ -860,7 +901,7 @@ def expert_fill(model, ids):
     finally:
         for h in handles:
             h.remove()
-    fills = []
+    fills, rows = [], []
     with torch.no_grad():
         for layer, x, state in seen:
             tokens = x.reshape(-1, x.shape[-1])
@@ -874,7 +915,8 @@ def expert_fill(model, ids):
             cap = layer.capacity(tokens.shape[0])
             counts = torch.bincount(dispatched, minlength=layer.num_experts).clamp(max=cap)
             fills.append(float(counts.sum()) / (layer.num_experts * cap))
-    return fills
+            rows.append(counts.tolist())
+    return fills, rows
 
 
 def phase_moe_train():
@@ -882,7 +924,8 @@ def phase_moe_train():
     warm-up and 5 timed steps (synchronised) on one ids batch with labels =
     ids, GShard jitter on, through ``pallas_sorted`` and then ``moe=dense``
     (a fresh model from the same seed each); one more step of each traced.
-    Returns the kernel launches of the ``pallas_sorted`` run's 7 steps."""
+    Returns the kernel launches of the ``pallas_sorted`` run's 7 steps and
+    its traced step's live rows per expert in each MoE layer."""
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
@@ -898,7 +941,7 @@ def phase_moe_train():
                         generator=torch.Generator(device="cuda").manual_seed(SEED + 6))
     flops = _moe_flops_per_step(cfg, b, s)
     bound_ms = 1e3 * flops / PEAK_FLOPS[torch.float32]
-    runs, main_launches = {}, None
+    runs, main_launches, step_rows = {}, None, None
     for path, overrides in (("pallas_sorted", ""), ("dense", "moe=dense")):
         set_flags({"FLAGS_kernel_overrides": overrides})
         try:
@@ -922,7 +965,7 @@ def phase_moe_train():
             peak = torch.cuda.max_memory_allocated()
             picked = metrics.counters("kernels.moe.")
             breakdown = profile_step(step, ids, ids)
-            fill = expert_fill(model, ids)
+            fill, layer_rows = expert_fill(model, ids)
         finally:
             set_flags({"FLAGS_kernel_overrides": ""})
         ms_per_step = 1e3 * seconds / MOE_TRAIN["steps"]
@@ -938,9 +981,11 @@ def phase_moe_train():
                           launches_per_step=per_step, seconds=seconds, ms_per_step=ms_per_step,
                           tokens_per_s=b * s * MOE_TRAIN["steps"] / seconds,
                           max_memory_allocated=peak, bound_share=bound_ms / ms_per_step,
-                          expert_row_fill=fill, profile=breakdown)
+                          bound_live_share=1e3 * _moe_flops_per_step(cfg, b, s, fill)
+                          / PEAK_FLOPS[torch.float32] / ms_per_step,
+                          expert_row_fill=fill, expert_rows=layer_rows, profile=breakdown)
         if path == "pallas_sorted":
-            main_launches = launches
+            main_launches, step_rows = launches, layer_rows
         del model, step
         torch.cuda.empty_cache()
     ok = all(r["ok"] for r in runs.values())
@@ -948,7 +993,7 @@ def phase_moe_train():
          flops_per_step=flops, flops_bound_ms=bound_ms, **runs)
     if not ok:
         raise AssertionError("moe_train phase failed")
-    return main_launches
+    return main_launches, step_rows
 
 
 def phase_moe_check():
@@ -1387,8 +1432,7 @@ def main() -> int:
     phase_device()
     phase_build()
     k1_row, k1_bf16_row = phase_k1()
-    rows = {K1["name"]: k1_row, K2["name"]: phase_k2(), **phase_moe_kernels(),
-            **phase_flat_kernels()}
+    rows = {K1["name"]: k1_row, K2["name"]: phase_k2(), **phase_flat_kernels()}
     # the bf16 calls of the O2 steps, beside K1's f32 main row (the forward's
     # call); K3's main row is already BERT's O2 call
     bf16_rows = {K1["name"]: k1_bf16_row, K3["name"]: rows[K3["name"]]}
@@ -1411,7 +1455,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_check()
     torch.cuda.empty_cache()
-    by_path["moe_train"] = phase_moe_train()
+    by_path["moe_train"], step_rows = phase_moe_train()
+    torch.cuda.empty_cache()
+    rows.update(phase_moe_kernels(step_rows))
     torch.cuda.empty_cache()
     phase_moe_check()
     torch.cuda.empty_cache()
@@ -1438,6 +1484,10 @@ def main() -> int:
 
     keys = ("shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # K4/K4b's main call computes the live rows only: its bound counts them
+    for K in (K4, K4B):
+        row = rows[K["name"]]
+        rows[K["name"]] = dict(row, bound_ms=row["bound_live_ms"], bound_by=row["bound_live_by"])
     kernels = [dict(K, launches=sum(p[K["name"]] for p in by_path.values()),
                     launches_by_path={path: p[K["name"]] for path, p in by_path.items()},
                     **{k: rows[K["name"]][k] for k in keys if k in rows[K["name"]]},

@@ -1,18 +1,17 @@
 // Hopper building blocks of the bf16 flash-attention bodies (flash_fwd.cuh,
-// flash_bwd.cuh): mbarriers, TMA tile loads, wgmma on tensor cores and
-// their shared-memory descriptors, warpgroup register reallocation, and the
-// host-side encoding of a TMA tensor map. sm_90a only (wgmma, setmaxnreg).
+// flash_bwd.cuh): the 4-D TMA tile loads of a [b, s, h, d] operand, the
+// wgmma instructions the bodies issue, the accumulator-to-operand fragment,
+// the additive bias's staging, and the tensor map of a [b, s, h, d]
+// operand. The generic pieces (mbarriers, descriptors, fences, setmaxnreg,
+// the driver's map encoder) are hopper.cuh's, shared with the grouped
+// expert FFN. sm_90a only (wgmma, setmaxnreg).
 //
-// Tiles. Every bf16 operand tile lives in shared memory as 64-row x 64-column
-// panels of 128-byte rows written by TMA with the 128-byte swizzle (16-byte
-// chunk c of row r at chunk c ^ (r % 8)); a 64 x d tile is d / 64 panels,
-// 8 KiB each, 1024-byte aligned. The same panel is read by wgmma either
-// K-major (rows are M or N, the 64 columns are the reduction) or MN-major
-// (rows are the reduction, the columns are N), so one copy of Q, K, V or dO
-// in shared memory serves both products it takes part in.
+// Tiles. A 64 x d operand tile is d / 64 of hopper.cuh's swizzled 64 x 64
+// panels; the same panel is read K-major or MN-major, so one copy of Q, K,
+// V or dO in shared memory serves both products it takes part in.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums only: the driver entry point is fetched at run time
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -20,66 +19,40 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace flash {
 namespace sm90 {
 
+using hopper::desc_k;
+using hopper::desc_mn;
+using hopper::desc_sw128;
+using hopper::encode_tiled;
+using hopper::EncodeTiled;
+using hopper::fence_regs;
+using hopper::kPanel;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_tx;
+using hopper::mbar_init;
+using hopper::mbar_init_fence;
+using hopper::mbar_wait;
+using hopper::setmaxnreg_dec;
+using hopper::setmaxnreg_inc;
+using hopper::smem_base;
+using hopper::smem_u32;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
+
 constexpr int kConsumers = 2;                     // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);  // warpgroup 0 produces (TMA), 1 and 2 consume
 constexpr int kStages = 2;                        // depth of the TMA ring
-constexpr int kPanel = 64 * 64 * 2;               // bytes of one 64 x 64 bf16 panel (one TMA box)
 constexpr int kProducerRegs = 24;                 // setmaxnreg: 24 x 128 + 240 x 256 <= 65,536
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 __host__ __device__ constexpr int tile_bytes() { return 64 * D * 2; }  // one 64-row bf16 tile: D / 64 panels
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The block's dynamic shared memory, rounded up to 1024 bytes (the 128-byte
-// swizzle's period); kernels request 1024 bytes more than they use.
-__device__ __forceinline__ uint8_t* smem_base() {
-  extern __shared__ uint8_t smem_tc[];
-  const uint32_t a = smem_u32(smem_tc);
-  return smem_tc + ((1024u - (a & 1023u)) & 1023u);
-}
-
-// ---- mbarriers --------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Arrive and announce `bytes` of TMA traffic that will complete on `bar`.
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // ---- TMA --------------------------------------------------------------------
 
@@ -104,45 +77,6 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
 }
 
 // ---- wgmma --------------------------------------------------------------------
-
-// Shared-memory matrix descriptor with the 128-byte swizzle; byte offsets.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// K-major operand: a 64-row tile at `tile` whose D columns are the
-// reduction; k-step kk covers columns 16 kk .. 16 kk + 15 (32 bytes of a
-// 128-byte row; 8-row groups 1024 bytes apart).
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return desc_sw128(tile + (kk / 4) * kPanel + (kk % 4) * 32, 16, 1024);
-}
-
-// MN-major operand: a 64-row tile at `tile` whose rows are the reduction and
-// whose D columns are N; k-step kk covers rows 16 kk .. 16 kk + 15 (8-row
-// groups 1024 bytes apart, 64-column panels kPanel apart).
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 16 * 128, kPanel, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accesses of an accumulator across the
-// asynchronous wgmma that writes it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // wgmma instruction wrappers: m64nNk16, bf16 in, f32 accumulate.
 
@@ -198,15 +132,6 @@ __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&d)[N], in
     __nv_bfloat162 v = __floats2bfloat162_rn(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
     a[i] = *reinterpret_cast<uint32_t*>(&v);
   }
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Max and sum over the 4 lanes (a quad) that share a fragment row.
@@ -346,31 +271,6 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
 }
 
 // ---- host: tensor maps ------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime, so the
-// library links no -lcuda. Null if the driver has none.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // The tensor map of a bf16 [b, s, h, d] operand at `base` with element
 // strides `st` (unit stride on d): 4-D over (d, h, s, b) with the operand's

@@ -1,56 +1,77 @@
-// The grouped GEMM shared by the MoE expert-FFN kernels K4
+// The grouped GEMM bodies shared by the MoE expert-FFN kernels K4
 // (moe_grouped_ffn_fwd.cu) and K4b (moe_grouped_ffn_bwd.cu).
 //
 // One launch computes, for every expert e at once (grid.z = e),
 //
-//     C_e[m, n] = sum_k  xa(A_e[m, k]) * xb(B_e[k, n])        (f32 accumulation)
+//     C_e[m, n] = sum_k A_e[m, k] * B_e[k, n]        (f32 accumulation)
 //
-// and hands the sum to an epilogue. A and B are read as stored, with no
-// transposed copy: A row-major [M, K] or, with `kAT`, [K, M]; B row-major
-// [K, N] or, with `kBT`, [N, K]. The rows of the MoE dispatch layout are
-// grouped by expert (expert e owns rows e*cap .. e*cap+cap-1), so a block
-// finds its expert's rows and weights from blockIdx.z and strides alone.
-// The load transforms xa, xb put the reference's bf16 rounding points into
-// the operand loads: kRound rounds an f32 operand to the storage type T
-// (dh before the dx and dw1 products), kActRound applies the activation to
-// the f32 pre-activation s and rounds (h before the second product and dw2).
+// and hands each sum to an epilogue. A and B are read as stored, with no
+// transposed copy: A K-major ([M, K], K contiguous) or MN-major ([K, M]); B
+// K-major ([N, K]) or MN-major ([K, N]). The rows of the MoE dispatch layout
+// are grouped by expert (expert e owns rows e*cap .. e*cap+cap-1), so a
+// block finds its expert's rows and weights from blockIdx.z alone.
 //
-// Tiling: a block of 256 threads owns a 128 x 128 tile of C and walks K in
-// steps of 16. Each step's A and B tiles are read from device memory into
-// registers while the previous step computes from shared memory (two
-// buffers, one barrier a step); operands are widened to f32 and transformed
-// on their way into shared memory, so bf16 and f32 share one compute loop. Thread (ty, tx) of the 16 x 16 grid
-// owns rows {ty*4 + i, 64 + ty*4 + i} and columns {tx*4 + j, 64 + tx*4 + j}
-// (i, j < 4) of the tile: 64 f32 accumulators, read from shared memory as
-// float4s. Every edge is masked (rows past an expert's capacity, ragged D,
-// H), so no dimension must be a multiple of the tile. The weight-gradient
-// epilogue (kWgrad) reduces over the expert's rows inside the block (K is
-// the row axis), with no atomics: the result is deterministic. Blocks of
-// the first row tile also sum the raw B operand per column on the way in,
-// which is the bias gradient (db1 from dh, db2 from dy).
+// Live rows. `rows[e]` (a device array, or null for "all cap") is the number
+// of rows of expert e that hold a token; the rest hold the zero token and
+// get a zero output gradient. The products over rows skip them:
+//   - a row-tiled product (s, y, dh, dx: M is the expert's rows) computes a
+//     128-row tile only if it holds a live row. The forward's two products
+//     also compute the tile of row rows[e] itself: its h and y rows are the
+//     zero token's, which the fill kernel copies to the later padding rows.
+//     A skipped tile writes only what its rows must hold (s = b1, dx = 0);
+//   - a weight-gradient product (dw1, dw2: K is the expert's rows) runs its
+//     reduction to rows[e], not cap.
+// The epilogues write the reference's values on padding rows whatever the
+// inputs hold there: s = f32(b1), h = T(act(b1)), dh = 0, dx = 0. The
+// weight-gradient products multiply the padding rows of xg and dy in their
+// last box by zeros, so those rows must hold finite values.
 //
-// This is the simple first version: f32 FMA on the CUDA cores. Tensor cores
-// (mma.sync / wgmma), TMA and a hidden tile kept on chip are later work.
+// Two bodies, one per dtype:
+//   - bf16 (tc::): 128 x 128 tiles of C on wgmma tensor cores. A producer
+//     warp issues TMA loads of 64 x 64 128-byte-swizzled panels (two of A,
+//     two of B per 64-deep k step) into a 4-stage mbarrier ring; two
+//     consumer warpgroups of 64 rows each issue m64n128k16 wgmmas on them,
+//     reading every operand as stored (K-major or MN-major descriptors;
+//     bf16 allows both for A and B), and keep one wgmma group in flight.
+//     The row operands are 3-D tensor maps [E, cap, width], so a box past
+//     an expert's last row reads zeros, never the next expert's rows.
+//   - f32 (simt::): true f32 FMA on the CUDA cores (the f32 gates rule out
+//     TF32). A 256-thread block owns a 128 x 128 tile, 8 x 8 accumulators a
+//     thread, two blocks to an SM (at most 128 registers a thread); 32-deep
+//     k steps of A and B arrive by 16-byte cp.async, coalesced along the
+//     stored rows, into a 3-stage ring, with no transform on the way. A
+//     K-major operand stays [mn][k] in shared memory and is read 4 k at a
+//     time as float4s; every other fragment is used as it is read.
+// No transform sits on a load path: the activation is applied once, in the
+// epilogue that holds the f32 pre-activation (s -> h in the forward, s -> h
+// and dh in the backward), which writes the operand copy the next product
+// reads. The bias gradients are column sums taken by a separate
+// deterministic kernel (colsum below), never by atomics.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace moe {
 
-constexpr int kBM = 128;  // rows of a C tile
-constexpr int kBN = 128;  // columns of a C tile
-constexpr int kBK = 16;   // depth of one k step
-constexpr int kThreads = 256;
-constexpr int kPitch = kBM + 4;  // shared rows padded by 4 floats (kBM == kBN)
+constexpr int kTile = 128;  // rows and columns of a C tile, both bodies
 
 enum Act : int { kGelu = 0, kRelu = 1, kSilu = 2 };
-enum Xform : int { kRaw = 0, kRound = 1, kActRound = 2 };
-// kBiasF32: f32 C + bias (s of the forward). kBiasOut: T(C + bias) (y).
-// kDactF32: act'(s) * C in f32 (dh). kOut: T(C) (dx). kWgrad: T(C) per
-// expert, plus the column sums of B into `dbias` (dw1 + db1, dw2 + db2).
-enum Epi : int { kBiasF32 = 0, kBiasOut = 1, kDactF32 = 2, kOut = 3, kWgrad = 4 };
+// What a tile of C becomes.
+// kS:  s = C + b1 (f32) and h = T(act(s)); padding rows: s = b1.
+// kY:  y = T(C + b2).
+// kDh: dh = act'(s) C (f32), its bf16 copy T(dh) (bf16 only), h = T(act(s));
+//      padding rows: all 0.
+// kDx: dx = T(C); padding rows: 0.
+// kDw: dw = T(C), the reduction running over the expert's live rows.
+enum Epi : int { kS = 0, kY = 1, kDh = 2, kDx = 3, kDw = 4 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -63,10 +84,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
-
-// x rounded to the storage type T and widened back (identity for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
 
 // The activations of MoELayer. GELU is the tanh form, as jax.nn.gelu's
 // default and the dense FFN's gelu(approximate=True).
@@ -91,148 +108,512 @@ __device__ __forceinline__ float act_grad(float x, int act) {
   return sg * (1.f + x * (1.f - sg));
 }
 
-template <typename T, int X>
-__device__ __forceinline__ float xform(float v, int act) {
-  if (X == kRound) return round_to<T>(v);
-  if (X == kActRound) return round_to<T>(act_fn(v, act));
-  return v;
-}
-
-// Element (r, c) of expert e's matrix is p[e * expert + r * ld + c].
+// An operand as stored: element (r, c) of expert e's matrix at
+// p[e * expert + r * ld + c] (the SIMT body's view; the tc body reads the
+// same operands through tensor maps).
 struct Mat {
   const void* p;
   long long expert, ld;
 };
 
-struct GemmArgs {
-  Mat a, b;                    // the operands as stored
-  void* c;                     // C_e[m, n] at c[e * c_expert + m * ldc + n]
+struct Args {
+  Mat a, b;
+  void* c;                  // C_e[m, n] at c[e * c_expert + m * ldc + n]: s, y, dh (f32), dx, dw
   long long c_expert, ldc;
-  const void* aux;             // kBias*: bias[e * N + n] (T); kDactF32: s, laid out as C (f32)
-  void* dbias;                 // kWgrad: the column sums of B, [E, N] (T)
-  int M, N, K, act;
+  void* h;                  // kS, kDh: h = T(act(s)), laid out as C
+  void* dh_t;               // kDh, bf16: T(dh), laid out as C
+  const void* aux;          // kS: b1, kY: b2 ([E, N], T); kDh: s (f32, laid out as C)
+  const int* rows;          // [E] live rows of each expert, or null: all cap
+  int M, N, K, cap, act;
+  int vec;                  // SIMT: every operand row and base allows 16-byte copies
 };
 
-// The block's tile of the grouped product; see the top of this file.
-template <typename T, typename TA, bool kAT, int kAX, typename TB, bool kBT, int kBX, int kEpi>
-__device__ __forceinline__ void gemm_tile(const GemmArgs& g) {
-  static_assert(!(kEpi == kWgrad && kBT), "the column sums need B stored [K, N]");
-  __shared__ __align__(16) float As[2][kBK][kPitch];  // As[k][m]
-  __shared__ __align__(16) float Bs[2][kBK][kPitch];  // Bs[k][n]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const TA* A = static_cast<const TA*>(g.a.p) + e * g.a.expert;
-  const TB* B = static_cast<const TB*>(g.b.p) + e * g.b.expert;
-  const bool colsum = kEpi == kWgrad && blockIdx.y == 0;
-  float csum = 0.f;  // this thread's share of column n0 + (tid & 127) of B
-  float ra[8], rb[8];
+__device__ __forceinline__ int live_rows(const Args& g, int e) {
+  return g.rows == nullptr ? g.cap : min(max(g.rows[e], 0), g.cap);
+}
 
-  // Element i of this thread's share of a tile: 8 of the 2048 per operand.
-  // Along a stored row the neighbouring threads read neighbouring addresses.
-  auto a_at = [&](int i, int& m, int& k) {
-    if (kAT) { k = (tid >> 7) + 2 * i; m = tid & 127; }
-    else { m = (tid >> 4) + 16 * i; k = tid & 15; }
-  };
-  auto b_at = [&](int i, int& k, int& n) {
-    if (kBT) { n = (tid >> 4) + 16 * i; k = tid & 15; }
-    else { k = (tid >> 7) + 2 * i; n = tid & 127; }
-  };
-  // load() only issues the reads; the transforms wait for store(), after
-  // the step's products, so the reads' latency hides behind them. A masked
-  // element is 0, which every transform keeps at 0.
-  auto load = [&](int k0) {
+// Whether a row-tiled product computes the 128-row tile at m0 (see the top).
+template <int kEpi>
+__device__ __forceinline__ bool tile_computed(int m0, int live, int cap) {
+  if (kEpi == kS || kEpi == kY) return m0 < cap && m0 <= live;
+  return m0 < live;
+}
+
+template <typename T, int kV>
+__device__ __forceinline__ void store(void* p, long long off, const float (&v)[kV]) {
+  T* q = static_cast<T*>(p) + off;
+  if constexpr (kV == 2 && std::is_same_v<T, float>) {
+    *reinterpret_cast<float2*>(q) = make_float2(v[0], v[1]);
+  } else if constexpr (kV == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int m, k;
-      a_at(i, m, k);
-      const int gm = m0 + m, gk = k0 + k;
-      ra[i] = gm < g.M && gk < g.K ? to_float(kAT ? A[gk * g.a.ld + gm] : A[gm * g.a.ld + gk])
-                                   : 0.f;
-    }
+    for (int i = 0; i < kV; ++i) q[i] = from_float<T>(v[i]);
+  }
+}
+
+// The epilogue of kV consecutive columns col.. of row `row` (both inside C)
+// of expert e, whose first `live` rows hold tokens. kV = 2 needs even
+// columns and widths (the bf16 instances: N % 8 == 0).
+template <typename T, int kEpi, int kV>
+__device__ __forceinline__ void epilogue(const Args& g, int e, int live, int row, int col,
+                                         const float (&acc)[kV]) {
+  const long long off = e * g.c_expert + (long long)row * g.ldc + col;
+  const bool on = row < live;
+  float v[kV];
+  if constexpr (kEpi == kS || kEpi == kY) {
+    const T* bias = static_cast<const T*>(g.aux) + (long long)e * g.N + col;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int k, n;
-      b_at(i, k, n);
-      const int gk = k0 + k, gn = n0 + n;
-      rb[i] = gk < g.K && gn < g.N ? to_float(kBT ? B[gn * g.b.ld + gk] : B[gk * g.b.ld + gn])
-                                   : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
+    for (int i = 0; i < kV; ++i) v[i] = (kEpi == kY || on ? acc[i] : 0.f) + to_float(bias[i]);
+    if constexpr (kEpi == kS) {
+      store<float, kV>(g.c, off, v);
+      float h[kV];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int m, k, n;
-      a_at(i, m, k);
-      As[buf][k][m] = xform<T, kAX>(ra[i], g.act);
-      b_at(i, k, n);
-      if (colsum) csum += rb[i];  // the bias gradient sums the unrounded operand
-      Bs[buf][k][n] = xform<T, kBX>(rb[i], g.act);
+      for (int i = 0; i < kV; ++i) h[i] = act_fn(v[i], g.act);
+      store<T, kV>(g.h, off, h);
+    } else {
+      store<T, kV>(g.c, off, v);
     }
+  } else if constexpr (kEpi == kDh) {
+    float h[kV];
+    if (on) {
+      float s[kV];
+      const float* sp = static_cast<const float*>(g.aux) + off;
+      if constexpr (kV == 2) {
+        const float2 t = *reinterpret_cast<const float2*>(sp);
+        s[0] = t.x;
+        s[1] = t.y;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kV; ++i) s[i] = sp[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        v[i] = act_grad(s[i], g.act) * acc[i];
+        h[i] = act_fn(s[i], g.act);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kV; ++i) v[i] = h[i] = 0.f;
+    }
+    store<float, kV>(g.c, off, v);
+    store<T, kV>(g.h, off, h);
+    if constexpr (!std::is_same_v<T, float>) store<T, kV>(g.dh_t, off, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kV; ++i) v[i] = kEpi == kDw || on ? acc[i] : 0.f;
+    store<T, kV>(g.c, off, v);
+  }
+}
+
+// What a row-tiled product writes for a tile it skips: s = b1 (kS) or
+// dx = 0 (kDx). kY's skipped rows are filled by fill_rows after the launch;
+// kDh's are read by nothing. Neighbouring threads write neighbouring columns.
+template <typename T, int kEpi>
+__device__ __forceinline__ void skipped_tile(const Args& g, int e, int m0, int n0) {
+  if constexpr (kEpi == kS || kEpi == kDx) {
+    for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
+      const int row = m0 + i / kTile, col = n0 + i % kTile;
+      if (row >= g.M || col >= g.N) continue;
+      const long long off = e * g.c_expert + (long long)row * g.ldc + col;
+      if constexpr (kEpi == kS) {
+        static_cast<float*>(g.c)[off] = to_float(static_cast<const T*>(g.aux)[(long long)e * g.N + col]);
+      } else {
+        static_cast<T*>(g.c)[off] = from_float<T>(0.f);
+      }
+    }
+  }
+}
+
+// ---- f32: SIMT FMA fed by a cp.async ring --------------------------------------
+
+namespace simt {
+
+constexpr int kThreads = 256;
+constexpr int kDepth = 32;  // k per stage
+constexpr int kStages = 3;
+constexpr int kPad = 4;     // floats of padding per shared row (keeps rows 16-byte aligned)
+
+// A stage's tile of one operand in shared memory: [128][kDepth + 4] when K is
+// its stored inner dim, else [kDepth][128 + 4].
+template <bool kKInner>
+__host__ __device__ constexpr int tile_floats() {
+  return kKInner ? kTile * (kDepth + kPad) : kDepth * (kTile + kPad);
+}
+
+template <bool kAK, bool kBK>
+__host__ __device__ constexpr int smem_bytes() {
+  return kStages * (tile_floats<kAK>() + tile_floats<kBK>()) * 4;
+}
+
+// One stage's tile of an operand stored [outer][inner] (pitch ld) from
+// outer o0.. and inner i0.. into `dst`; elements at or past (o_lim, i_lim)
+// are zero. Consecutive threads copy consecutive 16-byte chunks of a row
+// (4-byte elements where `vec` is off: a row or base not 16-byte aligned).
+template <bool kKInner>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long ld, int o0, int i0,
+                                          int o_lim, int i_lim, bool vec) {
+  constexpr int kO = kKInner ? kTile : kDepth;
+  constexpr int kI = kKInner ? kDepth : kTile;
+  constexpr int kP = kI + kPad;
+  if (vec) {
+#pragma unroll
+    for (int n = threadIdx.x; n < kO * kI / 4; n += kThreads) {
+      const int o = n / (kI / 4), i = 4 * (n % (kI / 4));
+      const bool ok = o0 + o < o_lim && i0 + i < i_lim;
+      hopper::cp_async16(hopper::smem_u32(dst + o * kP + i),
+                         ok ? src + (long long)(o0 + o) * ld + i0 + i : src, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int n = threadIdx.x; n < kO * kI; n += kThreads) {
+      const int o = n / kI, i = n % kI;
+      const bool ok = o0 + o < o_lim && i0 + i < i_lim;
+      hopper::cp_async4(hopper::smem_u32(dst + o * kP + i),
+                        ok ? src + (long long)(o0 + o) * ld + i0 + i : src, ok);
+    }
+  }
+}
+
+// Row i (< 8) of thread ty's accumulators within the tile.
+__device__ __forceinline__ int row_of(int ty, int i) { return i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4; }
+// Column j (< 8) of thread tx's: blocks of 4 when B is MN-major (float4
+// reads along n), every 16th when B is K-major (float4 reads along k, and
+// rows 16 apart are free of bank conflicts at the padded pitch).
+template <bool kBK>
+__device__ __forceinline__ int col_of(int tx, int j) {
+  return kBK ? tx + 16 * j : (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+}
+
+// x[0..3] = p[0..3], x[4..7] = p[64..67]: a thread's 8 rows or columns of
+// one k, two float4s from shared memory.
+__device__ __forceinline__ void load8(float (&x)[8], const float* p) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 64);
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+}
+
+// The block's tile of the grouped product (see the top of this file).
+template <int kEpi, bool kAK, bool kBK>
+__device__ __forceinline__ void gemm(const Args& g) {
+  static_assert(kAK || !kBK, "an MN-major A is paired with an MN-major B (the weight gradients)");
+  constexpr bool kWgrad = kEpi == kDw;
+  const int e = blockIdx.z, m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int live = live_rows(g, e);
+  if (!kWgrad && !tile_computed<kEpi>(m0, live, g.cap)) {
+    skipped_tile<float, kEpi>(g, e, m0, n0);
+    return;
+  }
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kStage = tile_floats<kAK>() + tile_floats<kBK>();
+  const float* A = static_cast<const float*>(g.a.p) + e * g.a.expert;
+  const float* B = static_cast<const float*>(g.b.p) + e * g.b.expert;
+  // the reduction's extent, and the rows of A a row-tiled product reads
+  // (kY reads h's rows past `live`: they hold the zero token's h)
+  const int k_lim = kWgrad ? live : g.K;
+  const int a_rows = kEpi == kY ? g.cap : live;
+  const bool vec = g.vec != 0;
+  const int nk = (k_lim + kDepth - 1) / kDepth;
+
+  auto load = [&](int t) {
+    float* As = smem + (t % kStages) * kStage;
+    float* Bs = As + tile_floats<kAK>();
+    const int k0 = t * kDepth;
+    if (kAK) load_tile<true>(As, A, g.a.ld, m0, k0, a_rows, k_lim, vec);      // [m][k]
+    else load_tile<false>(As, A, g.a.ld, k0, m0, k_lim, g.M, vec);            // [k][m]
+    if (kBK) load_tile<true>(Bs, B, g.b.ld, n0, k0, g.N, k_lim, vec);         // [n][k]
+    else load_tile<false>(Bs, B, g.b.ld, k0, n0, k_lim, g.N, vec);            // [k][n]
   };
 
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  const int nk = (g.K + kBK - 1) / kBK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int t = 0; t < nk; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < nk) load((t + 1) * kBK);
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // the other buffer was last read in step t - 1, before the barrier
-    if (t + 1 < nk) store(cur ^ 1);
-    __syncthreads();
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nk) load(t);
+    hopper::cp_async_commit();
   }
-
+  for (int t = 0; t < nk; ++t) {
+    hopper::cp_async_wait<kStages - 2>();  // stage t has landed (this thread's copies)
+    __syncthreads();                       // everyone's copies; stage t - 1 is free again
+    if (t + kStages - 1 < nk) load(t + kStages - 1);
+    hopper::cp_async_commit();
+    const float* As = smem + (t % kStages) * kStage;
+    const float* Bs = As + tile_floats<kAK>();
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (gm >= g.M) continue;
+    for (int kq = 0; kq < kDepth; kq += 4) {
+      // Four k of the stage. A K-major A is read as one float4 along k per
+      // row; every other fragment is used as soon as it is read, so a
+      // thread holds at most 32 operand values beside its 64 sums.
+      float a4[4][8];  // kAK: a4[t][i] = A[row i][kq + t]
+      if constexpr (kAK) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (gn >= g.N) continue;
-      const long long off = e * g.c_expert + gm * g.ldc + gn;
-      const float v = acc[i][j];
-      if (kEpi == kBiasF32) {
-        static_cast<float*>(g.c)[off] = v + to_float(static_cast<const T*>(g.aux)[(long long)e * g.N + gn]);
-      } else if (kEpi == kBiasOut) {
-        static_cast<T*>(g.c)[off] =
-            from_float<T>(v + to_float(static_cast<const T*>(g.aux)[(long long)e * g.N + gn]));
-      } else if (kEpi == kDactF32) {
-        static_cast<float*>(g.c)[off] = act_grad(static_cast<const float*>(g.aux)[off], g.act) * v;
-      } else {
-        static_cast<T*>(g.c)[off] = from_float<T>(v);
+        for (int i = 0; i < 8; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(As + row_of(ty, i) * (kDepth + kPad) + kq);
+          a4[0][i] = v.x; a4[1][i] = v.y; a4[2][i] = v.z; a4[3][i] = v.w;
+        }
+      }
+      if constexpr (kBK) {  // Bs[n][k]: one float4 along k per column
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(Bs + col_of<true>(tx, j) * (kDepth + kPad) + kq);
+          const float b[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int t4 = 0; t4 < 4; ++t4)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a4[t4][i], b[t4], acc[i][j]);
+        }
+      } else {  // Bs[k][n]: two float4s along n per k (and As[k][m] likewise)
+#pragma unroll
+        for (int t4 = 0; t4 < 4; ++t4) {
+          float a[8], b[8];
+          load8(b, Bs + (kq + t4) * (kTile + kPad) + tx * 4);
+          if constexpr (kAK) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) a[i] = a4[t4][i];
+          } else {
+            load8(a, As + (kq + t4) * (kTile + kPad) + ty * 4);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
       }
     }
   }
+  hopper::cp_async_wait<0>();
 
-  if (colsum) {  // uniform over the block: every thread reaches the barriers
-    float* red = &As[0][0][0];  // free: the loop ended on a barrier
-    red[tid] = csum;
-    __syncthreads();
-    if (tid < 128 && n0 + tid < g.N)
-      static_cast<T*>(g.dbias)[(long long)e * g.N + n0 + tid] = from_float<T>(red[tid] + red[tid + 128]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + row_of(ty, i);
+    if (row >= g.M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + col_of<kBK>(tx, j);
+      if (col >= g.N) continue;
+      const float v[1] = {acc[i][j]};
+      epilogue<float, kEpi, 1>(g, e, live, row, col, v);
+    }
   }
+}
+
+}  // namespace simt
+
+// ---- bf16: wgmma tensor cores fed by TMA ------------------------------------------
+
+namespace tc {
+
+constexpr int kConsumers = 2;                     // consumer warpgroups, 64 rows of C each
+constexpr int kThreads = 128 * (kConsumers + 1);  // warpgroup 0 produces (one thread issues TMA)
+constexpr int kStages = 4;                        // depth of the TMA ring
+constexpr int kDepth = 64;                        // k per stage: one panel wide
+constexpr int kStageBytes = 4 * hopper::kPanel;   // A: two 64 x 64 panels, B: two
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+constexpr int kProducerRegs = 24;                 // setmaxnreg: 24 x 128 + 240 x 256 <= 65,536
+constexpr int kConsumerRegs = 240;
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], both from shared memory; A K-major
+// or MN-major (kAK false: transposed), B likewise.
+template <bool kAK, bool kBK>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(kAK ? 0 : 1), "n"(kBK ? 0 : 1));
+}
+
+// The block's tile of the grouped product (see the top of this file). `ta`
+// and `tb` are 3-D tensor maps of A and B over (stored columns, stored rows,
+// expert). A stage holds k0 .. k0 + 63 of the reduction: panel p of A is
+// rows (K-major) or columns (MN-major) m0 + 64 p .., consumer warpgroup p's
+// 64 rows of C; B's two panels cover n0 .. n0 + 127 the same way.
+template <int kEpi, bool kAK, bool kBK>
+__device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* tb, const Args& g) {
+  using namespace hopper;
+  constexpr bool kWgrad = kEpi == kDw;
+  const int e = blockIdx.z, m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int live = live_rows(g, e);
+  if (!kWgrad && !tile_computed<kEpi>(m0, live, g.cap)) {
+    skipped_tile<__nv_bfloat16, kEpi>(g, e, m0, n0);
+    return;
+  }
+  // Row-tiled products run the whole K, zero-filled past it by TMA; the
+  // weight gradients run over the live rows. Their last box may reach past
+  // rows[e] into padding rows of the same 128-row tile, which the dh
+  // epilogue zeroed in the operand paired with them (T(dh), h), so any
+  // finite value in the other operand adds 0.
+  const int nk = ((kWgrad ? live : g.K) + kDepth - 1) / kDepth;
+  uint8_t* base = smem_base();
+  const uint32_t ring = smem_u32(base);
+  const uint32_t bar_full = ring + kStages * kStageBytes;  // kStages barriers
+  const uint32_t bar_empty = bar_full + 8 * kStages;       // kStages barriers
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(bar_full + 8 * i, 1);
+      mbar_init(bar_empty + 8 * i, kConsumers * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < nk; ++t) {
+        const int st = t % kStages;
+        const uint32_t a = ring + st * kStageBytes, b = a + 2 * kPanel;
+        const int k0 = t * kDepth;
+        mbar_wait(bar_empty + 8 * st, ((t / kStages) & 1) ^ 1);
+        mbar_arrive_tx(bar_full + 8 * st, kStageBytes);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          if (kAK) tma_load_3d(a + p * kPanel, ta, bar_full + 8 * st, k0, m0 + 64 * p, e);
+          else tma_load_3d(a + p * kPanel, ta, bar_full + 8 * st, m0 + 64 * p, k0, e);
+          if (kBK) tma_load_3d(b + p * kPanel, tb, bar_full + 8 * st, k0, n0 + 64 * p, e);
+          else tma_load_3d(b + p * kPanel, tb, bar_full + 8 * st, n0 + 64 * p, k0, e);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int t = 0; t < nk; ++t) {
+      const int st = t % kStages;
+      const uint32_t a = ring + st * kStageBytes + w * kPanel, b = ring + st * kStageBytes + 2 * kPanel;
+      mbar_wait(bar_full + 8 * st, (t / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDepth / 16; ++kk)
+        wgmma_n128<kAK, kBK>(acc, kAK ? desc_k(a, kk) : desc_mn(a, kk),
+                             kBK ? desc_k(b, kk) : desc_mn(b, kk));
+      wgmma_commit();
+      wgmma_wait_n<1>();  // step t - 1's products are done: free its stage
+      if (t > 0) mbar_arrive(bar_empty + 8 * ((t - 1) % kStages));
+    }
+    wgmma_wait();
+    fence_regs(acc);
+
+    // accumulator element 4j + 2hh + c: row 16 (tid / 32) + lane / 4 + 8 hh,
+    // column 8 j + 2 (lane % 4) + c of the warpgroup's 64 x 128 block
+    const int r_lo = m0 + 64 * w + 16 * (tid / 32) + lane / 4;
+    const int c_lo = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r_lo + 8 * hh;
+      if (row >= g.M) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = c_lo + 8 * j;
+        if (col >= g.N) continue;
+        const float v[2] = {acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]};
+        epilogue<__nv_bfloat16, kEpi, 2>(g, e, live, row, col, v);
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
+// ---- the small passes ----------------------------------------------------------
+
+// K4's last pass: the padding rows of expert e past the tiles its products
+// computed take the zero token's y, row rows[e] (computed by the y product).
+template <typename T>
+__device__ __forceinline__ void fill_rows(T* y, const int* rows, int cap, int D) {
+  const int e = blockIdx.y;
+  const int live = min(max(rows[e], 0), cap);
+  if (live >= cap) return;
+  const int first = min(cap, (live / kTile + 1) * kTile);
+  const T* src = y + ((long long)e * cap + live) * D;
+  T* dst = y + ((long long)e * cap + first) * D;
+  const long long n = (long long)(cap - first) * D;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    dst[i] = src[i % D];
+}
+
+// K4b's bias gradients: db1[e, n] = sum of dh[e, r, n] (f32) and db2[e, n] =
+// sum of dy[e, r, n] over the expert's live rows r, the sums in f32 and cast
+// to T. A block of 256 threads owns 32 columns of one expert: 8 lanes of
+// rows, then the 8 partial sums added in a fixed order, so the result is
+// the same from run to run (no atomics). Blocks x < ceil(H / 32) take db1.
+template <typename T>
+__device__ __forceinline__ void colsum(const float* dh, const T* dy, const int* rows, T* db1, T* db2,
+                                       int cap, int D, int H) {
+  __shared__ float part[8][32];
+  const int e = blockIdx.y;
+  const int live = rows == nullptr ? cap : min(max(rows[e], 0), cap);
+  const int nb1 = (H + 31) / 32;
+  const bool first = (int)blockIdx.x < nb1;
+  const int W = first ? H : D;
+  const int c = threadIdx.x % 32, lane_r = threadIdx.x / 32;
+  const int col = (first ? (int)blockIdx.x : (int)blockIdx.x - nb1) * 32 + c;
+  float sum = 0.f;
+  if (col < W) {
+    if (first) {
+      const float* p = dh + (long long)e * cap * H + col;
+      for (int r = lane_r; r < live; r += 8) sum += p[(long long)r * H];
+    } else {
+      const T* p = dy + (long long)e * cap * D + col;
+      for (int r = lane_r; r < live; r += 8) sum += to_float(p[(long long)r * D]);
+    }
+  }
+  part[lane_r][c] = sum;
+  __syncthreads();
+  if (threadIdx.x < 32 && col < W) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) total += part[i][c];
+    (first ? db1 : db2)[(long long)e * W + col] = from_float<T>(total);
+  }
+}
+
+// ---- host ---------------------------------------------------------------------
+
+using SimtKernel = void (*)(Args);
+using TcKernel = void (*)(CUtensorMap, CUtensorMap, Args);
+
+// Launches one grouped product over E experts on `stream`: the SIMT kernel
+// for f32, the tc kernel for bf16, whose tensor maps are made here from the
+// operands' Mat views (a contiguous [E, expert / ld, ld] each). The grid is
+// (N tiles, M tiles, E) whatever rows[e] holds: the kernels read it.
+template <typename T, bool kAK, bool kBK>
+cudaError_t launch(const Args& g, int E, cudaStream_t stream, SimtKernel simt_kernel,
+                   TcKernel tc_kernel) {
+  const dim3 grid((g.N + kTile - 1) / kTile, (g.M + kTile - 1) / kTile, E);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, float>) {
+    constexpr int bytes = simt::smem_bytes<kAK, kBK>();
+    err = cudaFuncSetAttribute(simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    simt_kernel<<<grid, simt::kThreads, bytes, stream>>>(g);
+  } else {
+    err = cudaFuncSetAttribute(tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tc::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    CUtensorMap ta, tb;
+    if ((err = hopper::make_map_3d(&ta, g.a.p, (int)g.a.ld, (int)(g.a.expert / g.a.ld), E)) !=
+            cudaSuccess ||
+        (err = hopper::make_map_3d(&tb, g.b.p, (int)g.b.ld, (int)(g.b.expert / g.b.ld), E)) !=
+            cudaSuccess)
+      return err;
+    tc_kernel<<<grid, tc::kThreads, tc::kSmemBytes, stream>>>(ta, tb, g);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace moe

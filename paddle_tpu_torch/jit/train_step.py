@@ -8,7 +8,8 @@ later work, ROADMAP.md Queue 1 item 8).
 AMP O2 works as in the reference: the model's parameters stay the f32
 masters; each step runs the model on bf16 casts of them
 (``torch.func.functional_call``), so the gradient of each cast lands in f32
-on its master; float inputs are cast likewise; the model's output goes into
+on its master; float inputs are cast likewise; buffers are not cast, so an
+update made to one in place survives the step; the model's output goes into
 the loss in bf16, and a bf16 loss is cast to f32.
 """
 from __future__ import annotations
@@ -70,8 +71,10 @@ class TrainStep:
         self.model.train()
         try:
             if self.amp_level == "O2":
-                state = {n: self._to_amp(t) for n, t in
-                         [*self.model.named_parameters(), *self.model.named_buffers()]}
+                # cast the parameters only: the buffers run as they are, so an
+                # in-place update in forward (a running statistic) lands in
+                # the module's own buffer, as the reference's new_buffers do
+                state = {n: self._to_amp(p) for n, p in self.model.named_parameters()}
                 out = functional_call(self.model, state, tuple(self._to_amp(x) for x in inputs))
             else:
                 out = self.model(*inputs)

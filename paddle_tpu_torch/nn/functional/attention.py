@@ -136,8 +136,6 @@ class _PackedCausalFlash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
         dqkv = torch.empty_like(qkv)
         flash_attention_bwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], out, lse, dout, True,
                             grads=(dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2]))

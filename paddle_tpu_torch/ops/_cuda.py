@@ -24,8 +24,18 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: The byte boundary that the kernels' 16-byte loads and stores (TMA,
+#: cp.async, bf16 pair stores) need on an operand's base address.
+ALIGN = 16
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+def aligned(t) -> bool:
+    """Whether tensor ``t``'s base address lies on an :data:`ALIGN`-byte
+    boundary."""
+    return t.data_ptr() % ALIGN == 0
 
 
 def nvcc() -> str:

@@ -47,25 +47,45 @@ def flash_attention_available(q_shape, k_shape=None, dtype=torch.float32, device
             and s >= 1 and 1 <= b <= _MAX_GRID_YZ and 1 <= h <= _MAX_GRID_YZ)
 
 
-def check_tma_alignment(who, tensors):
-    """Raise ``ValueError`` unless every bf16 tensor in ``tensors`` (a
-    ``[b, s, h, d]`` operand or gradient buffer) has a 16-byte aligned base
-    address and 16-byte aligned byte strides on its ``b``, ``s`` and ``h``
-    dims (those of length 1 are never stepped, so they are exempt): the
-    bf16 kernels read their operands by TMA, which needs that, and store
-    bf16 pairs. A view of a packed ``[b, s, 3, h, d]`` projection passes;
-    a view offset by a few elements does not. f32 tensors take the SIMT
-    kernels and any strides."""
-    for t in tensors:
-        if t.dtype != torch.bfloat16:
-            continue
-        size = t.element_size()
-        if t.data_ptr() % 16 or any(n > 1 and (st * size) % 16
-                                    for n, st in zip(t.shape[:3], t.stride()[:3])):
-            raise ValueError(f"{who}: a bf16 operand needs a 16-byte aligned base address and "
-                             f"16-byte aligned b, s, h strides (TMA); got shape "
-                             f"{tuple(t.shape)} strides {tuple(t.stride())} at "
-                             f"{t.data_ptr() % 16} bytes past a 16-byte boundary")
+def needs_copy(t):
+    """Whether a ``[b, s, h, d]`` operand must reach the kernels as a
+    contiguous copy: its head dim has no unit stride; a dim longer than 1
+    has stride 0 (the expanded gradient of a sum or a mean); or, in bf16,
+    its base address or a ``b``, ``s``, ``h`` byte stride is off a 16-byte
+    boundary (the bf16 kernels read by TMA, which needs that and takes no
+    zero stride, and store bf16 pairs; a dim of length 1 is never stepped,
+    so its stride is exempt). Views of a packed ``[b, s, 3, h, d]``
+    projection need none. f32 tensors take the SIMT kernels, for which
+    alignment is moot."""
+    if t.stride(-1) != 1 or any(n > 1 and st == 0 for n, st in zip(t.shape, t.stride())):
+        return True
+    if t.dtype != torch.bfloat16:
+        return False
+    size = t.element_size()
+    return not _cuda.aligned(t) or any(n > 1 and (st * size) % _cuda.ALIGN
+                                       for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def kernel_operand(t):
+    """``t``, or one contiguous copy of it where :func:`needs_copy` says
+    so. The kernel runs on the copy: this is no fallback."""
+    return t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
+
+
+def gradient_buffers(who, q, grads):
+    """The dq, dk, dv buffers a backward kernel writes: ``grads`` as given
+    (three buffers of q's shape, dtype and device, e.g. slices of one packed
+    ``[b, s, 3, h, d]`` gradient), or three new ones if None. Raises
+    ``ValueError`` for a buffer the kernels cannot write in place, one that
+    :func:`needs_copy` would copy."""
+    if grads is None:
+        return tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    if any(tuple(g.shape) != tuple(q.shape) or g.dtype != q.dtype or g.device != q.device
+           or needs_copy(g) for g in grads):
+        raise ValueError(f"{who}: dq, dk, dv buffers must match q's shape, dtype and device, "
+                         f"with unit stride on the head dim, no zero stride and, in bf16, a "
+                         f"16-byte aligned base and b, s, h strides")
+    return tuple(grads)
 
 
 def _reference_attention(q, k, v, causal):
@@ -103,7 +123,7 @@ def _launch(q, k, v, causal):
                          f"d in {HEAD_DIMS}; got q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_fwd: the kernel needs unit stride on the head dim")
-    check_tma_alignment("flash_attention_fwd", (q, k, v))
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -139,8 +159,6 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:  # e.g. the expanded gradient of a sum
-            dout = dout.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal)
         return dq, dk, dv, None
 
@@ -184,6 +202,7 @@ def _bwd_kernel():
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, grads):
+    dout = kernel_operand(dout)  # e.g. the expanded gradient of a sum or a mean
     tensors = (q, k, v, out, dout)
     if len({t.device for t in tensors + (lse,)}) != 1:
         raise ValueError("flash_attention_bwd: q, k, v, out, lse, dout on different devices")
@@ -199,19 +218,15 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, grads):
                          f"in {HEAD_DIMS} and lse [b, h, s]; got q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} out{tuple(out.shape)} "
                          f"dout{tuple(dout.shape)} lse{tuple(lse.shape)}")
-    if grads is None:
-        grads = tuple(torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    elif any(tuple(g.shape) != tuple(q.shape) or g.dtype != q.dtype or g.device != q.device
-             for g in grads):
-        raise ValueError("flash_attention_bwd: dq, dk, dv buffers must match q's shape, dtype "
-                         "and device")
-    if any(t.stride(-1) != 1 for t in tensors + tuple(grads)):
+    grads = gradient_buffers("flash_attention_bwd", q, grads)
+    if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("flash_attention_bwd: the kernel needs unit stride on the head dim")
-    check_tma_alignment("flash_attention_bwd", (q, k, v, dout) + tuple(grads))
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
     lse = lse.contiguous()
     di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = grads
-    strides = (ctypes.c_longlong * 24)(*(x for t in tensors + tuple(grads) for x in t.stride()[:3]))
+    strides = (ctypes.c_longlong * 24)(*(x for t in (q, k, v, out, dout) + grads
+                                         for x in t.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

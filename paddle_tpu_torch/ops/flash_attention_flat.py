@@ -37,7 +37,7 @@ import torch
 
 from ..framework.flags import flag
 from . import _cuda
-from .flash_attention import DTYPES, check_tma_alignment, flash_attention_available
+from .flash_attention import DTYPES, flash_attention_available, gradient_buffers, kernel_operand
 
 #: Bias dtypes the kernels are compiled for (a bool mask is converted to
 #: 0 / -1e30 f32 by the caller).
@@ -154,7 +154,7 @@ def _fwd_kernel():
 def _launch_fwd(q, k, v, bias, causal):
     who = "flash_flat_fwd"
     _check_qkv((q, k, v), who)
-    check_tma_alignment(who, (q, k, v))
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
     b, s, h, d = q.shape
     bias, bias_strides = _check_bias(bias, b, s, q.device, who)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -203,6 +203,7 @@ def _bwd_kernel():
 
 def _launch_bwd(q, k, v, bias, out, stats, dout, causal, grads):
     who = "flash_flat_bwd"
+    dout = kernel_operand(dout)  # e.g. the expanded gradient of a sum or a mean
     _check_qkv((q, k, v, out, dout), who)
     b, s, h, d = q.shape
     bias, bias_strides = _check_bias(bias, b, s, q.device, who)
@@ -210,13 +211,8 @@ def _launch_bwd(q, k, v, bias, out, stats, dout, causal, grads):
             or stats.device != q.device:
         raise ValueError(f"flash_flat_bwd: stats must be f32 [2, b, h, s] on {q.device}; got "
                          f"{tuple(stats.shape)} {stats.dtype} on {stats.device}")
-    if grads is None:
-        grads = tuple(torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    elif any(tuple(g.shape) != tuple(q.shape) or g.dtype != q.dtype or g.device != q.device
-             or g.stride(-1) != 1 for g in grads):
-        raise ValueError("flash_flat_bwd: dq, dk, dv buffers must match q's shape, dtype and "
-                         "device, with unit stride on the head dim")
-    check_tma_alignment(who, (q, k, v, dout) + tuple(grads))
+    grads = gradient_buffers("flash_flat_bwd", q, grads)
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
     stats = stats.contiguous()
     di = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = grads
@@ -261,10 +257,6 @@ def flash_flat_bwd(q, k, v, bias, out, stats, dout, causal=False, grads=None):
 flash_flat_bwd.launches = 0
 
 
-def _unit_stride(t):
-    return t if t.stride(-1) == 1 else t.contiguous()  # e.g. the expanded gradient of a sum
-
-
 class _FlatFlash(torch.autograd.Function):
     """K3 over q, k, v ``[b, s, h, d]`` and an optional bias; the backward
     runs K3b. The counterpart of the reference's ``_flat`` and
@@ -280,7 +272,7 @@ class _FlatFlash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, stats = ctx.saved_tensors
-        dq, dk, dv = flash_flat_bwd(q, k, v, bias, out, stats, _unit_stride(dout), ctx.causal)
+        dq, dk, dv = flash_flat_bwd(q, k, v, bias, out, stats, dout, ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -302,7 +294,7 @@ class _PackedFlatFlash(torch.autograd.Function):
         qkv, out, stats = ctx.saved_tensors
         dqkv = torch.empty_like(qkv)
         flash_flat_bwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], None, out, stats,
-                       _unit_stride(dout), ctx.causal,
+                       dout, ctx.causal,
                        grads=(dqkv[:, :, 0], dqkv[:, :, 1], dqkv[:, :, 2]))
         return dqkv, None
 

@@ -10,13 +10,17 @@ as the registry keeps the impl name):
    (a length-E+1 cumsum), so overflow past ``capacity`` drops in arrival
    order, exactly as the ``dense`` composite does. Pairs under ``drop_mask``
    sort past every expert and claim no slot. One gather fills the padded
-   ``[E*cap, D]`` layout; empty slots take the zero token (row T).
+   ``[E*cap, D]`` layout; empty slots take the zero token (row T). The
+   first ``rows[e] = min(count[e], cap)`` rows of expert e hold its tokens.
 2. **expert FFN**: :func:`grouped_ffn`, one ``torch.autograd.Function``
    whose forward is K4 (:func:`moe_grouped_ffn_fwd`,
    ``csrc/moe_grouped_ffn_fwd.cu``) and whose backward is K4b
    (:func:`moe_grouped_ffn_bwd`, ``csrc/moe_grouped_ffn_bwd.cu``). The
    forward saves the f32 pre-activation ``s``, as the reference's
-   single-hidden-tile kernel does.
+   single-hidden-tile kernel does. The dispatch hands it ``rows`` (a device
+   tensor, read by the kernels on the card: no host sync), and the kernels
+   compute only the live rows; the padding rows get the values the
+   reference computes for the zero token.
 3. **combine**: a weighted scatter-add back to token order.
 
 The dispatch and combine are plain PyTorch ops (jnp in the reference). The
@@ -49,6 +53,7 @@ _ACT_CODE = {"gelu": 0, "relu": 1, "silu": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 128            # rows and columns of the kernels' output tile (moe_grouped_ffn.cuh)
 _MAX_GRID_YZ = 65535   # grid.y = row tiles, grid.z = experts
+_TMA_ELEMS = 8         # bf16 elements in 16 bytes: TMA's stride and base alignment
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 
@@ -59,12 +64,16 @@ def moe_kernel_available(num_experts, d_model, d_hidden, capacity, dtype, activa
     :data:`DTYPES`, ``activation`` in :data:`ACTIVATIONS`, and the launch
     grid within its limits (experts on grid.z, row tiles of 128 on grid.y).
     The kernels mask every ragged tile, so D, H and the capacity need not be
-    multiples of the tile. A CPU device runs the plain versions. Shape,
-    dtype and device only: never whether the kernel builds."""
+    multiples of the tile; bf16 needs ``D % 8 == H % 8 == 0`` (the bf16
+    kernels read their operands by TMA, whose row strides are 16-byte
+    multiples). A CPU device runs the plain versions. Shape, dtype and
+    device only: never whether the kernel builds."""
     tiles = max(-(-int(n) // _TILE) for n in (capacity, d_model, d_hidden))
     return (device_type in ("cuda", "cpu") and dtype in DTYPES and activation in ACTIVATIONS
             and 1 <= num_experts <= _MAX_GRID_YZ and min(capacity, d_model, d_hidden) >= 1
-            and tiles <= _MAX_GRID_YZ)
+            and tiles <= _MAX_GRID_YZ
+            and (dtype != torch.bfloat16 or (d_model % _TMA_ELEMS == 0
+                                             and d_hidden % _TMA_ELEMS == 0)))
 
 
 def moe_available(tokens, gate_vals, gate_idx, drop_mask, w1, b1, w2, b2, *, capacity,
@@ -119,30 +128,43 @@ def _act_grad(s, activation):
     raise ValueError(f"moe: unknown activation {activation!r}; expected one of {ACTIVATIONS}")
 
 
-def _reference_ffn_fwd(xg, w1, b1, w2, b2, activation):
+def _live(x, rows, E):
+    """``x [E*cap, W]`` with the rows of expert e at or past ``rows[e]`` set
+    to 0 (``rows`` None: every row is live)."""
+    if rows is None:
+        return x
+    cap = x.shape[0] // E
+    keep = torch.arange(cap, device=x.device)[None, :] < rows.to(x.device).long()[:, None]
+    return torch.where(keep.reshape(-1, 1), x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _reference_ffn_fwd(xg, w1, b1, w2, b2, activation, rows=None):
     """The plain version of K4: per-expert ``act(x @ w1 + b1) @ w2 + b2``
     over the ``[E*cap, D]`` layout as batched einsums in f32, with the
-    kernel's rounding points. Returns ``(y [E*cap, D] in xg's dtype,
-    s [E*cap, H] f32)``."""
+    kernel's rounding points; rows of expert e at or past ``rows[e]`` count
+    as the zero token, whatever xg holds there. Returns ``(y [E*cap, D] in
+    xg's dtype, s [E*cap, H] f32)``."""
     R, D = xg.shape
     E, _, H = w1.shape
-    xs = xg.reshape(E, R // E, D).float()
+    xs = _live(xg, rows, E).reshape(E, R // E, D).float()
     s = torch.einsum("ecd,edh->ech", xs, w1.float()) + b1.float()
     h = _act(s, activation).to(xg.dtype).float()
     y = torch.einsum("ech,ehd->ecd", h, w2.float()) + b2.float()
     return y.reshape(R, D).to(xg.dtype), s.reshape(R, H)
 
 
-def _reference_ffn_bwd(xg, w1, b1, w2, b2, s, dy, activation):
+def _reference_ffn_bwd(xg, w1, b1, w2, b2, s, dy, activation, rows=None):
     """The plain version of K4b: ``(dx, dw1, db1, dw2, db2)`` from the saved
     f32 pre-activation ``s`` and ``dy``, in f32 with the kernel's rounding
     points (dy and dh cast to xg's dtype before their products, every sum in
-    f32, the results cast to the operands' dtypes)."""
+    f32, the results cast to the operands' dtypes); rows of expert e at or
+    past ``rows[e]`` count as the zero token with a zero gradient, whatever
+    xg and dy hold there."""
     R, D = xg.shape
     E, _, H = w1.shape
     dt = xg.dtype
-    xs = xg.reshape(E, R // E, D).float()
-    dys = dy.reshape(E, R // E, D).to(dt).float()
+    xs = _live(xg, rows, E).reshape(E, R // E, D).float()
+    dys = _live(dy.to(dt), rows, E).reshape(E, R // E, D).float()
     s3 = s.reshape(E, R // E, H).float()
     dp = torch.einsum("ecd,ehd->ech", dys, w2.float())
     dh = _act_grad(s3, activation) * dp
@@ -178,7 +200,8 @@ def _check_operands(name, xg, w1, b1, w2, b2, activation):
             or tuple(w2.shape) != (E, H, D) or tuple(b2.shape) != (E, 1, D)
             or not moe_kernel_available(E, D, H, cap, xg.dtype, activation, "cuda")):
         raise ValueError(f"{name}: the kernel takes xg [E*cap, D], w1 [E, D, H], b1 [E, 1, H], "
-                         f"w2 [E, H, D], b2 [E, 1, D] within its grid and an activation in "
+                         f"w2 [E, H, D], b2 [E, 1, D] within its grid (in bf16, D and H "
+                         f"multiples of {_TMA_ELEMS}) and an activation in "
                          f"{ACTIVATIONS}; got xg{tuple(xg.shape)} w1{tuple(w1.shape)} "
                          f"b1{tuple(b1.shape)} w2{tuple(w2.shape)} b2{tuple(b2.shape)} "
                          f"{activation!r}")
@@ -187,10 +210,30 @@ def _check_operands(name, xg, w1, b1, w2, b2, activation):
     return E, cap, D, H
 
 
+def _aligned(t):
+    """``t``, or one copy of it if its base is off a 16-byte boundary (a
+    view into its storage): the kernels read their operands 16 bytes at a
+    time (cp.async, TMA). The kernel runs on the copy: no fallback."""
+    return t if _cuda.aligned(t) else t.clone()
+
+
+def _check_rows(name, rows, E, device):
+    """``rows`` as a contiguous int32 ``[E]`` tensor on ``device``, or None."""
+    if rows is None:
+        return None
+    if rows.shape != (E,) or rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: rows must be an integer [{E}] tensor of live rows per "
+                         f"expert; got {rows.dtype} {tuple(rows.shape)}")
+    if rows.device != device:
+        raise ValueError(f"{name}: rows must lie on the operands' device {device}, "
+                         f"not {rows.device}")
+    return rows.to(torch.int32).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _fwd_kernel():
     fn = _cuda.load("moe_grouped_ffn_fwd").moe_grouped_ffn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -198,28 +241,36 @@ def _fwd_kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     fn = _cuda.load("moe_grouped_ffn_bwd").moe_grouped_ffn_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_fwd(xg, w1, b1, w2, b2, activation):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(xg, w1, b1, w2, b2, activation, rows):
     E, cap, D, H = _check_operands("moe_grouped_ffn_fwd", xg, w1, b1, w2, b2, activation)
+    rows = _check_rows("moe_grouped_ffn_fwd", rows, E, xg.device)
+    xg, w1, b1, w2, b2 = (_aligned(t) for t in (xg, w1, b1, w2, b2))
     s = torch.empty((E * cap, H), dtype=torch.float32, device=xg.device)
+    h = torch.empty((E * cap, H), dtype=xg.dtype, device=xg.device)  # scratch: T(act(s))
     y = torch.empty((E * cap, D), dtype=xg.dtype, device=xg.device)
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
         rc = _fwd_kernel()(xg.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                           b2.data_ptr(), s.data_ptr(), y.data_ptr(), E, cap, D, H,
-                           _ACT_CODE[activation], _DTYPE_CODE[xg.dtype], stream)
+                           b2.data_ptr(), _ptr(rows), s.data_ptr(), h.data_ptr(), y.data_ptr(),
+                           E, cap, D, H, _ACT_CODE[activation], _DTYPE_CODE[xg.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"moe_grouped_ffn_fwd: kernel launch failed with CUDA error {rc}")
     moe_grouped_ffn_fwd.launches += 1
     return y, s
 
 
-def _launch_bwd(xg, w1, b1, w2, b2, s, dy, activation):
+def _launch_bwd(xg, w1, b1, w2, b2, s, dy, activation, rows):
     E, cap, D, H = _check_operands("moe_grouped_ffn_bwd", xg, w1, b1, w2, b2, activation)
+    rows = _check_rows("moe_grouped_ffn_bwd", rows, E, xg.device)
     R = E * cap
     if s.device != xg.device or dy.device != xg.device:
         raise ValueError("moe_grouped_ffn_bwd: s and dy must lie on xg's device")
@@ -231,46 +282,59 @@ def _launch_bwd(xg, w1, b1, w2, b2, s, dy, activation):
                          f"s{tuple(s.shape)} dy{tuple(dy.shape)}")
     if not (s.is_contiguous() and dy.is_contiguous()):
         raise ValueError("moe_grouped_ffn_bwd: the kernel needs contiguous s and dy")
-    dh = torch.empty((R, H), dtype=torch.float32, device=xg.device)  # scratch
+    xg, w1, w2, s, dy = (_aligned(t) for t in (xg, w1, w2, s, dy))
+    # scratch: dh (f32, for db1), h = T(act(s)), and in bf16 T(dh)
+    dh = torch.empty((R, H), dtype=torch.float32, device=xg.device)
+    h = torch.empty((R, H), dtype=xg.dtype, device=xg.device)
+    dh_t = torch.empty((R, H), dtype=xg.dtype, device=xg.device) if xg.dtype != torch.float32 \
+        else None
     dx = torch.empty_like(xg)
     dw1, db1, dw2, db2 = (torch.empty_like(t) for t in (w1, b1, w2, b2))
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
         rc = _bwd_kernel()(xg.data_ptr(), w1.data_ptr(), w2.data_ptr(), s.data_ptr(),
-                           dy.data_ptr(), dh.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-                           db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), E, cap, D, H,
-                           _ACT_CODE[activation], _DTYPE_CODE[xg.dtype], stream)
+                           dy.data_ptr(), _ptr(rows), dh.data_ptr(), _ptr(dh_t), h.data_ptr(),
+                           dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+                           db2.data_ptr(), E, cap, D, H, _ACT_CODE[activation],
+                           _DTYPE_CODE[xg.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"moe_grouped_ffn_bwd: kernel launch failed with CUDA error {rc}")
     moe_grouped_ffn_bwd.launches += 1
     return dx, dw1, db1, dw2, db2
 
 
-def moe_grouped_ffn_fwd(xg, w1, b1, w2, b2, activation="gelu"):
+def moe_grouped_ffn_fwd(xg, w1, b1, w2, b2, activation="gelu", rows=None):
     """K4: ``(y [E*cap, D], s [E*cap, H] f32)`` of the grouped expert FFN
     ``act(xg @ w1[e] + b1[e]) @ w2[e] + b2[e]``, expert ``e = row // cap``.
-    Launches the CUDA kernel on CUDA tensors (counted in
+    ``rows`` (an integer ``[E]`` tensor on xg's device, or None for all
+    ``cap``) is each expert's number of live rows; the rest count as the
+    zero token: ``s = b1`` and ``y`` the zero token's, whatever xg holds
+    there. Launches the CUDA kernel on CUDA tensors (counted in
     ``moe_grouped_ffn_fwd.launches``), the plain version on CPU tensors."""
     if xg.device.type == "cuda":
-        return _launch_fwd(xg, w1, b1, w2, b2, activation)
+        return _launch_fwd(xg, w1, b1, w2, b2, activation, rows)
     if xg.device.type != "cpu":
         raise ValueError(f"moe_grouped_ffn_fwd: no kernel for device {xg.device}")
-    return _reference_ffn_fwd(xg, w1, b1, w2, b2, activation)
+    return _reference_ffn_fwd(xg, w1, b1, w2, b2, activation, rows)
 
 
 moe_grouped_ffn_fwd.launches = 0
 
 
-def moe_grouped_ffn_bwd(xg, w1, b1, w2, b2, s, dy, activation="gelu"):
+def moe_grouped_ffn_bwd(xg, w1, b1, w2, b2, s, dy, activation="gelu", rows=None):
     """K4b: ``(dx, dw1, db1, dw2, db2)`` of :func:`moe_grouped_ffn_fwd`
-    given its residual ``s`` and the output gradient ``dy``. Launches the
-    CUDA kernel on CUDA tensors (counted in ``moe_grouped_ffn_bwd.launches``),
+    given its residual ``s`` and the output gradient ``dy``; rows past
+    ``rows[e]`` have a zero gradient, whatever finite values xg and dy hold
+    there (dx = 0 there, and they add nothing to the weights' gradients: the
+    weight-gradient products multiply them by zeros, so an inf or NaN there
+    would spread). Launches the CUDA
+    kernel on CUDA tensors (counted in ``moe_grouped_ffn_bwd.launches``),
     the plain version on CPU tensors."""
     if xg.device.type == "cuda":
-        return _launch_bwd(xg, w1, b1, w2, b2, s, dy, activation)
+        return _launch_bwd(xg, w1, b1, w2, b2, s, dy, activation, rows)
     if xg.device.type != "cpu":
         raise ValueError(f"moe_grouped_ffn_bwd: no kernel for device {xg.device}")
-    return _reference_ffn_bwd(xg, w1, b1, w2, b2, s, dy, activation)
+    return _reference_ffn_bwd(xg, w1, b1, w2, b2, s, dy, activation, rows)
 
 
 moe_grouped_ffn_bwd.launches = 0
@@ -281,24 +345,27 @@ class _GroupedFFN(torch.autograd.Function):
     the forward runs K4 and saves ``s``, the backward runs K4b."""
 
     @staticmethod
-    def forward(ctx, xg, w1, b1, w2, b2, activation):
-        y, s = moe_grouped_ffn_fwd(xg, w1, b1, w2, b2, activation)
-        ctx.save_for_backward(xg, w1, b1, w2, b2, s)
+    def forward(ctx, xg, w1, b1, w2, b2, activation, rows):
+        y, s = moe_grouped_ffn_fwd(xg, w1, b1, w2, b2, activation, rows)
+        ctx.save_for_backward(xg, w1, b1, w2, b2, s, rows)
         ctx.activation = activation
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        xg, w1, b1, w2, b2, s = ctx.saved_tensors
-        grads = moe_grouped_ffn_bwd(xg, w1, b1, w2, b2, s, dy.contiguous(), ctx.activation)
-        return (*grads, None)
+        xg, w1, b1, w2, b2, s, rows = ctx.saved_tensors
+        grads = moe_grouped_ffn_bwd(xg, w1, b1, w2, b2, s, dy.contiguous(), ctx.activation, rows)
+        return (*grads, None, None)
 
 
-def grouped_ffn(xg, w1, b1, w2, b2, activation="gelu"):
+def grouped_ffn(xg, w1, b1, w2, b2, activation="gelu", rows=None):
     """``act(xg @ w1[e] + b1[e]) @ w2[e] + b2[e]`` where ``e = row // cap``
     over the sorted, padded ``[E*cap, D]`` dispatch layout; differentiable
-    in all five operands (forward K4, backward K4b)."""
-    return _GroupedFFN.apply(xg, w1, b1, w2, b2, activation)
+    in all five operands (forward K4, backward K4b). ``rows`` (an integer
+    ``[E]`` tensor, or None for all ``cap``) is each expert's number of live
+    rows: the rest are the zero token with a zero output gradient, and the
+    kernels skip them."""
+    return _GroupedFFN.apply(xg, w1, b1, w2, b2, activation, rows)
 
 
 # -- public op ---------------------------------------------------------------
@@ -343,7 +410,9 @@ def moe_dispatch_combine(tokens, gate_vals, gate_idx, drop_mask, w1, b1, w2, b2,
     row_ids.scatter_(0, slot, tok_sorted)
     xg = torch.cat([tokens, tokens.new_zeros((1, D))]).index_select(0, row_ids[:E * cap])
 
-    yg = grouped_ffn(xg, w1, b1, w2, b2, activation)
+    # the live rows of each expert: the kernels read them on the device
+    rows = counts[:E].clamp(max=cap).to(torch.int32)
+    yg = grouped_ffn(xg, w1, b1, w2, b2, activation, rows)
 
     # combine: weighted scatter-add back to token order. On the card
     # index_add (and the backward of each index_select) accumulates with

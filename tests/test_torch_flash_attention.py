@@ -281,19 +281,54 @@ def test_bwd_kernel_writes_packed_qkv_strides_on_card(card):
 def test_tma_alignment_rule():
     """The bf16 kernels read q, k, v and dout by TMA and store bf16 pairs:
     a bf16 operand needs a 16-byte aligned base and 16-byte aligned b, s, h
-    byte strides. Views of a packed projection pass; a view one element
-    past a boundary, or with a row pitch of 68 elements, raises; f32 is
-    exempt (the SIMT kernels take any strides)."""
+    byte strides. Views of a packed projection pass as they are; a view one
+    element past a boundary, or with a row pitch of 68 elements, is copied
+    once into a contiguous tensor the kernel takes (the kernel runs on the
+    copy); f32 is exempt (the SIMT kernels take any strides)."""
     qkv = torch.zeros((2, 64, 3, 2, 64), dtype=torch.bfloat16)
-    fa.check_tma_alignment("test", (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]))
-    fa.check_tma_alignment("test", (torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16)[:, :, :, :],))
-    flat = torch.zeros(2 * 64 * 2 * 64 + 1, dtype=torch.bfloat16)
+    for ok in (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+               torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16)[:, :, :, :],
+               torch.zeros(2 * 64 * 2 * 64 + 1)[1:].view(2, 64, 2, 64)):
+        assert not fa.needs_copy(ok) and fa.kernel_operand(ok) is ok
+    flat = torch.arange(2 * 64 * 2 * 64 + 1).to(torch.bfloat16)
     offset = flat[1:].view(2, 64, 2, 64)
-    pitch = torch.zeros((2, 64, 2, 68), dtype=torch.bfloat16)[..., :64]
+    pitch = torch.arange(2 * 64 * 2 * 68).to(torch.bfloat16).view(2, 64, 2, 68)[..., :64]
     for bad in (offset, pitch):
-        with pytest.raises(ValueError, match="16-byte"):
-            fa.check_tma_alignment("test", (qkv[:, :, 0], bad))
-    fa.check_tma_alignment("test", (torch.zeros(2 * 64 * 2 * 64 + 1)[1:].view(2, 64, 2, 64),))
+        assert fa.needs_copy(bad)
+        copy = fa.kernel_operand(bad)
+        assert copy.is_contiguous() and copy.data_ptr() % 16 == 0 and not fa.needs_copy(copy)
+        torch.testing.assert_close(copy, bad, atol=0, rtol=0)
+
+
+def test_zero_strides_are_copied_and_unwritable_buffers_refused():
+    """dO with a zero stride on a dim longer than 1 (the gradient of
+    ``out.mean(dim=1)``: unit head-dim stride, s-stride 0) or a non-unit
+    head-dim stride reaches the kernels as one contiguous copy, in f32 and
+    bf16; a zero stride on a dim of length 1 is never stepped and needs
+    none. Gradient buffers are new, or the caller's when the kernels can
+    write them in place (views of a packed gradient); a caller's buffer
+    that would need a copy is refused."""
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.arange(2 * 4 * 64, dtype=torch.float32).to(dt).view(2, 1, 4, 64)
+        mean_grad = g.expand(2, 128, 4, 64)
+        assert mean_grad.stride() == (256, 0, 64, 1) and fa.needs_copy(mean_grad)
+        copy = fa.kernel_operand(mean_grad)
+        assert copy.is_contiguous() and not fa.needs_copy(copy)
+        torch.testing.assert_close(copy, mean_grad, atol=0, rtol=0)
+        assert fa.needs_copy(torch.zeros((2, 8, 4, 128), dtype=dt)[..., ::2])
+        one = torch.zeros(8 * 2 * 64, dtype=dt).as_strided((1, 8, 2, 64), (0, 128, 64, 1))
+        assert not fa.needs_copy(one)
+    packed = torch.zeros((2, 64, 3, 2, 64), dtype=torch.bfloat16)
+    q = packed[:, :, 0]
+    fresh = fa.gradient_buffers("test", q, None)
+    assert len(fresh) == 3 and all(b.shape == q.shape and b.dtype == q.dtype for b in fresh)
+    grads = (packed[:, :, 0], packed[:, :, 1], packed[:, :, 2])
+    assert all(b is g for b, g in zip(fa.gradient_buffers("test", q, grads), grads))
+    pitch = torch.zeros((2, 64, 2, 68), dtype=torch.bfloat16)[..., :64]
+    for bad in ((packed[:, :, 0], pitch, packed[:, :, 2]),
+                (packed[:, :, 0], packed[:, :, 1], packed[:, :, 2].float())):
+        with pytest.raises(ValueError, match="dq, dk, dv buffers"):
+            fa.gradient_buffers("test", q, bad)
 
 
 # The bf16 kernels' tiling: 128-row q tiles and 64-key K/V tiles, TMA's zero
@@ -343,3 +378,51 @@ def test_bf16_packed_qkv_on_card(card):
     want.backward(g.float())
     torch.testing.assert_close(out.float(), want, atol=2e-2, rtol=0.0)
     torch.testing.assert_close(qkv.grad.float(), ref.grad, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_mean_gradient_through_k2_on_card(card, causal):
+    """The gradient of ``out.mean(dim=1)`` (s-stride 0, unit head-dim
+    stride) through K2 in bf16 against the plain attention's autograd in
+    f32 on the same bf16 inputs: atol 2e-2 / rtol 1e-2, as the other bf16
+    backward tests."""
+    rng = np.random.default_rng(21)
+    b, s, h, d = 2, 200, 3, 64
+    host = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32)) for _ in range(3)]
+    g = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32)).to(card)
+    q, k, v = (t.to(card, torch.bfloat16).requires_grad_() for t in host)
+    before = fa.flash_attention_bwd.launches
+    out, _ = fa.flash_attention_fwd(q, k, v, causal)
+    (out.float().mean(dim=1) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    ref = [t.to(card, torch.bfloat16).float().requires_grad_() for t in host]
+    want, _ = fa._reference_attention(*ref, causal)
+    (want.mean(dim=1) * g).sum().backward()
+    for got, w in zip((q, k, v), ref):
+        torch.testing.assert_close(got.grad.float(), w.grad, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_offset_view_through_k1_on_card(card):
+    """A bf16 q that starts one element past a 16-byte boundary (TMA cannot
+    read it in place) is copied once and runs through K1: the same result
+    as the aligned tensor's."""
+    rng = np.random.default_rng(22)
+    shape = (2, 128, 2, 64)
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)).to(card, torch.bfloat16)
+    q = flat[1:].view(shape)
+    k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, torch.bfloat16)
+            for _ in range(2))
+    assert q.data_ptr() % 16 != 0
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    want, want_lse = fa.flash_attention_fwd(q.clone(), k, v, True)
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
+    ref, _ = fa._reference_attention(q.float(), k.float(), v.float(), True)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)

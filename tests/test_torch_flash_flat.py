@@ -364,3 +364,26 @@ def test_gqa_and_packed_routes_on_card(card, flash_flat_on):
         torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
         for a, b in zip(leaves, ref):
             torch.testing.assert_close(a.grad, b.grad, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_mean_gradient_through_k3b_on_card(card, causal):
+    """The gradient of ``out.mean(dim=1)`` (s-stride 0, unit head-dim
+    stride) through K3/K3b (``flash_flat``) in bf16 against the plain
+    attention's autograd in f32 on the same bf16 inputs: atol 2e-2 / rtol
+    1e-2, as the other bf16 backward tests."""
+    rng = np.random.default_rng(23)
+    b, s, h, d = 2, 200, 3, 64
+    host = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32)) for _ in range(3)]
+    g = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32)).to(card)
+    q, k, v = (t.to(card, torch.bfloat16).requires_grad_() for t in host)
+    before = ff.flash_flat_bwd.launches
+    (ff.flash_flat(q, k, v, causal).float().mean(dim=1) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert ff.flash_flat_bwd.launches == before + 1
+    ref = [t.to(card, torch.bfloat16).float().requires_grad_() for t in host]
+    want, _ = ff._reference_flat_fwd(*ref, None, causal)
+    (want.mean(dim=1) * g).sum().backward()
+    for got, w in zip((q, k, v), ref):
+        torch.testing.assert_close(got.grad.float(), w.grad, atol=2e-2, rtol=1e-2)

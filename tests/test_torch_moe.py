@@ -204,6 +204,165 @@ def test_dispatch_combine_matches_paddle_tpu(interpret, impl, K, drop):
         np.testing.assert_allclose(t.grad.numpy(), _np(jg), err_msg=name, **GRAD)
 
 
+# ----------------------------------------------------- (b2) live rows
+
+
+def _spy_port(monkeypatch):
+    """Record the port's grouped-FFN call as the dispatch makes it: xg,
+    rows, and dy (the gradient reaching the FFN's output)."""
+    seen = {}
+    real = mp.grouped_ffn
+
+    def spy(xg, w1, b1, w2, b2, activation="gelu", rows=None):
+        seen["xg"], seen["rows"] = xg.detach().clone(), rows
+        y = real(xg, w1, b1, w2, b2, activation, rows)
+        if y.requires_grad:
+            y.register_hook(lambda g: seen.__setitem__("dy", g.detach().clone()))
+        return y
+
+    monkeypatch.setattr(mp, "grouped_ffn", spy)
+    return seen
+
+
+def _spy_reference(monkeypatch):
+    """Record the reference dispatch's own per-expert counts (its
+    ``bincount``) and its padded ``xg``."""
+    seen = {}
+    real_bincount, real_ffn = jmp.jnp.bincount, jmp._grouped_ffn
+
+    def bincount(x, *args, **kwargs):
+        out = real_bincount(x, *args, **kwargs)
+        seen["counts"] = np.asarray(out)
+        return out
+
+    def ffn(xg, *args):
+        seen["xg"] = np.asarray(xg)
+        return real_ffn(xg, *args)
+
+    monkeypatch.setattr(jmp.jnp, "bincount", bincount)
+    monkeypatch.setattr(jmp, "_grouped_ffn", ffn)
+    return seen
+
+
+def _dispatch_inputs(drop, T=24, D=16, H=32, E=4, K=2):
+    gv, gi = _routing(T, E, K, seed=4, skew=2.5)
+    rng = np.random.default_rng(5)
+    tokens = rng.normal(size=(T, D)).astype(np.float32)
+    dm = None
+    if drop:
+        dm = np.zeros((T, K), bool)
+        dm[:, 1] = rng.random(T) < 0.5
+    return tokens, gv, gi, dm, _ffn_weights(E, D, H, seed=6)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_dispatch_rows_are_the_references_counts(interpret, monkeypatch, drop):
+    """The dispatch hands the grouped FFN ``rows = min(count, capacity)``
+    (int32), from the same counts the reference's dispatch makes, with and
+    without a drop mask (dropped pairs count for no expert); its xg equals
+    the reference's on the first ``capacity`` rows of each expert, and is
+    the zero token past ``rows[e]``."""
+    capacity, E = 12, 4
+    tokens, gv, gi, dm, w = _dispatch_inputs(drop, E=E)
+    jseen, tseen = _spy_reference(monkeypatch), _spy_port(monkeypatch)
+    jmp.moe_dispatch_combine(jnp.asarray(tokens), jnp.asarray(gv), jnp.asarray(gi),
+                             None if dm is None else jnp.asarray(dm),
+                             *(jnp.asarray(a) for a in w), capacity=capacity,
+                             activation=jax.nn.gelu)
+    with torch.no_grad():
+        mp.moe_dispatch_combine(torch.from_numpy(tokens), torch.from_numpy(gv),
+                                torch.from_numpy(gi), None if dm is None else torch.from_numpy(dm),
+                                *(torch.from_numpy(a) for a in w), capacity=capacity,
+                                activation="gelu")
+    want = np.minimum(jseen["counts"][:E], capacity)
+    rows = tseen["rows"]
+    assert rows.dtype == torch.int32 and rows.shape == (E,)
+    np.testing.assert_array_equal(rows.numpy(), want)
+    assert want[0] == capacity and want.min() < capacity  # a full and a padded expert
+    xg = tseen["xg"].numpy().reshape(E, capacity, -1)
+    jxg = jseen["xg"].reshape(E, -1, xg.shape[-1])
+    np.testing.assert_array_equal(xg, jxg[:, :capacity])
+    for e in range(E):
+        assert not xg[e, want[e]:].any() and xg[e, :want[e]].any(axis=-1).all()
+
+
+def test_dispatch_padding_rows_get_zero_gradient(interpret, monkeypatch):
+    """Backward through the dispatch: dy, the gradient reaching the grouped
+    FFN's output, is exactly 0 on every row past ``rows[e]``, as in the
+    reference's dispatch (its combine gathers no padding row with a nonzero
+    weight); the port's gradients equal the reference's."""
+    capacity, E = 12, 4
+    tokens, gv, gi, dm, w = _dispatch_inputs(True, E=E)
+    g = np.random.default_rng(7).normal(size=tokens.shape).astype(np.float32)
+    tseen = _spy_port(monkeypatch)
+    leaves = [_t(a).requires_grad_() for a in (tokens, gv, *w)]
+    out = mp.moe_dispatch_combine(leaves[0], leaves[1], torch.from_numpy(gi),
+                                  torch.from_numpy(dm), *leaves[2:], capacity=capacity,
+                                  activation="gelu")
+    (out * _t(g)).sum().backward()
+    rows, dy = tseen["rows"], tseen["dy"].reshape(E, capacity, -1)
+    for e in range(E):
+        assert not dy[e, int(rows[e]):].any()
+    assert dy.abs().sum() > 0
+
+    def jloss(tok, gvals, w1, b1, w2, b2):
+        return jnp.sum(jmp.moe_dispatch_combine(tok, gvals, jnp.asarray(gi), jnp.asarray(dm), w1,
+                                                b1, w2, b2, capacity=capacity,
+                                                activation=jax.nn.gelu) * g)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(6)))(*(jnp.asarray(a) for a in (tokens, gv, *w)))
+    for t, jg in zip(leaves, jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), _np(jg), **GRAD)
+
+
+def _ffn_call(xg, w, dy, rows):
+    """y, s and the five gradients of the plain grouped FFN (CPU autograd
+    through ``_GroupedFFN``)."""
+    leaves = [_t(a).requires_grad_() for a in (xg, *w)]
+    y = mp.grouped_ffn(*leaves, "gelu", rows)
+    (y * _t(dy)).sum().backward()
+    _, s = mp.moe_grouped_ffn_fwd(*(t.detach() for t in leaves), "gelu", rows)
+    return [y.detach(), s] + [t.grad for t in leaves]
+
+
+def test_plain_ffn_rows_on_zero_token_padding_change_nothing():
+    """On inputs the dispatch makes (zero tokens and zero gradients past
+    ``rows[e]``), the plain grouped FFN with ``rows`` gives exactly what it
+    gives without them: ``rows`` only names what is already padding."""
+    E, cap, D, H = 3, 8, 16, 40
+    rows = torch.tensor([8, 3, 0], dtype=torch.int32)
+    rng = np.random.default_rng(30)
+    xg, dy = (rng.normal(size=(E * cap, D)).astype(np.float32) for _ in range(2))
+    live = (np.arange(cap)[None, :] < rows.numpy()[:, None]).reshape(-1, 1)
+    xg, dy = xg * live, dy * live
+    w = _ffn_weights(E, D, H, seed=31)
+    for a, b, name in zip(_ffn_call(xg, w, dy, rows), _ffn_call(xg, w, dy, None),
+                          ("y", "s", "dx", "dw1", "db1", "dw2", "db2")):
+        torch.testing.assert_close(a, b, atol=0, rtol=0, msg=name)
+
+
+def test_plain_ffn_rows_ignore_junk_padding():
+    """With ``rows``, whatever xg and dy hold past ``rows[e]`` changes
+    nothing: the padding rows are the zero token (s = b1, y the zero
+    token's) with a zero gradient (dx = 0 there)."""
+    E, cap, D, H = 3, 8, 16, 40
+    rows = torch.tensor([5, 0, 8], dtype=torch.int32)
+    rng = np.random.default_rng(32)
+    junk_x, junk_dy = (rng.normal(size=(E * cap, D)).astype(np.float32) for _ in range(2))
+    live = (np.arange(cap)[None, :] < rows.numpy()[:, None]).reshape(-1, 1)
+    w = _ffn_weights(E, D, H, seed=33)
+    got = _ffn_call(junk_x, w, junk_dy, rows)
+    want = _ffn_call(junk_x * live, w, junk_dy * live, rows)
+    for a, b, name in zip(got, want, ("y", "s", "dx", "dw1", "db1", "dw2", "db2")):
+        torch.testing.assert_close(a, b, atol=0, rtol=0, msg=name)
+    y, s, dx = (t.reshape(E, cap, -1) for t in got[:3])
+    torch.testing.assert_close(s[1], _t(w[1])[1].expand(cap, -1), atol=0, rtol=0)
+    assert not dx[0, 5:].any() and not dx[1].any()
+    b1, w2, b2 = (_t(a)[0] for a in w[1:])
+    zero_token_y = mp._act(b1, "gelu") @ w2 + b2  # expert 0's y of the zero token
+    torch.testing.assert_close(y[0, 5:], zero_token_y.expand(3, -1), **FWD)
+
+
 # ------------------------------------------------------------- (c) gates
 
 
@@ -433,6 +592,27 @@ def test_predicate_takes_the_cuda_kernels_limits():
                                 activation="gelu")
 
 
+def test_predicate_bf16_needs_tma_aligned_widths():
+    """bf16 K4/K4b read their operands by TMA, whose row strides are
+    16-byte multiples: D and H must be multiples of 8 in bf16; f32 (the
+    SIMT kernels, 4-byte copies at a ragged edge) takes any widths. The
+    rule holds for the dispatch's predicate too."""
+    ok = dict(num_experts=8, d_model=1024, d_hidden=4096, capacity=77, dtype=torch.bfloat16,
+              activation="gelu", device_type="cuda")
+    assert mp.moe_kernel_available(**ok)
+    assert mp.moe_kernel_available(**{**ok, "d_model": 200, "d_hidden": 328})
+    for bad in (dict(d_model=1020), dict(d_hidden=4100), dict(d_model=130, d_hidden=64)):
+        assert not mp.moe_kernel_available(**{**ok, **bad})
+        assert mp.moe_kernel_available(**{**ok, **bad, "dtype": torch.float32})
+    tok = torch.zeros((4, 12), dtype=torch.bfloat16)
+    w = tuple(torch.zeros(s, dtype=torch.bfloat16) for s in ((2, 12, 16), (2, 1, 16), (2, 16, 12),
+                                                             (2, 1, 12)))
+    gv, gi = torch.zeros(4, 2), torch.zeros(4, 2, dtype=torch.long)
+    assert not mp.moe_available(tok, gv, gi, None, *w, capacity=4, activation="gelu")
+    assert mp.moe_available(tok.float(), gv, gi, None, *(t.float() for t in w), capacity=4,
+                            activation="gelu")
+
+
 def test_criterion_adds_the_aux_loss():
     rng = np.random.default_rng(15)
     logits = torch.from_numpy(rng.normal(size=(2, 5, 30)).astype(np.float32))
@@ -471,7 +651,9 @@ def test_kernels_match_plain_on_card(card, shape, act, dtype):
     that output's largest magnitude: f32 at most 2e-5 (f32 sums over up to
     a few hundred terms in another order); bf16 at most 1e-2 (the kernel
     rounds h, dh and its outputs to bf16, 2**-8 relative each). Three rows
-    of dy are zero, as padding rows' are."""
+    of dy are zero, as padding rows' are. A bf16 width that is no multiple
+    of 8 (D = 130) is not the bf16 kernels' (TMA's 16-byte row strides):
+    the predicate refuses it and the wrapper raises, launching nothing."""
     E, cap, D, H = shape
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(16)
@@ -481,6 +663,12 @@ def test_kernels_match_plain_on_card(card, shape, act, dtype):
     dy[cap - 3:cap] = 0
     args = [t.to(card, dt) for t in (xg, w1, b1, w2, b2)]
     before = mp.moe_grouped_ffn_fwd.launches, mp.moe_grouped_ffn_bwd.launches
+    if dt == torch.bfloat16 and (D % 8 or H % 8):
+        assert not mp.moe_kernel_available(E, D, H, cap, dt, act)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            mp.moe_grouped_ffn_fwd(*args, act)
+        assert mp.moe_grouped_ffn_fwd.launches == before[0]
+        return
     y, s = mp.moe_grouped_ffn_fwd(*args, act)
     grads = mp.moe_grouped_ffn_bwd(*args, s, dy.to(card, dt), act)
     torch.cuda.synchronize()
@@ -516,3 +704,50 @@ def test_dispatch_combine_on_card_matches_cpu(card):
         results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
     for got, want in zip(*results):
         assert _rel_err(got, want) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,rows", [
+    ((4, 256, 256, 512), (90, 0, 256, 13)),  # fill 0.35, an empty and a full expert
+    ((3, 77, 200, 328), (77, 1, 30)),        # a ragged capacity
+    ((2, 300, 128, 256), (128, 300)),        # rows[e] on a 128-row tile edge
+    ((8, 512, 128, 256), (179, 129, 0, 512, 37, 256, 255, 1)),
+])
+def test_kernels_honour_rows_on_card(card, shape, rows, dtype):
+    """K4 and K4b with live ``rows`` and junk (random values) in the padding
+    rows of xg and dy, against the plain versions on the same inputs (which
+    zero the junk), at the tolerances of ``test_kernels_match_plain_on_card``.
+    The junk can only be ignored if the kernels honour ``rows``. The padding
+    rows hold the zero token's values: s = b1 and dx = 0 exactly, and one y
+    row per expert, whichever row of its padding it is."""
+    E, cap, D, H = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(24)
+    xg = torch.randn(E * cap, D, generator=g)
+    dy = torch.randn(E * cap, D, generator=g)
+    w1, b1, w2, b2 = (torch.from_numpy(a) for a in _ffn_weights(E, D, H, seed=25))
+    args = [t.to(card, dt) for t in (xg, w1, b1, w2, b2)]
+    live = torch.tensor(rows, dtype=torch.int32, device=card)
+    before = mp.moe_grouped_ffn_fwd.launches, mp.moe_grouped_ffn_bwd.launches
+    y, s = mp.moe_grouped_ffn_fwd(*args, "gelu", live)
+    grads = mp.moe_grouped_ffn_bwd(*args, s, dy.to(card, dt), "gelu", live)
+    torch.cuda.synchronize()
+    assert (mp.moe_grouped_ffn_fwd.launches, mp.moe_grouped_ffn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_args = [t.float() for t in args]
+    want_y, want_s = mp._reference_ffn_fwd(*ref_args, "gelu", live)
+    want = mp._reference_ffn_bwd(*ref_args, want_s, dy.to(card, dt).float(), "gelu", live)
+    lim = 2e-5 if dtype == "float32" else 1e-2
+    for name, got, w_ in zip(("y", "s", "dx", "dw1", "db1", "dw2", "db2"), (y, s, *grads),
+                             (want_y, want_s, *want)):
+        assert bool(torch.isfinite(got.float()).all()), name
+        assert _rel_err(got, w_) <= lim, (name, _rel_err(got, w_))
+    y3, s3, dx3 = (t.reshape(E, cap, -1) for t in (y, s, grads[0]))
+    for e, r in enumerate(rows):
+        if r == cap:
+            continue
+        torch.testing.assert_close(s3[e, r:], args[2][e].float().expand(cap - r, -1), atol=0,
+                                   rtol=0)
+        assert not dx3[e, r:].any()
+        torch.testing.assert_close(y3[e, r:], y3[e, r:r + 1].expand(cap - r, -1), atol=0, rtol=0)

@@ -337,6 +337,45 @@ def test_train_step_amp_o2_matches_paddle_tpu():
     assert all(g.dtype == torch.float32 for g in tgrads.values())
 
 
+class _RunningSum(torch.nn.Module):
+    """A linear layer whose f32 buffers are updated in place in forward: a
+    call count and the running sum of its inputs (small integers, exact in
+    bf16, so an O2 step and an f32 step add the same values)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lin = torch.nn.Linear(4, 3)
+        self.register_buffer("calls", torch.zeros(()))
+        self.register_buffer("seen", torch.zeros(4))
+
+    def forward(self, x):
+        self.calls.add_(1.0)
+        self.seen.add_(x.detach().float().sum(0))
+        return self.lin(x)
+
+
+def test_o2_keeps_in_place_buffer_updates():
+    """Under O2 the parameters run as bf16 casts, but the buffers run as
+    they are: forward's in-place updates survive the step, in f32, exactly
+    as in an f32 step."""
+    x = torch.from_numpy(_rng(41).integers(-3, 4, (5, 4)).astype(np.float32))
+    y = torch.zeros(5, 3)
+    buffers = {}
+    for amp in (None, "O2"):
+        torch.manual_seed(0)
+        model = _RunningSum()
+        step = TrainStep(model, AdamW(learning_rate=1e-3, parameters=model.parameters()),
+                         lambda out, t: ((out.float() - t) ** 2).mean(), amp_level=amp)
+        step(x, y)
+        step(x, y)
+        buffers[amp] = {n: b.clone() for n, b in model.named_buffers()}
+        assert all(b.dtype == torch.float32 for b in model.buffers()), amp
+    assert float(buffers["O2"]["calls"]) == 2.0
+    for n, b in buffers[None].items():
+        torch.testing.assert_close(buffers["O2"][n], b, atol=0, rtol=0)
+    torch.testing.assert_close(buffers["O2"]["seen"], 2 * x.sum(0), atol=0, rtol=0)
+
+
 def test_run_steps_equals_single_steps_and_stacks():
     _, pm = _converted_pair(seed=17)
     _, pm2 = _converted_pair(seed=17)
