@@ -12,10 +12,13 @@ does not have yet, so it is not carried.
 
 The jitter draws from a ``torch.Generator`` that the layer owns, seeded at
 construction (``MoELayer.seed``), not from a global key: re-seeding it
-(``layer.generator.manual_seed(layer.seed)``) repeats the routing.
+(``layer.generator.manual_seed(layer.seed)``) repeats the routing. Under
+activation recompute, :func:`routing_replay` makes the recompute draw what
+the forward drew.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -26,7 +29,8 @@ from ..framework.device import resolve_device
 from ..ops import moe_pallas as _moe_pallas  # registers 'pallas_sorted'
 from ..ops import registry as _registry
 
-__all__ = ["NaiveGate", "GShardGate", "SwitchGate", "MoELayer", "dense_dispatch_combine"]
+__all__ = ["NaiveGate", "GShardGate", "SwitchGate", "MoELayer", "dense_dispatch_combine",
+           "routing_replay"]
 
 
 def _xavier_normal(shape, generator, device):
@@ -217,3 +221,39 @@ class MoELayer(nn.Module):
             capacity=self.capacity(B * S), activation=self.activation)
         out = out.reshape(B, S, D)
         return out[0] if x.ndim == 2 else out
+
+
+def routing_replay(module):
+    """The ``(forward, recompute)`` context pair, for
+    ``torch.utils.checkpoint``'s ``context_fn``, that replays the routing of
+    every :class:`MoELayer` in ``module`` (None: no layer). The forward
+    context records each layer's generator state before and after the
+    forward; the recompute context sets the state from before, so the
+    recompute draws the forward's jitter, and on leaving (also when the
+    checkpoint stops the recompute early) sets the state from after and
+    puts back each layer's ``aux_loss``, so the recompute changes neither
+    the next forward's draws nor the aux loss the criterion read."""
+    layers = [] if module is None else [m for m in module.modules() if isinstance(m, MoELayer)]
+    before, after = [], []
+
+    @contextlib.contextmanager
+    def forward():
+        before[:] = [m.generator.get_state() for m in layers]
+        try:
+            yield
+        finally:
+            after[:] = [m.generator.get_state() for m in layers]
+
+    @contextlib.contextmanager
+    def recompute():
+        aux = [m.aux_loss for m in layers]
+        for m, state in zip(layers, before):
+            m.generator.set_state(state)
+        try:
+            yield
+        finally:
+            for m, state, a in zip(layers, after, aux):
+                m.generator.set_state(state)
+                m.aux_loss = a
+
+    return forward(), recompute()

@@ -11,12 +11,23 @@ masters; each step runs the model on bf16 casts of them
 on its master; float inputs are cast likewise; buffers are not cast, so an
 update made to one in place survives the step; the model's output goes into
 the loss in bf16, and a bf16 loss is cast to f32.
+
+``remat=True`` (or ``FLAGS_remat_policy`` other than ``"none"``) recomputes
+the whole model call and loss in the backward. ``accumulate_steps=k``
+merges gradients as the reference does: the batch is split into k strided
+micro-batches (:func:`paddle_tpu_torch.distributed.pipeline.microbatch`),
+each runs its forward and backward, the f32 gradients add up on the masters
+and are divided by k, the loss is the mean of the k losses, and one update
+follows (a gradient clip sees the average).
 """
 from __future__ import annotations
 
 import torch
 from torch.func import functional_call
 
+from ..distributed.pipeline import microbatch, unmicrobatch
+from ..distributed.recompute import recompute
+from ..framework.flags import flag
 from ..observability import metrics
 
 _NOT_PORTED = "TrainStep: {} is not ported yet (ROADMAP.md, Queue 1 item {})"
@@ -27,28 +38,46 @@ def _as_tensors(x, device):
     return tuple(torch.as_tensor(v, device=device) for v in items)
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of same-structured (nested tuple, list or
+    dict) model outputs."""
+    first = trees[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_map(fn, *leaves) for leaves in zip(*trees))
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def _stack_microbatches(*outs):
+    """The k micro-batches' outputs back in batch order: a leaf with a
+    batch dim is stacked ``[k, mb, ...]`` and unsplit; a scalar (GPT-MoE's
+    aux loss) is stacked ``[k]``."""
+    return _tree_map(lambda *xs: unmicrobatch(torch.stack(xs)) if xs[0].ndim else torch.stack(xs),
+                     *outs)
+
+
 class TrainStep:
     """One training step: ``loss_fn(model(*inputs), *labels)``, its
     backward, and ``optimizer``'s update at ``optimizer.lr_at(step)``.
 
     ``amp_level``: None or ``"O0"`` (the model's dtype) or ``"O2"`` (compute
-    in ``amp_dtype`` over f32 masters). ``seed`` is kept for the reference's
-    signature: nothing random runs in the step until dropout is ported. The
-    knobs the port lacks raise ``NotImplementedError``."""
+    in ``amp_dtype`` over f32 masters). ``remat``: recompute the model call
+    in the backward. ``accumulate_steps``: micro-batches per update.
+    ``return_outputs``: the model's outputs (in batch order) in the metrics
+    under ``"outputs"``. ``seed`` is kept for the reference's signature:
+    nothing random runs in the step until dropout is ported. The knobs the
+    port lacks raise ``NotImplementedError``."""
 
     def __init__(self, model, optimizer, loss_fn, mesh=None, state_shardings=None,
                  batch_shardings=None, remat=False, seed=0, amp_level=None, amp_dtype="bfloat16",
                  accumulate_steps=1, return_outputs=False, guard=None):
         if mesh is not None or state_shardings is not None or batch_shardings is not None:
             raise NotImplementedError(_NOT_PORTED.format("a device mesh or shardings", 13))
-        if remat:
-            raise NotImplementedError(_NOT_PORTED.format("remat (recompute)", 5))
-        if int(accumulate_steps) > 1:
-            raise NotImplementedError(_NOT_PORTED.format("accumulate_steps > 1", 6))
         if guard:
             raise NotImplementedError(_NOT_PORTED.format("guard", 6))
-        if return_outputs:
-            raise NotImplementedError(_NOT_PORTED.format("return_outputs", 6))
+        if int(accumulate_steps) < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
         if amp_level not in (None, "O0", "O1", "O2"):
             raise ValueError(f"amp_level must be None/'O0'/'O1'/'O2', got {amp_level!r}")
         if amp_level == "O1":
@@ -61,42 +90,81 @@ class TrainStep:
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.seed = seed
+        self.remat = bool(remat) or flag("FLAGS_remat_policy") != "none"
+        self.accumulate_steps = int(accumulate_steps)
+        self.return_outputs = bool(return_outputs)
         self.device = next(model.parameters()).device
 
     def _to_amp(self, t):
         return t.to(self.amp_dtype) if t.dtype == torch.float32 else t
 
     def _loss(self, inputs, labels):
+        """``(loss, model outputs)`` of one (micro-)batch."""
+        if self.amp_level == "O2":
+            # cast the parameters only: the buffers run as they are, so an
+            # in-place update in forward (a running statistic) lands in the
+            # module's own buffer, as the reference's new_buffers do. The
+            # casts are made here, outside a remat block, and stay saved.
+            state = {n: self._to_amp(p) for n, p in self.model.named_parameters()}
+            inputs = tuple(self._to_amp(x) for x in inputs)
+
+            def call(*xs):
+                return functional_call(self.model, state, xs)
+        else:
+            call = self.model
+
+        def loss_of(*xs):
+            out = call(*xs)
+            return self.loss_fn(out, *labels), out
+
+        if self.remat:
+            loss, out = recompute(loss_of, *inputs, policy="nothing_saveable", replay=self.model)
+        else:
+            loss, out = loss_of(*inputs)
+        return (loss.float() if loss.dtype == self.amp_dtype else loss), out
+
+    def _step(self, inputs, labels):
+        """One update; returns ``(loss, lr, outputs or None)``."""
+        lr = self.optimizer.lr_at(self.optimizer._step_count)
+        self.optimizer.clear_grad()
+        inputs, labels = _as_tensors(inputs, self.device), _as_tensors(labels, self.device)
+        k = self.accumulate_steps
+        mb_in = [microbatch(x, k) for x in inputs]
+        mb_lb = [microbatch(x, k) for x in labels]
+        losses, outs = [], []
         was_training = self.model.training
         self.model.train()
         try:
-            if self.amp_level == "O2":
-                # cast the parameters only: the buffers run as they are, so an
-                # in-place update in forward (a running statistic) lands in
-                # the module's own buffer, as the reference's new_buffers do
-                state = {n: self._to_amp(p) for n, p in self.model.named_parameters()}
-                out = functional_call(self.model, state, tuple(self._to_amp(x) for x in inputs))
-            else:
-                out = self.model(*inputs)
-            loss = self.loss_fn(out, *labels)
+            for i in range(k):
+                loss, out = self._loss(tuple(x[i].contiguous() for x in mb_in),
+                                       tuple(x[i].contiguous() for x in mb_lb))
+                loss.backward()  # adds this micro-batch's f32 gradients on the masters
+                losses.append(loss.detach())
+                outs.append(_tree_map(torch.Tensor.detach, out) if self.return_outputs else None)
+                del loss, out
         finally:
             self.model.train(was_training)
-        return loss.float() if loss.dtype == self.amp_dtype else loss
-
-    def _step(self, inputs, labels):
-        lr = self.optimizer.lr_at(self.optimizer._step_count)
-        self.optimizer.clear_grad()
-        loss = self._loss(_as_tensors(inputs, self.device), _as_tensors(labels, self.device))
-        loss.backward()
+        if k > 1:
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(k)
         self.optimizer._apply(lr)
-        return loss.detach(), lr
+        outputs = None
+        if self.return_outputs:
+            outputs = outs[0] if k == 1 else _stack_microbatches(*outs)
+        return torch.stack(losses).mean(), lr, outputs
 
     def __call__(self, inputs, labels):
-        """One step; returns ``{"loss": f32 scalar tensor, "lr": float}``."""
-        loss, lr = self._step(inputs, labels)
+        """One step; returns ``{"loss": f32 scalar tensor, "lr": float}``,
+        plus ``"outputs"`` with ``return_outputs``."""
+        loss, lr, outputs = self._step(inputs, labels)
         metrics.counter_inc("train_step.dispatches")
         metrics.counter_inc("train_step.steps")
-        return {"loss": loss, "lr": lr}
+        result = {"loss": loss, "lr": lr}
+        if self.return_outputs:
+            result["outputs"] = outputs
+        return result
 
     def run_steps(self, batches, k=None):
         """k steps: ``batches`` is k ``(inputs, labels)`` pairs (``k`` may be
@@ -117,5 +185,8 @@ class TrainStep:
         results = [self._step(i, l) for i, l in batches]
         metrics.counter_inc("train_step.dispatches")
         metrics.counter_inc("train_step.steps", len(results))
-        return {"loss": torch.stack([r[0] for r in results]),
-                "lr": torch.tensor([r[1] for r in results], dtype=torch.float32)}
+        out = {"loss": torch.stack([r[0] for r in results]),
+               "lr": torch.tensor([r[1] for r in results], dtype=torch.float32)}
+        if self.return_outputs:
+            out["outputs"] = _tree_map(lambda *xs: torch.stack(xs), *(r[2] for r in results))
+        return out

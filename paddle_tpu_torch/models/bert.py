@@ -124,14 +124,18 @@ class BertEmbeddings(nn.Module):
                                                generator=generator)
         self.norm = LayerNorm(H, device=device)
 
-    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+    def embed(self, input_ids, token_type_ids=None, position_ids=None):
+        """The sum of the word, position and token-type embeddings, before
+        the LayerNorm (a subclass adds its own tables to it)."""
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        h = (self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
-             + self.token_type_embeddings(token_type_ids))
-        return self.norm(h)
+        return (self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
+                + self.token_type_embeddings(token_type_ids))
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+        return self.norm(self.embed(input_ids, token_type_ids, position_ids))
 
 
 class BertModel(nn.Module):

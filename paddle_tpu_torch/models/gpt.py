@@ -16,7 +16,11 @@ kernels K4/K4b on the card), its attention goes through ``sdpa``, and
 Training differentiates either trunk: attention's gradient runs the CUDA
 kernel K2, LayerNorm's is closed-form, the expert FFN's runs K4b, and
 :class:`GPTPretrainingCriterion` is the fused softmax cross entropy (plus
-the MoE aux loss).
+the MoE aux loss). ``GPTConfig(recompute=True)`` recomputes each block's
+activations in the backward (:mod:`paddle_tpu_torch.distributed.recompute`)
+on either trunk: ``recompute_granularity="full"`` saves nothing inside a
+block, ``"selective"`` saves its matmul outputs, as the reference's
+``nothing_saveable`` and ``dots_saveable`` policies do.
 
 The cache half serves decoding on the stacked trunk: a static
 ``[L, b, H, S, dh]`` KV cache that is updated IN PLACE (the reference
@@ -25,11 +29,12 @@ the caller's tensors and the functions return only what is new). Prefill and
 decode attend over the cache in plain PyTorch, as the reference's jnp does.
 As in the reference, ``generate()`` and serving need the stacked trunk.
 
-Not ported yet: recompute, dropout in training, the int8 KV packs, chunked
-prefill and export; see ``ROADMAP.md``.
+Not ported yet: dropout in training, the int8 KV packs, chunked prefill
+and export; see ``ROADMAP.md``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed.moe import MoELayer
+from ..distributed.recompute import recompute as _recompute
 from ..framework.device import resolve_device
 from ..ops import registry
 from ..ops.layer_norm import layer_norm_fused
@@ -52,12 +58,16 @@ class GPTConfig:
     sets ``moe_num_experts = E`` and the per-layer trunk (``stacked=False``),
     and every ``moe_every``-th block (blocks ``moe_every - 1``,
     ``2*moe_every - 1``, ...) swaps its dense FFN for a top-``moe_top_k``
-    GShard MoE layer at capacity factor ``moe_capacity_factor``."""
+    GShard MoE layer at capacity factor ``moe_capacity_factor``.
+
+    ``recompute``: recompute each block in the backward, at
+    ``recompute_granularity`` ``"full"`` or ``"selective"``."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
                  ffn_hidden_size=None, max_seq_len=1024, dropout=0.0, attn_dropout=0.0,
                  initializer_range=0.02, use_flash=True, stacked=True, recompute=False,
-                 moe=0, moe_num_experts=0, moe_every=2, moe_top_k=2, moe_capacity_factor=1.25):
+                 recompute_granularity="full", moe=0, moe_num_experts=0, moe_every=2,
+                 moe_top_k=2, moe_capacity_factor=1.25):
         if moe:
             moe_num_experts = moe_num_experts or int(moe)
             stacked = False
@@ -65,8 +75,9 @@ class GPTConfig:
             raise ValueError("GPT-MoE needs stacked=False (heterogeneous layers)")
         if moe_num_experts and moe_every < 1:
             raise ValueError(f"moe_every must be >= 1, got {moe_every}")
-        if recompute:
-            raise NotImplementedError("recompute is not ported yet (ROADMAP.md, Queue 1 item 5)")
+        if recompute_granularity not in _REMAT_POLICY:
+            raise ValueError(f"recompute_granularity must be 'full' or 'selective', "
+                             f"got {recompute_granularity!r}")
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple of num_heads {num_heads}")
         self.vocab_size = vocab_size
@@ -81,15 +92,17 @@ class GPTConfig:
         self.use_flash = use_flash
         self.stacked = stacked
         self.recompute = recompute
+        self.recompute_granularity = recompute_granularity
         self.moe_num_experts = moe_num_experts
         self.moe_every = moe_every
         self.moe_top_k = moe_top_k
         self.moe_capacity_factor = moe_capacity_factor
 
     def to_dict(self):
-        """Constructor kwargs. Unlike the reference's, they include the MoE
-        knobs, so ``GPTConfig(**cfg.to_dict())`` rebuilds a GPT-MoE config
-        (ROADMAP.md, Queue 3)."""
+        """Constructor kwargs. Unlike the reference's, they include
+        ``recompute_granularity`` and the MoE knobs, so
+        ``GPTConfig(**cfg.to_dict())`` rebuilds any config (ROADMAP.md,
+        Queue 3)."""
         return dict(
             vocab_size=self.vocab_size, hidden_size=self.hidden_size,
             num_layers=self.num_layers, num_heads=self.num_heads,
@@ -97,6 +110,7 @@ class GPTConfig:
             dropout=self.dropout, attn_dropout=self.attn_dropout,
             initializer_range=self.initializer_range, use_flash=self.use_flash,
             stacked=self.stacked, recompute=self.recompute,
+            recompute_granularity=self.recompute_granularity,
             moe_num_experts=self.moe_num_experts, moe_every=self.moe_every,
             moe_top_k=self.moe_top_k, moe_capacity_factor=self.moe_capacity_factor,
         )
@@ -154,15 +168,26 @@ def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=
     return h + y @ f2w + f2b
 
 
-def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None):
-    """Whole-trunk forward: the layer loop of the reference at pp = 1, no
-    recompute. The stacked parameters are unbound once, so their gradient is
-    one ``stack`` of the per-layer gradients, not L zero-filled ``[L, ...]``
-    buffers added up."""
+# recompute_granularity -> the recompute policy of each block, as in the
+# reference (full: nothing_saveable; selective: dots_saveable, the matmul
+# outputs saved)
+_REMAT_POLICY = {"full": "nothing_saveable", "selective": "dots_saveable"}
+
+
+def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None, recompute=None):
+    """Whole-trunk forward: the layer loop of the reference at pp = 1, each
+    block recomputed in the backward under the policy named by
+    ``recompute`` (a granularity, or None for no recompute). The stacked
+    parameters are unbound once, so their gradient is one ``stack`` of the
+    per-layer gradients, not L zero-filled ``[L, ...]`` buffers added up."""
+    block = functools.partial(_block_apply, num_heads=num_heads, attn_dropout=attn_dropout,
+                              generator=generator)
     h = x
     for lp in zip(*(p.unbind(0) for p in params)):
-        h = _block_apply(lp, h, num_heads=num_heads, attn_dropout=attn_dropout,
-                         generator=generator)
+        if recompute:
+            h = _recompute(block, lp, h, policy=_REMAT_POLICY[recompute])
+        else:
+            h = block(lp, h)
     return h
 
 
@@ -196,7 +221,8 @@ class GPTBlockStack(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         _no_training_dropout(self, cfg)
-        return _stack_forward(x, [getattr(self, n) for n in self._order], num_heads=cfg.num_heads)
+        return _stack_forward(x, [getattr(self, n) for n in self._order], num_heads=cfg.num_heads,
+                              recompute=cfg.recompute_granularity if cfg.recompute else None)
 
 
 def _no_training_dropout(module, cfg):
@@ -301,8 +327,15 @@ class GPTModel(nn.Module):
             h = self.layers(h)
         else:
             for blk in self.layers:
-                h = blk(h)
+                h = self._block_maybe_remat(blk, h)
         return layer_norm_fused(h, self.final_norm.weight, self.final_norm.bias, self.final_norm.eps)
+
+    def _block_maybe_remat(self, blk, h):
+        """One per-layer block, recomputed in the backward when
+        ``cfg.recompute`` is on (a MoE block replays its routing)."""
+        if not self.cfg.recompute:
+            return blk(h)
+        return _recompute(blk, h, policy=_REMAT_POLICY[self.cfg.recompute_granularity])
 
     @property
     def moe_aux_loss(self):

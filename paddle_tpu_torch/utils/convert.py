@@ -15,7 +15,12 @@ names and shapes fit one model. Both GPT trunks convert:
 BERT's names: ``bert.embeddings.{word,position,token_type}_embeddings.weight``,
 ``bert.embeddings.norm.*``, ``bert.layers.N.attn.qkv_proj.weight`` etc. (the
 per-layer block names of GPT), ``bert.pooler.*``, ``transform.*``,
-``transform_norm.*`` and ``nsp.*``.
+``transform_norm.*`` and ``nsp.*``. ERNIE's are BERT's under ``ernie.``, plus
+``ernie.embeddings.task_type_embeddings.weight`` (where the config uses task
+ids), with ``sop.*`` in place of ``nsp.*``.
+
+A GPT state converts the same whatever its config's recompute settings:
+recompute changes no parameter.
 """
 from __future__ import annotations
 
@@ -86,44 +91,53 @@ def _per_layer_shapes(np_state) -> Dict[str, tuple]:
     return shapes
 
 
-_BERT_WORD = "bert.embeddings.word_embeddings.weight"
-_BERT_LAYER_KEY = re.compile(r"bert\.layers\.(\d+)\.")
+# encoder family -> (its trunk's prefix, its sentence-level head)
+_ENCODERS = {"BERT": ("bert", "nsp"), "ERNIE": ("ernie", "sop")}
+_TASK_TABLE = "ernie.embeddings.task_type_embeddings.weight"
 
 
-def _bert_shapes(np_state) -> Dict[str, tuple]:
-    """The names a ``BertForPretraining`` state must hold, with their
-    shapes: L from the highest layer index present, the position and
-    token-type tables' rows and the FFN width from the state."""
-    V, D = np.asarray(np_state[_BERT_WORD]).shape
-    rows = {name: np.asarray(np_state[key]).shape[0] for name in ("position", "token_type")
-            if (key := f"bert.embeddings.{name}_embeddings.weight") in np_state}
-    layers = {int(m.group(1)) for k in np_state if (m := _BERT_LAYER_KEY.match(k))}
+def _encoder_shapes(np_state, family) -> Dict[str, tuple]:
+    """The names a ``BertForPretraining`` or ``ErnieForPretraining`` state
+    must hold, with their shapes: L from the highest layer index present,
+    the embedding tables' rows and the FFN width from the state; ERNIE's
+    task-type table where the state has one."""
+    pre, head = _ENCODERS[family]
+    V, D = np.asarray(np_state[f"{pre}.embeddings.word_embeddings.weight"]).shape
+    tables = ("position", "token_type") + (("task_type",) if _TASK_TABLE in np_state else ())
+    rows = {name: np.asarray(np_state[key]).shape[0] for name in tables
+            if (key := f"{pre}.embeddings.{name}_embeddings.weight") in np_state}
+    layer_key = re.compile(pre + r"\.layers\.(\d+)\.")
+    layers = {int(m.group(1)) for k in np_state if (m := layer_key.match(k))}
     widths = [np.asarray(v).shape[-1] for k, v in np_state.items() if k.endswith(".ffn1.weight")]
     Ff = widths[0] if widths else 4 * D
-    shapes = {_BERT_WORD: (V, D),
-              "bert.embeddings.position_embeddings.weight": (rows.get("position", 0), D),
-              "bert.embeddings.token_type_embeddings.weight": (rows.get("token_type", 0), D),
-              "bert.embeddings.norm.weight": (D,), "bert.embeddings.norm.bias": (D,),
-              "bert.pooler.weight": (D, D), "bert.pooler.bias": (D,),
+    shapes = {f"{pre}.embeddings.word_embeddings.weight": (V, D),
+              **{f"{pre}.embeddings.{name}_embeddings.weight": (rows.get(name, 0), D)
+                 for name in tables},
+              f"{pre}.embeddings.norm.weight": (D,), f"{pre}.embeddings.norm.bias": (D,),
+              f"{pre}.pooler.weight": (D, D), f"{pre}.pooler.bias": (D,),
               "transform.weight": (D, D), "transform.bias": (D,),
               "transform_norm.weight": (D,), "transform_norm.bias": (D,),
-              "nsp.weight": (D, 2), "nsp.bias": (2,)}
+              f"{head}.weight": (D, 2), f"{head}.bias": (2,)}
     for i in range(max(layers) + 1 if layers else 0):
         for leaf in _BLOCK + _FFN:
-            shapes[f"bert.layers.{i}.{leaf}"] = _leaf_shape(leaf, D, Ff, 0)
+            shapes[f"{pre}.layers.{i}.{leaf}"] = _leaf_shape(leaf, D, Ff, 0)
     return shapes
 
 
 def state_dict_from_paddle_tpu(np_state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A ``paddle_tpu`` ``GPTForPretraining`` state_dict (as numpy arrays),
-    of either trunk, or a ``BertForPretraining`` one, as the port's
-    state_dict (CPU tensors; ``load_state_dict`` copies them to the model's
-    device). BERT is recognised by its word table's name; a GPT trunk is the
-    stacked one when any stacked name is present. Raises ``KeyError`` on a
-    missing or extra name and ``ValueError`` on a shape that does not fit
-    the others."""
-    if _BERT_WORD in np_state:
-        family, shapes_of, expected = "BERT", _bert_shapes, set(_bert_shapes(np_state))
+    of either trunk, or a ``BertForPretraining`` or ``ErnieForPretraining``
+    one, as the port's state_dict (CPU tensors; ``load_state_dict`` copies
+    them to the model's device). BERT and ERNIE are recognised by their word
+    table's name; a GPT trunk is the stacked one when any stacked name is
+    present. Raises ``KeyError`` on a missing or extra name and
+    ``ValueError`` on a shape that does not fit the others."""
+    encoders = [f for f, (pre, _) in _ENCODERS.items()
+                if f"{pre}.embeddings.word_embeddings.weight" in np_state]
+    if encoders:
+        family = encoders[0]
+        shapes_of = lambda state: _encoder_shapes(state, family)  # noqa: E731
+        expected = set(shapes_of(np_state))
     elif any(f"gpt.layers.{n}" in np_state for n in _STACK) or not any(
             _LAYER_KEY.match(k) for k in np_state):
         family, shapes_of = "GPT", _stacked_shapes

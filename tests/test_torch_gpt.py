@@ -119,13 +119,17 @@ def test_convert_checks_names_and_shapes():
 
 
 def test_unported_config_options_raise():
-    # the per-layer trunk is ported (GPT-MoE needs it); recompute is not
+    # the per-layer trunk is ported (GPT-MoE needs it), and recompute: the
+    # config keeps its granularity through to_dict()
     assert GPTConfig.tiny(stacked=False).stacked is False
     assert GPTConfig.tiny(moe=4).to_dict()["moe_num_experts"] == 4
     with pytest.raises(ValueError, match="stacked=False"):
         GPTConfig.tiny(moe_num_experts=4)
-    with pytest.raises(NotImplementedError):
-        GPTConfig.tiny(recompute=True)
+    cfg = GPTConfig.tiny(recompute=True, recompute_granularity="selective")
+    assert GPTConfig(**cfg.to_dict()).to_dict() == cfg.to_dict()
+    assert (cfg.to_dict()["recompute"], cfg.to_dict()["recompute_granularity"]) == (True, "selective")
+    with pytest.raises(ValueError, match="recompute_granularity"):
+        GPTConfig.tiny(recompute=True, recompute_granularity="core_attn")
     cfg = GPTConfig.gpt3_1p3b()
     assert (cfg.hidden_size, cfg.num_layers, cfg.max_seq_len) == (2048, 24, 2048)
     assert GPTConfig(**cfg.to_dict()).to_dict() == cfg.to_dict()

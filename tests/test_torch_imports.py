@@ -49,27 +49,37 @@ BERT_MODULES = {"paddle_tpu_torch.ops.flash_attention_flat", "paddle_tpu_torch.m
                 "paddle_tpu_torch.distributed.mp_layers", "paddle_tpu_torch.nn.layer",
                 "paddle_tpu_torch.nn.layer.common", "paddle_tpu_torch.nn.layer.norm",
                 "paddle_tpu_torch.nn.initializer", "paddle_tpu_torch.nn.functional.activation"}
+# modules of the 1.3B / ERNIE slice
+FLAGSHIP_MODULES = {"paddle_tpu_torch.distributed.recompute", "paddle_tpu_torch.distributed.pipeline",
+                    "paddle_tpu_torch.models.ernie"}
 
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
-    wanted = TRAINING_MODULES | MOE_MODULES | BERT_MODULES
+    wanted = TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 39
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 42
 
 
 def test_entry_points_raise_without_cuda_and_device():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour where no CUDA device exists")
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForPretraining(GPTConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BertForPretraining(BertConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ErnieForPretraining(ErnieConfig.tiny())
+    # the 1.3B config raises before it allocates anything
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForPretraining(GPTConfig.gpt3_1p3b(recompute=True, recompute_granularity="selective"))
+    assert ErnieForPretraining(ErnieConfig.tiny(), device="cpu").sop.weight.device.type == "cpu"
     assert GPTForPretraining(GPTConfig.tiny(), device="cpu").gpt.layers.qkv_w.device.type == "cpu"
 
 

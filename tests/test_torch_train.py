@@ -393,10 +393,8 @@ def test_run_steps_equals_single_steps_and_stacks():
         b.run_steps((stacked, stacked), k=3)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(state_shardings={}), dict(remat=True),
-                                dict(accumulate_steps=2), dict(guard=True),
-                                dict(return_outputs=True), dict(amp_level="O1"),
-                                dict(amp_level="O2", amp_dtype="float16")])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(state_shardings={}), dict(guard=True),
+                                dict(amp_level="O1"), dict(amp_level="O2", amp_dtype="float16")])
 def test_unported_train_step_knobs_raise(kw):
     pm = GPTForPretraining(GPTConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -456,3 +454,130 @@ def test_optimizer_state_dict_round_trip():
         param.grad = grads[2]
         o.step()
     torch.testing.assert_close(q, p, atol=0, rtol=0)
+
+
+# ------------------------------------------- accumulation, return_outputs
+
+
+def test_microbatch_is_the_references_strided_split():
+    """Micro-batch i holds rows ``i::k``, as in the reference; unmicrobatch
+    inverts it; a batch that k does not divide raises."""
+    from paddle_tpu.distributed.pipeline import microbatch as jmicro
+    from paddle_tpu.distributed.pipeline import unmicrobatch as junmicro
+
+    from paddle_tpu_torch.distributed.pipeline import microbatch, unmicrobatch
+
+    x = _rng(42).standard_normal((6, 3, 2)).astype(np.float32)
+    for k in (1, 2, 3, 6):
+        got = microbatch(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jmicro(jnp.asarray(x), k)))
+        np.testing.assert_array_equal(got[1 % k].numpy(), x[1 % k::k])
+        np.testing.assert_array_equal(unmicrobatch(got).numpy(),
+                                      np.asarray(junmicro(jmicro(jnp.asarray(x), k))))
+    with pytest.raises(ValueError, match="divisible"):
+        microbatch(torch.from_numpy(x), 4)
+
+
+def _accumulated_pair(seed, **cfg_kw):
+    """The reference's tiny GPT from ``seed`` and the port's with its
+    weights, GShard's random routing off on both sides' MoE layers."""
+    paddle.seed(seed)
+    jm = JGPT(JGPTConfig.tiny(**cfg_kw))
+    pm = GPTForPretraining(GPTConfig.tiny(**cfg_kw), device="cpu")
+    pm.load_state_dict(state_dict_from_paddle_tpu(
+        {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}))
+    if cfg_kw.get("moe"):
+        for j, t in zip(jm.gpt.layers, pm.gpt.layers):
+            j.moe.gate.random_routing = t.moe.gate.random_routing = False
+    return jm, pm
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(), dict(moe=4, moe_every=1)], ids=["dense", "moe"])
+def test_accumulate_steps_matches_paddle_tpu(cfg_kw):
+    """``accumulate_steps=2`` on both sides, three AdamW steps of ids
+    ``[4, 32]``: every loss (the mean of the two micro-batch losses; with
+    MoE, each micro-batch routes under its own capacity) and the parameters
+    after, within the tolerances of ``test_train_step_f32_matches_paddle_tpu``."""
+    jm, pm = _accumulated_pair(seed=43, **cfg_kw)
+    batches = _batches(3, (4, 32), 512, seed=44)
+    jstep = JTrainStep(jm, paddle.optimizer.AdamW(learning_rate=LR, parameters=jm.parameters()),
+                       JCriterion(), accumulate_steps=2)
+    tstep = TrainStep(pm, AdamW(learning_rate=LR, parameters=pm.parameters()),
+                      GPTPretrainingCriterion(), accumulate_steps=2)
+    jl = [float(jstep(paddle.to_tensor(b), paddle.to_tensor(b))["loss"].numpy()) for b in batches]
+    tl = [float(tstep(b, b)["loss"]) for b in batches]
+    np.testing.assert_allclose(tl, jl, **GRAD)
+    assert tl[-1] < tl[0]
+    jparams = {n: np.asarray(jnp.asarray(v, jnp.float32)) for n, v in jstep.state["params"].items()}
+    for n, p in pm.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), jparams[n], err_msg=n, **PARAMS_AFTER)
+
+
+def test_accumulated_gradients_are_the_batch_mean():
+    """Dense GPT: a token mean over equal token counts, so the gradients
+    averaged over two micro-batches are the whole batch's (the reference's
+    eager ones), the loss its loss, and a global-norm clip sees the
+    average."""
+    jm, pm = _accumulated_pair(seed=45)
+    ids = _batches(1, (4, 32), 512, seed=46)[0]
+    t = paddle.to_tensor(ids)
+    jloss = JCriterion()(jm(t), t)
+    jloss.backward()
+    clip = ClipGradByGlobalNorm(clip_norm=1e-3)
+    seen = []
+    real = clip.apply_list
+
+    def spy(grads):
+        seen.append(float(torch.sqrt(sum((g * g).sum() for g in grads))))
+        return real(grads)
+
+    clip.apply_list = spy
+    step = TrainStep(pm, AdamW(learning_rate=LR, parameters=pm.parameters(), grad_clip=clip),
+                     GPTPretrainingCriterion(), accumulate_steps=2)
+    loss = float(step(ids, ids)["loss"])
+    np.testing.assert_allclose(loss, float(jloss.numpy()), **VALUE)
+    norm = 0.0
+    for n, p in jm.named_parameters():
+        g = np.asarray(p.grad.numpy())
+        np.testing.assert_allclose(dict(pm.named_parameters())[n].grad.numpy(), g, err_msg=n, **GRAD)
+        norm += float((g.astype(np.float64) ** 2).sum())
+    np.testing.assert_allclose(seen, [np.sqrt(norm)], rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_return_outputs_match_paddle_tpu_in_batch_order(k):
+    """``return_outputs``: the step's logits (before its update), in batch
+    order under accumulation, equal the reference's and the port's own
+    forward of the whole batch."""
+    jm, pm = _accumulated_pair(seed=47)
+    ids = _batches(1, (4, 32), 512, seed=48)[0]
+    with torch.no_grad():
+        want = pm(torch.from_numpy(ids).long())
+    jout = JTrainStep(jm, paddle.optimizer.AdamW(learning_rate=LR, parameters=jm.parameters()),
+                      JCriterion(), accumulate_steps=k, return_outputs=True)(
+        paddle.to_tensor(ids), paddle.to_tensor(ids))["outputs"]
+    step = TrainStep(pm, AdamW(learning_rate=LR, parameters=pm.parameters()),
+                     GPTPretrainingCriterion(), accumulate_steps=k, return_outputs=True)
+    out = step(ids, ids)["outputs"]
+    assert out.shape == (4, 32, 512) and not out.requires_grad
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout.numpy()), atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+    assert "outputs" not in TrainStep(pm, AdamW(parameters=pm.parameters()),
+                                      GPTPretrainingCriterion())(ids, ids)
+
+
+def test_return_outputs_of_moe_and_run_steps():
+    """GPT-MoE's ``(logits, aux)`` under accumulation: the logits in batch
+    order, the aux loss one per micro-batch; ``run_steps`` stacks the
+    outputs of its steps."""
+    pm = GPTForPretraining(GPTConfig.tiny(moe=4, moe_every=1), device="cpu")
+    ids = _batches(1, (4, 16), 512, seed=49)[0]
+    step = TrainStep(pm, AdamW(learning_rate=LR, parameters=pm.parameters()),
+                     GPTPretrainingCriterion(), accumulate_steps=2, return_outputs=True)
+    logits, aux = step(ids, ids)["outputs"]
+    assert logits.shape == (4, 16, 512) and aux.shape == (2,)
+    out = step.run_steps([(ids, ids)] * 3)
+    assert out["outputs"][0].shape == (3, 4, 16, 512) and out["outputs"][1].shape == (3, 2)
+    with pytest.raises(ValueError, match="accumulate_steps"):
+        TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(),
+                  accumulate_steps=0)
