@@ -109,9 +109,31 @@ non-zero and prints no result. Phases, one JSON line each:
     ``sdpa`` picks ``flash``, 12 K1 and 12 K2 per step, no K3.
 21. ``ernie_check``: one f32 step of ERNIE at full width, 2 layers, batch
     2, through ``sdpa``/``flash`` and through ``sdpa=xla``, as phase 7.
+22. ``resnet50_train``: the ResNet50 step of ``bench_suite.py:bench_resnet50``
+    uncut (``resnet50(num_classes=1000)``, ``Momentum(0.1)``,
+    ``CrossEntropyLoss``, AMP O2, ``[128, 3, 224, 224]`` normal inputs and
+    int64 labels from seeds 0 and 1), NCHW, 3 warm-up and 20 timed steps:
+    images/s, ms per step, peak memory, the share of the model-flops bound
+    (derived from the conv and Linear shapes), losses finite, the batch
+    norms' running buffers finite and moved; then one step traced (cuDNN
+    conv forward, dgrad and wgrad, batch norm, elementwise, Momentum) and
+    the same step with ``torch.backends.cudnn.benchmark`` on, timed beside
+    it.
+23. ``resnet_check``: ResNet50's step on the card against the same step on
+    the CPU from the same weights and inputs (``[8, 3, 64, 64]``, TF32
+    off), in f32 and in float64: the loss, every gradient, the running
+    buffers after the step, and an eval forward on them.
+24. ``lenet_train``: ``bench_suite.py:bench_mnist`` (LeNet, ``Momentum(0.01)``,
+    ``[64, 1, 28, 28]``): the eager loop (``backward``, ``step``,
+    ``clear_grad``), 20 timed after 3, and ``TrainStep``, 200 timed after
+    3; steps/s of both, the losses falling.
 
-Phases 4, 5, 6, 9 (its ``pallas_sorted`` run), 12, 13, 16, 17 and 20 are
-the main path: the kernel counts are set to 0 just before each of them and read just
+The vision phases (22-24) launch none of K1-K4b: the reference runs no
+Pallas kernel on that path (convolutions are cuDNN's, batch norms and pools
+ATen's); the script checks that their counts stay 0.
+
+Phases 4, 5, 6, 9 (its ``pallas_sorted`` run), 12, 13, 16, 17, 20, 22 and
+24 are the main path: the kernel counts are set to 0 just before each of them and read just
 after it. Then one JSON line lists every kernel with its launches in those
 runs (K1 and K3 with a ``bf16_row`` too: their O2 steps' bf16 call; K4 and
 K4b at the first MoE layer's rows of the traced step, whose ``bound_ms``
@@ -233,6 +255,34 @@ BERT_CURVE_RTOL = 2e-2
 # and random SOP labels, AMP O2 AdamW(1e-4), 2 warm-up and 8 timed steps.
 GPT3_TRAIN = dict(batch=4, seq=2048, accumulate=2, lr=1e-4, warmup=2, steps=6)
 ERNIE_TRAIN = dict(batch=16, seq=512, vocab=40000, lr=1e-4, warmup=2, steps=8, check_batch=2)
+# bench_suite.py:bench_resnet50: resnet50(num_classes=1000), Momentum(lr 0.1,
+# momentum 0.9), CrossEntropyLoss, AMP O2, [128, 3, 224, 224] normal inputs
+# (np.random.default_rng(0)) and int64 labels (default_rng(1)), 3 warm-up and
+# 20 timed steps; bench_mnist: LeNet, Momentum(lr 0.01), [64, 1, 28, 28],
+# 3 warm-up then 20 timed eager steps and 200 timed TrainStep steps
+RESNET_TRAIN = dict(batch=128, size=224, classes=1000, lr=0.1, warmup=3, steps=20)
+LENET_TRAIN = dict(batch=64, lr=0.01, warmup=3, eager_steps=20, steps=200)
+# resnet_check: one step of ResNet50 at [8, 3, 64, 64] on the card and on
+# the CPU from the same weights and inputs, in f32 (TF32 off) and in float64.
+# A ResNet at random initialisation is ill-conditioned in training mode: its
+# batch norms over few values per channel and 16 residual blocks carry each
+# f32 rounding into the gradients many thousandfold. Measured on the CPU at
+# this shape: the port's f32 step against its float64 step, loss 2.3e-6
+# relative, gradients up to 2.2e-2 relative L2 (median 1.6e-2), buffers
+# 2.8e-5 apart, eval logits 1.8e-6; the f32 step on 1 thread against 8
+# threads (sums in another order), gradients up to 1.0e-2; the float64
+# step on 1 against 8 threads, gradients up to 5.0e-14, loss 1.7e-15,
+# buffers 1.2e-14, eval 1.5e-15. So f32 holds the loss to rtol 1e-5, the
+# buffers to atol 1e-4, the eval logits to a relative L2 of 1e-5 and the
+# gradients to 5e-2, which catches only a gross fault; float64 holds the
+# gradients to 1e-9 and the rest to 1e-12, which catches any fault above
+# the rounding.
+RESNET_CHECK = dict(batch=8, size=64, lr=0.1)
+RESNET_CHECK_TOL = {
+    torch.float32: dict(loss_rtol=1e-5, grad_rel_l2_max=5e-2, buffers_atol=1e-4,
+                        eval_rel_l2_max=1e-5),
+    torch.float64: dict(loss_rtol=1e-12, grad_rel_l2_max=1e-9, buffers_atol=1e-12,
+                        eval_rel_l2_max=1e-12)}
 # recompute_check, accum_check and ernie_check run the configs at full width
 # cut to this depth
 CHECK_LAYERS = 2
@@ -664,6 +714,20 @@ def _kernel_group(name):
         return "K1 flash_attention_fwd"
     if "bwd_dq_kernel" in name or "bwd_dkv_kernel" in name or "bwd_di_kernel" in name:
         return "K2 flash_attention_bwd"
+    # the vision step's cuDNN convolutions (implicit-GEMM kernels named by
+    # pass), its layout transposes, batch norms (ATen) and pools
+    if "wgrad" in name:
+        return "conv wgrad (cuDNN)"
+    if "dgrad" in name:
+        return "conv dgrad (cuDNN)"
+    if "fprop" in name or "convolve" in name or "conv2d" in name.lower():
+        return "conv forward (cuDNN)"
+    if "nchwToNhwc" in name or "nhwcToNchw" in name:
+        return "NCHW <-> NHWC transposes"
+    if "batch_norm" in name or "bn_fw" in name or "bn_bw" in name:
+        return "batch norm"
+    if "pool" in name.lower():
+        return "pooling"
     if any(t in name for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
     if "foreach" in name or "multi_tensor" in name:
@@ -1760,7 +1824,7 @@ def phase_ernie_train():
     flops = _bert_flops_per_step(cfg, np.full(b, s), s)  # no mask: every pair is live
     bound_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
     # the losses must be finite, not falling: at lr 1e-4 with no warm-up this
-    # wide post-LN encoder's first steps spike (PERF.md, section 6); ernie_check
+    # wide post-LN encoder's first steps spike (PERF.md, section 7); ernie_check
     # holds the step against the plain path
     ok = (all(np.isfinite(losses))
           and picked == {"kernels.sdpa.picked": 1, "kernels.sdpa.fallback": 0}
@@ -1788,6 +1852,240 @@ def phase_ernie_check():
     inputs, labels = ernie_batch(ERNIE_TRAIN["check_batch"], ERNIE_TRAIN["seq"], cfg.vocab_size)
     check_step_against_xla("ernie_check", model, inputs, labels, ernie_loss, "sdpa=xla", K2,
                            cfg.num_layers)
+
+
+def _resnet_macs(model, size):
+    """Multiply-adds of one image's forward through ``model``'s convolutions
+    and ``Linear`` head, from their shapes (one eval forward at batch 1 with
+    hooks): ``(all, the stem's)``. A convolution's are its output's elements
+    times ``in / groups * kh * kw``."""
+    from paddle_tpu_torch.nn.layer import Conv2D, Linear
+
+    macs = {}
+
+    def count(module, args, out):
+        if isinstance(module, Conv2D):
+            macs[module] = out[0].numel() * math.prod(module.weight.shape[1:])
+        else:
+            macs[module] = module.in_features * module.out_features
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (Conv2D, Linear))]
+    was_training = model.training
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, 3, size, size, device="cuda"))
+    finally:
+        model.train(was_training)
+        for h in hooks:
+            h.remove()
+    return sum(macs.values()), macs[model.conv1]
+
+
+def _resnet_flops_per_step(model, batch, size):
+    """Model flops of one training step: 2 per multiply-add forward and 4
+    backward (input and weight gradients), without the stem's input
+    gradient, which nothing needs."""
+    macs, stem = _resnet_macs(model, size)
+    return (6 * macs - 2 * stem) * batch
+
+
+def _batch_norm_buffers(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers()
+            if n.endswith(("_mean", "_variance"))}
+
+
+def phase_resnet50_train():
+    """``bench_suite.py:bench_resnet50`` through the port, uncut: AMP O2
+    ``TrainStep`` over Momentum, 3 warm-up and 20 timed steps (synchronised)
+    on one batch, then one step traced and the step with
+    ``torch.backends.cudnn.benchmark`` on, 2 warm-up and 5 timed. The
+    losses must be finite and the batch norms' running buffers finite and
+    moved; whether the losses fall is reported. Returns the K1-K4b launches
+    of the 23 counted steps (none)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.layer import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    b, size = RESNET_TRAIN["batch"], RESNET_TRAIN["size"]
+    model = resnet50(num_classes=RESNET_TRAIN["classes"], seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = TrainStep(model, Momentum(learning_rate=RESNET_TRAIN["lr"], parameters=model.parameters()),
+                     CrossEntropyLoss(), amp_level="O2")
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(b, 3, size, size))
+                         .astype(np.float32)).to("cuda")
+    y = torch.from_numpy(np.random.default_rng(1).integers(0, RESNET_TRAIN["classes"], (b,))
+                         .astype(np.int64)).to("cuda")
+    flops = _resnet_flops_per_step(model, b, size)
+    start = _batch_norm_buffers(model)
+    cudnn_benchmark = torch.backends.cudnn.benchmark
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(x, y)["loss"]) for _ in range(RESNET_TRAIN["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step(x, y)["loss"] for _ in range(RESNET_TRAIN["steps"])]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses += [float(v) for v in timed]
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    after = _batch_norm_buffers(model)
+    breakdown = profile_step(step, x, y)  # outside the counted steps
+    ms_per_step = 1e3 * seconds / RESNET_TRAIN["steps"]
+    # the same step with cuDNN's autotuner on (off above, as by default)
+    torch.backends.cudnn.benchmark = True
+    try:
+        for _ in range(2):
+            step(x, y)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            step(x, y)
+        torch.cuda.synchronize()
+        benchmark_ms = 1e3 * (time.perf_counter() - t1) / 5
+    finally:
+        torch.backends.cudnn.benchmark = cudnn_benchmark
+    bound_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
+    buffers_ok = all(torch.isfinite(v).all() and not torch.equal(v, start[n])
+                     for n, v in after.items())
+    ok = (all(np.isfinite(losses)) and buffers_ok and len(after) == 106
+          and all(v == 0 for v in launches.values())
+          and all(p.dtype == torch.float32 for p in model.parameters())
+          and all(v.dtype == torch.float32 for v in after.values()))
+    emit(phase="resnet50_train", ok=ok, images=[b, 3, size, size], params=n_params, amp_level="O2",
+         layout="NCHW", cudnn_benchmark=cudnn_benchmark, losses=losses,
+         losses_fell=losses[-1] < losses[0], batch_norm_buffers=len(after),
+         buffers_finite_and_moved=bool(buffers_ok), launches=launches, seconds=seconds,
+         ms_per_step=ms_per_step, images_per_s=b * RESNET_TRAIN["steps"] / seconds,
+         max_memory_allocated=peak, model_flops_per_step=flops, model_flops_bound_ms=bound_ms,
+         bound_share=bound_ms / ms_per_step, profile=breakdown,
+         device_busy_share_of_timed_step=breakdown and breakdown["device_busy_ms"] / ms_per_step,
+         cudnn_benchmark_on_ms_per_step=benchmark_ms)
+    if not ok:
+        raise AssertionError("resnet50_train phase failed")
+    return launches
+
+
+def _resnet_step_on(device, dtype, state, x, y):
+    """One Momentum step of ResNet50 from ``state`` on ``device`` in
+    ``dtype``: ``(loss, gradients, running buffers after, eval logits)``,
+    the eval forward on the step's running buffers with the weights from
+    before the step (after the step, a gradient's f32 noise would move
+    every later weight). float64 takes a float64 cross entropy: the port's
+    fused one computes in f32."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.layer import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(num_classes=RESNET_TRAIN["classes"], device=device)
+    model.load_state_dict(state)
+    model.to(dtype)
+    loss_fn = CrossEntropyLoss() if dtype == torch.float32 else torch.nn.functional.cross_entropy
+    step = TrainStep(model, Momentum(learning_rate=RESNET_CHECK["lr"], parameters=model.parameters()),
+                     loss_fn)
+    xs, ys = x.to(device, dtype), y.to(device)
+    loss = float(step(xs, ys)["loss"])
+    grads = {n: p.grad.detach().to("cpu", torch.float64) for n, p in model.named_parameters()}
+    buffers = {n: v.to("cpu", torch.float64) for n, v in _batch_norm_buffers(model).items()}
+    model.load_state_dict({**{n: v for n, v in state.items() if n not in buffers}, **buffers})
+    with torch.no_grad():
+        logits = model.eval()(xs).to("cpu", torch.float64)
+    return loss, grads, buffers, logits
+
+
+def phase_resnet_check():
+    """ResNet50's step on the card against the same step on the CPU, from
+    the same weights (seed 20) and inputs (``[8, 3, 64, 64]``, seed 21), in
+    f32 with TF32 off and in float64: the loss, each gradient's relative
+    L2 distance, the running buffers after the step and the eval logits on
+    them (``RESNET_CHECK_TOL``)."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    b, size = RESNET_CHECK["batch"], RESNET_CHECK["size"]
+    state = {n: v.cpu() for n, v in resnet50(num_classes=RESNET_TRAIN["classes"], device="cpu",
+                                               seed=SEED + 20).state_dict().items()}
+    rng = np.random.default_rng(SEED + 21)
+    x = torch.from_numpy(rng.normal(size=(b, 3, size, size)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, RESNET_TRAIN["classes"], (b,)).astype(np.int64))
+    results, ok = {}, True
+    for dtype in (torch.float32, torch.float64):
+        tol = RESNET_CHECK_TOL[dtype]
+        loss_c, grads_c, buf_c, logits_c = _resnet_step_on("cuda", dtype, state, x, y)
+        loss_h, grads_h, buf_h, logits_h = _resnet_step_on("cpu", dtype, state, x, y)
+        rel = _grad_rel_l2(grads_c, grads_h)
+        worst = max(rel, key=rel.get)
+        buf_err = max(float((buf_c[n] - buf_h[n]).abs().max()) for n in buf_h)
+        eval_rel = float((logits_c - logits_h).norm() / logits_h.norm())
+        loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+        agree = (loss_rel <= tol["loss_rtol"] and rel[worst] <= tol["grad_rel_l2_max"]
+                 and buf_err <= tol["buffers_atol"] and eval_rel <= tol["eval_rel_l2_max"]
+                 and math.isfinite(loss_c))
+        ok = ok and agree
+        results[str(dtype).replace("torch.", "")] = dict(
+            ok=agree, loss_card=loss_c, loss_cpu=loss_h, loss_rel=loss_rel,
+            grad_rel_l2_worst=rel[worst], worst=worst,
+            grad_rel_l2_median=float(np.median(list(rel.values()))),
+            grad_rel_l2_fc_weight=rel["fc.weight"], buffers_max_abs_err=buf_err,
+            eval_logits_rel_l2=eval_rel, **tol)
+    emit(phase="resnet_check", ok=ok, images=[b, 3, size, size],
+         tf32=torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32, **results)
+    if not ok:
+        raise AssertionError("resnet_check phase failed: the card's step and the CPU's disagree")
+
+
+def phase_lenet_train():
+    """``bench_suite.py:bench_mnist`` through the port: LeNet, Momentum
+    (lr 0.01), ``CrossEntropyLoss``, one ``[64, 1, 28, 28]`` batch; the
+    eager loop (``loss.backward()``, ``opt.step()``, ``opt.clear_grad()``),
+    3 warm-up and 20 timed steps, then ``TrainStep``, 3 warm-up and 200
+    timed; steps/s of each, the losses finite and falling. Returns the
+    K1-K4b launches (none)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.lenet import LeNet
+    from paddle_tpu_torch.nn.layer import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    b = LENET_TRAIN["batch"]
+    model = LeNet(seed=SEED)
+    opt = Momentum(learning_rate=LENET_TRAIN["lr"], parameters=model.parameters())
+    loss_fn = CrossEntropyLoss()
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(b, 1, 28, 28))
+                         .astype(np.float32)).to("cuda")
+    y = torch.from_numpy(np.random.default_rng(1).integers(0, 10, (b,)).astype(np.int64)).to("cuda")
+
+    def eager_step():
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    def timed(fn, warmup, steps):
+        losses = [float(fn()) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [fn() for _ in range(steps)]
+        torch.cuda.synchronize()
+        return steps / (time.perf_counter() - t0), losses + [float(v) for v in out]
+
+    reset_launches()
+    eager_sps, eager_losses = timed(eager_step, LENET_TRAIN["warmup"], LENET_TRAIN["eager_steps"])
+    step = TrainStep(model, opt, loss_fn)
+    step_sps, step_losses = timed(lambda: step(x, y)["loss"], LENET_TRAIN["warmup"],
+                                  LENET_TRAIN["steps"])
+    launches = read_launches()
+    ok = (all(np.isfinite(eager_losses + step_losses)) and eager_losses[-1] < eager_losses[0]
+          and step_losses[-1] < step_losses[0] and all(v == 0 for v in launches.values()))
+    emit(phase="lenet_train", ok=ok, images=[b, 1, 28, 28], eager_steps_per_s=eager_sps,
+         train_step_steps_per_s=step_sps, eager_losses=eager_losses,
+         train_step_losses=step_losses[::20] + step_losses[-1:], launches=launches)
+    if not ok:
+        raise AssertionError("lenet_train phase failed")
+    return launches
 
 
 def main() -> int:
@@ -1865,6 +2163,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ernie_check()
     torch.cuda.empty_cache()
+    by_path["resnet50_train"] = phase_resnet50_train()
+    torch.cuda.empty_cache()
+    phase_resnet_check()
+    torch.cuda.empty_cache()
+    by_path["lenet_train"] = phase_lenet_train()
 
     keys = ("shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1886,13 +2189,15 @@ def main() -> int:
     # K1 runs in the forward and in training, K2 in training, K4 and K4b in
     # the GPT-MoE step (with K1 and K2), K3 in BERT's forward, K3 and K3b in
     # BERT's step and in GPT's step with FLAGS_flash_flat on, K1 and K2 in
-    # the 1.3B and ERNIE steps
+    # the 1.3B and ERNIE steps; the vision steps none (their phases check
+    # that every count stays 0)
     expected = {"forward": [K1["name"]], "train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "bert_forward": [K3["name"]], "bert_train": [K3["name"], K3B["name"]],
                 "flat_check": [K3["name"], K3B["name"]],
                 "gpt3_1p3b_train": [K1["name"], K2["name"]],
-                "ernie_train": [K1["name"], K2["name"]]}
+                "ernie_train": [K1["name"], K2["name"]],
+                "resnet50_train": [], "lenet_train": []}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]
     if missing:
         raise AssertionError(f"the main path launched these kernels no time: {missing}")

@@ -5,6 +5,8 @@ It mirrors ``paddle_tpu``'s subpackage layout so each module has one
 counterpart there, and it never imports ``jax`` or ``paddle_tpu``. Every
 Pallas kernel of a ported path is a hand-written CUDA kernel under ``csrc/``,
 built by ``nvcc`` at first use. Entry points (``models.gpt.GPTForPretraining``,
-``models.bert.BertForPretraining``, ``inference.DecodeEngine``) run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``models.bert.BertForPretraining``, ``models.ernie.ErnieForPretraining``,
+``vision.models.resnet50`` and the other ResNets, ``models.lenet.LeNet``,
+``inference.DecodeEngine``) run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """

@@ -19,6 +19,12 @@ states; a GShard MoE layer draws its jitter from a generator it owns. The
 recompute therefore replays each such layer's routing
 (:func:`paddle_tpu_torch.distributed.moe.routing_replay`) in the module
 given as ``replay`` (by default ``function`` itself, when it is a module).
+
+The recompute runs ``forward`` again, and with it every in-place update a
+forward makes to a buffer (BatchNorm's running statistics). The
+reference's buffers are functional outputs of the one forward, so they
+move once per step; here :func:`buffer_replay` gives the recompute the
+buffers the forward started from and then puts back the ones it left.
 """
 from __future__ import annotations
 
@@ -60,23 +66,62 @@ def _entered(*contexts):
         yield
 
 
+def buffer_replay(module):
+    """The ``(forward, recompute)`` context pair that keeps a recompute from
+    moving the buffers of ``module`` (None: no buffer). The forward context
+    copies every buffer before the forward and, after it, keeps the
+    buffers the forward changed in place (by their version counters) with
+    their values before and after. The recompute context sets those buffers
+    to their values before the forward, so the recompute sees what the
+    forward saw, and on leaving (also when the checkpoint stops the
+    recompute early) to their values after it: each buffer moves once per
+    step, as without recompute."""
+    buffers = [] if module is None else list(module.buffers())
+    changed = []
+
+    @contextlib.contextmanager
+    def forward():
+        versions = [b._version for b in buffers]
+        before = [b.clone() for b in buffers]
+        try:
+            yield
+        finally:
+            changed[:] = [(b, old, b.clone()) for b, v, old in zip(buffers, versions, before)
+                          if b._version != v]
+
+    @contextlib.contextmanager
+    def recompute():
+        with torch.no_grad():
+            for b, old, _ in changed:
+                b.copy_(old)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for b, _, new in changed:
+                    b.copy_(new)
+
+    return forward(), recompute()
+
+
 def _contexts(saved_ops, replay):
     """The ``(forward, recompute)`` context pair of one checkpointed call:
-    the MoE routing replay of ``replay``, with the selective-checkpoint pair
-    where ``saved_ops`` names ops to save."""
-    fwd, rec = routing_replay(replay)
+    the MoE routing replay and the buffer replay of ``replay``, with the
+    selective-checkpoint pair where ``saved_ops`` names ops to save."""
+    route_fwd, route_rec = routing_replay(replay)
+    buf_fwd, buf_rec = buffer_replay(replay)
     if not saved_ops:
-        return fwd, rec
+        return _entered(route_fwd, buf_fwd), _entered(route_rec, buf_rec)
     sac_fwd, sac_rec = create_selective_checkpoint_contexts(list(saved_ops))
-    return _entered(fwd, sac_fwd), _entered(rec, sac_rec)
+    return _entered(route_fwd, buf_fwd, sac_fwd), _entered(route_rec, buf_rec, sac_rec)
 
 
 def recompute(function, *args, policy="nothing_saveable", replay=None, **kwargs):
     """``function(*args, **kwargs)`` whose activations are recomputed in the
     backward, saving only what ``policy`` names (see the module's doc).
-    ``replay``: the module whose MoE layers' routing the recompute replays
-    (default: ``function`` when it is an ``nn.Module``). Without grad mode
-    it simply calls through."""
+    ``replay``: the module whose MoE layers' routing and buffers the
+    recompute replays (default: ``function`` when it is an
+    ``nn.Module``). Without grad mode it simply calls through."""
     saved_ops = _policy(policy)
     if replay is None and isinstance(function, nn.Module):
         replay = function

@@ -25,3 +25,10 @@ def xavier_normal(shape, generator, device):
     """``XavierNormal()``: Normal(0, sqrt(2 / (fan_in + fan_out)))."""
     fan_in, fan_out = _fans(tuple(shape))
     return normal(shape, math.sqrt(2.0 / (fan_in + fan_out)), generator, device)
+
+
+def conv_normal(shape, generator, device):
+    """The reference's conv default (``nn/layer/conv.py:24-27``):
+    Normal(0, sqrt(2 / fan_in)), fan_in = in / groups times the kernel's
+    size, i.e. the product of ``shape[1:]`` of ``[out, in / groups, *k]``."""
+    return normal(shape, math.sqrt(2.0 / math.prod(shape[1:])), generator, device)

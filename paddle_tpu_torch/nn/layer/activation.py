@@ -1,0 +1,14 @@
+"""Activation layers of the port (``paddle_tpu/nn/layer/activation.py``)."""
+from __future__ import annotations
+
+from torch import nn
+
+from .. import functional as F
+
+
+class ReLU(nn.Module):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu(x)

@@ -12,6 +12,28 @@ from __future__ import annotations
 import torch
 
 
+class MomentumCore:
+    """``v = mu v + g``, then ``p -= lr v``, or with Nesterov ``p -= lr (g +
+    mu v)``; the velocity is f32."""
+
+    def __init__(self, momentum=0.9, use_nesterov=False):
+        self.mu = momentum
+        self.nesterov = use_nesterov
+
+    def init(self, params):
+        return {"velocity": [torch.zeros_like(p, dtype=torch.float32) for p in params]}
+
+    def update(self, grads, state, params, lr, step):
+        g = [x.float() for x in grads]
+        v = state["velocity"]
+        torch._foreach_mul_(v, self.mu)
+        torch._foreach_add_(v, g)
+        step_dir = torch._foreach_add(g, v, alpha=self.mu) if self.nesterov else v
+        for p, u in zip(params, torch._foreach_mul(step_dir, lr)):
+            p.sub_(u.to(p.dtype))
+        return params, state
+
+
 class AdamCore:
     def __init__(self, beta1=0.9, beta2=0.999, epsilon=1e-8):
         self.b1, self.b2, self.eps = beta1, beta2, epsilon

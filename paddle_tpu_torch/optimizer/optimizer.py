@@ -1,5 +1,6 @@
 """Optimizer classes of the port (``paddle_tpu/optimizer/optimizer.py``):
-the base :class:`Optimizer` and :class:`AdamW`, with Paddle's argument names.
+the base :class:`Optimizer`, :class:`AdamW` and :class:`Momentum`, with
+Paddle's argument names.
 
 ``step()`` reads each parameter's ``.grad``, clips, and runs the functional
 core (:mod:`.functional`) over all of them at once, in place.
@@ -111,3 +112,17 @@ class AdamW(Optimizer):
         if self.apply_decay_param_fun is None:
             return None
         return [1.0 if self.apply_decay_param_fun(self._names[i]) else 0.0 for i in live]
+
+
+class Momentum(Optimizer):
+    """SGD with momentum (``MomentumCore``), as ``bench_suite.py`` trains
+    LeNet and ResNet50. L2 ``weight_decay`` is not ported yet (ROADMAP.md,
+    Queue 1 item 7)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None, use_nesterov=False,
+                 weight_decay=None, grad_clip=None, name=None, multi_precision=False):
+        if weight_decay:
+            raise NotImplementedError("Momentum: weight_decay is not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 7)")
+        super().__init__(learning_rate, parameters, grad_clip,
+                         core=Fopt.MomentumCore(momentum, use_nesterov))

@@ -21,6 +21,12 @@ ids), with ``sop.*`` in place of ``nsp.*``.
 
 A GPT state converts the same whatever its config's recompute settings:
 recompute changes no parameter.
+
+The vision models (``vision.models.resnet``'s family and ``models.lenet``)
+keep the reference's module names, its ``[out, in / groups, kh, kw]``
+convolution weights and ``[in, out]`` ``Linear`` weights, and its batch-norm
+buffers ``_mean`` and ``_variance``; :func:`state_dict_by_name` carries
+such a state across name for name, checked against the target model.
 """
 from __future__ import annotations
 
@@ -155,5 +161,27 @@ def state_dict_from_paddle_tpu(np_state: Dict[str, np.ndarray]) -> Dict[str, tor
         arr = np.asarray(np_state[name])
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+        out[name] = torch.tensor(arr)
+    return out
+
+
+def state_dict_by_name(np_state: Dict[str, np.ndarray],
+                       model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A ``paddle_tpu`` state_dict (parameters and buffers, as numpy
+    arrays) as ``model``'s state_dict (CPU tensors), tensor for tensor as
+    it is: a ResNet or LeNet, whose names and layouts are the reference's.
+    Raises ``KeyError`` unless the names are exactly ``model``'s and
+    ``ValueError`` on a shape that differs from ``model``'s."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(np_state))
+    extra = sorted(set(np_state) - set(want))
+    if missing or extra:
+        raise KeyError(f"paddle_tpu state_dict does not match {type(model).__name__}: "
+                       f"missing {missing}, extra {extra}")
+    out = {}
+    for name, t in want.items():
+        arr = np.asarray(np_state[name])
+        if arr.shape != tuple(t.shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(t.shape)}")
         out[name] = torch.tensor(arr)
     return out

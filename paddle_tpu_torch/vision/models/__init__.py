@@ -1,0 +1,7 @@
+"""Vision models of the port (``paddle_tpu/vision/models/``): the ResNet
+family. The other models of the reference's ``vision/models/`` are not
+ported yet (ROADMAP.md, Queue 1 item 12)."""
+from .resnet import (  # noqa: F401
+    BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34, resnet50, resnet101, resnet152,
+    resnext50_32x4d, resnext50_64x4d, resnext101_32x4d, resnext101_64x4d, resnext152_32x4d,
+    resnext152_64x4d, wide_resnet50_2, wide_resnet101_2)

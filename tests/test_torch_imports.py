@@ -52,15 +52,22 @@ BERT_MODULES = {"paddle_tpu_torch.ops.flash_attention_flat", "paddle_tpu_torch.m
 # modules of the 1.3B / ERNIE slice
 FLAGSHIP_MODULES = {"paddle_tpu_torch.distributed.recompute", "paddle_tpu_torch.distributed.pipeline",
                     "paddle_tpu_torch.models.ernie"}
+# modules of the vision slice
+VISION_MODULES = {"paddle_tpu_torch.vision", "paddle_tpu_torch.vision.models",
+                  "paddle_tpu_torch.vision.models.resnet", "paddle_tpu_torch.models.lenet",
+                  "paddle_tpu_torch.nn.functional.conv", "paddle_tpu_torch.nn.functional.pooling",
+                  "paddle_tpu_torch.nn.functional.norm", "paddle_tpu_torch.nn.layer.conv",
+                  "paddle_tpu_torch.nn.layer.pooling", "paddle_tpu_torch.nn.layer.activation",
+                  "paddle_tpu_torch.nn.layer.loss"}
 
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
-    wanted = TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES
+    wanted = TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 42
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 54
 
 
 def test_entry_points_raise_without_cuda_and_device():
@@ -69,9 +76,17 @@ def test_entry_points_raise_without_cuda_and_device():
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.lenet import LeNet
+    from paddle_tpu_torch.nn.layer import BatchNorm2D, Conv2D
+    from paddle_tpu_torch.vision.models import resnet50
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForPretraining(GPTConfig.tiny())
+    for make in (lambda: resnet50(num_classes=1000), LeNet, lambda: Conv2D(3, 8, 3),
+                 lambda: BatchNorm2D(8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert resnet50(device="cpu").fc.weight.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BertForPretraining(BertConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):

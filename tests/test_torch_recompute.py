@@ -14,7 +14,8 @@ compiled step, which runs ``jax.checkpoint``).
 
 Against the port without recompute, from the same weights: GPT-MoE with
 GShard's jitter ON, drawn from the same generator seed, so the recompute
-must replay the forward's draws.
+must replay the forward's draws; and a net with batch norms, whose running
+statistics the recompute must not move a second time.
 
 Tolerances, f32: gradients atol 2e-5 / rtol 1e-4 (as
 ``tests/test_torch_train.py``); the loss rtol 1e-5; the parameters after
@@ -44,6 +45,7 @@ from paddle_tpu_torch.distributed import recompute as trecompute
 from paddle_tpu_torch.framework.flags import flag, set_flags
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+from paddle_tpu_torch.nn import layer as L
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.utils.convert import state_dict_from_paddle_tpu
@@ -207,6 +209,57 @@ def test_recompute_without_routing_replay_would_route_differently(monkeypatch):
     _, grads_r, _ = _port_step(dict(TRUNKS["moe"], recompute=True), ids)
     worst = max(float((grads_r[n] - g).norm() / g.norm()) for n, g in grads.items() if g.norm() > 0)
     assert worst > 1e-3
+
+
+def _bn_step(remat, amp_level, seed=52):
+    """One AdamW step of a small net with two ``BatchNorm2D`` from fresh
+    weights drawn from ``seed``: ``(loss, grads, running buffers)``."""
+    gen = torch.Generator().manual_seed(seed)
+    d = dict(device="cpu", generator=gen)
+    model = torch.nn.Sequential(L.Conv2D(2, 4, 3, padding=1, **d), L.BatchNorm2D(4, device="cpu"),
+                                L.ReLU(), L.Conv2D(4, 4, 3, stride=2, **d),
+                                L.BatchNorm2D(4, device="cpu"), L.ReLU(), L.AdaptiveAvgPool2D(1),
+                                torch.nn.Flatten(), L.Linear(4, 5, **d))
+    x = torch.randn(6, 2, 9, 9, generator=gen)
+    y = torch.randint(0, 5, (6,), generator=gen)
+    step = TrainStep(model, AdamW(learning_rate=LR, parameters=model.parameters()),
+                     L.CrossEntropyLoss(), remat=remat, amp_level=amp_level)
+    loss = float(step(x, y)["loss"])
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return loss, grads, {n: b.clone() for n, b in model.named_buffers()}
+
+
+@pytest.mark.parametrize("early_stop", [True, False])
+@pytest.mark.parametrize("amp_level", [None, "O2"])
+def test_remat_keeps_batch_norm_statistics(amp_level, early_stop):
+    """``TrainStep(remat=True)`` replays the forward, batch norms and all,
+    in the backward; the running statistics still move once per step, to
+    the last bit where they move without recompute, and the loss and the
+    gradients are those of the step without it. With the checkpoint's
+    early stop on (torch's default: the recompute ends once the backward
+    has what it needs) and off."""
+    loss, grads, buffers = _bn_step(False, amp_level)
+    with torch.utils.checkpoint.set_checkpoint_early_stop(early_stop):
+        loss_r, grads_r, buffers_r = _bn_step(True, amp_level)
+    assert set(buffers) == {"1._mean", "1._variance", "4._mean", "4._variance"}
+    for n, b in buffers.items():
+        assert b.dtype == torch.float32 and not torch.equal(b, torch.zeros_like(b)), n
+        assert torch.equal(buffers_r[n], b), n
+    np.testing.assert_allclose(loss_r, loss, **SAME)
+    for n, g in grads.items():
+        np.testing.assert_allclose(grads_r[n].numpy(), g.numpy(), err_msg=n, **SAME)
+
+
+def test_recompute_without_buffer_replay_would_update_twice(monkeypatch):
+    """The check above has teeth: with the buffer replay switched off, the
+    recompute's forward moves each running statistic a second time."""
+    _, _, buffers = _bn_step(False, None)
+    monkeypatch.setattr(trecompute, "buffer_replay",
+                        lambda module: (contextlib.nullcontext(), contextlib.nullcontext()))
+    _, _, buffers_r = _bn_step(True, None)
+    assert not torch.equal(buffers_r["1._mean"], buffers["1._mean"])
+    # a second EMA step from the first: 0.9 m1 + 0.1 m, where m1 = 0.1 m
+    torch.testing.assert_close(buffers_r["1._mean"], 1.9 * buffers["1._mean"], rtol=1e-5, atol=1e-7)
 
 
 def test_recompute_keeps_the_aux_loss_the_criterion_read():
