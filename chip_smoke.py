@@ -127,15 +127,41 @@ non-zero and prints no result. Phases, one JSON line each:
     ``[64, 1, 28, 28]``): the eager loop (``backward``, ``step``,
     ``clear_grad``), 20 timed after 3, and ``TrainStep``, 200 timed after
     3; steps/s of both, the losses falling.
+25. ``serve_round2`` (run after phase 5): ``bench_serve.py:_measure``'s
+    full-width branch: 32 requests of 64 new tokens (a shared 256-token
+    prefix and tails of 32-127 tokens from ``default_rng(0)``, each tail
+    twice) through ``DecodeEngine`` (8 slots, cache 1024) behind
+    ``ContinuousBatchingScheduler``, once through the bucketed path
+    (buckets 64-512) and once through the round-2 path (``prefill_chunk``
+    128, ``prefix_cache_mb`` 512, ``fuse`` 8), best of 3 trials each:
+    requests/s, latency p50/p99, TTFT p50, prefill stall p99 and the
+    seconds of the engine's steps; the prefix hit rate and tokens reused;
+    then ``generate()`` on ``[8, 64]`` for 128 tokens at fuse 8 and at fuse
+    1 (tokens/s, decode calls per token, one fused window and one step
+    traced). Every round-2 request's tokens equal the bucketed round's,
+    fused tokens equal unfused ones, the prefix cache hits, and fuse 8 takes
+    at most 1/8 + 1/128 decode calls per token of a slot.
+26. ``serve_spec`` (run after phase 25): ``bench_serve.py:_measure_spec``'s
+    full-width branch: ``[8, 62]`` prompts, 128 decode tokens, through the
+    plain engine, speculative decoding (``spec_k`` 4) with the target as
+    its own draft and with a small random draft (h 256, 2 layers, 4 heads,
+    ``draft_seed`` 1), the int8 KV cache and int8 weights: tokens/s of each,
+    both acceptance rates, decode calls per token, ``kv_bytes_per_slot`` at
+    f32 and int8 and the share of the int8 arms' tokens equal to the f32
+    engine's. Both spec arms give the plain engine's tokens, the int8
+    cache is at least 3x smaller per slot, and its stored rows are within
+    half a quantization step of the f32 engine's.
 
-The vision phases (22-24) launch none of K1-K4b: the reference runs no
-Pallas kernel on that path (convolutions are cuDNN's, batch norms and pools
-ATen's); the script checks that their counts stay 0.
+The serving phases (5, 25, 26) and the vision phases (22-24) launch none of
+K1-K4b: the reference runs no Pallas kernel on those paths (serving attends
+in jnp, the port in plain PyTorch; convolutions are cuDNN's, batch norms
+and pools ATen's); the script checks that their counts stay 0.
 
-Phases 4, 5, 6, 9 (its ``pallas_sorted`` run), 12, 13, 16, 17, 20, 22 and
-24 are the main path: the kernel counts are set to 0 just before each of them and read just
-after it. Then one JSON line lists every kernel with its launches in those
-runs (K1 and K3 with a ``bf16_row`` too: their O2 steps' bf16 call; K4 and
+Phases 4, 5, 25, 26, 6, 9 (its ``pallas_sorted`` run), 12, 13, 16, 17, 20,
+22 and 24 are the main path: the kernel counts are set to 0 just before
+each of them and read just after it. Then one JSON line lists every kernel
+with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
+O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
 K4b at the first MoE layer's rows of the traced step, whose ``bound_ms``
 counts the live rows, the rows the kernels compute; K1 and K2 with
 ``d128_rows``: the d = 128 calls of phases 17 and 20) and the script's wall
@@ -165,6 +191,21 @@ TRAIN = dict(batch=8, seq=1024, lr=1e-4, warmup=3, steps=10, check_batch=2)
 # the server: bench_serve.py's slots, cache length and prefill buckets
 SERVE = dict(slots=8, max_seq_len=1024, buckets=(64, 128, 256, 512), requests=16, new_tokens=32,
              prompt_lens=(16, 480))
+# bench_serve.py:_measure's full-width branch (:112-117): the bucketed path
+# and the round-2 path (chunk 128, 512 MB of prefix cache, fuse 8) serve 32
+# requests of 64 new tokens, best of 3 trials each; generate() on [8, 64]
+# for 128 tokens times fused decode
+SERVE_ROUND2 = dict(slots=8, max_seq_len=1024, buckets=(64, 128, 256, 512), requests=32,
+                    new_tokens=64, chunk=128, prefix_mb=512.0, fuse=8, decode_tokens=128, trials=3)
+# bench_serve.py:_measure_spec's full-width branch (:598-603): the draft model,
+# prompts [8, 62], 128 decode tokens, spec_k 4
+SERVE_SPEC = dict(draft=dict(vocab_size=50304, hidden_size=256, num_layers=2, num_heads=4,
+                             max_seq_len=1024),
+                  slots=8, max_seq_len=1024, buckets=(64,), decode_tokens=128, spec_k=4)
+# the int8 cache's dequantized rows against the f32 engine's: half a
+# quantization step (abs_max / 127) of the row, plus 1e-6 of its abs_max for
+# the K/V projections' f32 rounding (the same matmul on the same inputs)
+INT8_ROUND_TRIP_SLACK = 1e-6
 SEED = 0
 
 # f32: atol 1e-5 / rtol 1e-4 (true f32 on both sides, sums in another order).
@@ -523,14 +564,15 @@ def _k2_cases():
 def phase_k2():
     """K2 against its plain version; returns the row of the main path's
     call ([8, 1024, 16, 64] causal bf16 through packed-qkv strides, as the
-    O2 training step makes it) and the rows of the d = 128 calls of the
-    1.3B and ERNIE steps, by path. ``packed``: True for views of a packed
+    O2 training step makes it), the row of the same call in f32 (the f32
+    steps' call), and the rows of the d = 128 calls of the 1.3B and ERNIE
+    steps, by path. ``packed``: True for views of a packed
     projection whose gradient K2 writes into one packed buffer, ``"views"``
     for the same views with new gradient buffers."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    main_row, d128_rows, failures = None, {}, []
+    main_row, f32_row, d128_rows, failures = None, None, {}, []
     for b, s, h, d, causal, dt, packed in _k2_cases():
         grads = None
         if packed:
@@ -580,13 +622,15 @@ def phase_k2():
             failures.append(row)
         if (b, s, h, d, causal, dt, packed) == (8, 1024, 16, 64, True, torch.bfloat16, True):
             main_row = row
+        if (b, s, h, d, causal, dt, packed) == (8, 1024, 16, 64, True, torch.float32, True):
+            f32_row = row
         d128_rows.update({path: row for path, call in D128_CALLS.items()
                           if (b, s, h, d, causal, dt) == (*call, torch.bfloat16) and packed})
         del q, k, v, dout, out, lse, got, grads
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"K2 disagrees with its plain version in {len(failures)} case(s)")
-    return main_row, d128_rows
+    return main_row, f32_row, d128_rows
 
 
 def phase_forward(model, ids):
@@ -686,6 +730,243 @@ def phase_serve(model):
          k1_launches=fa.flash_attention_fwd.launches - before)
     if not ok:
         raise AssertionError(f"served tokens differ from generate() for requests {mismatched}")
+
+
+def _serve_round(model, prompts, warm, trials, **engine_kwargs):
+    """``bench_serve.py:serve_round``: one engine, its programs warmed on
+    ``warm`` (outside every clock), then ``trials`` runs of every prompt
+    through a fresh scheduler; the best run by requests/s (with the calls
+    and seconds of the engine's admission, prefill and decode steps in it),
+    and every run's tokens by request."""
+    from paddle_tpu_torch.inference import ContinuousBatchingScheduler, DecodeEngine
+
+    R2 = SERVE_ROUND2
+    eng = DecodeEngine(model, max_batch_slots=R2["slots"], max_seq_len=R2["max_seq_len"],
+                       **engine_kwargs)
+    for w in warm:
+        eng.generate(w, max_new_tokens=2)
+    spent = {}
+
+    def timed(name):
+        step = getattr(eng, name)
+
+        def run(*a, **kw):  # each ends in host values: synchronised
+            t = time.perf_counter()
+            out = step(*a, **kw)
+            calls, seconds = spent.get(name, (0, 0.0))
+            spent[name] = (calls + 1, seconds + time.perf_counter() - t)
+            return out
+
+        setattr(eng, name, run)
+
+    for name in ("begin_prefill", "prefill_step", "decode_step"):
+        timed(name)
+    best, tokens = None, []
+    for _ in range(trials):
+        spent.clear()
+        sched = ContinuousBatchingScheduler(eng)
+        rids = [sched.submit(p, max_new_tokens=R2["new_tokens"]) for p in prompts]
+        t0 = time.perf_counter()
+        done = sched.run()
+        dt = time.perf_counter() - t0
+        tokens.append([done[r].tokens for r in rids])
+        reqs = [done[r] for r in rids]
+        trial = dict(requests_per_s=len(done) / dt, seconds=dt,
+                     latency_p50_ms=1e3 * float(np.percentile([r.total_seconds for r in reqs], 50)),
+                     latency_p99_ms=1e3 * float(np.percentile([r.total_seconds for r in reqs], 99)),
+                     ttft_p50_ms=1e3 * float(np.percentile([r.ttft_seconds for r in reqs], 50)),
+                     prefill_stall_p99_ms=1e3 * float(np.percentile(
+                         [r.stall_seconds for r in reqs], 99)),
+                     prefix_tokens=sum(r.prefix_tokens for r in reqs),
+                     engine_calls={k: c for k, (c, _) in spent.items()},
+                     engine_seconds={k: t for k, (_, t) in spent.items()})
+        if best is None or trial["requests_per_s"] > best["requests_per_s"]:
+            best = trial
+    return eng, best, tokens
+
+
+def _trace_decode(eng, prompts, new_tokens, **kw):
+    """One ``decode_step`` traced (``profile_step``) with every row of
+    ``prompts`` prefilled into its slot."""
+    eng.reset()
+    for i, p in enumerate(prompts):
+        eng.prefill(p, slot=i, max_new_tokens=new_tokens)
+    trace = profile_step(lambda *_: eng.decode_step(**kw), None, None)
+    eng.reset()
+    return trace
+
+
+def phase_serve_round2(model):
+    """``bench_serve.py:_measure``'s full-width branch: 32 requests (a shared
+    256-token prefix and tails of 32-127 tokens, each tail twice) through the
+    bucketed path and through the round-2 path (chunked prefill, prefix
+    cache, fused decode), best of 3 each; then ``generate()`` on ``[8, 64]``
+    for 128 tokens at fuse 8 and at fuse 1. Gates: every round-2 request's
+    tokens equal the bucketed round's, fused tokens equal unfused ones, the
+    prefix cache hits, and fused decode takes at most 1/8 + 1/128 decode
+    calls per token of a slot."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.observability import metrics
+
+    R2 = SERVE_ROUND2
+    V, C = model.gpt.cfg.vocab_size, R2["chunk"]
+    t_phase = time.perf_counter()
+    # bench_serve.py:127-185 draws from one default_rng(0), in this order
+    rng = np.random.default_rng(SEED)
+    decode_prompt = rng.integers(0, V, (R2["slots"], C // 2))
+    lens = rng.integers(max(1, C // 4), C, max(1, R2["requests"] // 2))
+    shared = rng.integers(0, V, (2 * C,))
+    tails = [rng.integers(0, V, (int(n),)) for n in lens]
+    prompts = [np.concatenate([shared, tails[i % len(tails)]]) for i in range(R2["requests"])]
+    warm_prev = [rng.integers(0, V, (1, b)) for b in R2["buckets"]]
+    warm_cur = [rng.integers(0, V, (1, C + 1))]
+
+    _, prev, prev_tokens = _serve_round(model, prompts, warm_prev, R2["trials"],
+                                        prefill_buckets=R2["buckets"])
+    torch.cuda.empty_cache()
+    metrics.reset_counters("serving.")
+    eng, cur, cur_tokens = _serve_round(model, prompts, warm_cur, R2["trials"], prefill_chunk=C,
+                                        prefix_cache_mb=R2["prefix_mb"], fuse=R2["fuse"])
+    pstats = eng.prefix_cache.stats()
+    reused = int(metrics.counters("serving.").get("serving.prefix_tokens_reused", 0))
+    entry_mb = eng.prefix_cache.entry_bytes / 1e6
+    del eng
+    torch.cuda.empty_cache()
+
+    # decode throughput: bench_serve.py:128-152
+    eng = DecodeEngine(model, max_batch_slots=R2["slots"], max_seq_len=R2["max_seq_len"],
+                       prefill_chunk=C, fuse=R2["fuse"])
+    eng.generate(decode_prompt, max_new_tokens=2)
+    eng.generate(decode_prompt, max_new_tokens=2, fuse=1)
+    n_tok = R2["decode_tokens"]
+    metrics.reset_counters("infer.")
+    t0 = time.perf_counter()
+    fused = eng.generate(decode_prompt, max_new_tokens=n_tok)
+    fused_s = time.perf_counter() - t0
+    dispatches = int(metrics.counters("infer.")["infer.decode_dispatches"])
+    t0 = time.perf_counter()
+    unfused = eng.generate(decode_prompt, max_new_tokens=n_tok, fuse=1)
+    unfused_s = time.perf_counter() - t0
+    kv_gb = eng.cache_bytes() / 1e9
+    step_bytes = sum(p.numel() * p.element_size() for p in model.parameters()) + eng.cache_bytes()
+    traces = {"fused_window": _trace_decode(eng, decode_prompt, n_tok),
+              "decode_step": _trace_decode(eng, decode_prompt, n_tok, fuse=1)}
+    del eng
+    torch.cuda.empty_cache()
+
+    mismatched = sorted({i for trial in cur_tokens + prev_tokens[1:] for i, t in enumerate(trial)
+                         if t != prev_tokens[0][i]})
+    per_slot_token = dispatches / n_tok  # decode calls per token of one slot
+    ok = (not mismatched and all(len(t) == R2["new_tokens"] for t in prev_tokens[0])
+          and np.array_equal(fused, unfused) and pstats["hits"] >= 1
+          and per_slot_token <= 1 / R2["fuse"] + 1 / n_tok)
+    emit(phase="serve_round2", ok=ok, requests=R2["requests"], new_tokens=R2["new_tokens"],
+         prompt_lens=[len(p) for p in prompts], trials=R2["trials"],
+         prev=dict(prev, knobs=dict(prefill_buckets=list(R2["buckets"]))),
+         round2=dict(cur, knobs=dict(prefill_chunk=C, prefix_cache_mb=R2["prefix_mb"],
+                                     fuse=R2["fuse"])),
+         requests_mismatched_vs_bucketed=mismatched,
+         prefix_hit_rate=pstats["hits"] / max(1, pstats["hits"] + pstats["misses"]),
+         prefix_cache=pstats, prefix_tokens_reused=reused, prefix_entry_mb=entry_mb,
+         decode_tokens_per_s=R2["slots"] * n_tok / fused_s,
+         decode_tokens_per_s_unfused=R2["slots"] * n_tok / unfused_s,
+         fused_equals_unfused=bool(np.array_equal(fused, unfused)),
+         decode_dispatches=dispatches, decode_dispatches_per_token=dispatches / (R2["slots"] * n_tok),
+         decode_dispatches_per_slot_token=per_slot_token, kv_cache_gb=kv_gb,
+         decode_step_bound_ms=1e3 * step_bytes / PEAK_BYTES, traces=traces,
+         seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("serve_round2 failed its gates")
+
+
+def phase_serve_spec(model):
+    """``bench_serve.py:_measure_spec``'s full-width branch: ``[8, 62]``
+    prompts, 128 decode tokens, through the plain engine, speculative
+    decoding with the target as its own draft (oracle) and with a small
+    random draft (``draft_seed=1``), the int8 KV cache and int8 weights.
+    Gates: both spec arms give the plain engine's tokens, the int8 cache
+    is at least 3x smaller per slot, and its stored rows are within half a
+    quantization step of the f32 engine's."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.gpt import GPTConfig, _kv_dequant
+    from paddle_tpu_torch.observability import metrics
+
+    SP = SERVE_SPEC
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, model.gpt.cfg.vocab_size, (SP["slots"], SP["buckets"][0] - 2))
+    kw = dict(max_batch_slots=SP["slots"], max_seq_len=SP["max_seq_len"],
+              prefill_buckets=SP["buckets"])
+    n_tok = SP["decode_tokens"]
+
+    def timed(eng):
+        eng.generate(prompt, max_new_tokens=2)  # warm
+        t0 = time.perf_counter()
+        out = eng.generate(prompt, max_new_tokens=n_tok)
+        return SP["slots"] * n_tok / (time.perf_counter() - t0), out
+
+    plain = DecodeEngine(model, **kw)
+    plain_tps, want = timed(plain)
+    f32_slot = plain.kv_bytes_per_slot()
+    s0 = prompt.shape[1]
+    # layer 0's prompt rows, for the int8 arm's round trip
+    f32_rows = [plain._ck[0, :, :, :s0].clone(), plain._cv[0, :, :, :s0].clone()]
+    del plain
+    metrics.reset_counters("infer.")
+    oracle = DecodeEngine(model, draft=model, spec_k=SP["spec_k"], **kw)
+    oracle_tps, got_oracle = timed(oracle)
+    c = metrics.counters("infer.")
+    # bench_serve.py:636: less the warm-up's one dispatch and its first tokens
+    disp_per_tok = (c["infer.decode_dispatches"] - 1) / max(1, c["infer.tokens"] - SP["slots"])
+    oracle_acc = oracle.spec_stats()["acceptance_rate"]
+    traces = {"spec_step_oracle": _trace_decode(oracle, prompt, n_tok)}
+    del oracle
+    small = DecodeEngine(model, draft=GPTConfig(**SP["draft"]), spec_k=SP["spec_k"], draft_seed=1, **kw)
+    small_tps, got_small = timed(small)
+    small_acc = small.spec_stats()["acceptance_rate"]
+    draft_gb = small.draft_cache_bytes() / 1e9
+    del small
+    torch.cuda.empty_cache()
+    i8 = DecodeEngine(model, kv_dtype="int8", **kw)
+    i8_tps, got_i8 = timed(i8)
+    i8_slot = i8.kv_bytes_per_slot()
+    # the round trip on the int8 arm's own rows: layer 0's prompt rows are
+    # computed from the tokens alone, so the f32 engine's are their inputs
+    rt_err, rt_ok = [], True
+    for pack, ref in zip((i8._ck, i8._cv), f32_rows):
+        rows = {"q": pack["q"][0, :, :, :s0], "s": pack["s"][0, :, :, :s0]}
+        err = (_kv_dequant(rows, torch.float32) - ref).abs()
+        amax = ref.abs().amax(dim=-1, keepdim=True)
+        rt_ok = rt_ok and bool((err <= 0.5 * amax / 127.0 + INT8_ROUND_TRIP_SLACK * amax).all())
+        rt_err.append(float((err / (amax / 127.0).clamp_min(1e-30)).max()))
+    traces["decode_step_int8_kv"] = _trace_decode(i8, prompt, n_tok)
+    del i8
+    torch.cuda.empty_cache()
+    w8 = DecodeEngine(model, int8=True, **kw)
+    w8_tps, got_w8 = timed(w8)
+    del w8
+    torch.cuda.empty_cache()
+    shrink = f32_slot / i8_slot
+    ok = (np.array_equal(got_oracle, want) and np.array_equal(got_small, want)
+          and shrink >= 3.0 and rt_ok)
+    gen = slice(s0, None)
+    emit(phase="serve_spec", ok=ok, prompt=list(prompt.shape), decode_tokens=n_tok,
+         spec_k=SP["spec_k"], draft=SP["draft"],
+         decode_tokens_per_s_plain=plain_tps, spec_decode_tokens_per_s=oracle_tps,
+         spec_decode_tokens_per_s_small_draft=small_tps,
+         decode_tokens_per_s_int8_kv=i8_tps, decode_tokens_per_s_int8_weights=w8_tps,
+         spec_acceptance_rate=oracle_acc, spec_acceptance_rate_small_draft=small_acc,
+         decode_dispatches_per_token=disp_per_tok,
+         oracle_equals_plain=bool(np.array_equal(got_oracle, want)),
+         small_draft_equals_plain=bool(np.array_equal(got_small, want)),
+         kv_bytes_per_slot=i8_slot, kv_bytes_per_slot_f32=f32_slot, kv_shrink=shrink,
+         draft_cache_gb=draft_gb,
+         int8_kv_round_trip_max_err_in_steps=max(rt_err), int8_kv_round_trip_ok=rt_ok,
+         int8_kv_token_share=float((got_i8[:, gen] == want[:, gen]).mean()),
+         int8_weights_token_share=float((got_w8[:, gen] == want[:, gen]).mean()),
+         traces=traces, seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("serve_spec failed its gates")
 
 
 def _model_flops_per_step(cfg, batch, seq):
@@ -2100,11 +2381,13 @@ def main() -> int:
     phase_device()
     phase_build()
     k1_row, k1_bf16_row, k1_d128 = phase_k1()
-    k2_row, k2_d128 = phase_k2()
+    k2_row, k2_f32_row, k2_d128 = phase_k2()
     rows = {K1["name"]: k1_row, K2["name"]: k2_row, **phase_flat_kernels()}
     # the bf16 calls of the O2 steps, beside K1's f32 main row (the forward's
     # call); K3's main row is already BERT's O2 call
     bf16_rows = {K1["name"]: k1_bf16_row, K3["name"]: rows[K3["name"]]}
+    # K2's f32 call (its main row is the O2 step's bf16 call)
+    f32_rows = {K2["name"]: k2_f32_row}
     # K1's and K2's d = 128 calls of the 1.3B and ERNIE steps
     d128_rows = {K1["name"]: k1_d128, K2["name"]: k2_d128}
 
@@ -2116,7 +2399,9 @@ def main() -> int:
     # the main path: each of its runs counts launches from 0
     by_path = {}
     for path, run in (("forward", lambda: phase_forward(model, ids)),
-                      ("serve", lambda: phase_serve(model))):
+                      ("serve", lambda: phase_serve(model)),
+                      ("serve_round2", lambda: phase_serve_round2(model)),
+                      ("serve_spec", lambda: phase_serve_spec(model))):
         reset_launches()
         run()
         by_path[path] = read_launches()
@@ -2181,6 +2466,9 @@ def main() -> int:
                     **({"bf16_row": {k: bf16_rows[K["name"]][k] for k in keys + ("packed_qkv",)
                                      if k in bf16_rows[K["name"]]}}
                        if K["name"] in bf16_rows else {}),
+                    **({"f32_row": {k: f32_rows[K["name"]][k] for k in keys + ("packed_qkv",)
+                                    if k in f32_rows[K["name"]]}}
+                       if K["name"] in f32_rows else {}),
                     **({"d128_rows": {path: {k: row[k] for k in keys + ("packed_qkv",) if k in row}
                                       for path, row in d128_rows[K["name"]].items()}}
                        if K["name"] in d128_rows else {}))
@@ -2191,7 +2479,8 @@ def main() -> int:
     # BERT's step and in GPT's step with FLAGS_flash_flat on, K1 and K2 in
     # the 1.3B and ERNIE steps; the vision steps none (their phases check
     # that every count stays 0)
-    expected = {"forward": [K1["name"]], "train": [K1["name"], K2["name"]],
+    expected = {"forward": [K1["name"]], "serve": [], "serve_round2": [], "serve_spec": [],
+                "train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "bert_forward": [K3["name"]], "bert_train": [K3["name"], K3B["name"]],
                 "flat_check": [K3["name"], K3B["name"]],
@@ -2201,6 +2490,11 @@ def main() -> int:
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]
     if missing:
         raise AssertionError(f"the main path launched these kernels no time: {missing}")
+    # the serving and vision paths run no kernel of this repository
+    stray = [(path, n) for path, names in expected.items() if not names
+             for n, count in by_path[path].items() if count]
+    if stray:
+        raise AssertionError(f"paths that run no repo kernel launched these: {stray}")
     emit(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))
     return 0

@@ -46,3 +46,4 @@ define_flag("FLAGS_use_flash_attention", True, "use the hand-written flash-atten
 define_flag("FLAGS_flash_flat", False, "route masked/GQA sdpa (impl flash_flat_gqa) and attention_core (impl flash_packed) to the flat flash kernels K3/K3b; off by default, as in the reference")
 define_flag("FLAGS_kernel_overrides", "", "force kernel-registry implementations per kernel, e.g. 'attention_core=xla' (see paddle_tpu_torch.ops.registry); forced impls bypass availability predicates; unknown impl names raise at dispatch")
 define_flag("FLAGS_remat_policy", "none", "default rematerialization policy for jit steps: any value but 'none' turns TrainStep's remat on")
+define_flag("FLAGS_compile_cache_dir", "", "the reference's on-disk AOT executable cache for serving programs; the port has no compiled serving programs to store, and DecodeEngine raises while it is set (ROADMAP.md, Queue 1 item 4)")

@@ -3,7 +3,19 @@
 
 Requests arrive at any time and are admitted into free batch slots
 mid-stream: a new request's prefill runs while other slots keep decoding,
-and every decode step advances all occupied slots. Requests carry optional
+and every decode step advances all occupied slots. With the engine's knobs:
+
+- **chunked prefill** (``prefill_chunk``): an admission is a sequence of
+  C-token chunks, one per tick, interleaved with decode; the time prefill
+  steps take while other slots have decodes waiting is the request's
+  *stall* (``serving.prefill_stall_seconds``);
+- **fused decode** (``fuse=D``): one decode step returns a ``[D, B]`` token
+  stack, drained in order, keeping only the tokens a slot really emitted;
+  a speculative step's variable runs drain the same way;
+- **prefix reuse** (``prefix_cache_mb``): ``Request.prefix_tokens`` counts
+  the prompt rows the prefix cache supplied.
+
+Requests carry optional
 deadlines and can be cancelled mid-flight: an expired or cancelled request
 frees its slot at once and lands in ``.cancelled``. The ``serving.*``
 counters, gauges and histograms go to the port's metrics registry; the run
@@ -41,6 +53,9 @@ class Request:
         self.tokens: List[int] = []
         self.slot: Optional[int] = None
         self.bucket: Optional[int] = None
+        self.prefix_tokens = 0        # prompt rows supplied by the prefix cache
+        self.prefill_chunks = 0       # prefill steps its admission took
+        self.spec_acceptance: Optional[float] = None  # the engine's rate at finish
         self.stall_seconds = 0.0      # prefill time spent while decode waited
         self.submitted_ts = time.perf_counter()
         self.admitted_ts: Optional[float] = None
@@ -78,8 +93,8 @@ class Request:
 
 class ContinuousBatchingScheduler:
     """Admit-into-free-slots scheduler: a FIFO queue in front of the engine's
-    batch slots. Drive it with :meth:`step` (one admission sweep, the
-    prefills of new admissions, one decode step) or :meth:`run` (until
+    batch slots. Drive it with :meth:`step` (one admission sweep, one prefill
+    step per admission in flight, one decode step) or :meth:`run` (until
     drained)."""
 
     def __init__(self, engine, keep_finished: int = 256):
@@ -108,7 +123,7 @@ class ContinuousBatchingScheduler:
                              f"engine max_seq_len {self.engine.max_seq_len}")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
-        self.engine.bucket_for(n)  # raises if no bucket fits
+        self.engine.bucket_for(n)  # raises if no bucket or chunk tiling fits
         r = Request(self._next_rid, prompt, max_new_tokens, eos_token_id, seed, deadline_s=deadline_s)
         self._next_rid += 1
         self.queue.append(r)
@@ -169,21 +184,25 @@ class ContinuousBatchingScheduler:
             r.bucket = self.engine.bucket_for(len(r.prompt))
             r.status = "prefilling"
             r.admitted_ts = time.perf_counter()
-            self._jobs[slot] = self.engine.begin_prefill(
+            job = self.engine.begin_prefill(
                 r.prompt, slot, max_new_tokens=r.max_new_tokens,
                 eos_token_id=r.eos_token_id, seed=r.seed)
+            r.prefix_tokens = job.reused_tokens
+            self._jobs[slot] = job
             self.prefilling[slot] = r
             gauge_set("serving.queue_depth", len(self.queue))
 
     def _prefill_tick(self) -> None:
-        """One prefill step per admission; prefill time spent while decodes
-        wait counts as stall."""
+        """One prefill step per admission in flight (a C-token chunk in
+        chunked mode, the whole padded prompt in bucketed mode); prefill time
+        spent while decodes wait counts as stall."""
         for slot in list(self.prefilling):
             r = self.prefilling[slot]
             decode_waiting = bool(self.running)
             t0 = time.perf_counter()
             done = self.engine.prefill_step(self._jobs[slot])
             dt = time.perf_counter() - t0
+            r.prefill_chunks += 1
             if decode_waiting:
                 r.stall_seconds += dt
                 observe("serving.prefill_stall_seconds", dt)
@@ -209,6 +228,8 @@ class ContinuousBatchingScheduler:
         self.engine.free_slot(r.slot)
         self.running.pop(r.slot, None)
         self.finished[r.rid] = r
+        if self.engine.spec_k:
+            r.spec_acceptance = self.engine.spec_stats()["acceptance_rate"]
         counter_inc("serving.requests_completed")
         counter_inc("serving.tokens_generated", len(r.tokens))
         observe("serving.latency_seconds", r.total_seconds)
@@ -216,8 +237,10 @@ class ContinuousBatchingScheduler:
 
     def step(self) -> List[Request]:
         """One scheduler tick: expire deadlines, admit queued requests into
-        free slots, prefill them, then advance every decoding slot in a
-        single decode step. Returns the requests finished this tick."""
+        free slots, run one prefill step per admission in flight, then
+        advance every decoding slot in one decode step (a ``[D, B]`` stack at
+        fuse depth D, drained in order). Returns the requests finished this
+        tick."""
         before = set(self.finished)
         before_cancelled = set(self.cancelled)
         self._expire_deadlines()
@@ -225,9 +248,11 @@ class ContinuousBatchingScheduler:
         self._prefill_tick()
         if self.running:
             toks, emitted, active = self.engine.decode_step()
-            for slot, r in self.running.items():
-                if emitted[slot]:
-                    r.tokens.append(int(toks[slot]))
+            toks, emitted = np.atleast_2d(toks), np.atleast_2d(emitted)
+            for d in range(toks.shape[0]):
+                for slot, r in self.running.items():
+                    if emitted[d, slot]:
+                        r.tokens.append(int(toks[d, slot]))
             for slot, r in list(self.running.items()):
                 if not active[slot]:
                     self._finish(r)

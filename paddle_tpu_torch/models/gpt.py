@@ -23,14 +23,14 @@ block, ``"selective"`` saves its matmul outputs, as the reference's
 ``nothing_saveable`` and ``dots_saveable`` policies do.
 
 The cache half serves decoding on the stacked trunk: a static
-``[L, b, H, S, dh]`` KV cache that is updated IN PLACE (the reference
-returns new arrays from ``dynamic_update_slice``; here the writes land in
-the caller's tensors and the functions return only what is new). Prefill and
-decode attend over the cache in plain PyTorch, as the reference's jnp does.
+``[L, b, H, S, dh]`` KV cache (or its int8 pack) that is updated IN PLACE
+(the reference returns new arrays from ``dynamic_update_slice``; here the
+writes land in the caller's tensors and the functions return only what is
+new): bucketed and chunked prefill, per-slot decode windows of W tokens.
+They attend over the cache in plain PyTorch, as the reference's jnp does.
 As in the reference, ``generate()`` and serving need the stacked trunk.
 
-Not ported yet: dropout in training, the int8 KV packs, chunked prefill
-and export; see ``ROADMAP.md``.
+Not ported yet: dropout in training and export; see ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -452,30 +452,101 @@ class GPTPretrainingCriterion(nn.Module):
 
 
 # ------------------------------------------------------------------ KV cache
-# A cache is a plain tensor in the compute dtype. These helpers are the one
-# place that knows its representation (the reference's int8 packs plug in
-# here when they are ported).
+# A cache is a plain tensor in the compute dtype or, under the engine's
+# kv_dtype="int8", an int8 pack ``{"q": int8 [..., S, dh], "s": f32 [..., S]}``
+# with one abs_max scale per (layer, slot, head, position) row, as in the
+# reference. These helpers are the one place that knows the representation:
+# writes quantize, attends read a dequantized copy. Writes land in place.
 
-def _kv_zeros(shape, dt, device):
-    """A fresh cache buffer ``[..., S, dh]``."""
+def _kv_quantize(u):
+    """``u [..., dh]`` -> ``(q int8 [..., dh], s f32 [...])``: per-row abs_max
+    scales with a 1e-8 floor, rounded half to even."""
+    f = u.float()
+    s = f.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(f / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def _kv_dequant(pack, dt):
+    """The values an int8 pack stands for, in dtype ``dt``."""
+    return (pack["q"].float() * pack["s"][..., None]).to(dt)
+
+
+def _kv_zeros(shape, dt, device, kv_dtype=None):
+    """A fresh cache buffer; ``shape`` is the payload shape ``[..., S, dh]``.
+    ``kv_dtype="int8"`` allocates the int8 pack instead of ``dt``."""
+    if kv_dtype == "int8":
+        return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "s": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
     return torch.zeros(shape, dtype=dt, device=device)
+
+
+def _kv_payload(c):
+    """The tensor that carries a cache's ``[..., S, dh]`` shape."""
+    return c["q"] if isinstance(c, dict) else c
+
+
+def _kv_layer(c, i):
+    """Index ``i`` of a cache's first dim (a layer, or a slot of one layer's
+    cache): a view, array or pack."""
+    if isinstance(c, dict):
+        return {"q": c["q"][i], "s": c["s"][i]}
+    return c[i]
+
+
+def _kv_bytes(c):
+    """Bytes a cache holds as stored (an int8 pack: payload plus scales)."""
+    leaves = c.values() if isinstance(c, dict) else (c,)
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _box(idx, shape):
+    return tuple(slice(i, i + n) for i, n in zip(idx, shape))
 
 
 def _kvc_update(c, u, idx):
     """Write the compute-dtype update ``u`` into cache ``c`` in place at the
-    start indices ``idx`` (one per dim)."""
-    c[tuple(slice(i, i + n) for i, n in zip(idx, u.shape))] = u
+    start indices ``idx`` (one per dim; the scale plane takes ``idx[:-1]``);
+    quantizes iff ``c`` is a pack."""
+    if isinstance(c, dict):
+        q, s = _kv_quantize(u)
+        c["q"][_box(idx, q.shape)] = q
+        c["s"][_box(idx[:-1], s.shape)] = s
+    else:
+        c[_box(idx, u.shape)] = u
 
 
 def _kvc_read(c, dt):
-    """Attend view of a cache in dtype ``dt``."""
-    return c.to(dt)
+    """Attend copy of a cache in dtype ``dt`` (a pack dequantizes)."""
+    return _kv_dequant(c, dt) if isinstance(c, dict) else c.to(dt)
 
 
 def _kvc_copy(c, seg, idx):
     """Copy an already-stored segment (same representation as ``c``) into the
-    cache in place at ``idx``."""
-    c[tuple(slice(i, i + n) for i, n in zip(idx, seg.shape))] = seg
+    cache in place at ``idx``: a pack moves payload and scales verbatim."""
+    if isinstance(c, dict):
+        c["q"][_box(idx, seg["q"].shape)] = seg["q"]
+        c["s"][_box(idx[:-1], seg["s"].shape)] = seg["s"]
+    else:
+        c[_box(idx, seg.shape)] = seg
+
+
+def _kvc_slice(c, idx, size):
+    """A COPY of the segment at ``idx`` of ``size`` in its stored
+    representation (the prefix-cache extract; :func:`_kvc_copy` re-inserts
+    it). Never a view: the slot it came from is reused by later requests."""
+    if isinstance(c, dict):
+        return {"q": c["q"][_box(idx, size)].clone(),
+                "s": c["s"][_box(idx[:-1], size[:-1])].clone()}
+    return c[_box(idx, size)].clone()
+
+
+def _layer_params(params, i, dt):
+    """Layer ``i``'s slices of the stacked decode parameters; an int8 weight
+    pack ``{"q": int8 [L, in, out], "s": f32 [L, 1, out]}`` dequantizes into
+    ``dt`` here, one layer at a time, right before its matmuls."""
+    return tuple((p["q"][i].float() * p["s"][i]).to(dt) if isinstance(p, dict) else p[i]
+                 for p in params)
 
 
 def _ln(v, w, b, epsilon=1e-5):
@@ -496,12 +567,12 @@ def _attend(q, rk, rv, visible, out_dtype):
 
 def _cache_block(lp, h, ck, cv, start_pos, *, num_heads, epsilon=1e-5):
     """One decoder block over a fixed-size cache. ``h`` [b, s, d]; ``ck``/
-    ``cv`` [b, H, S, dh] hold keys/values of positions < ``start_pos`` and are
-    written in place at [start_pos, start_pos + s); row j attends cache
-    positions <= start_pos + j. Returns the new ``h``."""
+    ``cv`` [b, H, S, dh] (or int8 packs) hold keys/values of positions <
+    ``start_pos`` and are written in place at [start_pos, start_pos + s); row
+    j attends cache positions <= start_pos + j. Returns the new ``h``."""
     n1w, n1b, qkvw, qkvb, ow, ob, n2w, n2b, f1w, f1b, f2w, f2b = lp
     b, s, d = h.shape
-    S = ck.shape[2]
+    S = _kv_payload(ck).shape[2]
     x1 = _ln(h, n1w, n1b, epsilon)
     qkv = (x1 @ qkvw + qkvb).reshape(b, s, 3, num_heads, d // num_heads)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [b, H, s, dh]
@@ -521,37 +592,54 @@ def _logits(h, wte, fnw, fnb):
 
 def _cache_forward(params, wte, wpe, fnw, fnb, ids, cache_k, cache_v, start_pos, *, num_heads):
     """Trunk forward over a fixed cache: ``ids`` [b, s] at positions from
-    ``start_pos``; ``cache_k``/``cache_v`` [L, b, H, S, dh] are written in
-    place. Returns logits [b, s, V]."""
+    ``start_pos``; ``cache_k``/``cache_v`` [L, b, H, S, dh] (or packs) are
+    written in place. Returns logits [b, s, V]."""
     s = ids.shape[1]
     pos = torch.arange(start_pos, start_pos + s, device=ids.device)
     h = (wte[ids] + wpe[pos][None]).to(wte.dtype)
-    for i in range(params[0].shape[0]):
-        h = _cache_block(tuple(p[i] for p in params), h, cache_k[i], cache_v[i], start_pos,
-                         num_heads=num_heads)
+    for i in range(_kv_payload(cache_k).shape[0]):
+        h = _cache_block(_layer_params(params, i, wte.dtype), h, _kv_layer(cache_k, i),
+                         _kv_layer(cache_v, i), start_pos, num_heads=num_heads)
     return _logits(h, wte, fnw, fnb)
+
+
+def _slot_write(c, new, slots, rows, active):
+    """Write ``new`` [b, W, H, dh] at rows ``rows`` [b, W] of each slot of one
+    layer's cache ``c`` [b, H, S, dh] (or pack), in place; a slot that is not
+    ``active`` keeps what it held."""
+    if isinstance(c, dict):
+        q, s = _kv_quantize(new)
+        if active is not None:
+            q = torch.where(active[:, None, None, None], q, c["q"][slots, :, rows])
+            s = torch.where(active[:, None, None], s, c["s"][slots, :, rows])
+        c["q"][slots, :, rows] = q
+        c["s"][slots, :, rows] = s
+        return
+    if active is not None:
+        new = torch.where(active[:, None, None, None], new, c[slots, :, rows])
+    c[slots, :, rows] = new
 
 
 def _slot_cache_block(lp, h, ck, cv, pos, *, num_heads, epsilon=1e-5, active=None):
     """One decoder block over PER-SLOT cache positions (continuous-batching
-    decode). ``h`` [b, W, d] holds a W-token window per slot; ``pos`` [b]
-    (int64) is each slot's write index for window row 0. The window's K/V
-    are written in place at ``pos[b]`` before attending, and row j attends
-    keys up to ``pos[b] + j``. ``active`` [b] bool gates the write per slot:
-    an inactive slot's cache stays untouched. Same per-row math as
-    :func:`_cache_block` at s = 1."""
+    decode). ``h`` [b, W, d] holds a W-token window per slot (W = 1 for plain
+    decode, W = K + 1 for speculative verification); ``pos`` [b] (int64) is
+    each slot's write index for window row 0. The window's K/V are written in
+    place at ``pos[b]`` before attending (so a stale row, a rejected
+    speculative tail among them, is overwritten before it is visible), and
+    row j attends keys up to ``pos[b] + j``. ``active`` [b] bool gates the
+    write per slot: an inactive slot's cache stays untouched. Same per-row
+    math as :func:`_cache_block` at s = 1."""
     n1w, n1b, qkvw, qkvb, ow, ob, n2w, n2b, f1w, f1b, f2w, f2b = lp
     b, W, d = h.shape
-    S = ck.shape[2]
+    S = _kv_payload(ck).shape[2]
     x1 = _ln(h, n1w, n1b, epsilon)
     qkv = (x1 @ qkvw + qkvb).reshape(b, W, 3, num_heads, d // num_heads)
     q = qkv[:, :, 0].transpose(1, 2)  # [b, H, W, dh]
     rows = pos[:, None] + torch.arange(W, device=h.device)  # [b, W]
     slots = torch.arange(b, device=h.device)[:, None]
-    for c, new in ((ck, qkv[:, :, 1]), (cv, qkv[:, :, 2])):  # new: [b, W, H, dh]
-        if active is not None:
-            new = torch.where(active[:, None, None, None], new, c[slots, :, rows])
-        c[slots, :, rows] = new
+    _slot_write(ck, qkv[:, :, 1], slots, rows, active)
+    _slot_write(cv, qkv[:, :, 2], slots, rows, active)
     visible = torch.arange(S, device=h.device) <= rows[:, :, None]  # [b, W, S]
     att = _attend(q, _kvc_read(ck, h.dtype), _kvc_read(cv, h.dtype), visible[:, None], h.dtype)
     h = h + att.transpose(1, 2).reshape(b, W, d) @ ow + ob
@@ -570,9 +658,9 @@ def _slot_window_forward(params, wte, wpe, fnw, fnb, toks, cache_k, cache_v, pos
     # clamp (those rows are never emitted)
     rows = rows.clamp(max=wpe.shape[0] - 1)
     h = (wte[toks] + wpe[rows]).to(wte.dtype)
-    for i in range(params[0].shape[0]):
-        h = _slot_cache_block(tuple(p[i] for p in params), h, cache_k[i], cache_v[i], pos,
-                              num_heads=num_heads, active=active)
+    for i in range(_kv_payload(cache_k).shape[0]):
+        h = _slot_cache_block(_layer_params(params, i, wte.dtype), h, _kv_layer(cache_k, i),
+                              _kv_layer(cache_v, i), pos, num_heads=num_heads, active=active)
     return _logits(h, wte, fnw, fnb)
 
 
@@ -585,14 +673,81 @@ def _slot_decode_forward(params, wte, wpe, fnw, fnb, tok, cache_k, cache_v, pos,
                                 num_heads=num_heads, active=active)[:, 0]
 
 
-# ------------------------------------------------------------ token choice
+def _chunk_prefill_block(lp, h, ck, cv, slot, start, *, num_heads, epsilon=1e-5):
+    """One decoder block over a CHUNK of one slot's prompt (chunked prefill).
+    ``h`` [1, C, d] holds C consecutive prompt tokens of batch slot ``slot``;
+    ``ck``/``cv`` [B, H, S, dh] (or packs) are one layer of the engine's
+    cache. The chunk's K/V are written in place at ``(slot, start)``, and
+    attention reads the slot's whole cache row, masked to each row's own
+    prefix, so the chunk sees what earlier chunks (or a prefix-cache insert)
+    wrote. Same per-row math as :func:`_cache_block`."""
+    n1w, n1b, qkvw, qkvb, ow, ob, n2w, n2b, f1w, f1b, f2w, f2b = lp
+    _, C, d = h.shape
+    S = _kv_payload(ck).shape[2]
+    x1 = _ln(h, n1w, n1b, epsilon)
+    qkv = (x1 @ qkvw + qkvb).reshape(1, C, 3, num_heads, d // num_heads)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [1, H, C, dh]
+    _kvc_update(ck, k, (slot, 0, start, 0))
+    _kvc_update(cv, v, (slot, 0, start, 0))
+    rk = _kvc_read(_kv_layer(ck, slot), h.dtype)[None]  # [1, H, S, dh]
+    rv = _kvc_read(_kv_layer(cv, slot), h.dtype)[None]
+    q_pos = start + torch.arange(C, device=h.device)[:, None]
+    visible = torch.arange(S, device=h.device)[None] <= q_pos  # [C, S]
+    att = _attend(q, rk, rv, visible, h.dtype)
+    h = h + att.transpose(1, 2).reshape(1, C, d) @ ow + ob
+    y = F.gelu(_ln(h, n2w, n2b, epsilon) @ f1w + f1b, approximate="tanh")
+    return h + y @ f2w + f2b
 
-def _position_generator(seed, position, device):
-    """The generator that draws the token following ``position`` of a
-    request seeded ``seed``: a request's samples depend only on its own
-    (seed, position), never on its slot or its batch neighbours."""
-    mixed = ((int(seed) & 0xFFFFFFFF) << 32) | (int(position) & 0xFFFFFFFF)
-    return torch.Generator(device=device).manual_seed(mixed)
+
+def _chunk_prefill_forward(params, wte, wpe, fnw, fnb, ids, cache_k, cache_v, slot, start, *,
+                           num_heads, last_row=None):
+    """Trunk forward over one prompt chunk of one slot, directly against the
+    engine's [L, B, H, S, dh] cache (written in place). ``ids`` [1, C];
+    ``start`` is the chunk's first position. With ``last_row``, returns the
+    logits [1, V] of that row (the sampling row of a prompt's last chunk);
+    intermediate chunks skip the logits and return None."""
+    C = ids.shape[1]
+    pos = torch.arange(start, start + C, device=ids.device)
+    h = (wte[ids] + wpe[pos][None]).to(wte.dtype)
+    for i in range(_kv_payload(cache_k).shape[0]):
+        h = _chunk_prefill_block(_layer_params(params, i, wte.dtype), h, _kv_layer(cache_k, i),
+                                 _kv_layer(cache_v, i), slot, start, num_heads=num_heads)
+    if last_row is None:
+        return None
+    return _logits(h[:, last_row], wte, fnw, fnb)
+
+
+# ------------------------------------------------------------ token choice
+# A sampled token is drawn from a generator seeded by (request seed,
+# position, purpose): a request's samples depend only on its own seed and
+# positions, never on its slot, its batch neighbours or how many decode
+# steps one dispatch runs. The draw is the exponential race (argmax of
+# p / E, E ~ Exp(1) per token), which is what torch.multinomial does for one
+# sample, without its host-side validity check: no sampling step waits for
+# the device. Purposes: 0 the token itself (decode, prefill, a speculative
+# window's bonus row), and for speculative decoding 1 the acceptance
+# uniform, 2 the residual draw, 3 the draft's proposal, as the reference
+# folds them.
+
+def _position_generator(seed, position, device, purpose=0):
+    """The generator of the draw of ``purpose`` for the token following
+    ``position`` (< 2**24) of a request seeded ``seed``. The three are packed
+    into 64 bits and mixed by splitmix64's finaliser: the CPU generator
+    (mt19937) keeps only the low 32 bits of its seed, so every bit of the
+    input must reach them."""
+    mask = 0xFFFFFFFFFFFFFFFF
+    x = (((int(seed) & 0xFFFFFFFF) << 32) | ((int(purpose) & 0xFF) << 24)
+         | (int(position) & 0xFFFFFF))
+    x = (x + 0x9E3779B97F4A7C15) & mask
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & mask
+    return torch.Generator(device=device).manual_seed(x ^ (x >> 31))
+
+
+def _sample(probs, generator):
+    """One token per row of ``probs`` [b, V] by the exponential race."""
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.where(probs > 0, probs / race, torch.full_like(probs, -1.0)).argmax(dim=-1)
 
 
 def _filtered_logits(logits, temperature, top_k, top_p):
@@ -616,8 +771,8 @@ def _select_token(logits, generator, do_sample, temperature, top_k, top_p):
     (one generator for all rows)."""
     if not do_sample:
         return logits.argmax(dim=-1)
-    probs = torch.softmax(_filtered_logits(logits, temperature, top_k, top_p), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return _sample(torch.softmax(_filtered_logits(logits, temperature, top_k, top_p), dim=-1),
+                   generator)
 
 
 def _select_token_rows(logits, generators, do_sample, temperature, top_k, top_p):

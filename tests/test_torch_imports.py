@@ -59,15 +59,20 @@ VISION_MODULES = {"paddle_tpu_torch.vision", "paddle_tpu_torch.vision.models",
                   "paddle_tpu_torch.nn.functional.norm", "paddle_tpu_torch.nn.layer.conv",
                   "paddle_tpu_torch.nn.layer.pooling", "paddle_tpu_torch.nn.layer.activation",
                   "paddle_tpu_torch.nn.layer.loss"}
+# modules of the serving knobs
+SERVING_MODULES = {"paddle_tpu_torch.inference", "paddle_tpu_torch.inference.engine",
+                   "paddle_tpu_torch.inference.scheduler", "paddle_tpu_torch.inference.prefix_cache",
+                   "paddle_tpu_torch.quantization"}
 
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
-    wanted = TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
+    wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
+              | SERVING_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 54
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 56
 
 
 def test_entry_points_raise_without_cuda_and_device():

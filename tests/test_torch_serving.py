@@ -4,7 +4,9 @@
 Greedy tokens served by the port equal the port's ``generate()`` and
 ``paddle_tpu``'s ``DecodeEngine`` on the same prompts and weights; slot
 reuse, bucketing, eos / limit, cancel and deadlines mirror
-``tests/test_inference.py``; the knobs not ported yet raise.
+``tests/test_inference.py``; the engine's validation errors and its cache
+byte counts equal the reference's. The knobs themselves are held against
+the reference in ``tests/test_torch_serving_{chunked,fused,int8,spec}.py``.
 """
 import numpy as np
 import pytest
@@ -141,19 +143,68 @@ def test_sampled_serving_matches_sampled_generate():
         assert done[rid].tokens == want
 
 
-@pytest.mark.parametrize("knob", [dict(int8=True), dict(kv_dtype="int8"), dict(fuse=4),
-                                  dict(prefill_chunk=16), dict(prefix_cache_mb=8.0),
-                                  dict(draft=GPTConfig.tiny().to_dict())])
-def test_unported_engine_knobs_raise(knob):
+def _both_raise(kw, exc=ValueError):
+    """The reference's engine and the port's, built on the same tiny
+    weights with ``kw``, raise ``exc`` with the same message."""
+    paddle.seed(51)
+    jm = JGPT(JGPTConfig.tiny())
+    jm.eval()
+    pm = _model()
+    ref = dict(max_batch_slots=2, max_seq_len=64, prefill_buckets=(8, 16))
+    with pytest.raises(exc) as want:
+        JDecodeEngine(jm, **ref, **{k: (jm if v == "model" else v) for k, v in kw.items()})
+    with pytest.raises(exc) as got:
+        _tiny_engine(pm, **{k: (pm if v == "model" else v) for k, v in kw.items()})
+    assert str(got.value) == str(want.value)
+
+
+# the reference's validation errors (paddle_tpu/inference/engine.py:154-300)
+@pytest.mark.parametrize("knob", [dict(fuse=0), dict(prefill_chunk=65), dict(kv_dtype="fp8"),
+                                  dict(draft="model", spec_k=0), dict(draft="model", fuse=2),
+                                  dict(prefix_cache_mb=8.0)])
+def test_engine_knob_validation_matches_paddle_tpu(knob):
+    _both_raise(knob)
+
+
+def test_engine_cache_bytes_count_what_is_stored():
+    """``cache_bytes``, ``kv_bytes_per_slot`` and ``draft_cache_bytes`` count
+    the caches as stored: f32, int8 packs (payload plus f32 scales) and the
+    draft cache, with the ``spec_k`` slack rows, as the reference counts."""
+    paddle.seed(52)
+    jm = JGPT(JGPTConfig.tiny())
+    jm.eval()
+    pm = _model()
+    draft = dict(vocab_size=512, hidden_size=32, num_layers=1, num_heads=2, max_seq_len=128)
+    # [L=2, B=2, H=4, S=64, dh=16], K and V
+    f32 = _tiny_engine(pm)
+    assert f32.cache_bytes() == 2 * 2 * 2 * 4 * 64 * 16 * 4 and f32.draft_cache_bytes() == 0
+    i8 = _tiny_engine(pm, kv_dtype="int8")
+    assert i8.cache_bytes() == 2 * (2 * 2 * 4 * 64 * 16 + 2 * 2 * 4 * 64 * 4)
+    spec = _tiny_engine(pm, kv_dtype="int8", draft=draft, spec_k=2)
+    assert spec.cache_bytes() == 2 * (2 * 2 * 4 * 66 * 16 + 2 * 2 * 4 * 66 * 4)
+    assert spec.draft_cache_bytes() == 2 * 1 * 2 * 2 * 66 * 16 * 4
+    for kw in (dict(), dict(kv_dtype="int8"), dict(kv_dtype="int8", draft=draft, spec_k=2)):
+        ref = JDecodeEngine(jm, max_batch_slots=2, max_seq_len=64, prefill_buckets=(8, 16), **kw)
+        eng = _tiny_engine(pm, **kw)
+        assert (eng.cache_bytes(), eng.draft_cache_bytes(), eng.kv_bytes_per_slot()) == \
+            (ref.cache_bytes(), ref.draft_cache_bytes(), ref.kv_bytes_per_slot())
+    assert metrics.gauges("infer.")["infer.kv_bytes_per_slot"] == eng.kv_bytes_per_slot()
+    assert f32.device == torch.device("cpu")
+
+
+def test_unported_engine_parts_raise_citing_roadmap():
+    """Only ``donate=False``, the on-disk AOT cache and ``explain()`` are
+    left unported."""
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    m = _model()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny_engine(_model(), **knob)
-
-
-def test_decode_step_fuse_depth_raises_and_cache_bytes():
-    eng = _tiny_engine(_model())
-    with pytest.raises(NotImplementedError):
-        eng.decode_step(fuse=2)
-    # [L=2, B=2, H=4, S=64, dh=16] f32, K and V
-    assert eng.cache_bytes() == 2 * 2 * 2 * 4 * 64 * 16 * 4
-    assert eng.kv_bytes_per_slot() == eng.cache_bytes() // 2
-    assert eng.device == torch.device("cpu")
+        _tiny_engine(m, donate=False)
+    set_flags({"FLAGS_compile_cache_dir": "/nonexistent"})
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _tiny_engine(m)
+    finally:
+        set_flags({"FLAGS_compile_cache_dir": ""})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _tiny_engine(m).explain()
