@@ -151,14 +151,41 @@ non-zero and prints no result. Phases, one JSON line each:
     engine's. Both spec arms give the plain engine's tokens, the int8
     cache is at least 3x smaller per slot, and its stored rows are within
     half a quantization step of the f32 engine's.
+27. ``fleet`` (run after phase 26): ``bench_serve.py:_measure_fleet``'s
+    full-width branch: ``ServingFleet`` of 2 in-process replicas (8 slots,
+    cache 1024, chunk 128, fuse 8, 256 MB prefix cache each), 24 requests of
+    32 new tokens on a shared 256-token prefix (tails of 32-127 tokens from
+    ``default_rng(0)``; request i with seed i): a warm run, a timed run
+    (requests/s, latency, TTFT), one fleet step traced with every slot
+    decoding, a run with replica 1 killed after its second tick (p99,
+    requeues, deaths), scale-out TTFT (a cold build) and the tracing
+    plane's cost (``FLAGS_trace`` on against off, the run log written in
+    both, interleaved, min of 3). The timed and the kill runs' tokens equal
+    the warm run's, every request finishing once.
+28. ``procfleet``: ``_measure_procfleet``'s full-width branch: 24 requests
+    of 32 new tokens (prompts of 32-127 tokens), chunk 128, fuse 8, through
+    2 in-process replicas and then through ``ProcServingFleet``, 2 replica
+    processes on the card (``heartbeat_timeout`` 120): boot seconds,
+    requests/s, ``transport_overhead_pct``, streaming TTFT, and p99 with
+    replica 1 SIGKILLed after its second tick message. Both cross-process
+    arms give the in-process tokens, request 0's streamed chunks join into
+    its tokens, and each child reports 0 launches of K1-K4b in its beats.
+29. ``ingress``: ``_measure_ingress``'s full-width branch: the same fleet
+    at 16 requests of 16 new tokens behind ``ServingIngress``: requests/s
+    over HTTP against the fleet driven directly, the store transport
+    against the socket one (``socket_vs_store_overhead_pct``), streaming
+    TTFT over HTTP, ``disconnect_cancel_ms``, ``drain_under_load_ms`` (rc
+    0, the 3 in-flight requests finished), and 4 HTTP streams with replica
+    1 SIGKILLed mid-decode, each bitwise equal to the direct run.
 
-The serving phases (5, 25, 26) and the vision phases (22-24) launch none of
+The serving phases (5, 25-29) and the vision phases (22-24) launch none of
 K1-K4b: the reference runs no Pallas kernel on those paths (serving attends
 in jnp, the port in plain PyTorch; convolutions are cuDNN's, batch norms
-and pools ATen's); the script checks that their counts stay 0.
+and pools ATen's); the script checks that their counts stay 0, in the
+replica processes too.
 
-Phases 4, 5, 25, 26, 6, 9 (its ``pallas_sorted`` run), 12, 13, 16, 17, 20,
-22 and 24 are the main path: the kernel counts are set to 0 just before
+Phases 4, 5, 25, 26, 27, 28, 29, 6, 9 (its ``pallas_sorted`` run), 12,
+13, 16, 17, 20, 22 and 24 are the main path: the kernel counts are set to 0 just before
 each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
@@ -206,6 +233,18 @@ SERVE_SPEC = dict(draft=dict(vocab_size=50304, hidden_size=256, num_layers=2, nu
 # quantization step (abs_max / 127) of the row, plus 1e-6 of its abs_max for
 # the K/V projections' f32 rounding (the same matmul on the same inputs)
 INT8_ROUND_TRIP_SLACK = 1e-6
+# bench_serve.py's serving-tier phases at full width: _measure_fleet
+# (:313-332: 2 in-process replicas, 8 slots, cache 1024, chunk 128, fuse 8,
+# 256 MB prefix cache, 24 requests of 32 new tokens on a shared 256-token
+# prefix; the tracing cost interleaved, min of 3), _measure_procfleet
+# (:466-474: 2 replica processes, no prefix cache, prompts of 32-127 tokens,
+# heartbeat_timeout 120 as at :511) and _measure_ingress (:867-875: the same
+# at 16 requests of 16 new tokens)
+SERVE_FLEET = dict(replicas=2, slots=8, max_seq_len=1024, chunk=128, fuse=8, prefix_mb=256.0,
+                   requests=24, new_tokens=32, trace_repeats=3)
+SERVE_PROCFLEET = dict(replicas=2, slots=8, max_seq_len=1024, chunk=128, fuse=8, requests=24,
+                       new_tokens=32, heartbeat_timeout=120.0)
+SERVE_INGRESS = dict(SERVE_PROCFLEET, requests=16, new_tokens=16)
 SEED = 0
 
 # f32: atol 1e-5 / rtol 1e-4 (true f32 on both sides, sums in another order).
@@ -336,14 +375,10 @@ D128_CALLS = {"gpt3_1p3b_train": (2, 2048, 16, 128, True), "ernie_train": (16, 5
 
 def launch_counters():
     """Each kernel's wrapper, whose ``launches`` counts its kernel's
-    launches."""
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import flash_attention_flat as ff
-    from paddle_tpu_torch.ops import moe_pallas as mp
+    launches, by the wrapper's name (each ``K*["name"]``)."""
+    from paddle_tpu_torch.ops import kernel_wrappers
 
-    return {K1["name"]: fa.flash_attention_fwd, K2["name"]: fa.flash_attention_bwd,
-            K3["name"]: ff.flash_flat_fwd, K3B["name"]: ff.flash_flat_bwd,
-            K4["name"]: mp.moe_grouped_ffn_fwd, K4B["name"]: mp.moe_grouped_ffn_bwd}
+    return {w.__name__: w for w in kernel_wrappers()}
 
 
 def reset_launches():
@@ -967,6 +1002,420 @@ def phase_serve_spec(model):
          traces=traces, seconds=time.perf_counter() - t_phase)
     if not ok:
         raise AssertionError("serve_spec failed its gates")
+
+
+def _percentile_ms(seconds, q):
+    return 1e3 * float(np.percentile(seconds, q))
+
+
+def _fleet_prompts(vocab, chunk, n, shared):
+    """``bench_serve.py``'s fleet prompts from one ``default_rng(0)``: with
+    ``shared``, a 2 * chunk shared prefix and tails of chunk/4 to chunk - 1
+    tokens (``_measure_fleet``, :326-332); without, prompts of those lengths
+    (``_measure_procfleet`` :471-472, ``_measure_ingress`` :877-878)."""
+    rng = np.random.default_rng(SEED)
+    head = rng.integers(0, vocab, (2 * chunk,)) if shared else np.zeros(0, np.int64)
+    return [np.concatenate([head, rng.integers(0, vocab, (int(n),))])
+            for n in rng.integers(max(1, chunk // 4), chunk, n)]
+
+
+def _fleet_run(fleet, prompts, new_tokens, **run_kw):
+    """Submit every prompt (request i with seed i) and run the fleet to the
+    end: the fleet ids, the completions and the seconds of the run."""
+    fids = [fleet.submit(p, max_new_tokens=new_tokens, seed=i) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    done = fleet.run(**run_kw)
+    return fids, done, time.perf_counter() - t0
+
+
+def _child_kernel_launches(fleet):
+    """Each replica process's kernel launches, as its last beat reported."""
+    return {rid: {k: n for k, n in c.items() if k.startswith("kernels.")}
+            for rid, c in fleet.child_counters().items()}
+
+
+def phase_fleet(model):
+    """``bench_serve.py:_measure_fleet``'s full-width branch: 2 in-process
+    replicas (8 slots, cache 1024, chunk 128, fuse 8, 256 MB prefix cache
+    each), 24 requests of 32 new tokens on a shared 256-token prefix. A warm
+    run pins the tokens; then a timed run (requests/s), one fleet step
+    traced with both replicas decoding, a run with replica 1 killed after
+    its second tick (``FLAGS_chaos_replica_kill_at="1:2"``: p99 latency,
+    requeues, deaths; every request finishes once, bitwise equal to the warm
+    run), scale-out TTFT (a cold build: the port has no AOT cache), and
+    the tracing plane's cost: ``FLAGS_trace`` and the run log on against
+    off, interleaved, min of 3."""
+    import tempfile
+
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.inference import ServingFleet
+    from paddle_tpu_torch.testing import chaos
+
+    F = SERVE_FLEET
+    t_phase = time.perf_counter()
+    prompts = _fleet_prompts(model.gpt.cfg.vocab_size, F["chunk"], F["requests"], shared=True)
+    kw = dict(max_batch_slots=F["slots"], max_seq_len=F["max_seq_len"], prefill_chunk=F["chunk"],
+              fuse=F["fuse"], prefix_cache_mb=F["prefix_mb"])
+    fids, done, _ = _fleet_run(ServingFleet(model, replicas=F["replicas"], **kw), prompts,
+                               F["new_tokens"])
+    want = [list(done[f].tokens) for f in fids]
+    torch.cuda.empty_cache()
+    fleet = ServingFleet(model, replicas=F["replicas"], **kw)
+    fids, done, dt = _fleet_run(fleet, prompts, F["new_tokens"])
+    timed_ok = [list(done[f].tokens) for f in fids] == want
+    # one fleet step with every slot of both replicas decoding
+    for i, p in enumerate(prompts[:2 * F["slots"]]):
+        fleet.submit(p, max_new_tokens=F["new_tokens"], seed=i, replica=i % F["replicas"])
+    while any(rep.scheduler.queue or rep.scheduler.prefilling for rep in fleet.replicas.values()):
+        fleet.step()
+    trace = profile_step(lambda *_: fleet.step(), None, None)
+    fleet.run()
+
+    with chaos.inject(FLAGS_chaos_replica_kill_at=f"{F['replicas'] - 1}:2"):
+        fleet_k = ServingFleet(model, replicas=F["replicas"], **kw)
+        fids_k, done_k, _ = _fleet_run(fleet_k, prompts, F["new_tokens"])
+    stats_k = fleet_k.stats()
+    kill_ok = (sorted(done_k) == sorted(fids_k) and stats_k["dead"] == [F["replicas"] - 1]
+               and [list(done_k[f].tokens) for f in fids_k] == want)
+    del fleet_k
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    new = fleet.scale_out(1)
+    fid = fleet.submit(prompts[0], max_new_tokens=2, seed=0, replica=new[0])
+    while fleet.requests[fid].status != "finished":
+        fleet.step()
+    scaleout_ttft = fleet.requests[fid].first_token_ts - t0
+    del fleet
+    torch.cuda.empty_cache()
+
+    # the run log's disk mirror is on in both arms; FLAGS_trace alone differs
+    prev = get_flags(["FLAGS_trace", "FLAGS_run_log_dir"])
+    with tempfile.TemporaryDirectory() as logs:
+        def timed_run(trace_on):
+            set_flags({"FLAGS_trace": trace_on, "FLAGS_run_log_dir": f"{logs}/{int(trace_on)}"})
+            return _fleet_run(ServingFleet(model, replicas=F["replicas"], **kw), prompts,
+                              F["new_tokens"])[2]
+
+        try:
+            timed_run(True)
+            timed_run(False)
+            t_off, t_on = [], []
+            for _ in range(F["trace_repeats"]):
+                t_off.append(timed_run(False))
+                t_on.append(timed_run(True))
+        finally:
+            set_flags(prev)
+    torch.cuda.empty_cache()
+    ok = timed_ok and kill_ok
+    emit(phase="fleet", ok=ok, replicas=F["replicas"], requests=len(prompts),
+         new_tokens=F["new_tokens"], prompt_lens=[len(p) for p in prompts],
+         knobs=dict(kw, replicas=F["replicas"]),
+         requests_per_s=len(prompts) / dt, seconds=dt,
+         latency_p50_ms=_percentile_ms([r.total_seconds for r in done.values()], 50),
+         latency_p99_ms=_percentile_ms([r.total_seconds for r in done.values()], 99),
+         ttft_p50_ms=_percentile_ms([r.ttft_seconds for r in done.values()], 50),
+         timed_equals_warm=timed_ok, fleet_step_trace=trace,
+         p99_under_kill_ms=_percentile_ms([r.total_seconds for r in done_k.values()], 99),
+         kill_exactly_once_bitwise=kill_ok, requeues_under_kill=stats_k["requeues"],
+         replica_deaths=len(stats_k["dead"]), death_reason=stats_k["per_replica"][F["replicas"] - 1]
+         ["death_reason"], scaleout_ttft_ms=1e3 * scaleout_ttft,
+         trace_off_s=t_off, trace_on_s=t_on,
+         trace_overhead_pct=100.0 * (min(t_on) - min(t_off)) / min(t_off),
+         seconds_phase=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("fleet: the timed or the kill run differs from the warm run")
+
+
+def phase_procfleet(model):
+    """``bench_serve.py:_measure_procfleet``'s full-width branch: 24 requests
+    of 32 new tokens (prompts of 32-127 tokens), chunk 128, fuse 8, no
+    prefix cache, 2 replicas. The in-process arm (a warm run pins the
+    tokens, then a timed run); then 2 replica processes on this card,
+    ``heartbeat_timeout=120``: boot seconds, one untimed request on each
+    (their first CUDA work; the reference's children boot warm from its AOT
+    cache), requests/s with request 0 streamed (``stream_ttft_p50_ms``
+    over all requests' first chunks), ``transport_overhead_pct``; then a
+    fleet whose replica 1 is SIGKILLed after its second tick message
+    (``FLAGS_chaos_replica_sigkill_at="1:2"``): p99 latency, requeues,
+    deaths. Every token list of both cross-process arms equals the
+    in-process arm's, the streamed chunks join into request 0's tokens, and
+    every child launched no kernel of this repository."""
+    from paddle_tpu_torch.inference import ProcServingFleet, ServingFleet
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.testing import chaos
+
+    P = SERVE_PROCFLEET
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(**SERVE_CFG)
+    prompts = _fleet_prompts(cfg.vocab_size, P["chunk"], P["requests"], shared=False)
+    kw = dict(max_batch_slots=P["slots"], max_seq_len=P["max_seq_len"], prefill_chunk=P["chunk"],
+              fuse=P["fuse"])
+    fids, done, _ = _fleet_run(ServingFleet(model, replicas=P["replicas"], **kw), prompts,
+                               P["new_tokens"])
+    want = [list(done[f].tokens) for f in fids]
+    fids, done_in, dt_in = _fleet_run(ServingFleet(model, replicas=P["replicas"], **kw), prompts,
+                                      P["new_tokens"])
+    inproc_ok = [list(done_in[f].tokens) for f in fids] == want
+    torch.cuda.empty_cache()
+
+    def boot():
+        t0 = time.perf_counter()
+        pf = ProcServingFleet(cfg, model_seed=SEED, replicas=P["replicas"],
+                              heartbeat_timeout=P["heartbeat_timeout"], **kw)
+        boot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for rid in pf.replicas:
+            pf.submit(prompts[rid], max_new_tokens=2, seed=rid, replica=rid)
+        pf.run(timeout_s=600)
+        return pf, boot_s, time.perf_counter() - t0
+
+    pf, boot_s, first_s = boot()
+    try:
+        stream = pf.submit(prompts[0], max_new_tokens=P["new_tokens"], seed=0, stream=True)
+        fids = [stream.fid] + [pf.submit(p, max_new_tokens=P["new_tokens"], seed=i)
+                               for i, p in enumerate(prompts) if i > 0]
+        t0 = time.perf_counter()
+        chunks = list(stream)
+        pf.run(timeout_s=600)
+        dt_p = time.perf_counter() - t0
+        got = [list(pf.requests[f].tokens) for f in fids]
+        finished_p = all(pf.requests[f].status == "finished" for f in fids)
+        ttft_p = [pf.requests[f].ttft_seconds for f in fids]
+        stats_p = pf.stats()
+        launches_p = _child_kernel_launches(pf)
+    finally:
+        pf.shutdown()
+    with chaos.inject(FLAGS_chaos_replica_sigkill_at=f"{P['replicas'] - 1}:2"):
+        pf_k = ProcServingFleet(cfg, model_seed=SEED, replicas=P["replicas"],
+                                heartbeat_timeout=P["heartbeat_timeout"], **kw)
+        try:
+            fids_k, done_k, _ = _fleet_run(pf_k, prompts, P["new_tokens"], timeout_s=600)
+            got_k = [list(pf_k.requests[f].tokens) for f in fids_k]
+            stats_k = pf_k.stats()
+            launches_k = _child_kernel_launches(pf_k)
+        finally:
+            pf_k.shutdown()
+    child_launches = sum(n for arm in (launches_p, launches_k) for c in arm.values()
+                         for n in c.values())
+    ok = (inproc_ok and finished_p and got == want
+          and [t for c in chunks for t in c] == want[0]
+          and len(done_k) == len(prompts) and got_k == want
+          and stats_k["dead"] == [P["replicas"] - 1] and child_launches == 0
+          and len(launches_p) == len(launches_k) == P["replicas"])
+    rps_in, rps_p = len(prompts) / dt_in, len(prompts) / dt_p
+    emit(phase="procfleet", ok=ok, replicas=P["replicas"], requests=len(prompts),
+         new_tokens=P["new_tokens"], prompt_lens=[len(p) for p in prompts],
+         knobs=dict(kw, replicas=P["replicas"], heartbeat_timeout=P["heartbeat_timeout"]),
+         requests_per_s_inproc=rps_in,
+         latency_p99_ms_inproc=_percentile_ms([r.total_seconds for r in done_in.values()], 99),
+         ttft_p50_ms_inproc=_percentile_ms([r.ttft_seconds for r in done_in.values()], 50),
+         boot_seconds=boot_s, first_request_seconds=first_s, requests_per_s=rps_p,
+         transport_overhead_pct=100.0 * (rps_in / rps_p - 1.0),
+         stream_ttft_p50_ms=_percentile_ms(ttft_p, 50), stream_chunks=len(chunks),
+         transport=stats_p["per_replica"][0]["transport"],
+         p99_under_sigkill_ms=_percentile_ms([r.total_seconds for r in done_k.values()], 99),
+         requeues_under_sigkill=stats_k["requeues"], replica_deaths=len(stats_k["dead"]),
+         death_reason=stats_k["per_replica"][P["replicas"] - 1]["death_reason"],
+         tokens_equal_inproc=got == want, sigkill_tokens_equal_inproc=got_k == want,
+         stream_equals_request0=[t for c in chunks for t in c] == want[0],
+         child_kernel_launches={"fault_free": launches_p, "sigkill": launches_k},
+         seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("procfleet: a cross-process arm differs from the in-process run, "
+                             "lost a request, or a child launched a kernel")
+
+
+def _http_generate(port, body, stream=False, key=None):
+    """POST ``body`` to ``/v1/generate``: ``(status, doc, t_first)``; a
+    stream's doc is ``{"tokens": every chunk's tokens joined, "final": the
+    done line}`` and ``t_first`` the arrival of its first line."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    headers = {"Content-Type": "application/json"}
+    if key:
+        headers["Idempotency-Key"] = key
+    conn.request("POST", "/v1/generate", body=json.dumps(body).encode(), headers=headers)
+    r = conn.getresponse()
+    if not stream:
+        doc = json.loads(r.read())
+        conn.close()
+        return r.status, doc, None
+    toks, t_first, final = [], None, None
+    while True:
+        line = r.readline()
+        if not line:
+            break
+        doc = json.loads(line)
+        if t_first is None:
+            t_first = time.perf_counter()
+        if "tokens" in doc:
+            toks.extend(doc["tokens"])
+        else:
+            final = doc
+    conn.close()
+    return r.status, {"tokens": toks, "final": final}, t_first
+
+
+def _threads(target, args):
+    import threading
+
+    ts = [threading.Thread(target=target, args=a) for a in args]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("an HTTP client thread did not finish")
+
+
+def phase_ingress():
+    """``bench_serve.py:_measure_ingress``'s full-width branch: 16 requests
+    of 16 new tokens, chunk 128, fuse 8, 2 replica processes on this card
+    behind ``ServingIngress``. Warm-up run, then the same requests driven
+    directly (requests/s, the reference tokens), over HTTP from 4 client
+    threads (requests/s), 4 sequential HTTP streams (TTFT), a client
+    dropped mid-stream (ms until the request is cancelled), a drain with 3
+    requests in flight (ms, rc 0, all 3 finished); the same work on the
+    store transport alone (``use_sockets=False``:
+    ``socket_vs_store_overhead_pct``); and 4 HTTP streams with replica 1
+    SIGKILLed after its first tick message, mid-decode, each stream bitwise
+    equal to the direct run. Every child launched no kernel of this repository."""
+    from paddle_tpu_torch.inference import ProcServingFleet, ServingIngress
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.testing import chaos
+
+    G = SERVE_INGRESS
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(**SERVE_CFG)
+    n = G["requests"]
+    prompts = _fleet_prompts(cfg.vocab_size, G["chunk"], n, shared=False)
+    kw = dict(max_batch_slots=G["slots"], max_seq_len=G["max_seq_len"], prefill_chunk=G["chunk"],
+              fuse=G["fuse"], heartbeat_timeout=G["heartbeat_timeout"])
+    bodies = [{"prompt": [int(t) for t in p], "max_new_tokens": G["new_tokens"], "seed": i}
+              for i, p in enumerate(prompts)]
+
+    def warm_and_time(pf):
+        for i, p in enumerate(prompts):
+            pf.submit(p, max_new_tokens=G["new_tokens"], seed=500 + i)
+        pf.run(timeout_s=600)
+        fids, _, dt = _fleet_run(pf, prompts, G["new_tokens"], timeout_s=600)
+        return [list(pf.requests[f].tokens) for f in fids], dt
+
+    launches = {}
+    pf = ProcServingFleet(cfg, model_seed=SEED, replicas=G["replicas"], **kw)
+    try:
+        want, dt_direct = warm_and_time(pf)
+        ing = ServingIngress(pf, port=0)
+        results = [None] * n
+
+        def http_worker(idxs):
+            for i in idxs:
+                results[i] = _http_generate(ing.port, bodies[i])[:2]
+
+        t0 = time.perf_counter()
+        _threads(http_worker, [(range(k, n, 4),) for k in range(4)])
+        dt_http = time.perf_counter() - t0
+        http_ok = all(st == 200 and doc["status"] == "finished" and doc["tokens"] == want[i]
+                      for i, (st, doc) in enumerate(results))
+        ttfts, stream_ok = [], True
+        for i in range(4):
+            t0 = time.perf_counter()
+            st, doc, t_first = _http_generate(ing.port, dict(bodies[i], stream=True), stream=True)
+            stream_ok = stream_ok and st == 200 and doc["tokens"] == want[i]
+            ttfts.append(t_first - t0)
+
+        # a client that drops mid-stream: its request is cancelled mid-decode
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", ing.port, timeout=600)
+        conn.request("POST", "/v1/generate",
+                     body=json.dumps(dict(bodies[0], max_new_tokens=8 * G["new_tokens"],
+                                          stream=True)).encode(),
+                     headers={"Idempotency-Key": "disconnect"})
+        r = conn.getresponse()
+        r.readline()
+        freq = ing._idem["disconnect"]
+        t0 = time.perf_counter()
+        conn.sock.close()
+        conn.close()
+        while freq.status not in ("finished", "cancelled", "deadline_exceeded"):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("ingress: a dropped client's request never ended")
+            time.sleep(0.002)
+        disconnect_ms = 1e3 * (time.perf_counter() - t0)
+
+        drain_docs = []
+
+        def drain_worker(i):
+            drain_docs.append(_http_generate(ing.port, dict(bodies[i], seed=100 + i))[1])
+
+        import threading
+
+        dts = [threading.Thread(target=drain_worker, args=(i,)) for i in range(3)]
+        for t in dts:
+            t.start()
+        t0 = time.perf_counter()
+        while len(ing._active) < 3 and time.perf_counter() - t0 < 60:
+            time.sleep(0.002)
+        t0 = time.perf_counter()
+        drain_rc = ing.drain(grace=300)
+        drain_ms = 1e3 * (time.perf_counter() - t0)
+        for t in dts:
+            t.join(timeout=600)
+        drain_finished = sum(1 for d in drain_docs if d.get("status") == "finished")
+        launches["socket"] = _child_kernel_launches(pf)
+    finally:
+        pf.shutdown()
+
+    pf_s = ProcServingFleet(cfg, model_seed=SEED, replicas=G["replicas"], use_sockets=False, **kw)
+    try:
+        got_store, dt_store = warm_and_time(pf_s)
+        launches["store"] = _child_kernel_launches(pf_s)
+    finally:
+        pf_s.shutdown()
+
+    # replica 1 serves 2 of the 4 streams in 3 ticks (one prefill, two fused
+    # calls of 8): killed after its first, it still holds both mid-decode
+    # (after its second, it may hold nothing: bench_serve.py's "1:2")
+    with chaos.inject(FLAGS_chaos_replica_sigkill_at=f"{G['replicas'] - 1}:1"):
+        pf_k = ProcServingFleet(cfg, model_seed=SEED, replicas=G["replicas"], **kw)
+        ing_k = ServingIngress(pf_k, port=0)
+        try:
+            kill = [None] * 4
+
+            def kill_worker(i):
+                kill[i] = _http_generate(ing_k.port, dict(bodies[i], stream=True), stream=True)[:2]
+
+            _threads(kill_worker, [(i,) for i in range(4)])
+            stats_k = pf_k.stats()
+            launches["sigkill"] = _child_kernel_launches(pf_k)
+        finally:
+            ing_k.stop()
+            pf_k.shutdown()
+    kill_ok = all(st == 200 and doc["final"]["status"] == "finished" and doc["tokens"] == want[i]
+                  for i, (st, doc) in enumerate(kill))
+    child_launches = sum(c for arm in launches.values() for rep in arm.values() for c in rep.values())
+    ok = (http_ok and stream_ok and freq.status == "cancelled" and drain_rc == 0
+          and drain_finished == 3 and got_store == want and kill_ok
+          and stats_k["dead"] == [G["replicas"] - 1] and stats_k["requeues"] >= 1
+          and child_launches == 0)
+    emit(phase="ingress", ok=ok, replicas=G["replicas"], requests=n, new_tokens=G["new_tokens"],
+         prompt_lens=[len(p) for p in prompts], knobs=dict(kw, replicas=G["replicas"]),
+         ingress_requests_per_s=n / dt_http, requests_per_s_direct=n / dt_direct,
+         http_overhead_pct=100.0 * (dt_http / dt_direct - 1.0),
+         socket_vs_store_overhead_pct=100.0 * (dt_direct / dt_store - 1.0),
+         requests_per_s_store=n / dt_store,
+         stream_ttft_p50_ms=_percentile_ms(ttfts, 50), http_equals_direct=http_ok,
+         streams_equal_direct=stream_ok, store_equals_socket=got_store == want,
+         disconnect_cancel_ms=disconnect_ms, disconnect_status=freq.status,
+         disconnect_tokens=len(freq.tokens), drain_under_load_ms=drain_ms, drain_rc=drain_rc,
+         drain_finished=drain_finished, exactly_once_under_sigkill=kill_ok,
+         requeues_under_sigkill=stats_k["requeues"], replica_deaths=len(stats_k["dead"]),
+         child_kernel_launches=launches, seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("ingress failed its gates")
 
 
 def _model_flops_per_step(cfg, batch, seq):
@@ -2401,7 +2850,10 @@ def main() -> int:
     for path, run in (("forward", lambda: phase_forward(model, ids)),
                       ("serve", lambda: phase_serve(model)),
                       ("serve_round2", lambda: phase_serve_round2(model)),
-                      ("serve_spec", lambda: phase_serve_spec(model))):
+                      ("serve_spec", lambda: phase_serve_spec(model)),
+                      ("fleet", lambda: phase_fleet(model)),
+                      ("procfleet", lambda: phase_procfleet(model)),
+                      ("ingress", phase_ingress)):
         reset_launches()
         run()
         by_path[path] = read_launches()
@@ -2480,6 +2932,7 @@ def main() -> int:
     # the 1.3B and ERNIE steps; the vision steps none (their phases check
     # that every count stays 0)
     expected = {"forward": [K1["name"]], "serve": [], "serve_round2": [], "serve_spec": [],
+                "fleet": [], "procfleet": [], "ingress": [],
                 "train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "bert_forward": [K3["name"]], "bert_train": [K3["name"], K3B["name"]],

@@ -18,8 +18,10 @@ and every decode step advances all occupied slots. With the engine's knobs:
 Requests carry optional
 deadlines and can be cancelled mid-flight: an expired or cancelled request
 frees its slot at once and lands in ``.cancelled``. The ``serving.*``
-counters, gauges and histograms go to the port's metrics registry; the run
-log and traces wait for the observability slice.
+counters, gauges and histograms go to the port's metrics registry; each
+request's lifecycle goes to the run log as ``request`` events, and a request
+carries a ``trace_id`` (the serving fleet passes its own down) that the
+per-chunk prefill and decode ``span`` events name.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..observability import runlog as _runlog
+from ..observability import trace as _trace
 from ..observability.metrics import counter_inc, gauge_set, observe
 
 __all__ = ["Request", "ContinuousBatchingScheduler"]
@@ -42,13 +46,15 @@ class Request:
     """
 
     def __init__(self, rid: int, prompt: np.ndarray, max_new_tokens: int,
-                 eos_token_id: Optional[int], seed: int, deadline_s: Optional[float] = None):
+                 eos_token_id: Optional[int], seed: int, deadline_s: Optional[float] = None,
+                 trace_id: Optional[str] = None):
         self.rid = rid
         self.prompt = np.asarray(prompt, np.int64).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
         self.seed = int(seed)
         self.deadline_s = float(deadline_s) if deadline_s is not None else None
+        self.trace_id = trace_id      # one id across every process/replica
         self.status = "queued"
         self.tokens: List[int] = []
         self.slot: Optional[int] = None
@@ -112,10 +118,14 @@ class ContinuousBatchingScheduler:
         self._next_rid = 0
 
     def submit(self, prompt, max_new_tokens: int = 16, eos_token_id: Optional[int] = None,
-               seed: int = 0, deadline_s: Optional[float] = None) -> int:
+               seed: int = 0, deadline_s: Optional[float] = None,
+               trace_id: Optional[str] = None) -> int:
         """Enqueue one prompt; returns the request id. Validation happens here
         so a bad request fails its caller, not the serving loop.
-        ``deadline_s`` bounds the request's total time from submission."""
+        ``deadline_s`` bounds the request's total time from submission.
+        ``trace_id`` links the request to an existing trace (the fleet
+        passes its own); without one a fresh id is drawn while tracing is
+        on."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         n = int(prompt.shape[0])
         if n + int(max_new_tokens) > self.engine.max_seq_len:
@@ -124,11 +134,17 @@ class ContinuousBatchingScheduler:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         self.engine.bucket_for(n)  # raises if no bucket or chunk tiling fits
-        r = Request(self._next_rid, prompt, max_new_tokens, eos_token_id, seed, deadline_s=deadline_s)
+        if trace_id is None:
+            trace_id = _trace.new_trace_id("serving")
+        r = Request(self._next_rid, prompt, max_new_tokens, eos_token_id, seed,
+                    deadline_s=deadline_s, trace_id=trace_id)
         self._next_rid += 1
         self.queue.append(r)
         counter_inc("serving.requests_submitted")
         gauge_set("serving.queue_depth", len(self.queue))
+        _runlog.emit("request", id=r.rid, status="submitted", component="serving",
+                     prompt_tokens=n, max_new_tokens=int(max_new_tokens),
+                     queue_depth=len(self.queue), trace=r.trace_id)
         return r.rid
 
     def cancel(self, rid: int, status: str = "cancelled") -> bool:
@@ -160,6 +176,10 @@ class ContinuousBatchingScheduler:
         counter_inc("serving.deadline_exceeded" if status == "deadline_exceeded"
                     else "serving.requests_cancelled")
         gauge_set("serving.active_slots", len(self.running))
+        _runlog.emit("request", id=rid, status=status, component="serving",
+                     prompt_tokens=len(r.prompt), new_tokens=len(r.tokens),
+                     seconds=r.finished_ts - r.submitted_ts,
+                     deadline_s=r.deadline_s, trace=r.trace_id)
         return True
 
     def find(self, rid: int):
@@ -203,6 +223,10 @@ class ContinuousBatchingScheduler:
             done = self.engine.prefill_step(self._jobs[slot])
             dt = time.perf_counter() - t0
             r.prefill_chunks += 1
+            if r.trace_id is not None:
+                _trace.span_event("serving.prefill_chunk", trace_id=r.trace_id,
+                                  seconds=dt, id=r.rid, slot=slot,
+                                  chunk=r.prefill_chunks, done=bool(done))
             if decode_waiting:
                 r.stall_seconds += dt
                 observe("serving.prefill_stall_seconds", dt)
@@ -215,6 +239,11 @@ class ContinuousBatchingScheduler:
             counter_inc("serving.requests_admitted")
             observe("serving.ttft_seconds", r.ttft_seconds)
             observe("serving.queue_seconds", r.queue_seconds)
+            _runlog.emit("request", id=r.rid, status="admitted", component="serving",
+                         slot=slot, bucket=r.bucket, queue_depth=len(self.queue),
+                         queue_seconds=r.queue_seconds, prefix_tokens=r.prefix_tokens,
+                         chunks=r.prefill_chunks, stall_seconds=r.stall_seconds,
+                         trace=r.trace_id)
             if job.more:
                 r.status = "running"
                 self.running[slot] = r
@@ -234,6 +263,12 @@ class ContinuousBatchingScheduler:
         counter_inc("serving.tokens_generated", len(r.tokens))
         observe("serving.latency_seconds", r.total_seconds)
         gauge_set("serving.active_slots", len(self.running))
+        _runlog.emit("request", id=r.rid, status="finished", component="serving",
+                     prompt_tokens=len(r.prompt), new_tokens=len(r.tokens),
+                     queue_seconds=r.queue_seconds, decode_seconds=r.decode_seconds,
+                     total_seconds=r.total_seconds, ttft_seconds=r.ttft_seconds,
+                     fuse=self.engine.fuse, prefix_tokens=r.prefix_tokens,
+                     stall_seconds=r.stall_seconds, trace=r.trace_id)
 
     def step(self) -> List[Request]:
         """One scheduler tick: expire deadlines, admit queued requests into
@@ -247,7 +282,16 @@ class ContinuousBatchingScheduler:
         self._admit()
         self._prefill_tick()
         if self.running:
+            traced = sorted({r.trace_id for r in self.running.values()
+                             if r.trace_id is not None})
+            t0 = time.perf_counter()
             toks, emitted, active = self.engine.decode_step()
+            if traced:
+                # one decode step advances every running slot: a single span
+                # event fanned across the traces it served
+                _trace.span_event("serving.decode", trace_id=None,
+                                  seconds=time.perf_counter() - t0,
+                                  traces=traced, slots=len(self.running))
             toks, emitted = np.atleast_2d(toks), np.atleast_2d(emitted)
             for d in range(toks.shape[0]):
                 for slot, r in self.running.items():

@@ -3,9 +3,11 @@ histograms.
 
 A copy of the counter/gauge/histogram core of
 ``paddle_tpu/observability/metrics.py`` (the port imports nothing of
-``paddle_tpu``). The run log, traces, exports and SLOs wait for the
-observability slice. ``counter_inc``/``observe`` are one dict operation under
-the GIL, so hot paths call them unconditionally.
+``paddle_tpu``), with its ``snapshot`` and the serving fleet's pre-declared
+counters. The run log, traces and the flight recorder are
+:mod:`.runlog`, :mod:`.trace` and :mod:`.flightrec`; exports and SLOs are
+not ported (ROADMAP.md, Queue 1 item 11). ``counter_inc``/``observe`` are
+one dict operation under the GIL, so hot paths call them unconditionally.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
     "Histogram", "counter_inc", "counters", "reset_counters", "declare_counter",
-    "gauge_set", "gauges", "observe", "histogram", "histograms",
+    "gauge_set", "gauges", "observe", "histogram", "histograms", "snapshot",
+    "FLEET_COUNTERS", "INGRESS_COUNTERS",
 ]
 
 # Default bucket bounds (seconds): half-decade geometric ladder, 1us to 100s.
@@ -147,3 +150,49 @@ def observe(name: str, value: float) -> None:
 
 def histograms(prefix: str = "") -> Dict[str, Histogram]:
     return {k: v for k, v in _HISTOGRAMS.items() if k.startswith(prefix)}
+
+
+def snapshot() -> dict:
+    """JSON-able snapshot of every series: counters, gauges, and histogram
+    summaries."""
+    return {
+        "counters": dict(_COUNTERS),
+        "gauges": dict(_GAUGES),
+        "histograms": {k: h.summary() for k, h in sorted(_HISTOGRAMS.items())},
+    }
+
+
+# Serving-fleet tier (inference/fleet.py, procfleet.py, router.py), with the
+# reference's names: requeues counts in-flight requests replayed off dead
+# replicas, sheds the admissions refused by queue-depth control, the
+# routed_* pair splits placements by affinity and least load.
+FLEET_COUNTERS: Tuple[str, ...] = (
+    "fleet.requests_submitted", "fleet.requests_completed",
+    "fleet.requeues", "fleet.sheds", "fleet.deadline_hits",
+    "fleet.replica_deaths", "fleet.scale_outs",
+    "fleet.routed_affinity", "fleet.routed_load",
+    "fleet.stream_chunks", "fleet.cancels",
+)
+# The HTTP ingress's admission ledger and the RPC transport's split between
+# the fast-path socket and the TCPStore (inference/ingress.py, rpc.py).
+INGRESS_COUNTERS: Tuple[str, ...] = (
+    "ingress.requests", "ingress.responses",
+    "ingress.rejected_overload", "ingress.rejected_backpressure",
+    "ingress.rejected_draining",
+    "ingress.idempotent_hits", "ingress.disconnect_cancels",
+    "ingress.drains",
+    "rpc.socket_msgs", "rpc.store_msgs", "rpc.socket_connects",
+    "rpc.socket_fallbacks", "rpc.partial_drains",
+)
+# The serving scheduler's cancel paths, the observability plane's own cost,
+# and the reference's warm-up counters: the fleet's heartbeat exempts a tick
+# in which ``infer.compiles`` or ``infer.aot_cache_hits`` moved. The port
+# compiles no serving program, so both stay 0 (ROADMAP.md, Queue 1 item 4).
+_OTHER_COUNTERS: Tuple[str, ...] = (
+    "serving.requests_cancelled", "serving.deadline_exceeded",
+    "trace.traces", "trace.spans", "flightrec.dumps",
+    "runlog.rotations", "runlog.gc_removed",
+    "infer.compiles", "infer.aot_cache_hits",
+)
+for _name in FLEET_COUNTERS + INGRESS_COUNTERS + _OTHER_COUNTERS:
+    declare_counter(_name)

@@ -63,16 +63,25 @@ VISION_MODULES = {"paddle_tpu_torch.vision", "paddle_tpu_torch.vision.models",
 SERVING_MODULES = {"paddle_tpu_torch.inference", "paddle_tpu_torch.inference.engine",
                    "paddle_tpu_torch.inference.scheduler", "paddle_tpu_torch.inference.prefix_cache",
                    "paddle_tpu_torch.quantization"}
+# modules of the serving stack and the host-only pieces it runs on
+SERVING_STACK_MODULES = {"paddle_tpu_torch.inference.router", "paddle_tpu_torch.inference.fleet",
+                         "paddle_tpu_torch.inference.rpc", "paddle_tpu_torch.inference.procfleet",
+                         "paddle_tpu_torch.inference.ingress", "paddle_tpu_torch.distributed.store",
+                         "paddle_tpu_torch.distributed.resilience", "paddle_tpu_torch.testing",
+                         "paddle_tpu_torch.testing.chaos", "paddle_tpu_torch.observability.trace",
+                         "paddle_tpu_torch.observability.runlog",
+                         "paddle_tpu_torch.observability.flightrec",
+                         "paddle_tpu_torch.framework.random"}
 
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
-              | SERVING_MODULES)
+              | SERVING_MODULES | SERVING_STACK_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 56
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 69
 
 
 def test_entry_points_raise_without_cuda_and_device():
