@@ -177,14 +177,22 @@ non-zero and prints no result. Phases, one JSON line each:
     TTFT over HTTP, ``disconnect_cancel_ms``, ``drain_under_load_ms`` (rc
     0, the 3 in-flight requests finished), and 4 HTTP streams with replica
     1 SIGKILLed mid-decode, each bitwise equal to the direct run.
+30. ``alerts``: ``_measure_alerts``'s full-width branch: 2 in-process
+    replicas, 12 requests of 16 new tokens, one TTFT-p50 SLO sized off the
+    healthy TTFT with burn windows of a few chaos ticks, a metered healthy
+    run (``slo_eval_overhead_pct`` against the 2% budget), then a run under
+    ``FLAGS_chaos_replica_slow_ms`` and a recovery run:
+    ``alert_detection_ms``, ``alert_firing_ms``, ``/healthz`` 503 and the
+    page in ``/alerts`` while it fires, a ``/metrics`` scrape that parses;
+    a page under the chaos, none on healthy traffic, the alert cleared.
 
-The serving phases (5, 25-29) and the vision phases (22-24) launch none of
+The serving phases (5, 25-30) and the vision phases (22-24) launch none of
 K1-K4b: the reference runs no Pallas kernel on those paths (serving attends
 in jnp, the port in plain PyTorch; convolutions are cuDNN's, batch norms
 and pools ATen's); the script checks that their counts stay 0, in the
 replica processes too.
 
-Phases 4, 5, 25, 26, 27, 28, 29, 6, 9 (its ``pallas_sorted`` run), 12,
+Phases 4, 5, 25, 26, 27, 28, 29, 30, 6, 9 (its ``pallas_sorted`` run), 12,
 13, 16, 17, 20, 22 and 24 are the main path: the kernel counts are set to 0 just before
 each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
@@ -198,6 +206,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -245,6 +254,11 @@ SERVE_FLEET = dict(replicas=2, slots=8, max_seq_len=1024, chunk=128, fuse=8, pre
 SERVE_PROCFLEET = dict(replicas=2, slots=8, max_seq_len=1024, chunk=128, fuse=8, requests=24,
                        new_tokens=32, heartbeat_timeout=120.0)
 SERVE_INGRESS = dict(SERVE_PROCFLEET, requests=16, new_tokens=16)
+# bench_serve.py:_measure_alerts's full-width branch (:697-701): 2 in-process
+# replicas, 8 slots, cache 1024, chunk 128, fuse 8, 12 requests of 16 new
+# tokens, the SLO monitor evaluated every 50 ms (:747)
+SERVE_ALERTS = dict(replicas=2, slots=8, max_seq_len=1024, chunk=128, fuse=8, requests=12,
+                    new_tokens=16, eval_every_s=0.05)
 SEED = 0
 
 # f32: atol 1e-5 / rtol 1e-4 (true f32 on both sides, sums in another order).
@@ -1416,6 +1430,187 @@ def phase_ingress():
          child_kernel_launches=launches, seconds=time.perf_counter() - t_phase)
     if not ok:
         raise AssertionError("ingress failed its gates")
+
+
+# one line of the Prometheus text exposition: a HELP/TYPE comment or a
+# sample with optional labels
+PROM_LINE = r'^(# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .*|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_]+="([^"\\]|\\.)*"\})? \S+)$'
+
+
+def _http_get(port, path):
+    """``GET path`` on the local exporter: ``(status, body)``, a 503 too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def phase_alerts(model):
+    """``bench_serve.py:_measure_alerts``'s full-width branch: the SLO monitor
+    watching an in-process ``ServingFleet`` (2 replicas, 8 slots, cache 1024,
+    chunk 128, fuse 8), 12 requests of 16 new tokens (prompts of 32-127
+    tokens from ``default_rng(0)``, request i with seed i). Warm and healthy
+    runs; one TTFT-p50 SLO whose objective (``max(50, 2 x`` healthy p50) ms),
+    chaos tick (``min(2500, max(150, 4 x`` healthy p50) ms) and windows
+    (fast ``max(2, 6 x`` chaos s), slow 4 x fast) are sized off the healthy
+    TTFT; installed with a 50 ms cadence; a metered healthy run (the
+    monitor's cost against its 2% budget), a quiet fast window, a run under
+    ``FLAGS_chaos_replica_slow_ms`` and a recovery run, then evaluations
+    until the alert clears or 4 slow windows pass. Detection and clearing
+    are read from the ``alert`` events of the run log. Gates: a page under
+    the chaos and none on healthy traffic, the alert cleared, ``/healthz``
+    503 and the page in ``/alerts`` from a ``MetricsExporter`` while it
+    fires, a ``/metrics`` scrape that parses and carries
+    ``slo_evaluations_total``, every request of every run finished once.
+    Unlike the reference, ``FLAGS_compile_cache_dir`` stays unset: the port
+    has no AOT cache (ROADMAP.md, Queue 1 item 4), and ``DecodeEngine``
+    raises while it is set."""
+    import re
+    import tempfile
+
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.inference import ServingFleet
+    from paddle_tpu_torch.observability import exporter, metrics, runlog, slo
+    from paddle_tpu_torch.testing import chaos
+
+    A = SERVE_ALERTS
+    t_phase = time.perf_counter()
+    prompts = _fleet_prompts(model.gpt.cfg.vocab_size, A["chunk"], A["requests"], shared=False)
+    kw = dict(max_batch_slots=A["slots"], max_seq_len=A["max_seq_len"], prefill_chunk=A["chunk"],
+              fuse=A["fuse"])
+    runs = {}
+
+    def serve(tag, on_tick=None):
+        """One fleet run of every prompt, ``on_tick`` after each fleet step;
+        records whether each request finished exactly once."""
+        fleet = ServingFleet(model, replicas=A["replicas"], **kw)
+        fids = [fleet.submit(p, max_new_tokens=A["new_tokens"], seed=i)
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        done = {}
+        while len(done) < len(fids) and any(
+                r.scheduler.queue or r.scheduler.prefilling or r.scheduler.running
+                for r in fleet.replicas.values() if r.alive):
+            done.update(fleet.run(max_ticks=1))
+            if on_tick is not None:
+                on_tick()
+        dt = time.perf_counter() - t0
+        runs[tag] = dict(seconds=dt, once=sorted(done) == sorted(fids)
+                         and fleet.finished_total == len(fids)
+                         and all(len(done[f].tokens) == A["new_tokens"] for f in fids))
+        torch.cuda.empty_cache()
+        return dt, [r.ttft_seconds for r in done.values()]
+
+    prev = get_flags(["FLAGS_run_log_dir"])
+    exp = None
+    with tempfile.TemporaryDirectory() as log_dir:
+        set_flags({"FLAGS_run_log_dir": log_dir})
+        try:
+            # the healthy sample: the warm and healthy runs' TTFTs in a
+            # histogram of their own (earlier phases observed into the live
+            # series), read as the reference reads its live one
+            sample = metrics.Histogram()
+            for tag in ("warm", "healthy"):
+                for v in serve(tag)[1]:
+                    sample.observe(v)
+            healthy_ms = (sample.percentile(50) or 0.01) * 1e3
+            threshold_ms = max(50.0, 2.0 * healthy_ms)
+            slow_ms = int(min(2500.0, max(150.0, 4.0 * healthy_ms)))
+            fast_w = max(2.0, 6.0 * slow_ms / 1e3)
+            slow_w = 4.0 * fast_w
+            spec = slo.SLO("serving.ttft_p50_ms", "percentile", threshold=threshold_ms,
+                           histogram="serving.ttft_seconds", q=50, scale=1e3, page_burn=1.2,
+                           warn_burn=1.0, description="alerts phase: machine-relative TTFT")
+            mon = slo.install([spec], with_regress=False, eval_every_s=A["eval_every_s"],
+                              fast_window_s=fast_w, slow_window_s=slow_w)
+            exp = exporter.MetricsExporter(port=0).start()
+            mon.evaluate()  # baseline snapshot before the metered run
+
+            eval_sum0 = metrics.histogram("slo.eval_seconds").sum
+            evals0 = metrics.counter_value("slo.evaluations")
+            dt_healthy = serve("metered")[0]
+            overhead_pct = 100.0 * (metrics.histogram("slo.eval_seconds").sum - eval_sum0) / dt_healthy
+            evaluations = int(metrics.counter_value("slo.evaluations") - evals0)
+            paged_on_healthy = mon.states()[0]["severity"] is not None
+
+            time.sleep(fast_w)  # a quiet fast window: no healthy TTFT in it
+            mon.evaluate()
+            seen = {}
+
+            def scrape_while_paging():
+                if "healthz" not in seen and not mon.health_probe()["ok"]:
+                    seen["healthz"], _ = _http_get(exp.port, "/healthz")
+                    seen["alerts"] = json.loads(_http_get(exp.port, "/alerts")[1])
+
+            t_chaos = time.time()
+            with chaos.inject(FLAGS_chaos_replica_slow_ms=str(slow_ms)):
+                serve("chaos", on_tick=scrape_while_paging)
+            mon.evaluate()
+            scrape_while_paging()
+            code, text = _http_get(exp.port, "/metrics")
+            lines = text.splitlines()
+            metrics_ok = (code == 200 and all(re.match(PROM_LINE, line) for line in lines)
+                          and any(line.startswith("paddle_tpu_slo_evaluations_total ")
+                                  and float(line.split()[1]) > 0 for line in lines))
+
+            serve("recovery")
+            deadline = time.time() + 4 * slow_w
+            while time.time() < deadline:
+                mon.evaluate()
+                if mon.states()[0]["severity"] is None:
+                    break
+                time.sleep(0.1)
+            final_quiet = mon.states()[0]["severity"] is None
+            pages_fired = int(metrics.counter_value("alerts.page"))
+
+            runlog.monitor().flush()
+            events = []
+            for name in sorted(os.listdir(log_dir)):
+                if name.startswith("run-") and name.endswith(".jsonl"):
+                    with open(os.path.join(log_dir, name)) as f:
+                        events += [json.loads(line) for line in f if line.strip()]
+        finally:
+            slo.uninstall()
+            if exp is not None:
+                exp.stop()
+            runlog.monitor().close()
+            set_flags(prev)
+    alerts = sorted((e for e in events if e.get("event") == "alert" and e.get("slo") == spec.name),
+                    key=lambda e: e["ts"])
+    healthy_pages = [e for e in alerts if e["ts"] < t_chaos and e.get("state") == "firing"]
+    chaos_alerts = [e for e in alerts if e["ts"] >= t_chaos]
+    pages = [e for e in chaos_alerts if e.get("state") == "firing" and e.get("severity") == "page"]
+    severity = "page" if pages else (chaos_alerts[-1].get("severity") if chaos_alerts else None)
+    detection_ms = (pages[0]["since"] - t_chaos) * 1e3 if pages else None
+    cleared = [e for e in chaos_alerts if e.get("state") == "cleared" and pages
+               and e["ts"] >= pages[0]["ts"]]
+    firing_ms = (cleared[-1]["ts"] - pages[0]["since"]) * 1e3 if cleared and pages else None
+    page_listed = any(a.get("slo") == spec.name and a.get("severity") == "page"
+                      for a in seen.get("alerts", {}).get("alerts", []))
+    ok = (bool(pages) and not paged_on_healthy and not healthy_pages and bool(cleared)
+          and final_quiet and seen.get("healthz") == 503 and page_listed and metrics_ok
+          and all(r["once"] for r in runs.values()))
+    emit(phase="alerts", ok=ok, replicas=A["replicas"], requests=len(prompts),
+         new_tokens=A["new_tokens"], prompt_lens=[len(p) for p in prompts],
+         knobs=dict(kw, replicas=A["replicas"]),
+         healthy_ttft_p50_ms=healthy_ms, ttft_threshold_ms=threshold_ms, chaos_slow_ms=slow_ms,
+         fast_window_s=fast_w, slow_window_s=slow_w, alert_severity=severity,
+         alert_detection_ms=detection_ms,
+         detected_within_fast_window=detection_ms is not None and detection_ms <= fast_w * 1e3,
+         alert_cleared=bool(cleared) and final_quiet, alert_firing_ms=firing_ms,
+         slo_evaluations=evaluations, slo_eval_overhead_pct=overhead_pct,
+         slo_eval_overhead_budget_pct=2.0, paged_on_healthy_traffic=paged_on_healthy or bool(healthy_pages),
+         page_alerts_fired=pages_fired, healthz_while_paging=seen.get("healthz"),
+         page_in_alerts=page_listed, metrics_scrape_ok=metrics_ok,
+         alert_transitions=[(e.get("state"), e.get("severity"), e["ts"] - t_chaos)
+                            for e in chaos_alerts],
+         runs={tag: dict(r) for tag, r in runs.items()}, seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("alerts failed its gates")
 
 
 def _model_flops_per_step(cfg, batch, seq):
@@ -2853,7 +3048,8 @@ def main() -> int:
                       ("serve_spec", lambda: phase_serve_spec(model)),
                       ("fleet", lambda: phase_fleet(model)),
                       ("procfleet", lambda: phase_procfleet(model)),
-                      ("ingress", phase_ingress)):
+                      ("ingress", phase_ingress),
+                      ("alerts", lambda: phase_alerts(model))):
         reset_launches()
         run()
         by_path[path] = read_launches()
@@ -2932,7 +3128,7 @@ def main() -> int:
     # the 1.3B and ERNIE steps; the vision steps none (their phases check
     # that every count stays 0)
     expected = {"forward": [K1["name"]], "serve": [], "serve_round2": [], "serve_spec": [],
-                "fleet": [], "procfleet": [], "ingress": [],
+                "fleet": [], "procfleet": [], "ingress": [], "alerts": [],
                 "train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "bert_forward": [K3["name"]], "bert_train": [K3["name"], K3B["name"]],

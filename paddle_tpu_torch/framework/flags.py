@@ -46,7 +46,7 @@ define_flag("FLAGS_use_flash_attention", True, "use the hand-written flash-atten
 define_flag("FLAGS_flash_flat", False, "route masked/GQA sdpa (impl flash_flat_gqa) and attention_core (impl flash_packed) to the flat flash kernels K3/K3b; off by default, as in the reference")
 define_flag("FLAGS_kernel_overrides", "", "force kernel-registry implementations per kernel, e.g. 'attention_core=xla' (see paddle_tpu_torch.ops.registry); forced impls bypass availability predicates; unknown impl names raise at dispatch")
 define_flag("FLAGS_remat_policy", "none", "default rematerialization policy for jit steps: any value but 'none' turns TrainStep's remat on")
-define_flag("FLAGS_compile_cache_dir", "", "the reference's on-disk AOT executable cache for serving programs; the port has no compiled serving programs to store, and DecodeEngine raises while it is set (ROADMAP.md, Queue 1 item 4)")
+define_flag("FLAGS_compile_cache_dir", "", "the reference's on-disk AOT executable cache for serving programs; the port has no compiled serving programs to store, and DecodeEngine raises while it is set (ROADMAP.md, Queue 1 item 4); observability/measured.py keeps measured step times under its measured/ subdirectory")
 
 # telemetry and tracing (observability/runlog.py, trace.py, flightrec.py)
 define_flag("FLAGS_monitor", True, "always-on runtime telemetry: run-log events and trace spans (spans become no-ops when off)")
@@ -55,14 +55,16 @@ define_flag("FLAGS_run_log_max_mb", 64.0, "size-based run-log rotation: past thi
 define_flag("FLAGS_run_log_keep", 16, "keep-last-k GC of stale run logs: opening a run log deletes dead pids' run-*.jsonl files beyond the newest k; 0 disables the GC")
 define_flag("FLAGS_trace", True, "distributed tracing plane (observability/trace.py): trace ids propagated through the serving fleet and span run-log events; off allocates no ids and emits no spans")
 define_flag("FLAGS_flightrec_events", 256, "crash flight recorder (observability/flightrec.py): dump the last N run-log ring events plus a metrics snapshot to flightrec-<pid>.json on a replica's death; 0 disables it")
-# the reference's judgment layer, /metrics exporter and runtime sanitizer;
-# not ported: the serving fleet raises while any of them is set (ROADMAP.md,
-# Queue 1 item 11)
-define_flag("FLAGS_slo", False, "the reference's SLO judgment layer; not ported, the serving fleet raises while it is on (ROADMAP.md, Queue 1 item 11)")
-define_flag("FLAGS_metrics_port", 0, "the reference's live /metrics exporter port; not ported, the serving fleet raises while it is non-zero (ROADMAP.md, Queue 1 item 11)")
-define_flag("FLAGS_sanitize", False, "the reference's runtime dispatch sanitizer; not ported, the serving fleet raises while it is on (ROADMAP.md, Queue 1 item 11)")
-define_flag("FLAGS_sanitize_strict", False, "the reference's sanitizer escalation; forwarded to replica processes with FLAGS_sanitize")
-define_flag("FLAGS_sanitize_max_recompiles", 8, "the reference's recompile-churn threshold; forwarded to replica processes with FLAGS_sanitize")
+# the judgment layer (observability/slo.py, regress.py), the live exporter
+# (observability/exporter.py) and the runtime sanitizer (analysis/sanitizer.py)
+define_flag("FLAGS_slo", False, "judgment layer (observability/slo.py + regress.py): install the default SLO spec set on the first serving or training tick (scheduler, fleet and process-fleet step, TrainStep.run_steps) and evaluate it on the FLAGS_slo_eval_every_s cadence: error budgets, multi-window burn-rate alerts ('alert' run-log events, /alerts, a degraded /healthz while a page fires) and the perf-regression sentinel; off keeps every tick hook a single flag check (an explicit slo.install() still works)")
+define_flag("FLAGS_slo_eval_every_s", 5.0, "SLOMonitor evaluation cadence in seconds: the tick hooks evaluate the registered spec set at most this often; an evaluation reads the host metrics registries, never the device")
+define_flag("FLAGS_slo_fast_window_s", 300.0, "fast burn-rate window (seconds): a burn rate >= the spec's page_burn sustained over it pages")
+define_flag("FLAGS_slo_slow_window_s", 3600.0, "slow burn-rate window (seconds): the warn window, and the second gate of the page condition for ratio SLOs")
+define_flag("FLAGS_metrics_port", 0, "live metrics export (observability/exporter.py): serve /metrics (Prometheus text), /healthz, /alerts and /snapshot (JSON) on this localhost port from a stdlib HTTP server that ServingFleet starts; 0 (default) disables the server")
+define_flag("FLAGS_sanitize", False, "runtime sanitizer (analysis/sanitizer.py): in the port it arms only the host-ledger growth sentinel on the in-process and cross-process fleets' ticks (sanitizer.ledger_growth, a 'sanitizer' run-log event, a warning or under FLAGS_sanitize_strict a LedgerGrowthError); the reference's transfer guard, recompile-churn sentinel and donated-state poisoning in TrainStep and DecodeEngine are not ported (ROADMAP.md, Queue 1 item 15), so the flag checks nothing there")
+define_flag("FLAGS_sanitize_strict", False, "escalate the sanitizer's ledger-growth warning to a raise; forwarded to replica processes with FLAGS_sanitize")
+define_flag("FLAGS_sanitize_max_recompiles", 8, "the reference's recompile-churn threshold; nothing in the port reads it (the sentinel is not ported, ROADMAP.md Queue 1 item 15); forwarded to replica processes with FLAGS_sanitize, as in the reference")
 # store hardening (distributed/resilience.py)
 define_flag("FLAGS_store_retry_jitter", True, "full jitter on the retry/RetryingStore exponential backoff: attempt i sleeps uniform(0, min(max_delay, base_delay*2**i)) from a seeded host stream instead of the deterministic cap")
 

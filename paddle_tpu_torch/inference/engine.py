@@ -28,7 +28,11 @@ tokens, active flags, eos and limits) on the device beside it:
 
 Prefill and decode attend in plain PyTorch, as the reference's jnp does
 (no Pallas kernel on this path); routing prefill through the flash kernel
-is queued in ``ROADMAP.md``. Not ported: ``donate=False`` (the port always
+is queued in ``ROADMAP.md``. An engine counts its first dispatch of each
+program signature (``prefill/P64``, ``decode_x8``, ...) in
+``infer.compiles``, as the reference counts each compile: the serving
+fleet's heartbeat exempts the tick that paid that cold build. Not ported:
+``donate=False`` (the port always
 updates in place), the on-disk AOT cache (``FLAGS_compile_cache_dir``) and
 ``explain()``; each raises, citing ``ROADMAP.md``.
 """
@@ -267,7 +271,18 @@ class DecodeEngine:
         self._seed = np.zeros((B,), np.int64)
         self._spec_drafted = 0
         self._spec_accepted = 0
+        self._signatures = set()  # the program signatures dispatched so far
         gauge_set("infer.kv_bytes_per_slot", self.kv_bytes_per_slot())
+
+    def _note_dispatch(self, signature: str) -> None:
+        """Count this engine's first dispatch of ``signature`` (a program
+        and the shape that varies, e.g. ``prefill/P64``) in
+        ``infer.compiles``, once per signature as the reference's
+        ``_dispatch`` counts a compile: the first use is where the port pays
+        its cold build, and the fleet's heartbeat exempts the tick that did."""
+        if signature not in self._signatures:
+            self._signatures.add(signature)
+            counter_inc("infer.compiles")
 
     # ------------------------------------------------------------ slot API
     def bucket_for(self, prompt_len: int) -> int:
@@ -322,6 +337,7 @@ class DecodeEngine:
             C = self._chunk
             matched = self.prefix_cache.match(prompt, max_tokens=n - 1)
             for i, (seg_k, seg_v) in enumerate(matched):
+                self._note_dispatch("prefix_insert")
                 _kvc_copy(self._ck, seg_k, (0, slot, 0, i * C, 0))
                 _kvc_copy(self._cv, seg_v, (0, slot, 0, i * C, 0))
                 counter_inc("infer.prefix_insert_dispatches")
@@ -329,6 +345,7 @@ class DecodeEngine:
                 # the prefix cache holds the target's KV only: the draft
                 # prefills the matched chunks itself, in order
                 for i in range(len(matched)):
+                    self._note_dispatch("draft_chunk")
                     self._draft_chunk(prompt[i * C:(i + 1) * C], slot, i * C)
             job.next_pos = job.reused_tokens = len(matched) * C
             counter_inc("serving.prefix_hits" if matched else "serving.prefix_misses")
@@ -353,6 +370,7 @@ class DecodeEngine:
         do_sample, temperature, top_k, top_p = self._sample
         if self._chunk is None:
             P = self.bucket_for(n)
+            self._note_dispatch(f"prefill/P{P}")
             ids = self._ids(job.prompt, P)
             wte = self._params[1]
             L = self.cfg.num_layers
@@ -374,6 +392,7 @@ class DecodeEngine:
             if job.next_pos + C < n:
                 # an intermediate chunk: cache writes only, no logits
                 tokens = job.prompt[job.next_pos:job.next_pos + C]
+                self._note_dispatch(f"prefill_chunk/C{C}")
                 _chunk_prefill_forward(*self._params, self._ids(tokens, C), self._ck, self._cv,
                                        slot, job.next_pos, num_heads=H)
                 if self._dparams is not None:
@@ -387,6 +406,7 @@ class DecodeEngine:
             # rows again
             w = job.next_pos if job.next_pos + C <= self.max_seq_len else n - C
             tokens = job.prompt[w:n]
+            self._note_dispatch(f"prefill_final/C{C}")
             logits = _chunk_prefill_forward(*self._params, self._ids(tokens, C), self._ck,
                                             self._cv, slot, w, num_heads=H, last_row=n - 1 - w)
             if self._dparams is not None:
@@ -421,6 +441,7 @@ class DecodeEngine:
             size = (L, 1, H, C, self._dh)
             seg_k = _kvc_slice(self._ck, (0, job.slot, 0, i * C, 0), size)
             seg_v = _kvc_slice(self._cv, (0, job.slot, 0, i * C, 0), size)
+            self._note_dispatch("prefix_extract")
             counter_inc("infer.prefix_extract_dispatches")
             cache.put(key, seg_k, seg_v)
         gauge_set("serving.prefix_cache_bytes", cache.bytes_used())
@@ -468,6 +489,7 @@ class DecodeEngine:
                 raise ValueError("speculative decode runs at fuse depth 1 (one "
                                  "dispatch already emits up to spec_k+1 tokens)")
             return self._spec_step()
+        self._note_dispatch("decode" if depth == 1 else f"decode_x{depth}")
         live = self._active_np.copy()
         sample = self._sample
         pos, tok, active = self._pos, self._tok, self._active
@@ -503,6 +525,7 @@ class DecodeEngine:
         past the rolled-back position, to be overwritten before any emitted
         row attends it."""
         K = self.spec_k
+        self._note_dispatch(f"spec_decode/K{K}")
         do_sample, temperature, top_k, top_p = self._sample
         live = self._active_np.copy()
         pos, tok, active = self._pos, self._tok, self._active

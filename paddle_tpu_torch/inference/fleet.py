@@ -36,16 +36,19 @@ calling thread, so the whole fleet's host work runs on one thread; the
 cross-process fleet (:mod:`.procfleet`) runs each replica's host work in a
 process of its own.
 
-The reference's heartbeat exempts a tick in which a program was compiled or
-loaded from its AOT disk cache (``infer.compiles`` / ``infer.aot_cache_hits``
-moved): a warm-up pause is readiness, not liveness. The port keeps the rule
-and declares both counters, but compiles no serving program, so both stay 0
-and a cold replica's first tick is not exempt: give ``heartbeat_timeout``
-room for it. The AOT cache (``FLAGS_compile_cache_dir``) is not ported
-(ROADMAP.md, Queue 1 item 4), so a scale-out replica's first request is a
-cold build. Not ported either, and raising while set: the SLO judgment
-layer (``FLAGS_slo``), the live ``/metrics`` exporter (``FLAGS_metrics_port``)
-and the runtime sanitizer (``FLAGS_sanitize``) (ROADMAP.md, Queue 1 item 11).
+The heartbeat exempts a tick in which an engine built a new program
+signature (``infer.compiles`` moved: the engine counts its first dispatch of
+each ``(program, shapes, dtypes)`` signature, where the port pays its cold
+build: allocator growth, cuBLAS handles, the kernel library's load) or loaded
+one from the AOT disk cache (``infer.aot_cache_hits``): a warm-up pause is
+readiness, not liveness. So a cold replica's first tick, and a tick on a new
+prefill bucket or fuse depth, never counts against ``heartbeat_timeout``.
+The AOT cache (``FLAGS_compile_cache_dir``) is not ported (ROADMAP.md,
+Queue 1 item 4), so a scale-out replica's first request is a cold build.
+
+The fleet registers its ``/healthz`` probe and starts the live exporter
+(``FLAGS_metrics_port``); each tick ends with the runtime sanitizer's
+ledger check (``FLAGS_sanitize``) and the SLO tick (``FLAGS_slo``).
 
 Telemetry: ``fleet.*`` counters/gauges (pre-declared in
 ``observability.metrics.FLEET_COUNTERS``) and ``fleet`` run-log events
@@ -60,9 +63,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ..framework.flags import flag
+from ..analysis import sanitizer as _sanitizer
+from ..observability import exporter as _exporter
 from ..observability import flightrec as _flightrec
 from ..observability import runlog as _runlog
+from ..observability import slo as _slo
 from ..observability import trace as _trace
 from ..observability.metrics import counter_inc, counters, gauge_set, observe
 from ..testing import chaos
@@ -73,25 +78,9 @@ __all__ = ["ServingFleet", "EngineReplica", "FleetRequest",
            "FleetOverloadError", "FleetDrainedError", "retry_after_estimate"]
 
 
-def refuse_unported(*names: str) -> None:
-    """Raise for a reference observability layer the port does not have,
-    where the fleet would arm it: the live exporter (``FLAGS_metrics_port``),
-    the SLO judgment layer (``FLAGS_slo``) and the runtime sanitizer
-    (``FLAGS_sanitize``). At their defaults this is one flag read each."""
-    what = {"FLAGS_metrics_port": "the live /metrics exporter",
-            "FLAGS_slo": "the SLO judgment layer",
-            "FLAGS_sanitize": "the runtime dispatch sanitizer"}
-    for name in names:
-        if flag(name):
-            raise NotImplementedError(
-                f"{what[name]} ({name}) is not ported to paddle_tpu_torch; it is "
-                "queued in ROADMAP.md (Queue 1, item 11)")
-
-
 def warm_builds() -> int:
-    """Programs compiled or loaded from the AOT disk cache so far: what the
-    heartbeat's warm-up exemption watches. 0 in the port, which compiles no
-    serving program."""
+    """Program signatures built or loaded from the AOT disk cache so far:
+    what the heartbeat's warm-up exemption watches."""
     c = counters("infer.")
     return int(c.get("infer.compiles", 0) + c.get("infer.aot_cache_hits", 0))
 
@@ -249,10 +238,10 @@ class ServingFleet:
 
     ``heartbeat_timeout`` (seconds; 0 disables) declares a replica dead
     when a tick overruns it — the straggler/zombie detector
-    (``FLAGS_chaos_replica_slow_ms`` proves it). Ticks that compiled a new
-    program — or loaded one from the AOT disk cache — are exempt (a
-    warm-up pause is readiness, not liveness); the port compiles none, so
-    no tick is exempt (see the module's docstring). A tick that *raises*
+    (``FLAGS_chaos_replica_slow_ms`` proves it). Ticks that built a new
+    program signature — or loaded one from the AOT disk cache — are exempt
+    (a warm-up pause is readiness, not liveness; see the module's
+    docstring). A tick that *raises*
     (``FLAGS_chaos_replica_kill_at``, or any real fault) is death
     regardless. ``store=`` additionally publishes per-replica heartbeats to
     a TCPStore through ``RetryingStore`` (full-jitter backoff — see
@@ -310,8 +299,17 @@ class ServingFleet:
         for _ in range(int(replicas)):
             self._add_replica()
         self._emit_membership()
-        # where the reference starts its live exporter
-        refuse_unported("FLAGS_metrics_port")
+        # live export (FLAGS_metrics_port; no-op at the default 0): the
+        # fleet driver is the long-lived process /metrics exists for
+        _exporter.register_health("fleet", self._health)
+        _exporter.ensure_started(store=self._store)
+
+    def _health(self) -> dict:
+        """The /healthz probe: fleet liveness is replica liveness."""
+        alive = sorted(self._alive())
+        dead = sorted(set(self.replicas) - set(alive))
+        return {"ok": bool(alive), "replicas_alive": alive,
+                "replicas_dead": dead, "queue_depth": self.queue_depth()}
 
     # ------------------------------------------------------------ replicas
     def _beat(self, rid: int) -> None:
@@ -536,14 +534,19 @@ class ServingFleet:
                     f"heartbeat lost: tick took {rep.last_tick_seconds:.3f}s "
                     f"> timeout {self.heartbeat_timeout:g}s"))
         self._gc_ledger(protect={r.fid for r in done})
+        if _sanitizer.enabled():
+            # post-GC the ledger is keep-last-k + in-flight; anything past
+            # twice that means the GC stopped working
+            _sanitizer.note_ledger(
+                "fleet", "requests", len(self.requests),
+                bound=2 * self.keep_finished + self.max_queue_depth)
         alive = [rep for rep in self.replicas.values() if rep.alive]
         if alive:
             # in the in-process fleet the last tick's duration IS the
             # heartbeat age: a straggling replica shows up as a long tick
             gauge_set("fleet.heartbeat_staleness_seconds",
                       max(rep.last_tick_seconds for rep in alive))
-        # where the reference runs its sanitizer's ledger check and SLO tick
-        refuse_unported("FLAGS_sanitize", "FLAGS_slo")
+        _slo.on_tick()  # judgment layer: a single flag check until armed
         return done
 
     _TERMINAL = ("finished", "cancelled", "deadline_exceeded")

@@ -70,16 +70,18 @@ import numpy as np
 
 import torch
 
+from ..analysis import sanitizer as _sanitizer
 from ..framework.device import resolve_device
 from ..framework.flags import flag
 from ..observability import flightrec as _flightrec
 from ..observability import runlog as _runlog
+from ..observability import slo as _slo
 from ..observability import trace as _trace
 from ..observability.metrics import counter_inc, counters, gauge_set, observe
 from ..ops import kernel_launches
 from ..testing import chaos
 from .fleet import (FleetDrainedError, FleetOverloadError, FleetRequest,
-                    refuse_unported, retry_after_estimate)
+                    retry_after_estimate)
 from .router import Router
 from .rpc import (Heartbeat, SocketChannel, SocketListener, channel_prefix,
                   connect_socket, sock_key)
@@ -466,7 +468,6 @@ class ProcServingFleet:
                 "the on-disk AOT cache of serving programs (FLAGS_compile_cache_dir) is "
                 "not ported to paddle_tpu_torch; it is queued in ROADMAP.md (Queue 1, "
                 "item 4: the serving stack)")
-        refuse_unported("FLAGS_metrics_port")
         self.device = str(resolve_device(device))
         if model_config is None:
             self.model_config: Dict[str, Any] = {}
@@ -837,9 +838,13 @@ class ProcServingFleet:
                  for rep in self.replicas.values() if rep.alive]
         if beats:
             gauge_set("fleet.heartbeat_staleness_seconds", max(beats))
+        _slo.on_tick()  # judgment layer: a single flag check until armed
         self._gc_ledger(protect={r.fid for r in done})
-        # where the reference runs its SLO tick and its sanitizer's ledger check
-        refuse_unported("FLAGS_slo", "FLAGS_sanitize")
+        if _sanitizer.enabled():
+            # post-GC the ledger is keep-last-k + in-flight
+            _sanitizer.note_ledger(
+                "procfleet", "requests", len(self.requests),
+                bound=2 * self.keep_finished + self.max_queue_depth)
         return done
 
     def _gc_ledger(self, protect=()) -> None:

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..observability import runlog as _runlog
+from ..observability import slo as _slo
 from ..observability import trace as _trace
 from ..observability.metrics import counter_inc, gauge_set, observe
 
@@ -304,6 +305,9 @@ class ContinuousBatchingScheduler:
                  | {rid for rid in self.cancelled if rid not in before_cancelled})
         done = [self.finished[rid] for rid in self.finished if rid not in before]
         self._gc_ledgers(protect=fresh)
+        # judgment layer: a cadence-gated host-side evaluate, a single flag
+        # check per tick until FLAGS_slo (or an explicit install) arms it
+        _slo.on_tick()
         return done
 
     def _gc_ledgers(self, protect=()) -> None:

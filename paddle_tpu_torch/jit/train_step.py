@@ -28,7 +28,7 @@ from torch.func import functional_call
 from ..distributed.pipeline import microbatch, unmicrobatch
 from ..distributed.recompute import recompute
 from ..framework.flags import flag
-from ..observability import metrics
+from ..observability import metrics, slo
 
 _NOT_PORTED = "TrainStep: {} is not ported yet (ROADMAP.md, Queue 1 item {})"
 
@@ -189,4 +189,6 @@ class TrainStep:
                "lr": torch.tensor([r[1] for r in results], dtype=torch.float32)}
         if self.return_outputs:
             out["outputs"] = _tree_map(lambda *xs: torch.stack(xs), *(r[2] for r in results))
+        # judgment layer: a single flag check per call until FLAGS_slo arms it
+        slo.on_tick()
         return out

@@ -13,8 +13,7 @@ timed section inside a trace, emitted as a ``span`` run-log event::
      "parent": ..., "seconds": ..., "error": false, ...attrs}
 
 so one request's whole path can be rebuilt from N processes' run logs
-(the reference's ``observability report --merge`` is not ported: ROADMAP.md,
-Queue 1 item 11).
+(``python -m paddle_tpu_torch.observability report --merge <dir>``).
 
 Ids are **deterministic**: seeded via
 :func:`paddle_tpu_torch.framework.random.host_generator` on (the host seed,

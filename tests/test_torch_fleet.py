@@ -19,9 +19,12 @@ from paddle_tpu.distributed import resilience as jresilience
 from paddle_tpu.inference import FleetDrainedError as JFleetDrainedError
 from paddle_tpu.inference import FleetOverloadError as JFleetOverloadError
 from paddle_tpu.inference import Router as JRouter
+from paddle_tpu.inference import ContinuousBatchingScheduler as JScheduler
+from paddle_tpu.inference import DecodeEngine as JDecodeEngine
 from paddle_tpu.inference import ServingFleet as JServingFleet
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.models.gpt import GPTForPretraining as JGPT
+from paddle_tpu.observability import metrics as jmetrics
 from paddle_tpu.testing import chaos as jchaos
 
 from paddle_tpu_torch.distributed import resilience
@@ -357,8 +360,10 @@ def test_store_heartbeats_published(models):
 def test_scale_out_serves_a_cold_replica_as_reference(models):
     jm, pm = models
     p = _prompts(1)[0].astype(np.int32)
-    seen = []
-    for fleet in (JServingFleet(jm, replicas=1, **KW), ServingFleet(pm, replicas=1, **KW)):
+    seen, built = [], []
+    for fleet, reg in ((JServingFleet(jm, replicas=1, **KW), jmetrics),
+                       (ServingFleet(pm, replicas=1, **KW), metrics)):
+        c0 = reg.counters("infer.")["infer.compiles"]
         f0 = fleet.submit(p, max_new_tokens=4, seed=1)
         fleet.run()
         new = fleet.scale_out(1)
@@ -366,11 +371,71 @@ def test_scale_out_serves_a_cold_replica_as_reference(models):
         done = fleet.run()
         assert list(done[f1].tokens) == list(fleet.requests[f0].tokens)
         seen.append((new, list(done[f1].tokens), fleet.stats()["alive"]))
+        built.append(reg.counters("infer.")["infer.compiles"] - c0)
     assert seen[0] == seen[1]
     assert metrics.counters("fleet.")["fleet.scale_outs"] == 1
-    # the heartbeat's warm-up exemption reads these; the port builds nothing
-    c = metrics.counters("infer.")
-    assert c["infer.compiles"] == 0 and c["infer.aot_cache_hits"] == 0
+    # the heartbeat's warm-up exemption reads these: the scale-out replica
+    # builds its programs again, as the reference's compiles them (the port
+    # has no AOT cache to load them from)
+    assert built[0] == built[1] > 0
+    assert metrics.counters("infer.")["infer.aot_cache_hits"] == 0
+
+
+@pytest.mark.parametrize("side", ["reference", "port"])
+def test_cold_first_tick_is_exempt_and_a_slow_warm_tick_dies(models, side):
+    """Replica 0's ticks take 400 ms against a 200 ms heartbeat window. Its
+    first tick builds the prefill and decode programs (``infer.compiles``
+    moves), so it survives that tick; its second builds nothing and is
+    declared dead, and its request finishes on replica 1: in both packages."""
+    jm, pm = models
+    make, inj, reg = ((lambda **kw: JServingFleet(jm, **kw), jchaos.inject, jmetrics)
+                      if side == "reference" else
+                      (lambda **kw: ServingFleet(pm, **kw), chaos.inject, metrics))
+    with inj(FLAGS_chaos_replica_slow_ms="0:400"):
+        fleet = make(replicas=2, heartbeat_timeout=0.2, **KW)
+        fid = fleet.submit(_prompts(1)[0].astype(np.int32), max_new_tokens=6, replica=0)
+        c0 = reg.counters("infer.")["infer.compiles"]
+        fleet.step()
+        assert reg.counters("infer.")["infer.compiles"] > c0
+        assert fleet.replicas[0].last_tick_seconds > fleet.heartbeat_timeout
+        assert fleet.stats()["dead"] == []
+        fleet.step()
+        st = fleet.stats()
+        assert st["dead"] == [0]
+        assert "heartbeat lost" in st["per_replica"][0]["death_reason"]
+        done = fleet.run()
+    assert done[fid].status == "finished" and fleet.requests[fid].replica == 1
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(prefill_buckets=(8, 16, 32)),
+    dict(prefill_chunk=8, fuse=2, prefix_cache_mb=1.0),
+    dict(prefill_buckets=(16, 32), spec="self"),
+], ids=["bucketed", "chunked-prefix-fused", "spec"])
+def test_program_signatures_count_as_the_reference_compiles(models, knobs):
+    """The same request stream moves ``infer.compiles`` by the same amount
+    in both engines: one per (program, varying shape) signature, each
+    prefill bucket, chunk program, prefix insert/extract, fuse depth and
+    speculative step once per engine. (No signature differs by design.)"""
+    jm, pm = models
+    knobs = dict(knobs)
+    spec = knobs.pop("spec", None)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 512, (16,))
+    prompts = [rng.integers(0, 512, (int(n),)) for n in (5, 12, 3, 20)]
+    prompts += [np.concatenate([shared, rng.integers(0, 512, (4,))]) for _ in range(2)]
+    moved = []
+    for eng_cls, model, sched_cls, reg in (
+            (JDecodeEngine, jm, JScheduler, jmetrics),
+            (DecodeEngine, pm, ContinuousBatchingScheduler, metrics)):
+        kw = dict(knobs, draft=model, spec_k=2) if spec else knobs
+        c0 = reg.counters("infer.")["infer.compiles"]
+        sched = sched_cls(eng_cls(model, max_batch_slots=2, max_seq_len=64, **kw))
+        for i, p in enumerate(prompts):
+            sched.submit(p.astype(np.int32), max_new_tokens=5, seed=i)
+        sched.run()
+        moved.append(reg.counters("infer.")["infer.compiles"] - c0)
+    assert moved[0] == moved[1] > 0
 
 
 def test_ledger_keeps_last_k_and_run_returns_everything(models):
@@ -385,21 +450,15 @@ def test_ledger_keeps_last_k_and_run_returns_everything(models):
             ServingFleet(pm, **dict(KW, **bad))
 
 
-# ------------------------------------------------- not ported: they raise
-@pytest.mark.parametrize("name, value, where", [
-    ("FLAGS_metrics_port", 9400, "init"), ("FLAGS_slo", True, "step"),
-    ("FLAGS_sanitize", True, "step"), ("FLAGS_compile_cache_dir", "/nonexistent", "init")])
-def test_unported_layers_raise_citing_roadmap(models, name, value, where):
+# ------------------------------------------------- not ported: it raises
+def test_unported_layers_raise_citing_roadmap(models):
+    """The on-disk AOT cache is the fleet's one reference layer still not
+    ported; the exporter, the SLO layer and the sanitizer arm
+    (tests/test_torch_imports.py)."""
     _, pm = models
-    if where == "step":
-        fleet = ServingFleet(pm, replicas=1, **KW)
-        set_flags({name: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fleet.step()
-    else:
-        set_flags({name: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingFleet(pm, replicas=1, **KW)
+    set_flags({"FLAGS_compile_cache_dir": "/nonexistent"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ServingFleet(pm, replicas=1, **KW)
 
 
 # ------------------------------------------------------------ chaos seams

@@ -72,16 +72,68 @@ SERVING_STACK_MODULES = {"paddle_tpu_torch.inference.router", "paddle_tpu_torch.
                          "paddle_tpu_torch.observability.runlog",
                          "paddle_tpu_torch.observability.flightrec",
                          "paddle_tpu_torch.framework.random"}
+# modules of the serving tier's judgment and export layers
+OBSERVABILITY_MODULES = {"paddle_tpu_torch.analysis", "paddle_tpu_torch.analysis.sanitizer",
+                         "paddle_tpu_torch.observability.slo",
+                         "paddle_tpu_torch.observability.regress",
+                         "paddle_tpu_torch.observability.exporter",
+                         "paddle_tpu_torch.observability.measured",
+                         "paddle_tpu_torch.observability.__main__"}
 
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
-              | SERVING_MODULES | SERVING_STACK_MODULES)
+              | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 69
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 76
+
+
+def test_observability_flags_arm_in_both_fleets(monkeypatch):
+    """``FLAGS_slo``, ``FLAGS_metrics_port`` and ``FLAGS_sanitize`` no longer
+    raise in the in-process or the process fleet: each serves a request
+    while the SLO monitor installs itself, the in-process fleet starts the
+    exporter on the port, and the sanitizer's ledger check runs."""
+    import socket
+    import urllib.request
+
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.inference import ProcServingFleet, ServingFleet
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.observability import exporter, slo
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the replica process's threads
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    names = ["FLAGS_slo", "FLAGS_metrics_port", "FLAGS_sanitize"]
+    prev = get_flags(names)
+    set_flags({"FLAGS_slo": True, "FLAGS_metrics_port": port, "FLAGS_sanitize": True})
+    kw = dict(max_batch_slots=2, max_seq_len=64, prefill_chunk=8)
+    try:
+        model = GPTForPretraining(GPTConfig.tiny(), device="cpu", seed=0).eval()
+        fleets = [ServingFleet(model, replicas=1, **kw)]
+        assert exporter.current() is not None and exporter.current().port == port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+            assert r.status == 200
+        fleets.append(ProcServingFleet(GPTConfig.tiny(), model_seed=0, replicas=1,
+                                       device="cpu", heartbeat_timeout=60.0, **kw))
+        try:
+            for fleet in fleets:
+                slo.uninstall()
+                fid = fleet.submit(list(range(5)), max_new_tokens=3)
+                fleet.run()
+                assert fleet.requests[fid].status == "finished"
+                assert slo.installed() is not None
+        finally:
+            fleets[1].shutdown()
+    finally:
+        slo.uninstall()
+        exporter.stop()
+        exporter.unregister_health("fleet")
+        set_flags(prev)
 
 
 def test_entry_points_raise_without_cuda_and_device():

@@ -115,7 +115,9 @@ def test_children_report_counters_and_zero_kernel_launches(pfleet):
     counters = pfleet.child_counters()
     assert sorted(counters) == [0, 1]
     for c in counters.values():
-        assert c["compiles"] == 0 and c["aot_cache_hits"] == 0
+        # each child built its program signatures (the heartbeat's warm-up
+        # counter); the port has no AOT cache to load them from
+        assert c["compiles"] > 0 and c["aot_cache_hits"] == 0
         kernels = {k: v for k, v in c.items() if k.startswith("kernels.")}
         assert len(kernels) == 6 and not any(kernels.values())
     st = pfleet.stats()
