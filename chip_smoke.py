@@ -185,15 +185,39 @@ non-zero and prints no result. Phases, one JSON line each:
     ``alert_detection_ms``, ``alert_firing_ms``, ``/healthz`` 503 and the
     page in ``/alerts`` while it fires, a ``/metrics`` scrape that parses;
     a page under the chaos, none on healthy traffic, the alert cleared.
+31. ``dlrm_train`` (run after phase 24): ``bench_recsys.py:_measure``'s
+    one-chip branch uncut: ``DLRM`` (13 dense features, 8 tables of
+    100,000 x 64 fused into one 800,000-row ``ShardedEmbedding``, bottom
+    MLP 256-128-64, top MLP 256-128-1), ``RowSparseAdam(1e-3)``, f32 with
+    TF32 off, ``TrainStep.run_steps`` over stacks of 8 batches of 4096 from
+    the bench's generator (power-law ids, ``default_rng(0)``): one warm-up
+    call, then 4 timed calls; the bench's keys (examples/s,
+    ``touched_row_fraction``, ``dispatches_per_run_steps``, ...), ms per
+    step, peak memory, one traced step (device ms by group: the optimizer,
+    the embedding backward, the zero-fill, the GEMMs, the rest) and the
+    bounds of the masked-table update and of a touched-rows-only one. The
+    losses are finite, one dispatch per call, and after a further call
+    every table row outside its ids keeps its value and both moments
+    bitwise.
+32. ``dlrm_check``: DLRM at full width with 8 x 10,000 rows and batch 512,
+    3 ``run_steps`` steps on the card against the CPU from the same weights
+    and batches, in f32 (two card runs bitwise equal) and in float64; and
+    2 eager ``Adam(lazy_mode=True)`` steps over ``Embedding(sparse=True)``.
+33. ``optim_check``: one step of every optimizer (SGD, Momentum, Adam,
+    AdamW, RowSparseAdam, Lamb, Adagrad, RMSProp, Adadelta, Adamax; with L2
+    and L1 decay and each clip) on the card against the CPU, through
+    ``step()`` and through the ``TrainStep`` update, on a ``[4096, 1024]``
+    weight and a ``[1024]`` bias.
 
-The serving phases (5, 25-30) and the vision phases (22-24) launch none of
-K1-K4b: the reference runs no Pallas kernel on those paths (serving attends
-in jnp, the port in plain PyTorch; convolutions are cuDNN's, batch norms
-and pools ATen's); the script checks that their counts stay 0, in the
-replica processes too.
+The serving phases (5, 25-30), the vision phases (22-24) and DLRM's (31)
+launch none of K1-K4b: the reference runs no Pallas kernel on those paths
+(serving attends in jnp, the port in plain PyTorch; convolutions are
+cuDNN's, batch norms and pools ATen's; the embedding lookup is
+``jnp.take``, the optimizers jnp); the script checks that their counts
+stay 0, in the replica processes too.
 
 Phases 4, 5, 25, 26, 27, 28, 29, 30, 6, 9 (its ``pallas_sorted`` run), 12,
-13, 16, 17, 20, 22 and 24 are the main path: the kernel counts are set to 0 just before
+13, 16, 17, 20, 22, 24 and 31 are the main path: the kernel counts are set to 0 just before
 each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
@@ -377,6 +401,37 @@ RESNET_CHECK_TOL = {
                         eval_rel_l2_max=1e-5),
     torch.float64: dict(loss_rtol=1e-12, grad_rel_l2_max=1e-9, buffers_atol=1e-12,
                         eval_rel_l2_max=1e-12)}
+# dlrm_train: bench_recsys.py:_measure's one-chip branch (:49-54, 64-96)
+# uncut: 8 tables of 100,000 x 64 fused into one 800,000-row table, batch
+# 4096, one warm-up run_steps call of k = 8 steps, then 4 timed calls,
+# RowSparseAdam(1e-3), f32 with TF32 off
+DLRM_TRAIN = dict(num_dense=13, vocab_sizes=(100_000,) * 8, embedding_dim=64,
+                  bottom_mlp=(256, 128), top_mlp=(256, 128), batch=4096, k=8, rounds=4, lr=1e-3)
+# dlrm_check: the same widths at a cut vocabulary and batch, 3 run_steps
+# steps on the card against the CPU from the same weights and batches, in
+# f32 (TF32 off) and in float64 (with the BCE in float64; the optimizer's
+# state stays f32, as the port keeps it). An f32 DLRM step is
+# ill-conditioned in its MLPs: a bias gradient that cancels to near Adam's
+# eps (one of bottom.2's is 3.6e-8, summed from 512 terms of 1e-5, 1.8%
+# off in f32) moves its update by a share of lr, and the next steps carry
+# that on. Measured on the CPU at this shape: the port's f32 step against
+# its float64 step after 3 steps, bottom.0.bias 4.4e-3 relative L2, the
+# table, its moments and the loss below 5e-7. So f32 holds the loss to rtol
+# 1e-5, the table and its moments to a relative L2 of 1e-5 and the MLP
+# parameters to 2e-2, which catches only a gross fault; float64 holds
+# everything to 1e-9. Two f32 card runs from the same start are bitwise
+# equal: the embedding backward is a sorted segment reduction.
+DLRM_CHECK = dict(vocab_sizes=(10_000,) * 8, batch=512, steps=3, eager_steps=2)
+DLRM_CHECK_TOL = {
+    torch.float32: dict(loss_rtol=1e-5, table_rel_l2_max=1e-5, mlp_rel_l2_max=2e-2),
+    torch.float64: dict(loss_rtol=1e-12, table_rel_l2_max=1e-9, mlp_rel_l2_max=1e-9)}
+# optim_check: one step of each core (and each decay and clip) on the card
+# against the CPU, a [4096, 1024] weight and a [1024] bias; each parameter
+# and state tensor within a max error of 1e-6 of its largest entry (the
+# same elementwise f32 formula on both, the norms of Lamb and the clips
+# summed in another order)
+OPTIM_CHECK = dict(shape=(4096, 1024), lr=1e-2)
+OPTIM_CHECK_TOL = 1e-6
 # recompute_check, accum_check and ernie_check run the configs at full width
 # cut to this depth
 CHECK_LAYERS = 2
@@ -3013,6 +3068,402 @@ def phase_lenet_train():
     return launches
 
 
+def dlrm_config(vocab_sizes=None):
+    from paddle_tpu_torch.models.dlrm import DLRMConfig
+
+    c = DLRM_TRAIN
+    return DLRMConfig(num_dense=c["num_dense"], vocab_sizes=vocab_sizes or c["vocab_sizes"],
+                      embedding_dim=c["embedding_dim"], bottom_mlp=c["bottom_mlp"],
+                      top_mlp=c["top_mlp"])
+
+
+def dlrm_batches(cfg, batch, k, rounds, seed=0):
+    """``bench_recsys.py:_measure``'s ``make_batch`` (``:72-81``), copied:
+    ``rounds`` stacks of ``k`` batches from ``default_rng(seed)``, power-law
+    ids (a hot head and a long tail per feature)."""
+    rng = np.random.default_rng(seed)
+
+    def make_batch():
+        dense = rng.normal(size=(batch, cfg.num_dense)).astype(np.float32)
+        ids = np.stack(
+            [np.minimum((rng.pareto(1.05, batch) * (v // 50)).astype(np.int64), v - 1)
+             for v in cfg.vocab_sizes], axis=1).astype(np.int32)
+        labels = rng.integers(0, 2, (batch, 1)).astype(np.float32)
+        return (dense, ids), (labels,)
+
+    return [[make_batch() for _ in range(k)] for _ in range(rounds)]
+
+
+def _fused_rows(cfg, stack):
+    """The fused table's rows that the batches of ``stack`` look up."""
+    offsets = np.cumsum((0,) + cfg.vocab_sizes[:-1])[None, :]
+    return np.unique(np.concatenate([b[0][1] + offsets for b in stack]).ravel())
+
+
+def _table_state(model, opt):
+    """The table and its Adam moments (the optimizer's state of
+    ``embedding.weight``)."""
+    i = [n for n, _ in model.named_parameters()].index("embedding.weight")
+    return model.embedding.weight, opt._state["m"][i], opt._state["v"][i]
+
+
+def _dlrm_group(name):
+    """The group of a device kernel of the DLRM step by its name (the
+    optimizer's kernels are told apart by their place, the step's last)."""
+    if any(t in name for t in ("embedding", "segment", "Radix", "radix", "cub::", "krn_",
+                               "compute_grad_weight", "sum_and_scatter")):
+        return "embedding backward (sort, segment sums)"
+    if "indexSelect" in name or "index_select" in name:
+        return "embedding lookup"
+    if "FillFunctor" in name or "fill_kernel" in name:
+        return "zero-fill"
+    group = _kernel_group(name)
+    return "MLP and interaction GEMMs (cuBLAS)" if group == "matmul (cuBLAS)" else "elementwise"
+
+
+def profile_dlrm_step(step, opt, inputs, labels):
+    """One DLRM step traced: device ms by group, the busy time (union of the
+    kernel intervals) and the step's wall time. The optimizer's update is
+    told apart by two marker kernels (``torch.cuda._sleep(1)``, ATen's
+    ``spin_kernel``) launched just before and just after it. After the
+    earlier phases' traces the tracer misses the first kernels of a trace
+    (13 of 44 in one run; all of 5 warm-up markers and more in another), so
+    the step starts after 64 warm-up markers, and only the kernels after
+    the last of those count. Where fewer than 3 markers show, returns the
+    counts the trace holds instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    update = opt._traced_update
+
+    def marked(*args):
+        torch.cuda._sleep(1)
+        update(*args)
+        torch.cuda._sleep(1)
+
+    opt._traced_update = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(inputs, labels)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del opt._traced_update  # the bound method again
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    marks = [j for j, e in enumerate(kernels) if "spin_kernel" in e.name]
+    if len(marks) < 3:
+        return dict(kernels_traced=len(kernels), markers_traced=len(marks))
+    first, opt_begin, opt_end = marks[-3] + 1, marks[-2], marks[-1]
+    groups, busy, end = {}, 0.0, -1.0
+    for j in range(first, len(kernels)):
+        if j in (opt_begin, opt_end):
+            continue
+        e = kernels[j]
+        g = "optimizer (RowSparseAdam)" if opt_begin < j < opt_end else _dlrm_group(e.name)
+        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+        a, b = e.time_range.start, e.time_range.end
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return dict(step_ms=wall_ms, device_busy_ms=busy / 1e3, busy_share=busy / 1e3 / wall_ms,
+                kernels=len(kernels) - first - 2, optimizer_kernels=opt_end - opt_begin - 1,
+                device_ms_by_group=dict(sorted(groups.items(), key=lambda x: -x[1])))
+
+
+def phase_dlrm_train():
+    """``bench_recsys.py:_measure``'s one-chip branch through the port,
+    uncut: ``DLRM`` over the fused 800,000 x 64 table, ``RowSparseAdam``
+    (lr 1e-3), ``TrainStep.run_steps`` over stacks of 8 batches of 4096
+    from the bench's generator; one warm-up call (``time_to_first_step``,
+    synchronised), 4 timed calls; the bench's keys, ms per step, peak
+    memory, one traced step and the bounds of the masked-table update and
+    of a touched-rows-only one. Gates: the losses finite, one dispatch per
+    ``run_steps`` call, and after a further call every table row outside
+    its ids with its value and both moments bitwise unchanged. Returns the
+    K1-K4b launches (none)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.optimizer import RowSparseAdam
+
+    c = DLRM_TRAIN
+    cfg = dlrm_config()
+    b, k, rounds = c["batch"], c["k"], c["rounds"]
+    stacks = dlrm_batches(cfg, b, k, rounds)
+    # the bench's per-step touched fraction of the fused table
+    offsets = np.cumsum((0,) + cfg.vocab_sizes[:-1])[None, :]
+    uniques = [np.unique(bt[0][1] + offsets).size for stack in stacks for bt in stack]
+    touched = float(np.mean(uniques)) / cfg.total_vocab
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    model = DLRM(cfg, seed=SEED)
+    opt = RowSparseAdam(learning_rate=c["lr"], parameters=model.parameters(),
+                        sparse_params=model.sparse_param_names())
+    step = TrainStep(model, opt, DLRMCriterion())
+    t0 = time.perf_counter()
+    first = step.run_steps(stacks[0])
+    float(first["loss"][-1])
+    ttfs = time.perf_counter() - t0
+    metrics.reset_counters("train_step.")
+    t0 = time.perf_counter()
+    outs = [step.run_steps(stack) for stack in stacks]
+    float(outs[-1]["loss"][-1])  # host sync: everything above finished
+    seconds = time.perf_counter() - t0
+    dispatches = metrics.counters("train_step.").get("train_step.dispatches", 0)
+    steps = rounds * k
+    metrics.counter_inc("recsys.steps", steps)
+    metrics.counter_inc("recsys.examples", steps * b)
+    peak = torch.cuda.max_memory_allocated() - held_before
+    losses = [float(v) for o in [first] + outs for v in o["loss"]]
+    # the row-sparse contract over one more call: rows outside its ids
+    before = [t.detach().clone() for t in _table_state(model, opt)]
+    step.run_steps(stacks[1])
+    rows = torch.from_numpy(_fused_rows(cfg, stacks[1])).to("cuda")
+    looked_up = torch.zeros(model.embedding.padded_rows, dtype=torch.bool, device="cuda")
+    looked_up[rows] = True
+    after = [t.detach() for t in _table_state(model, opt)]
+    untouched_bitwise = all(torch.equal(a[~looked_up], o[~looked_up]) for a, o in zip(after, before))
+    rows_moved = int((after[0] != before[0]).any(dim=1).sum())
+    launches = read_launches()
+    exch = model.embedding.exchange_stats(b * cfg.num_sparse)
+    # the traced step, and the optimizer's update alone by CUDA events
+    inputs = tuple(torch.from_numpy(x).to("cuda") for x in stacks[0][0][0])
+    labels = tuple(torch.from_numpy(x).to("cuda") for x in stacks[0][0][1])
+    breakdown = profile_dlrm_step(step, opt, inputs, labels)
+    lr = opt.lr_at(opt._step_count)
+    optimizer_ms = cuda_ms(lambda: opt._traced_update(lr, step._param_names), iters=10)
+    # bounds: the masked update reads g, m, v, p and writes m, v, p over the
+    # whole table, and the backward zero-fills its dense gradient; an update
+    # of the touched rows alone moves 7 row-sized passes over this run's
+    # mean unique rows per step; both against the MLP and interaction flops
+    # (forward and backward, 6 per weight and example, 6 per bmm MAC)
+    table_bytes = model.embedding.weight.numel() * 4
+    mlp_params = sum(p.numel() for n, p in model.named_parameters() if n != "embedding.weight")
+    f1 = cfg.num_sparse + 1
+    flops = 6 * b * mlp_params + 6 * b * f1 * f1 * cfg.embedding_dim
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    masked_bytes = 8 * table_bytes
+    touched_bytes = 7 * float(np.mean(uniques)) * cfg.embedding_dim * 4
+    bounds = {name: dict(bytes=nbytes, bytes_ms=1e3 * nbytes / PEAK_BYTES, flops=flops,
+                         flops_ms=1e3 * t_ops, bound_ms=1e3 * max(nbytes / PEAK_BYTES, t_ops),
+                         bound_by="bytes" if nbytes / PEAK_BYTES >= t_ops else "operations")
+              for name, nbytes in (("masked_table", masked_bytes), ("touched_rows", touched_bytes))}
+    ms_per_step = 1e3 * seconds / steps
+    ok = (all(np.isfinite(losses)) and dispatches / rounds == 1 and untouched_bitwise
+          and rows_moved > 0 and all(v == 0 for v in launches.values()))
+    emit(phase="dlrm_train", ok=ok, config=f"dlrm-v{cfg.total_vocab}d{cfg.embedding_dim}b{b}x1",
+         recsys_examples_per_sec=steps * b / seconds, steps_per_sec=steps / seconds,
+         embedding_a2a_bytes_per_step=exch["bytes_total"], touched_row_fraction=touched,
+         exchange_capacity=exch["capacity"], shards=1, batch=b, total_vocab=cfg.total_vocab,
+         embedding_dim=cfg.embedding_dim, loss_final=losses[-1],
+         dispatches_per_run_steps=dispatches / rounds, time_to_first_step=ttfs,
+         ms_per_step=ms_per_step, peak_memory_allocated=peak, held_before=held_before, params=sum(
+             p.numel() for p in model.parameters()), mlp_params=mlp_params,
+         losses=losses[::k] + losses[-1:], untouched_rows_bitwise=untouched_bitwise,
+         rows_looked_up=int(rows.numel()), rows_moved=rows_moved, optimizer_ms=optimizer_ms,
+         bounds=bounds, masked_bound_share=bounds["masked_table"]["bound_ms"] / ms_per_step,
+         profile=breakdown,
+         device_busy_share_of_timed_step=(breakdown["device_busy_ms"] / ms_per_step
+                                          if "device_busy_ms" in breakdown else None),
+         launches=launches)
+    if not ok:
+        raise AssertionError("dlrm_train phase failed")
+    return launches
+
+
+def _bce(logits, labels):
+    """``DLRMCriterion``'s expression in the logits' own dtype (float64 for
+    the float64 check; ``DLRMCriterion`` computes in f32)."""
+    x, y = logits.reshape(-1), labels.reshape(-1).to(logits.dtype)
+    return torch.mean(torch.maximum(x, x.new_zeros(())) - x * y + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+def _dlrm_run_on(device, dtype, cfg, state, batches, lr):
+    """``RowSparseAdam`` steps of DLRM from ``state`` on ``device`` in
+    ``dtype`` through one ``run_steps`` call: the losses, every parameter
+    and the table's moments, on the CPU."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMCriterion
+    from paddle_tpu_torch.optimizer import RowSparseAdam
+
+    model = DLRM(cfg, device=device)
+    model.load_state_dict(state)
+    model.to(dtype)
+    opt = RowSparseAdam(learning_rate=lr, parameters=model.parameters(),
+                        sparse_params=model.sparse_param_names())
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    batches = [((d.astype(np_dtype), i), (y.astype(np_dtype),)) for (d, i), (y,) in batches]
+    loss_fn = DLRMCriterion() if dtype == torch.float32 else _bce
+    losses = TrainStep(model, opt, loss_fn).run_steps(batches)["loss"].cpu()
+    _, m, v = _table_state(model, opt)
+    out = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    out.update({"embedding.m": m.cpu(), "embedding.v": v.cpu()})
+    return losses, out
+
+
+def _eager_lazy_run_on(device, weight, ids, ys, lr):
+    """Eager ``Adam(lazy_mode=True)`` over ``Embedding(sparse=True)``: the
+    table and its moments after one step per ``ys``."""
+    from paddle_tpu_torch.nn.layer import Embedding
+    from paddle_tpu_torch.optimizer import Adam
+
+    emb = Embedding(*weight.shape, sparse=True, device=device)
+    with torch.no_grad():
+        emb.weight.copy_(weight)
+    opt = Adam(learning_rate=lr, parameters=emb.parameters(), lazy_mode=True)
+    idx = torch.from_numpy(ids).to(device)
+    for y in ys:
+        (emb(idx) * torch.from_numpy(y).to(device)).sum().backward()
+        opt.step()
+        opt.clear_grad()
+    return {"table": emb.weight.detach().cpu(), "m": opt._state["m"][0].cpu(),
+            "v": opt._state["v"][0].cpu()}
+
+
+def phase_dlrm_check():
+    """DLRM at the full widths with a cut vocabulary (8 x 10,000) and batch
+    (512): 3 ``run_steps`` steps of ``RowSparseAdam`` on the card and on the
+    CPU from the same weights (seed 30) and the bench's batches (seed 31),
+    in f32 (twice on the card: bitwise equal) and in float64
+    (``DLRM_CHECK_TOL``); the rows no batch looked up keep their values and
+    zero moments; then 2 eager ``Adam(lazy_mode=True)`` steps over
+    ``Embedding(sparse=True)`` with the first batch's fused ids, f32, the
+    table and its moments within the f32 table limit."""
+    from paddle_tpu_torch.models.dlrm import DLRM
+
+    c = DLRM_CHECK
+    cfg = dlrm_config(c["vocab_sizes"])
+    state = DLRM(cfg, device="cpu", seed=SEED + 30).state_dict()
+    batches = dlrm_batches(cfg, c["batch"], c["steps"], 1, seed=SEED + 31)[0]
+    lr = DLRM_TRAIN["lr"]
+    untouched = ~torch.isin(torch.arange(state["embedding.weight"].shape[0]),
+                            torch.from_numpy(_fused_rows(cfg, batches)))
+    results, ok = {}, True
+    for dtype in (torch.float32, torch.float64):
+        tol = DLRM_CHECK_TOL[dtype]
+        loss_c, got_c = _dlrm_run_on("cuda", dtype, cfg, state, batches, lr)
+        loss_h, got_h = _dlrm_run_on("cpu", dtype, cfg, state, batches, lr)
+        extra = {}
+        if dtype == torch.float32:
+            loss_c2, got_c2 = _dlrm_run_on("cuda", dtype, cfg, state, batches, lr)
+            extra["card_runs_bitwise"] = bool(torch.equal(loss_c, loss_c2) and all(
+                torch.equal(got_c[n], got_c2[n]) for n in got_c))
+        loss_rel = float(((loss_c - loss_h).abs() / loss_h.abs()).max())
+        rel = _grad_rel_l2(got_c, got_h)
+        table = {n: rel[n] for n in ("embedding.weight", "embedding.m", "embedding.v")}
+        mlp = {n: r for n, r in rel.items() if n not in table}
+        worst = max(mlp, key=mlp.get)
+        kept = bool(torch.equal(got_c["embedding.weight"][untouched],
+                                state["embedding.weight"][untouched].to(dtype))
+                    and not got_c["embedding.m"][untouched].any())
+        agree = (loss_rel <= tol["loss_rtol"] and max(table.values()) <= tol["table_rel_l2_max"]
+                 and mlp[worst] <= tol["mlp_rel_l2_max"] and kept
+                 and extra.get("card_runs_bitwise", True) and bool(torch.isfinite(loss_c).all()))
+        ok = ok and agree
+        results[str(dtype).replace("torch.", "")] = dict(
+            ok=agree, losses_card=loss_c.tolist(), losses_cpu=loss_h.tolist(), loss_rel=loss_rel,
+            table_rel_l2=table, mlp_rel_l2_worst=mlp[worst], worst=worst,
+            mlp_rel_l2_median=float(np.median(list(mlp.values()))), untouched_rows_kept=kept,
+            **extra, **tol)
+    # eager lazy Adam over the fused ids of the first batch
+    offsets = np.cumsum((0,) + cfg.vocab_sizes[:-1])[None, :]
+    ids = (batches[0][0][1] + offsets).astype(np.int64)
+    rng = np.random.default_rng(SEED + 32)
+    ys = [rng.normal(size=ids.shape + (cfg.embedding_dim,)).astype(np.float32)
+          for _ in range(c["eager_steps"])]
+    weight = state["embedding.weight"][:cfg.total_vocab]
+    eager_c = _eager_lazy_run_on("cuda", weight, ids, ys, lr)
+    eager_h = _eager_lazy_run_on("cpu", weight, ids, ys, lr)
+    eager_rel = _grad_rel_l2(eager_c, eager_h)
+    eager_ok = max(eager_rel.values()) <= DLRM_CHECK_TOL[torch.float32]["table_rel_l2_max"]
+    ok = ok and eager_ok
+    emit(phase="dlrm_check", ok=ok, vocab_sizes=list(c["vocab_sizes"]), batch=c["batch"],
+         steps=c["steps"], eager_lazy_rel_l2=eager_rel, eager_lazy_ok=eager_ok,
+         tf32=torch.backends.cuda.matmul.allow_tf32, **results)
+    if not ok:
+        raise AssertionError("dlrm_check phase failed: the card's steps and the CPU's disagree")
+
+
+def _optim_cases():
+    """name -> (optimizer factory over (parameters), the update path)."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.nn import clip as C
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+
+    lr = OPTIM_CHECK["lr"]
+    cases = {
+        "SGD": lambda ps: O.SGD(lr, parameters=ps),
+        "SGD_L2_global_norm": lambda ps: O.SGD(lr, parameters=ps, weight_decay=L2Decay(1e-2),
+                                               grad_clip=C.ClipGradByGlobalNorm(1.0)),
+        "Momentum_L1_norm": lambda ps: O.Momentum(lr, parameters=ps, weight_decay=L1Decay(1e-3),
+                                                  grad_clip=C.ClipGradByNorm(1.0)),
+        "Momentum_nesterov_float": lambda ps: O.Momentum(lr, parameters=ps, use_nesterov=True,
+                                                         weight_decay=1e-2),
+        "Adam_L2_value": lambda ps: O.Adam(lr, parameters=ps, weight_decay=L2Decay(1e-2),
+                                           grad_clip=C.ClipGradByValue(0.5)),
+        "AdamW": lambda ps: O.AdamW(lr, parameters=ps, weight_decay=0.01),
+        "RowSparseAdam": lambda ps: O.RowSparseAdam(lr, parameters=ps, sparse_params=["0"]),
+        "Lamb": lambda ps: O.Lamb(lr, parameters=ps),
+        "Adagrad": lambda ps: O.Adagrad(lr, parameters=ps, initial_accumulator_value=0.1),
+        "RMSProp": lambda ps: O.RMSProp(lr, parameters=ps, momentum=0.5),
+        "RMSProp_centered": lambda ps: O.RMSProp(lr, parameters=ps, momentum=0.5, centered=True),
+        "Adadelta": lambda ps: O.Adadelta(lr, parameters=ps),
+        "Adamax": lambda ps: O.Adamax(lr, parameters=ps),
+    }
+    return {f"{name}/{path}": (make, path) for name, make in cases.items()
+            for path in ("step", "train_step")}
+
+
+def _optim_step_on(device, make, path, p0, g0):
+    """One update of ``make``'s optimizer over a weight and a bias on
+    ``device``: the parameters and every state tensor, on the CPU."""
+    params = [torch.tensor(p, device=device, requires_grad=True) for p in p0]
+    for p, g in zip(params, g0):
+        p.grad = torch.tensor(g, device=device)
+    opt = make(params)
+    if path == "step":
+        opt.step()
+    else:
+        opt._traced_update(opt.lr_at(0))
+    out = {f"param.{i}": p.detach().cpu() for i, p in enumerate(params)}
+    out.update({f"{k}.{i}": t.cpu() for k, ts in (opt._state or {}).items() for i, t in enumerate(ts)})
+    return out
+
+
+def phase_optim_check():
+    """One step of each optimizer core on the card against the CPU, through
+    ``step()`` (clip, then decay) and the ``TrainStep`` update (decay, then
+    clip), over a ``[4096, 1024]`` weight and a ``[1024]`` bias from seed 40,
+    whose weight rows 0-511 have an all-zero gradient (so ``RowSparseAdam``'s
+    masked path keeps them): each parameter and state tensor within
+    ``OPTIM_CHECK_TOL`` of its largest entry."""
+    rng = np.random.default_rng(SEED + 40)
+    shape = OPTIM_CHECK["shape"]
+    p0 = [rng.normal(size=shape).astype(np.float32), rng.normal(size=shape[1:]).astype(np.float32)]
+    g0 = [rng.normal(size=shape).astype(np.float32), rng.normal(size=shape[1:]).astype(np.float32)]
+    g0[0][:512] = 0.0
+    errs, kept = {}, False
+    for name, (make, path) in _optim_cases().items():
+        got = _optim_step_on("cuda", make, path, p0, g0)
+        want = _optim_step_on("cpu", make, path, p0, g0)
+        errs[name] = max(float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp(min=1e-30))
+                         for k in want)
+        if name == "RowSparseAdam/train_step":
+            kept = torch.equal(got["param.0"][:512], torch.from_numpy(p0[0][:512]))
+    worst = max(errs, key=errs.get)
+    ok = errs[worst] <= OPTIM_CHECK_TOL and kept
+    emit(phase="optim_check", ok=ok, shape=list(shape), cases=len(errs), max_err=errs,
+         worst=worst, row_sparse_zero_rows_kept=kept, tol=OPTIM_CHECK_TOL)
+    if not ok:
+        raise AssertionError("optim_check phase failed: an optimizer's card step and CPU step disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card", file=sys.stderr)
@@ -3101,6 +3552,12 @@ def main() -> int:
     phase_resnet_check()
     torch.cuda.empty_cache()
     by_path["lenet_train"] = phase_lenet_train()
+    torch.cuda.empty_cache()
+    by_path["dlrm_train"] = phase_dlrm_train()
+    torch.cuda.empty_cache()
+    phase_dlrm_check()
+    torch.cuda.empty_cache()
+    phase_optim_check()
 
     keys = ("shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3125,8 +3582,8 @@ def main() -> int:
     # K1 runs in the forward and in training, K2 in training, K4 and K4b in
     # the GPT-MoE step (with K1 and K2), K3 in BERT's forward, K3 and K3b in
     # BERT's step and in GPT's step with FLAGS_flash_flat on, K1 and K2 in
-    # the 1.3B and ERNIE steps; the vision steps none (their phases check
-    # that every count stays 0)
+    # the 1.3B and ERNIE steps; the vision steps and DLRM's none (their
+    # phases check that every count stays 0)
     expected = {"forward": [K1["name"]], "serve": [], "serve_round2": [], "serve_spec": [],
                 "fleet": [], "procfleet": [], "ingress": [], "alerts": [],
                 "train": [K1["name"], K2["name"]],
@@ -3135,7 +3592,7 @@ def main() -> int:
                 "flat_check": [K3["name"], K3B["name"]],
                 "gpt3_1p3b_train": [K1["name"], K2["name"]],
                 "ernie_train": [K1["name"], K2["name"]],
-                "resnet50_train": [], "lenet_train": []}
+                "resnet50_train": [], "lenet_train": [], "dlrm_train": []}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]
     if missing:
         raise AssertionError(f"the main path launched these kernels no time: {missing}")

@@ -7,6 +7,6 @@ Pallas kernel of a ported path is a hand-written CUDA kernel under ``csrc/``,
 built by ``nvcc`` at first use. Entry points (``models.gpt.GPTForPretraining``,
 ``models.bert.BertForPretraining``, ``models.ernie.ErnieForPretraining``,
 ``vision.models.resnet50`` and the other ResNets, ``models.lenet.LeNet``,
-``inference.DecodeEngine``) run on ``cuda`` unless the caller passes
-``device="cpu"``.
+``models.dlrm.DLRM``, ``inference.DecodeEngine``) run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """

@@ -19,6 +19,15 @@ micro-batches (:func:`paddle_tpu_torch.distributed.pipeline.microbatch`),
 each runs its forward and backward, the f32 gradients add up on the masters
 and are divided by k, the loss is the mean of the k losses, and one update
 follows (a gradient clip sees the average).
+
+The forward and backward run inside
+:func:`~paddle_tpu_torch.framework.selected_rows.compiled_step`, as the
+reference's run inside its trace: no layer records looked-up rows there,
+and an out-of-range embedding id gives the zero row. The update is the
+optimizer's compiled-path one (``Optimizer._traced_update``: penalty, clip,
+core), keyed by the model's ``named_parameters`` names, so
+``RowSparseAdam(sparse_params=["embedding.weight"])`` matches the table
+even when it was given bare ``model.parameters()``.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from torch.func import functional_call
 from ..distributed.pipeline import microbatch, unmicrobatch
 from ..distributed.recompute import recompute
 from ..framework.flags import flag
+from ..framework.selected_rows import compiled_step
 from ..observability import metrics, slo
 
 _NOT_PORTED = "TrainStep: {} is not ported yet (ROADMAP.md, Queue 1 item {})"
@@ -94,6 +104,7 @@ class TrainStep:
         self.accumulate_steps = int(accumulate_steps)
         self.return_outputs = bool(return_outputs)
         self.device = next(model.parameters()).device
+        self._param_names = {id(p): n for n, p in model.named_parameters()}
 
     def _to_amp(self, t):
         return t.to(self.amp_dtype) if t.dtype == torch.float32 else t
@@ -136,9 +147,10 @@ class TrainStep:
         self.model.train()
         try:
             for i in range(k):
-                loss, out = self._loss(tuple(x[i].contiguous() for x in mb_in),
-                                       tuple(x[i].contiguous() for x in mb_lb))
-                loss.backward()  # adds this micro-batch's f32 gradients on the masters
+                with compiled_step():
+                    loss, out = self._loss(tuple(x[i].contiguous() for x in mb_in),
+                                           tuple(x[i].contiguous() for x in mb_lb))
+                    loss.backward()  # adds this micro-batch's f32 gradients on the masters
                 losses.append(loss.detach())
                 outs.append(_tree_map(torch.Tensor.detach, out) if self.return_outputs else None)
                 del loss, out
@@ -149,7 +161,7 @@ class TrainStep:
                 for p in self.model.parameters():
                     if p.grad is not None:
                         p.grad.div_(k)
-        self.optimizer._apply(lr)
+        self.optimizer._traced_update(lr, self._param_names)
         outputs = None
         if self.return_outputs:
             outputs = outs[0] if k == 1 else _stack_microbatches(*outs)
@@ -182,6 +194,10 @@ class TrainStep:
                     raise ValueError(f"pre-stacked batch leaf has leading dim {tuple(t.shape[:1])}, "
                                      f"expected ({k},)")
             batches = [(tuple(t[i] for t in inputs), tuple(t[i] for t in labels)) for i in range(k)]
+        # every batch on the device before the first step: a copy from host
+        # memory waits for the card, so copies between steps would hold each
+        # step's launches back until the previous step had run
+        batches = [(_as_tensors(i, self.device), _as_tensors(l, self.device)) for i, l in batches]
         results = [self._step(i, l) for i, l in batches]
         metrics.counter_inc("train_step.dispatches")
         metrics.counter_inc("train_step.steps", len(results))

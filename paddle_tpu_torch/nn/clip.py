@@ -1,9 +1,39 @@
-"""Gradient clipping of the port (``paddle_tpu/nn/clip.py``): the global-norm
-clip that GPT pretraining uses. The by-value and by-norm clips are not ported
-yet (ROADMAP.md, Queue 1 item 7)."""
+"""Gradient clipping of the port (``paddle_tpu/nn/clip.py``): by value, by
+each gradient's norm, by the global norm, and torch's ``clip_grad_norm_``.
+
+Each clip's ``apply_list(grads)`` returns the clipped gradients as new
+tensors, in their own dtypes, as the optimizers use it. Norms are taken in
+f32."""
 from __future__ import annotations
 
 import torch
+
+
+class ClipGradByValue:
+    """Clamp every gradient element to ``[min, max]`` (``min`` defaults to
+    ``-max``)."""
+
+    def __init__(self, max, min=None):
+        self.max = max
+        self.min = -max if min is None else min
+
+    def apply_list(self, grads):
+        return [g.clamp(self.min, self.max) for g in grads]
+
+
+class ClipGradByNorm:
+    """Scale each gradient by ``min(1, clip_norm / max(its norm, 1e-12))``."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    def apply_list(self, grads):
+        out = []
+        for g in grads:
+            norm = torch.sqrt(g.float().square().sum())
+            scale = (self.clip_norm / norm.clamp(min=1e-12)).clamp(max=1.0)
+            out.append((g.float() * scale).to(g.dtype))
+        return out
 
 
 class ClipGradByGlobalNorm:
@@ -18,7 +48,38 @@ class ClipGradByGlobalNorm:
         self.clip_norm = clip_norm
 
     def apply_list(self, grads):
-        """The clipped gradients, in their own dtypes (new tensors)."""
         total = sum(g.float().square().sum() for g in grads)
         scale = (self.clip_norm / torch.sqrt(total).clamp(min=1e-12)).clamp(max=1.0)
         return [(g.float() * scale).to(g.dtype) for g in grads]
+
+
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0, error_if_nonfinite=False):
+    """Scale the ``.grad`` of ``parameters`` in place so their total norm
+    of order ``norm_type`` is at most ``max_norm``; returns the norm (an f32
+    tensor), or None when no parameter has a gradient.
+
+    ``error_if_nonfinite=True`` raises ``RuntimeError`` on a NaN or Inf
+    norm before touching a gradient; otherwise the norm flows through the
+    scale as in torch: a NaN norm makes every gradient NaN, an Inf norm
+    scales them to 0."""
+    params = [p for p in parameters if p.grad is not None]
+    if not params:
+        return None
+    norm_type = float(norm_type)
+    if norm_type == float("inf"):
+        gnorm = torch.stack([p.grad.float().abs().max() for p in params]).max()
+    elif norm_type == 2.0:
+        gnorm = torch.sqrt(sum(p.grad.float().square().sum() for p in params))
+    else:
+        gnorm = sum((p.grad.float().abs() ** norm_type).sum() for p in params) ** (1.0 / norm_type)
+    if error_if_nonfinite and not bool(torch.isfinite(gnorm)):
+        raise RuntimeError(
+            f"The total norm of order {norm_type} for gradients from "
+            "`parameters` is non-finite, so it cannot be clipped. To disable "
+            "this error and scale the gradients by the non-finite norm "
+            "anyway, set `error_if_nonfinite=False`")
+    scale = (max_norm / gnorm.clamp(min=1e-12)).clamp(max=1.0)
+    with torch.no_grad():
+        for p in params:
+            p.grad = (p.grad.float() * scale).to(p.grad.dtype)
+    return gnorm

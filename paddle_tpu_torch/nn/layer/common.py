@@ -2,11 +2,12 @@
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...framework.device import resolve_device
+from ...framework.selected_rows import in_compiled_step, record_rows
 from .. import initializer as I
+from ..functional.common import embedding
 
 
 class Linear(nn.Module):
@@ -30,19 +31,31 @@ class Linear(nn.Module):
 class Embedding(nn.Module):
     """``paddle.nn.Embedding``: a ``[num_embeddings, embedding_dim]`` table
     drawn Normal(0, ``init_std``), where ``init_std`` is 1 as in the
-    reference. ``padding_idx`` and ``sparse`` are not ported."""
+    reference, looked up by :func:`~paddle_tpu_torch.nn.functional.embedding`
+    (an out-of-range id raises outside a ``TrainStep`` and gives the zero row
+    inside one; ``padding_idx`` rows give zeros and get no gradient).
+    ``sparse=True`` records the rows each gradient-taking forward outside a
+    ``TrainStep`` looks up, for the lazy eager optimizers (``SGD``,
+    ``Adam(lazy_mode=True)``)."""
 
     init_std = 1.0
 
-    def __init__(self, num_embeddings, embedding_dim, *, device=None, generator=None):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None, sparse=False, *,
+                 device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
+        self.padding_idx = padding_idx
+        self._sparse = bool(sparse)
         self.weight = nn.Parameter(
             I.normal((num_embeddings, embedding_dim), self.init_std, generator, device))
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        out = embedding(x, self.weight, padding_idx=self.padding_idx)
+        if (self._sparse and self.weight.requires_grad and torch.is_grad_enabled()
+                and not in_compiled_step()):
+            record_rows(self.weight, x)
+        return out
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"

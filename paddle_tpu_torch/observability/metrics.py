@@ -22,6 +22,7 @@ __all__ = [
     "histograms", "counter_value", "gauge_value", "find_histogram", "snapshot",
     "prometheus_text", "escape_help", "escape_label_value", "reset_all",
     "FLEET_COUNTERS", "INGRESS_COUNTERS", "SERVING_COUNTERS", "OBS_COUNTERS", "SLO_COUNTERS",
+    "RECSYS_COUNTERS",
 ]
 
 # Default bucket bounds (seconds): half-decade geometric ladder, 1us to 100s.
@@ -315,6 +316,18 @@ INGRESS_COUNTERS: Tuple[str, ...] = (
     "rpc.socket_msgs", "rpc.store_msgs", "rpc.socket_connects",
     "rpc.socket_fallbacks", "rpc.partial_drains",
 )
+# The recommender workload (distributed/embedding.py, models/dlrm.py):
+# ``embedding.lookups`` counts ShardedEmbedding forwards; ``rows_touched`` the
+# unique rows of eager lookups (none inside a TrainStep, as the reference
+# counts none in its compiled step); ``ids_exchanged``, ``a2a_bytes`` and
+# ``rows_checkpointed`` stay 0 until the sharded exchange and the checkpoint
+# rotation are ported (ROADMAP.md, Queue 1 item 13d); ``recsys.steps`` and
+# ``recsys.examples`` are bumped by the training driver.
+RECSYS_COUNTERS: Tuple[str, ...] = (
+    "recsys.steps", "recsys.examples",
+    "embedding.lookups", "embedding.ids_exchanged", "embedding.a2a_bytes",
+    "embedding.rows_touched", "embedding.rows_checkpointed",
+)
 # The observability plane's own cost (trace, flight recorder, run-log
 # rotation and GC, measured step times, the /metrics exporter).
 OBS_COUNTERS: Tuple[str, ...] = (
@@ -334,8 +347,8 @@ SLO_COUNTERS: Tuple[str, ...] = (
     "regress.flightrecs",
 )
 # ...and the runtime sanitizer's ledger-growth trips (analysis/sanitizer.py)
-for _name in (SERVING_COUNTERS + FLEET_COUNTERS + INGRESS_COUNTERS + OBS_COUNTERS
-              + SLO_COUNTERS + ("sanitizer.ledger_growth",)):
+for _name in (SERVING_COUNTERS + FLEET_COUNTERS + INGRESS_COUNTERS + RECSYS_COUNTERS
+              + OBS_COUNTERS + SLO_COUNTERS + ("sanitizer.ledger_growth",)):
     declare_counter(_name)
 del _name
 

@@ -1,4 +1,5 @@
-"""Optimizers of the port (the ported subset of ``paddle_tpu.optimizer``)."""
+"""Optimizers of the port (``paddle_tpu.optimizer``)."""
 from . import functional  # noqa: F401
 from . import lr  # noqa: F401
-from .optimizer import AdamW, Momentum, Optimizer  # noqa: F401
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb, Momentum,  # noqa: F401
+                        Optimizer, RMSProp, RowSparseAdam)

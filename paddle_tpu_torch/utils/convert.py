@@ -26,7 +26,10 @@ The vision models (``vision.models.resnet``'s family and ``models.lenet``)
 keep the reference's module names, its ``[out, in / groups, kh, kw]``
 convolution weights and ``[in, out]`` ``Linear`` weights, and its batch-norm
 buffers ``_mean`` and ``_variance``; :func:`state_dict_by_name` carries
-such a state across name for name, checked against the target model.
+such a state across name for name, checked against the target model, and
+DLRM's the same way (``bottom.N.*``, ``embedding.weight`` padded to
+``pad_multiple`` rows, ``top.N.*``; the model's offset and interaction
+index buffers are not part of the state).
 """
 from __future__ import annotations
 
@@ -169,7 +172,8 @@ def state_dict_by_name(np_state: Dict[str, np.ndarray],
                        model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """A ``paddle_tpu`` state_dict (parameters and buffers, as numpy
     arrays) as ``model``'s state_dict (CPU tensors), tensor for tensor as
-    it is: a ResNet or LeNet, whose names and layouts are the reference's.
+    it is: a ResNet, LeNet or DLRM, whose names and layouts are the
+    reference's.
     Raises ``KeyError`` unless the names are exactly ``model``'s and
     ``ValueError`` on a shape that differs from ``model``'s."""
     want = model.state_dict()

@@ -80,15 +80,20 @@ OBSERVABILITY_MODULES = {"paddle_tpu_torch.analysis", "paddle_tpu_torch.analysis
                          "paddle_tpu_torch.observability.measured",
                          "paddle_tpu_torch.observability.__main__"}
 
+# modules of the recommender slice and the optimizer layer
+RECSYS_MODULES = {"paddle_tpu_torch.models.dlrm", "paddle_tpu_torch.distributed.embedding",
+                  "paddle_tpu_torch.framework.selected_rows", "paddle_tpu_torch.regularizer",
+                  "paddle_tpu_torch.nn.functional.common"}
+
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
-              | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES)
+              | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 76
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 81
 
 
 def test_observability_flags_arm_in_both_fleets(monkeypatch):
@@ -162,6 +167,15 @@ def test_entry_points_raise_without_cuda_and_device():
         GPTForPretraining(GPTConfig.gpt3_1p3b(recompute=True, recompute_granularity="selective"))
     assert ErnieForPretraining(ErnieConfig.tiny(), device="cpu").sop.weight.device.type == "cpu"
     assert GPTForPretraining(GPTConfig.tiny(), device="cpu").gpt.layers.qkv_w.device.type == "cpu"
+    from paddle_tpu_torch.distributed.embedding import ShardedEmbedding
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMConfig
+    from paddle_tpu_torch.nn.layer import Embedding
+
+    for make in (lambda: DLRM(DLRMConfig.tiny()), lambda: ShardedEmbedding(8, 4),
+                 lambda: Embedding(8, 4, sparse=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert DLRM(DLRMConfig.tiny(), device="cpu").embedding.weight.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):

@@ -320,8 +320,25 @@ def test_momentum_core_matches_paddle_tpu(nesterov):
 
 
 def test_momentum_weight_decay_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Momentum(parameters=[torch.zeros(2, requires_grad=True)], weight_decay=1e-4)
+    """Momentum's ``weight_decay`` (ported since; the name is kept): a float
+    is L2, added to the gradient before the velocity, as the reference's
+    eager step does; three steps from the same parameter and gradients."""
+    rng = _rng(8)
+    p0 = rng.standard_normal((4, 3)).astype(np.float32)
+    jp = paddle.to_tensor(p0.copy(), stop_gradient=False)
+    tp = torch.from_numpy(p0.copy()).requires_grad_()
+    jo = paddle.optimizer.Momentum(learning_rate=LR, parameters=[jp], weight_decay=1e-2)
+    to = Momentum(learning_rate=LR, parameters=[tp], weight_decay=1e-2)
+    for _ in range(3):
+        g = rng.standard_normal((4, 3)).astype(np.float32)
+        (jp * paddle.to_tensor(g)).sum().backward()
+        jo.step()
+        jo.clear_grad()
+        (tp * torch.from_numpy(g)).sum().backward()
+        to.step()
+        to.clear_grad()
+    np.testing.assert_allclose(tp.detach().numpy(), _np(jp.numpy()), **VALUE)
+    assert not np.allclose(tp.detach().numpy(), p0)
 
 
 # --------------------------------------------------------------------- models
