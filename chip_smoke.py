@@ -324,6 +324,34 @@ K3B = dict(name="flash_flat_bwd", route="cuda", source="paddle_tpu_torch/csrc/fl
            replaces="paddle_tpu/ops/flash_attention_flat.py:293")
 KERNELS = (K1, K2, K3, K3B, K4, K4B)
 
+# dist_two_rank: BERT at full width cut to 2 layers, f32 (TF32 off), the
+# global [16, 512] batch of bert_train, 3 AdamW steps at lr 1e-4, at dp 2 and
+# at mp 2 in two gloo processes on one card against one process's
+# full-batch step; and one SyncBatchNorm layer at dp 2 on [8, 64, 16, 16]
+# dp_bert_train holds the stream with a sleep kernel of this many cycles (about
+# 50 ms) while the host enqueues the reducer's passes, so CUDA events around
+# them time the device's work alone
+DP_HOLD_CYCLES = 100_000_000
+DIST_CHECK = dict(layers=2, batch=16, seq=512, lr=1e-4, steps=3, bn_shape=(8, 64, 16, 16),
+                  timeout=600.0)
+# the losses within rtol 1e-5 of the one-process step's and the first step's
+# (averaged, gathered) gradients within a relative L2 error of 1e-4, as
+# TRAIN_CHECK_TOL; each parameter after the steps within a relative L2 error
+# of 2e-5, the tolerance the CPU parity tests hold whole AdamW steps to
+# (Adam divides each gradient by its own RMS, so f32 sums in another order
+# carry into the update undamped). The parameters that start at 0 (the
+# biases) are held by their gradient above and, after the steps, within
+# the steps' reach of 2 lr each: AdamW moves an entry whose gradient is
+# within rounding noise of 0 (the key block of a qkv bias is exactly 0 in
+# exact arithmetic) by about lr times the sign of that noise, which is of
+# the order of such a parameter's whole norm after a few steps (measured on
+# the card: qkv biases 1.2e-2 to 2.9e-2 relative L2, ffn1.bias 1.9e-5, the
+# weights below 2e-5). The batch norm's
+# outputs and gradients within atol 1e-5 plus rtol 1e-5 of the largest
+# entry (sums over the batch split in two)
+DIST_CHECK_TOL = dict(loss_rtol=1e-5, grad_rel_l2=1e-4, param_rel_l2=2e-5, bn_atol=1e-5,
+                      bn_rtol=1e-5)
+
 # the GPT-MoE of bench.py:_measure_moe (bench.py:304): h 1024, 8 layers, 16
 # heads, 8 experts in every second block, capacity factor 2.0; its step is
 # f32 AdamW (lr 1e-4) at ids [8, 1024]
@@ -1682,6 +1710,10 @@ def _model_flops_per_step(cfg, batch, seq):
 
 def _kernel_group(name):
     """The group of a device kernel by its name, for the step's breakdown."""
+    if "nccl" in name.lower():
+        return "collectives (NCCL)"
+    if "CatArrayBatchedCopy" in name:
+        return "concatenation"
     if "flash_flat_fwd_kernel" in name:
         return "K3 flash_flat_fwd"
     if "flat_bwd_" in name:
@@ -2503,7 +2535,7 @@ def phase_bert_train():
          bound_share=bound_ms / ms_per_step, profile=breakdown)
     if not ok:
         raise AssertionError("bert_train phase failed")
-    return launches, losses
+    return launches, losses, ms_per_step
 
 
 def phase_bert_curves(kernel_losses):
@@ -2557,6 +2589,334 @@ def phase_bert_check():
     inputs, labels, _ = bert_batch(BERT_TRAIN["check_batch"], BERT_TRAIN["seq"], cfg.vocab_size)
     check_step_against_xla("bert_check", model, inputs, labels, bert_loss, "sdpa=xla", K3B,
                            cfg.num_layers, flat=True)
+
+
+def phase_dp_bert_train(bert_losses, bert_ms):
+    """``bert_train``'s step through the distributed layer in a world of one
+    over NCCL: ``init_parallel_env()``, ``fleet.init`` (dp 1, AMP O2 bf16 by
+    the strategy), ``fleet.distributed_step`` and ``fleet.shard_batch``, the
+    same batch and 13 steps. A world-1 all-reduce is a copy and the division
+    by 1 exact, so the losses must equal ``bert_train``'s bit for bit. Then
+    the reducer's device time (one step with the stream held by a sleep
+    kernel while the host enqueues the passes, so the events time the
+    device's work alone), one traced step, and the plain ``TrainStep`` of a
+    second model from the same seed timed against it in turns (plain, dp,
+    dp, plain). Returns the kernel launches of the 13 counted steps."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet, init_parallel_env
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    init_parallel_env()
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1}
+    strategy.amp = True
+    strategy.amp_configs = {"level": "O2", "dtype": "bfloat16"}
+    fleet.init(is_collective=True, strategy=strategy)
+    backend, world = dist.get_backend(), dist.get_world_size()
+    cfg = BertConfig()
+    b, s = BERT_TRAIN["batch"], BERT_TRAIN["seq"]
+    model = BertForPretraining(cfg, seed=SEED)
+    step = fleet.distributed_step(
+        model, AdamW(learning_rate=BERT_TRAIN["lr"], parameters=model.parameters()), bert_loss)
+    (ids, types, pos, mask), labels, lengths = bert_batch(b, s, cfg.vocab_size)
+    ids, types, mask, mlm, nsp = fleet.shard_batch(ids, types, mask, *labels)
+    inputs, labels = (ids, types, pos, mask), (mlm, nsp)  # positions are not a batch leaf
+    reducer, host_s = step._reducer, []
+    reduce = reducer.reduce
+
+    def host_timed_reduce(*args, **kwargs):
+        t = time.perf_counter()
+        out = reduce(*args, **kwargs)
+        host_s.append(time.perf_counter() - t)
+        return out
+
+    def timed(run, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            run(inputs, labels)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / n
+
+    reducer.reduce = host_timed_reduce
+    registry.clear_cache()
+    metrics.reset_counters("kernels.")
+    metrics.reset_counters("collective.")
+    set_flags({"FLAGS_flash_flat": True})
+    try:
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(inputs, labels)["loss"]) for _ in range(BERT_TRAIN["warmup"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed_losses = [step(inputs, labels)["loss"] for _ in range(BERT_TRAIN["steps"])]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses += [float(x) for x in timed_losses]
+        launches = {k: v - before[k] for k, v in read_launches().items()}
+        peak = torch.cuda.max_memory_allocated()
+        calls = metrics.counters("collective.")
+        reducer.reduce = reduce
+        # the reducer's device time: the stream sleeps while the host enqueues
+        device_ms = []
+
+        def held_reduce(*args, **kwargs):
+            torch.cuda._sleep(DP_HOLD_CYCLES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = reduce(*args, **kwargs)
+            end.record()
+            device_ms.append((start, end))
+            return out
+
+        reducer.reduce = held_reduce
+        for _ in range(3):
+            step(inputs, labels)
+        torch.cuda.synchronize()
+        reducer.reduce = reduce
+        device_ms = [a.elapsed_time(z) for a, z in device_ms]
+        breakdown = profile_step(step, inputs, labels)
+        # the plain step of a model from the same seed, timed in turns with it
+        plain_model = BertForPretraining(cfg, device="cuda", seed=SEED)
+        plain = TrainStep(plain_model, AdamW(learning_rate=BERT_TRAIN["lr"],
+                                             parameters=plain_model.parameters()),
+                          bert_loss, amp_level="O2")
+        for _ in range(BERT_TRAIN["warmup"]):
+            plain(inputs, labels)
+        turns = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            turns[name].append(timed(plain if name == "plain" else step, BERT_TRAIN["steps"]))
+    finally:
+        set_flags({"FLAGS_flash_flat": False})
+        registry.clear_cache()
+        reducer.reduce = reduce
+        dist.destroy_process_group()
+        fleet._hcg = None  # the later phases run without a fleet
+    n_steps = BERT_TRAIN["warmup"] + BERT_TRAIN["steps"]
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    ms_per_step = 1e3 * seconds / BERT_TRAIN["steps"]
+    buckets = len(reducer.buckets)
+    bucket_bytes = [sum(p.numel() * p.element_size() for p in ps) for _, ps in reducer.buckets]
+    L = cfg.num_layers
+    bitwise = losses == bert_losses
+    ok = (backend == "nccl" and world == 1 and bitwise and len(host_s) == n_steps
+          and per_step == {K1["name"]: 0, K2["name"]: 0, K3["name"]: L, K3B["name"]: L,
+                           K4["name"]: 0, K4B["name"]: 0}
+          and calls.get("collective.all_reduce.calls") == buckets * n_steps
+          and all(p.dtype == torch.float32 for p in model.parameters()))
+    emit(phase="dp_bert_train", ok=ok, backend=backend, world_size=world, ids=[b, s],
+         amp_level="O2", losses=losses, losses_bitwise_equal_bert_train=bitwise,
+         launches=launches, launches_per_step=per_step, collective_calls=calls,
+         seconds=seconds, ms_per_step=ms_per_step, bert_train_ms_per_step=bert_ms,
+         ms_ratio_to_bert_train=ms_per_step / bert_ms,
+         turns_ms_per_step=turns,
+         turns_ratio=float(np.mean(turns["dp"]) / np.mean(turns["plain"])),
+         tokens_per_s=b * s * BERT_TRAIN["steps"] / seconds,
+         nonpad_tokens_per_s=int(np.sum(lengths)) * BERT_TRAIN["steps"] / seconds,
+         reducer=dict(buckets=buckets, bytes=sum(bucket_bytes), bucket_bytes=bucket_bytes,
+                      device_ms=device_ms,
+                      host_ms_per_step=[1e3 * t for t in host_s[BERT_TRAIN["warmup"]:]]),
+         max_memory_allocated=peak, profile=breakdown)
+    if not ok:
+        raise AssertionError("dp_bert_train phase failed")
+    return launches
+
+
+def _dist_bert(layers, device, seed):
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+
+    return BertForPretraining(BertConfig(num_layers=layers), device=device, seed=seed)
+
+
+def _dist_bert_steps(step, inputs, labels):
+    """The losses of ``DIST_CHECK["steps"]`` steps through K3/K3b and the
+    gradients the first step updated with (averaged over dp; this rank's
+    shards at mp)."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import registry
+
+    registry.clear_cache()
+    set_flags({"FLAGS_flash_flat": True})
+    try:
+        losses = [float(step(inputs, labels)["loss"])]
+        grads = {n: p.grad.cpu().numpy() for n, p in step.model.named_parameters()}
+        losses += [float(step(inputs, labels)["loss"]) for _ in range(DIST_CHECK["steps"] - 1)]
+        return losses, grads
+    finally:
+        set_flags({"FLAGS_flash_flat": False})
+        registry.clear_cache()
+
+
+def _dist_rank_dp():
+    """Rank body of ``dist_two_rank`` (a), the SyncBatchNorm check and (b),
+    in a gloo world of two processes on ``cuda:0``."""
+    from paddle_tpu_torch.distributed import (DataParallel, DistributedStrategy, fleet,
+                                              get_rank)
+    from paddle_tpu_torch.nn.layer import Linear, SyncBatchNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = get_rank()
+    out = {}
+    # (a) tests/test_hooks_ddp.py:89-114: ranks feed 1s and 2s, the gradient is 3
+    lin = Linear(4, 1, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    dp = DataParallel(lin)
+    dp(torch.full((2, 4), r + 1.0, device="cuda")).sum().backward()
+    out["a_grad"] = lin.weight.grad.cpu().numpy()
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    # SyncBatchNorm at dp 2 over this rank's block of the [8, 64, 16, 16] batch
+    x, ct = _dist_bn_batch()
+    xb, cb = fleet.shard_batch(x, ct)
+    bn = SyncBatchNorm(x.shape[1], device="cuda")
+    bn_dp = DataParallel(bn)
+    xb.requires_grad_()
+    y = bn_dp(xb)
+    (y * cb).sum().backward()
+    out["bn"] = {k: t.detach().cpu().numpy() for k, t in
+                 (("out", y), ("dx", xb.grad), ("dw", bn.weight.grad), ("db", bn.bias.grad),
+                  ("mean", bn._mean), ("var", bn._variance))}
+    # (b) BERT at dp 2 through distributed_step and shard_batch
+    model = _dist_bert(DIST_CHECK["layers"], "cuda", SEED + 20)
+    step = fleet.distributed_step(
+        model, AdamW(learning_rate=DIST_CHECK["lr"], parameters=model.parameters()), bert_loss)
+    (ids, types, pos, mask), labels, _ = bert_batch(DIST_CHECK["batch"], DIST_CHECK["seq"],
+                                                    model.bert.cfg.vocab_size)
+    ids, types, mask, mlm, nsp = fleet.shard_batch(ids, types, mask, *labels)
+    out["b_losses"], grads = _dist_bert_steps(step, (ids, types, pos, mask), (mlm, nsp))
+    if r == 0:
+        out["b_state"] = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+        out["b_grads"] = grads
+    return out
+
+
+def _dist_rank_mp():
+    """Rank body of ``dist_two_rank`` (c): BERT at mp 2 (dp 1) in a gloo
+    world of two processes on ``cuda:0``; its K3/K3b launches."""
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    model = _dist_bert(DIST_CHECK["layers"], "cuda", SEED + 20)  # this rank's shards
+    step = fleet.distributed_step(
+        model, AdamW(learning_rate=DIST_CHECK["lr"], parameters=model.parameters()), bert_loss)
+    inputs, labels, _ = bert_batch(DIST_CHECK["batch"], DIST_CHECK["seq"],
+                                   model.bert.cfg.vocab_size)
+    reset_launches()
+    losses, grads = _dist_bert_steps(step, inputs, labels)
+    return dict(losses=losses, grads=grads, launches=read_launches(),
+                heads=model.bert.layers[0].attn.num_heads,
+                state={k: v.cpu().numpy() for k, v in model.state_dict().items()})
+
+
+def _dist_bn_batch():
+    gen = np.random.default_rng(SEED + 21)
+    x = (2 * gen.standard_normal(DIST_CHECK["bn_shape"]) + 0.5).astype(np.float32)
+    ct = gen.standard_normal(DIST_CHECK["bn_shape"]).astype(np.float32)
+    return x, ct
+
+
+def _rel_l2(got, want):
+    return {n: float(np.linalg.norm(got[n] - w) / max(np.linalg.norm(w), 1e-30))
+            for n, w in want.items()}
+
+
+def phase_dist_two_rank():
+    """Two gloo processes on ``cuda:0`` (NCCL refuses two ranks on one
+    device): (a) the reference test's eager DataParallel check; a
+    SyncBatchNorm at dp 2 against BatchNorm2D over the whole batch; (b)
+    BERT at full width, 2 layers, f32 (TF32 off), ``[16, 512]`` global, at
+    dp 2 through ``distributed_step`` and ``shard_batch``, and (c) at mp 2,
+    each against one process's full-batch step on the same card."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.layer import BatchNorm2D
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing.dist import run_ranks
+    from paddle_tpu_torch.utils.convert import gather_state
+
+    t0 = time.perf_counter()
+    # the references, in this process on the card
+    x, ct = _dist_bn_batch()
+    bn = BatchNorm2D(x.shape[1], device="cuda")
+    xt = torch.from_numpy(x).cuda().requires_grad_()
+    y = bn(xt)
+    (y * torch.from_numpy(ct).cuda()).sum().backward()
+    bn_ref = {k: t.detach().cpu().numpy() for k, t in
+              (("out", y), ("dx", xt.grad), ("dw", bn.weight.grad), ("db", bn.bias.grad),
+               ("mean", bn._mean), ("var", bn._variance))}
+    model = _dist_bert(DIST_CHECK["layers"], "cuda", SEED + 20)
+    zero_init = {n for n, p in model.named_parameters() if not bool(p.any())}
+    step = TrainStep(model, AdamW(learning_rate=DIST_CHECK["lr"], parameters=model.parameters()),
+                     bert_loss)
+    inputs, labels, _ = bert_batch(DIST_CHECK["batch"], DIST_CHECK["seq"], model.bert.cfg.vocab_size)
+    ref_losses, ref_grads = _dist_bert_steps(step, inputs, labels)
+    ref_state = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    cfg = model.bert.cfg
+    del model, step, inputs, labels
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    dp_out = run_ranks(_dist_rank_dp, 2, device="cuda:0", backend="gloo",
+                       timeout=DIST_CHECK["timeout"])
+    t_dp = time.perf_counter() - t0 - t_ref
+    mp_out = run_ranks(_dist_rank_mp, 2, device="cuda:0", backend="gloo",
+                       timeout=DIST_CHECK["timeout"])
+    t_mp = time.perf_counter() - t0 - t_ref - t_dp
+    tol = DIST_CHECK_TOL
+    a_ok = all(np.array_equal(o["a_grad"], np.full((4, 1), 3.0, np.float32)) for o in dp_out)
+    bn_err = {k: max(float(np.abs(o["bn"][k] - (want[rows] if k in ("out", "dx") else
+                                                   want / 2 if k in ("dw", "db") else want)).max())
+                     for o, rows in zip(dp_out, (slice(0, 4), slice(4, 8))))
+              for k, want in bn_ref.items()}
+    bn_ok = all(e <= tol["bn_atol"] + tol["bn_rtol"] * float(np.abs(bn_ref[k]).max())
+                for k, e in bn_err.items())
+
+    def agree(losses_by_rank, grads, state):
+        loss_err = max(abs(a - b) / abs(b) for losses in losses_by_rank
+                       for a, b in zip(losses, ref_losses))
+        grad_rel, rel = _rel_l2(grads, ref_grads), _rel_l2(state, ref_state)
+        held = {n: e for n, e in rel.items() if n not in zero_init}
+        reach = max(float(np.abs(state[n] - ref_state[n]).max()) for n in zero_init)
+        ok = (loss_err <= tol["loss_rtol"] and max(grad_rel.values()) <= tol["grad_rel_l2"]
+              and max(held.values()) <= tol["param_rel_l2"]
+              and reach <= 2 * DIST_CHECK["lr"] * DIST_CHECK["steps"])
+        worst_g, worst = max(grad_rel, key=grad_rel.get), max(held, key=held.get)
+        return ok, dict(losses=losses_by_rank[0], loss_rel_err=loss_err, grad_worst=worst_g,
+                        grad_rel_l2_worst=grad_rel[worst_g], param_worst=worst,
+                        param_rel_l2_worst=held[worst],
+                        zero_init_rel_l2={n: rel[n] for n in sorted(zero_init)},
+                        zero_init_abs_max=reach)
+
+    b_ok, b_report = agree([o["b_losses"] for o in dp_out], dp_out[0]["b_grads"],
+                           dp_out[0]["b_state"])
+    c_ok, c_report = agree([o["losses"] for o in mp_out],
+                           gather_state([o["grads"] for o in mp_out], cfg),
+                           gather_state([o["state"] for o in mp_out], cfg))
+    steps = DIST_CHECK["steps"]
+    c_launch_ok = all(o["launches"][K3["name"]] == cfg.num_layers * steps
+                      and o["launches"][K3B["name"]] == cfg.num_layers * steps and o["heads"] == 6
+                      for o in mp_out)
+    ok = a_ok and bn_ok and b_ok and c_ok and c_launch_ok
+    emit(phase="dist_two_rank", ok=ok, backend="gloo", device="cuda:0", world_size=2,
+         a_dp_grad_exact_3=a_ok, sync_bn=dict(ok=bn_ok, shape=list(x.shape), max_abs_err=bn_err),
+         ref_losses=ref_losses, b_dp2=dict(ok=b_ok, **b_report),
+         c_mp2=dict(ok=c_ok and c_launch_ok, heads_per_rank=mp_out[0]["heads"],
+                    launches=[{k: o["launches"][k] for k in (K3["name"], K3B["name"])}
+                              for o in mp_out], **c_report),
+         **tol, seconds=dict(reference=t_ref, dp2=t_dp, mp2=t_mp))
+    if not ok:
+        raise AssertionError("dist_two_rank phase failed")
 
 
 def phase_gpt3_train():
@@ -3527,11 +3887,16 @@ def main() -> int:
     del bert, bert_inputs
     torch.cuda.empty_cache()
     reset_launches()
-    by_path["bert_train"], bert_losses = phase_bert_train()
+    by_path["bert_train"], bert_losses, bert_ms = phase_bert_train()
+    torch.cuda.empty_cache()
+    reset_launches()
+    by_path["dp_bert_train"] = phase_dp_bert_train(bert_losses, bert_ms)
     torch.cuda.empty_cache()
     phase_bert_curves(bert_losses)
     torch.cuda.empty_cache()
     phase_bert_check()
+    torch.cuda.empty_cache()
+    phase_dist_two_rank()
     torch.cuda.empty_cache()
     reset_launches()
     phase_flat_check()
@@ -3581,7 +3946,8 @@ def main() -> int:
     emit(kernels=kernels, wall_s=time.perf_counter() - t_start)
     # K1 runs in the forward and in training, K2 in training, K4 and K4b in
     # the GPT-MoE step (with K1 and K2), K3 in BERT's forward, K3 and K3b in
-    # BERT's step and in GPT's step with FLAGS_flash_flat on, K1 and K2 in
+    # BERT's step (alone and through fleet.distributed_step) and in GPT's
+    # step with FLAGS_flash_flat on, K1 and K2 in
     # the 1.3B and ERNIE steps; the vision steps and DLRM's none (their
     # phases check that every count stays 0)
     expected = {"forward": [K1["name"]], "serve": [], "serve_round2": [], "serve_spec": [],
@@ -3589,6 +3955,7 @@ def main() -> int:
                 "train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "bert_forward": [K3["name"]], "bert_train": [K3["name"], K3B["name"]],
+                "dp_bert_train": [K3["name"], K3B["name"]],
                 "flat_check": [K3["name"], K3B["name"]],
                 "gpt3_1p3b_train": [K1["name"], K2["name"]],
                 "ernie_train": [K1["name"], K2["name"]],

@@ -28,6 +28,14 @@ optimizer's compiled-path one (``Optimizer._traced_update``: penalty, clip,
 core), keyed by the model's ``named_parameters`` names, so
 ``RowSparseAdam(sparse_params=["embedding.weight"])`` matches the table
 even when it was given bare ``model.parameters()``.
+
+With ``mesh`` (``fleet.distributed_step``), the reference's GSPMD step,
+whose gradient is the global batch's, becomes one process per rank whose
+gradients the ``dp`` group averages (:mod:`paddle_tpu_torch.distributed`).
+The returned loss is the dp group's mean of the ranks' losses: the global
+batch's mean when every rank's loss averages the same count (the MLM loss
+of ranks holding different numbers of labelled tokens weighs them
+differently; ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 
@@ -75,15 +83,20 @@ class TrainStep:
     in ``amp_dtype`` over f32 masters). ``remat``: recompute the model call
     in the backward. ``accumulate_steps``: micro-batches per update.
     ``return_outputs``: the model's outputs (in batch order) in the metrics
-    under ``"outputs"``. ``seed`` is kept for the reference's signature:
+    under ``"outputs"``. ``mesh``: the fleet's ``HybridCommunicateGroup``;
+    then each rank runs the step on its own block of the batch, and after
+    the backward the f32 master gradients (and the loss) are averaged over
+    the ``dp`` group, bucketed as ``DataParallel`` does, before the update.
+    That pass runs whenever a mesh is given, at dp 1 too (a sum over one
+    rank, divided by 1: the same bits). ``seed`` is kept for the reference's signature:
     nothing random runs in the step until dropout is ported. The knobs the
     port lacks raise ``NotImplementedError``."""
 
     def __init__(self, model, optimizer, loss_fn, mesh=None, state_shardings=None,
                  batch_shardings=None, remat=False, seed=0, amp_level=None, amp_dtype="bfloat16",
                  accumulate_steps=1, return_outputs=False, guard=None):
-        if mesh is not None or state_shardings is not None or batch_shardings is not None:
-            raise NotImplementedError(_NOT_PORTED.format("a device mesh or shardings", 13))
+        if state_shardings is not None or batch_shardings is not None:
+            raise NotImplementedError(_NOT_PORTED.format("state and batch shardings (ZeRO)", "13b"))
         if guard:
             raise NotImplementedError(_NOT_PORTED.format("guard", 6))
         if int(accumulate_steps) < 1:
@@ -105,6 +118,18 @@ class TrainStep:
         self.return_outputs = bool(return_outputs)
         self.device = next(model.parameters()).device
         self._param_names = {id(p): n for n, p in model.named_parameters()}
+        self.mesh = mesh
+        self._reducer = None
+        if mesh is not None:
+            from ..distributed.parallel import _BucketReducer
+            from ..distributed.topology import HybridCommunicateGroup
+
+            if not isinstance(mesh, HybridCommunicateGroup):
+                raise TypeError("TrainStep: mesh must be the fleet's HybridCommunicateGroup, got "
+                                f"{type(mesh).__name__}")
+            self._reducer = _BucketReducer([p for p in model.parameters() if p.requires_grad],
+                                           group=mesh.get_data_parallel_group(),
+                                           names=self._param_names)
 
     def _to_amp(self, t):
         return t.to(self.amp_dtype) if t.dtype == torch.float32 else t
@@ -161,11 +186,15 @@ class TrainStep:
                 for p in self.model.parameters():
                     if p.grad is not None:
                         p.grad.div_(k)
+        loss = torch.stack(losses).mean()
+        if self._reducer is not None:
+            # the f32 master gradients and the loss averaged over the dp group
+            loss = self._reducer.reduce(find_unused_parameters=True, extra=loss)
         self.optimizer._traced_update(lr, self._param_names)
         outputs = None
         if self.return_outputs:
             outputs = outs[0] if k == 1 else _stack_microbatches(*outs)
-        return torch.stack(losses).mean(), lr, outputs
+        return loss, lr, outputs
 
     def __call__(self, inputs, labels):
         """One step; returns ``{"loss": f32 scalar tensor, "lr": float}``,

@@ -10,6 +10,17 @@ padding mask ``[b|1, 1, s, s]`` and ``FLAGS_flash_flat`` on, that is the
 ``flash_flat_gqa`` impl (the CUDA kernels K3 forward and K3b backward on
 the card), as in the reference; without a mask it is ``flash`` (K1/K2).
 
+Under a fleet of model-parallel degree mp > 1 the model is Megatron's
+tensor-parallel BERT, as the reference's mp-annotated layers compute it
+under GSPMD: each rank runs ``num_heads / mp`` heads (its ``qkv_proj``
+shard holds the q, k and v columns of heads ``[r nh / mp, (r + 1) nh /
+mp)``, since the reference reshapes ``qkv`` to ``[b, s, 3, nh, dh]``), half
+the FFN, and a vocabulary shard of the tied word table, whose MLM logits
+stay sharded into ``ParallelCrossEntropy``; the position and token-type
+tables, the LayerNorms, the pooler and the heads are replicated. Each full
+weight is drawn from the seed as at one rank and each rank keeps its shard
+(``utils.convert.shard_state``/``gather_state`` move states across).
+
 Initialisation follows what the reference does, not what its source
 suggests: its ``weight_attr=I.Normal(0, initializer_range)`` arguments are
 ignored by ``create_parameter`` (an initializer object has no
@@ -26,7 +37,8 @@ import torch
 from torch import nn
 
 from ..distributed.mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
-                                     RowParallelLinear, VocabParallelEmbedding)
+                                     RowParallelLinear, VocabParallelEmbedding,
+                                     copy_to_model_parallel, model_parallel_degree)
 from ..framework.device import resolve_device
 from ..nn.functional.activation import gelu
 from ..nn.functional.attention import scaled_dot_product_attention
@@ -80,11 +92,17 @@ def _no_training_dropout(module, cfg):
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig, device, generator):
         super().__init__()
-        self.num_heads = cfg.num_heads
+        mp = model_parallel_degree()
+        if cfg.num_heads % mp:
+            raise ValueError(f"num_heads {cfg.num_heads} does not split over mp degree {mp}")
+        self.num_heads = cfg.num_heads // mp  # this rank's heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         H = cfg.hidden_size
-        self.qkv_proj = ColumnParallelLinear(H, 3 * H, device=device, generator=generator)
-        self.out_proj = RowParallelLinear(H, H, device=device, generator=generator)
+        # blocks=3: each rank holds the q, k and v columns of its own heads
+        self.qkv_proj = ColumnParallelLinear(H, 3 * H, gather_output=False, blocks=3,
+                                             device=device, generator=generator)
+        self.out_proj = RowParallelLinear(H, H, input_is_parallel=True, device=device,
+                                          generator=generator)
 
     def forward(self, x, attn_mask=None):
         b, s = x.shape[0], x.shape[1]
@@ -103,8 +121,10 @@ class BertLayer(nn.Module):
         self.cfg = cfg
         self.attn = BertSelfAttention(cfg, device, generator)
         self.norm1 = LayerNorm(H, device=device)
-        self.ffn1 = ColumnParallelLinear(H, Ff, device=device, generator=generator)
-        self.ffn2 = RowParallelLinear(Ff, H, device=device, generator=generator)
+        self.ffn1 = ColumnParallelLinear(H, Ff, gather_output=False, device=device,
+                                         generator=generator)
+        self.ffn2 = RowParallelLinear(Ff, H, input_is_parallel=True, device=device,
+                                      generator=generator)
         self.norm2 = LayerNorm(H, device=device)
 
     def forward(self, x, attn_mask=None):
@@ -177,7 +197,10 @@ class BertForPretraining(nn.Module):
         """``(mlm_logits [b, s, V], nsp_logits [b, 2])``."""
         h, pooled = self.bert(input_ids, token_type_ids, position_ids, attn_mask)
         h = self.transform_norm(gelu(self.transform(h), approximate=True))
-        mlm_logits = h @ self.bert.embeddings.word_embeddings.weight.T
+        table = self.bert.embeddings.word_embeddings
+        if table.group is not None:  # vocab-sharded logits, for ParallelCrossEntropy
+            h = copy_to_model_parallel(h, table.group)
+        mlm_logits = h @ table.weight.T
         return mlm_logits, self.nsp(pooled)
 
 

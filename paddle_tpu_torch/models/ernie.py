@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..distributed.mp_layers import model_parallel_degree
 from ..framework.device import resolve_device
 from ..nn.functional.activation import gelu
 from ..nn.layer import Embedding, LayerNorm, Linear
@@ -93,6 +94,9 @@ class ErnieForPretraining(nn.Module):
 
     def __init__(self, cfg: ErnieConfig, device=None, seed: int = 0):
         super().__init__()
+        if model_parallel_degree() > 1:
+            raise NotImplementedError("ERNIE under model parallelism is not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 13c)")
         device = resolve_device(device)
         generator = torch.Generator(device=device).manual_seed(int(seed))
         H = cfg.hidden_size

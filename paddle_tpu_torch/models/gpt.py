@@ -43,6 +43,7 @@ from torch import nn
 
 from ..distributed.moe import MoELayer
 from ..distributed.recompute import recompute as _recompute
+from ..distributed.mp_layers import model_parallel_degree
 from ..framework.device import resolve_device
 from ..ops import registry
 from ..ops.layer_norm import layer_norm_fused
@@ -356,6 +357,9 @@ class GPTForPretraining(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
         super().__init__()
+        if model_parallel_degree() > 1:
+            raise NotImplementedError("GPT under model parallelism is not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 13c)")
         device = resolve_device(device)
         generator = torch.Generator(device=device).manual_seed(int(seed))
         self.gpt = GPTModel(cfg, device, generator, seed=int(seed))

@@ -39,8 +39,7 @@ class _BatchNormBase(nn.Module):
     ``bias`` zeros (none with ``weight_attr``/``bias_attr`` False), and the
     running statistics in the f32 buffers ``_mean`` (zeros) and
     ``_variance`` (ones), the reference's names, so a state carries across
-    by name. ``SyncBatchNorm`` waits for distributed training (ROADMAP.md,
-    Queue 1 item 13)."""
+    by name."""
 
     # the 1-D and 3-D layers keep their layout whatever is passed, as the reference's do
     _format = None
@@ -83,3 +82,35 @@ class BatchNorm2D(_BatchNormBase):
 
 class BatchNorm3D(_BatchNormBase):
     _format = "NCDHW"
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Batch norm whose training statistics are those of the whole batch
+    across the data-parallel group
+    (:func:`~paddle_tpu_torch.nn.functional.sync_batch_norm`): the
+    reference's batch norm over a batch that GSPMD shards. With one rank it
+    is :class:`BatchNorm2D`."""
+
+    def forward(self, x):
+        return F.sync_batch_norm(x, self._mean, self._variance, self.weight, self.bias,
+                                 training=self.training, momentum=self.momentum,
+                                 epsilon=self.epsilon, data_format=self.data_format,
+                                 use_global_stats=self.use_global_stats)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """Swap every batch norm below ``layer`` for a ``SyncBatchNorm``
+        sharing its weight, bias and buffers, in place (the reference's
+        :79-90); returns ``layer``."""
+        for name, sub in list(layer._modules.items()):
+            if isinstance(sub, _BatchNormBase) and not isinstance(sub, SyncBatchNorm):
+                new = cls(sub.num_features, sub.momentum, sub.epsilon,
+                          data_format=sub.data_format, use_global_stats=sub.use_global_stats,
+                          device=sub._mean.device)
+                new.weight, new.bias = sub.weight, sub.bias
+                new._buffers = sub._buffers
+                new.train(sub.training)
+                layer._modules[name] = new
+            elif sub is not None:
+                cls.convert_sync_batchnorm(sub)
+        return layer

@@ -102,7 +102,7 @@ class Optimizer:
         live = [i for i, p in enumerate(self._params) if p.grad is not None]
         grads = dict(zip(live, (self._params[i].grad for i in live)))
         if self._grad_clip is not None:
-            grads = dict(zip(live, self._grad_clip.apply_list(list(grads.values()))))
+            grads = dict(zip(live, self._clip(list(grads.values()), live)))
         lazy = (self._lazy_sparse and hasattr(self.core, "row_update")
                 and self._grad_clip is None and not self._weight_decay)
         sparse = {}
@@ -122,6 +122,14 @@ class Optimizer:
             self.core.row_update(rows, grads[i][rows], state_p, p, lr, self._step_count)
         self._step_count += 1
 
+    def _clip(self, grads, live):
+        """The clip of ``grads`` (of the parameters ``live``); under tensor
+        parallelism the clip takes the parameters too, for whole norms."""
+        params = [self._params[i] for i in live]
+        if any(getattr(p, "mp_group", None) is not None for p in params):
+            return self._grad_clip.apply_list(grads, params=params)
+        return self._grad_clip.apply_list(grads)
+
     @torch.no_grad()
     def _traced_update(self, lr, keys_by_param=None):
         """The compiled step's update at ``lr``: penalty, clip, then the core
@@ -131,7 +139,7 @@ class Optimizer:
         live = [i for i, p in enumerate(self._params) if p.grad is not None]
         grads = self._penalized([self._params[i].grad for i in live], live)
         if self._grad_clip is not None:
-            grads = self._grad_clip.apply_list(grads)
+            grads = self._clip(grads, live)
         keys_by_param = keys_by_param or {}
         keys = [keys_by_param.get(id(self._params[i]), self._names[i]) for i in live]
         self._core_update(grads, live, lr, keys)
@@ -256,6 +264,13 @@ class Lamb(Optimizer):
                                       "(the reference takes it and ignores it)")
         super().__init__(learning_rate, parameters, None, grad_clip,
                          core=Fopt.LambCore(beta1, beta2, epsilon, lamb_weight_decay))
+
+    def _core_update(self, grads, live, lr, keys=None):
+        if any(getattr(self._params[i], "mp_group", None) is not None for i in live):
+            raise NotImplementedError(
+                "Lamb over tensor-parallel shards is not ported yet: its trust ratio needs "
+                "each parameter's whole norm (ROADMAP.md, Queue 1 item 13b)")
+        super()._core_update(grads, live, lr, keys)
 
 
 class Adagrad(Optimizer):

@@ -189,3 +189,71 @@ def state_dict_by_name(np_state: Dict[str, np.ndarray],
             raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(t.shape)}")
         out[name] = torch.tensor(arr)
     return out
+
+
+# BERT's tensor-parallel layout: (axis, blocks) of each sharded leaf. The
+# fused qkv projection splits each of its q, k and v column blocks on its
+# own, so a rank holds whole heads; every name not listed is replicated.
+_BERT_SHARDS = {"attn.qkv_proj.weight": (1, 3), "attn.qkv_proj.bias": (0, 3),
+                "attn.out_proj.weight": (0, 1), "ffn1.weight": (1, 1), "ffn1.bias": (0, 1),
+                "ffn2.weight": (0, 1)}
+_BERT_LAYER_KEY = re.compile(r"bert\.layers\.\d+\.(.+)$")
+
+
+def _bert_shard_spec(name):
+    if name == "bert.embeddings.word_embeddings.weight":
+        return 0, 1
+    m = _BERT_LAYER_KEY.match(name)
+    return _BERT_SHARDS.get(m.group(1)) if m else None
+
+
+def _check_mp(cfg, mp_degree):
+    if cfg.num_heads % mp_degree or cfg.vocab_size % mp_degree or cfg.ffn_hidden_size % mp_degree:
+        raise ValueError(f"BERT (heads {cfg.num_heads}, vocab {cfg.vocab_size}, FFN "
+                         f"{cfg.ffn_hidden_size}) does not split over mp degree {mp_degree}")
+
+
+def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int, mp_degree: int,
+                cfg) -> Dict[str, np.ndarray]:
+    """Model-parallel rank ``mp_rank``'s part of a full BERT state (numpy
+    arrays, the reference's names): the vocabulary rows of the word table,
+    the q, k and v columns of the rank's heads in ``qkv_proj``, the column
+    shards of ``ffn1`` and the row shards of ``out_proj`` and ``ffn2``; the
+    rest whole. What ``BertForPretraining`` holds at that rank."""
+    _check_mp(cfg, mp_degree)
+    out = {}
+    for name, arr in np_state.items():
+        arr = np.asarray(arr)
+        spec = _bert_shard_spec(name)
+        if spec is not None:
+            axis, blocks = spec
+            size = arr.shape[axis]
+            parts = arr.reshape(arr.shape[:axis] + (blocks, mp_degree, size // (blocks * mp_degree))
+                                + arr.shape[axis + 1:])
+            arr = np.take(parts, mp_rank, axis=axis + 1).reshape(
+                arr.shape[:axis] + (size // mp_degree,) + arr.shape[axis + 1:])
+        out[name] = np.ascontiguousarray(arr)
+    return out
+
+
+def gather_state(states, cfg) -> Dict[str, np.ndarray]:
+    """The full BERT state from every model-parallel rank's (a list in mp
+    rank order, numpy arrays): :func:`shard_state`'s inverse. The
+    replicated entries are taken from rank 0."""
+    mp_degree = len(states)
+    _check_mp(cfg, mp_degree)
+    out = {}
+    for name in states[0]:
+        spec = _bert_shard_spec(name)
+        if spec is None:
+            out[name] = np.asarray(states[0][name])
+            continue
+        axis, blocks = spec
+        parts = [np.asarray(s[name]) for s in states]
+        local = parts[0].shape[axis]
+        split = [p.reshape(p.shape[:axis] + (blocks, local // blocks) + p.shape[axis + 1:])
+                 for p in parts]
+        full = np.stack(split, axis=axis + 1)  # [.., blocks, mp, local / blocks, ..]
+        out[name] = np.ascontiguousarray(full.reshape(
+            full.shape[:axis] + (local * mp_degree,) + full.shape[axis + 3:]))
+    return out

@@ -333,7 +333,9 @@ def test_layers_and_mp_layers_compute_as_paddle_tpu():
     """With the reference's weights: Linear, LayerNorm, the one-rank
     Column/RowParallelLinear and VocabParallelEmbedding, and
     ParallelCrossEntropy (``reduction="none"``, ``ignore_index``) give the
-    reference's outputs. A model-parallel group of two ranks raises."""
+    reference's outputs. Given a model-parallel group of two ranks a layer
+    keeps its shard of the whole draw; a width the degree does not divide
+    raises."""
     paddle.seed(32)
     rng = np.random.default_rng(32)
     x = rng.standard_normal((3, 5, 16)).astype(np.float32)
@@ -356,14 +358,22 @@ def test_layers_and_mp_layers_compute_as_paddle_tpu():
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, **VALUE)
 
-    class _TwoRanks:
-        nranks = 2
+    class _Group:  # a model-parallel group as the layers read it
+        def __init__(self, nranks, rank):
+            self.nranks, self.rank = nranks, rank
 
-    for make in (lambda: tmp.ColumnParallelLinear(4, 4, mp_group=_TwoRanks(), device="cpu"),
-                 lambda: tmp.RowParallelLinear(4, 4, mp_group=_TwoRanks(), device="cpu"),
-                 lambda: tmp.VocabParallelEmbedding(4, 4, mp_group=_TwoRanks(), device="cpu"),
-                 lambda: tmp.ParallelCrossEntropy(mp_group=_TwoRanks())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    # a group of more than one rank: the layer draws the whole weight from the
+    # generator and keeps this rank's shard (tests/test_torch_mp_layers.py
+    # runs them over gloo ranks); a width the degree does not divide raises
+    whole = tmp.ColumnParallelLinear(4, 4, device="cpu", generator=torch.Generator().manual_seed(5))
+    shard = tmp.ColumnParallelLinear(4, 4, mp_group=_Group(2, 1), device="cpu",
+                                     generator=torch.Generator().manual_seed(5))
+    torch.testing.assert_close(shard.weight, whole.weight[:, 2:], rtol=0, atol=0)
+    assert shard.weight.is_distributed is True and shard.weight.split_axis == 1
+    for make in (lambda: tmp.ColumnParallelLinear(4, 6, mp_group=_Group(4, 0), device="cpu"),
+                 lambda: tmp.RowParallelLinear(6, 4, mp_group=_Group(4, 0), device="cpu"),
+                 lambda: tmp.VocabParallelEmbedding(6, 4, mp_group=_Group(4, 0), device="cpu")):
+        with pytest.raises(ValueError, match="does not split"):
             make()
 
 

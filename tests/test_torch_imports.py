@@ -85,15 +85,36 @@ RECSYS_MODULES = {"paddle_tpu_torch.models.dlrm", "paddle_tpu_torch.distributed.
                   "paddle_tpu_torch.framework.selected_rows", "paddle_tpu_torch.regularizer",
                   "paddle_tpu_torch.nn.functional.common"}
 
+# modules of the distributed slice (collectives, DataParallel, tensor parallelism)
+DISTRIBUTED_MODULES = {"paddle_tpu_torch.distributed.env", "paddle_tpu_torch.distributed.strategy",
+                       "paddle_tpu_torch.distributed.topology",
+                       "paddle_tpu_torch.distributed.collective",
+                       "paddle_tpu_torch.distributed.parallel", "paddle_tpu_torch.distributed.fleet",
+                       "paddle_tpu_torch.distributed.utils", "paddle_tpu_torch.testing.dist",
+                       "paddle_tpu_torch.observability.spans"}
+
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
-              | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES)
+              | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES
+              | DISTRIBUTED_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 81
+    assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 90
+
+
+def test_rank_processes_import_no_jax_or_paddle_tpu():
+    """A rank that ``testing.dist.run_ranks`` spawns, running the parity
+    tests' rank bodies, imports neither ``jax`` nor ``paddle_tpu``, even
+    from a test process that has both."""
+    import jax  # noqa: F401  (the parent has the reference loaded)
+
+    import torch_dist_ranks
+    from paddle_tpu_torch.testing.dist import run_ranks
+
+    assert run_ranks(torch_dist_ranks.imported_reference_modules, 2) == [[], []]
 
 
 def test_observability_flags_arm_in_both_fleets(monkeypatch):

@@ -393,7 +393,7 @@ def test_run_steps_equals_single_steps_and_stacks():
         b.run_steps((stacked, stacked), k=3)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(state_shardings={}), dict(guard=True),
+@pytest.mark.parametrize("kw", [dict(batch_shardings={}), dict(state_shardings={}), dict(guard=True),
                                 dict(amp_level="O1"), dict(amp_level="O2", amp_dtype="float16")])
 def test_unported_train_step_knobs_raise(kw):
     pm = GPTForPretraining(GPTConfig.tiny(), device="cpu")
@@ -401,6 +401,9 @@ def test_unported_train_step_knobs_raise(kw):
         TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
     with pytest.raises(ValueError, match="amp_level"):
         TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), amp_level="O3")
+    # a mesh is the fleet's grid (tests/test_torch_dist_step.py), nothing else
+    with pytest.raises(TypeError, match="HybridCommunicateGroup"):
+        TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), mesh=object())
 
 
 def test_training_with_dropout_raises():

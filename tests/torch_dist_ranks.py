@@ -1,0 +1,477 @@
+"""Rank bodies of the port's distributed parity tests
+(``tests/test_torch_{collective,ddp,dist_step,mp_layers,sync_bn}.py``).
+
+Each function runs in every rank of a gloo world that
+:func:`paddle_tpu_torch.testing.dist.run_ranks` spawned on the CPU, and
+returns picklable numpy results for the test process to hold against
+``paddle_tpu``. This module imports torch, numpy and the port only: a rank
+process never imports ``jax`` or ``paddle_tpu`` (``tests/test_torch_imports.py``
+checks that).
+"""
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def imported_reference_modules():
+    """The modules of ``jax`` or ``paddle_tpu`` this rank has imported."""
+    import paddle_tpu_torch.distributed  # noqa: F401
+
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+
+
+# -- collectives ----------------------------------------------------------------
+def collectives(inputs):
+    """Every collective of the port on this rank's slice of ``inputs``
+    (each ``[world, ...]``), with the ``collective.*.calls`` counters."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.observability import metrics
+
+    metrics.reset_counters("collective.")
+    r, n = D.get_rank(), D.get_world_size()
+    x = {k: torch.from_numpy(np.ascontiguousarray(v[r])) for k, v in inputs.items()}
+    out = {}
+    for op in ("sum", "max", "min", "avg"):
+        out[f"all_reduce_{op}"] = D.all_reduce(x["a"].clone(), op=op)
+    out["reduce"] = D.reduce(x["a"].clone(), dst=1)
+    out["all_gather_list"] = torch.stack(D.all_gather([], x["a"]))
+    out["all_gather"] = D.all_gather(x["a"])
+    out["all_gather_concat_0"] = D.all_gather_concat(x["m"], concat_axis=0)
+    out["all_gather_concat_1"] = D.all_gather_concat(x["m"], concat_axis=1)
+    out["reduce_scatter_0"] = D.reduce_scatter(None, x["rs"], scatter_axis=0)
+    into = torch.empty(x["rs"].shape[0], x["rs"].shape[1] // n)
+    out["reduce_scatter_1"] = D.reduce_scatter(into, x["rs"], scatter_axis=1)
+    assert out["reduce_scatter_1"] is into
+    out["alltoall_list"] = torch.stack(D.alltoall(list(x["l"].unbind(0)), []))
+    out["alltoall_tiled"] = D.alltoall(x["rs"], split_axis=1, concat_axis=0)
+    out["broadcast"] = D.broadcast(x["a"].clone(), src=1)
+    out["scatter"] = D.scatter(torch.empty_like(x["l"][0]), list(x["l"].unbind(0)), src=n - 1)
+    out["ppermute"] = D.ppermute(x["a"], [(i, (i + 1) % n) for i in range(n)])
+    out["ppermute_partial"] = D.ppermute(x["a"], [(0, n - 1)])
+    D.barrier()
+    D.wait(x["a"])
+    try:
+        D.send(x["a"], dst=0)
+        out["send"] = "no error"
+    except NotImplementedError as e:
+        out["send"] = str(e)
+    res = {k: v if isinstance(v, str) else _np(v) for k, v in out.items()}
+    res["counters"] = metrics.counters("collective.")
+    return res
+
+
+def groups_and_axis_names(save_dir):
+    """The collectives over the fleet's groups of a dp 2 x mp 2 world, by
+    group and by axis name, and the topology's accessors; every rank calls
+    ``save_persistables`` into ``save_dir``."""
+    import paddle_tpu_torch.distributed as D
+
+    s = D.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    D.fleet.init(is_collective=True, strategy=s, device="cpu")
+    hcg = D.fleet.get_hybrid_communicate_group()
+    r = D.get_rank()
+    v = torch.tensor([float(10 ** r)])
+    D.fleet.save_persistables(torch.nn.Linear(2, 2), save_dir)
+    D.fleet.barrier_worker()
+    return dict(
+        rank=r, coord=hcg.coord,
+        dp=(hcg.get_data_parallel_world_size(), hcg.get_data_parallel_rank(),
+            hcg.get_data_parallel_group().ranks),
+        mp=(hcg.get_model_parallel_world_size(), hcg.get_model_parallel_rank(),
+            hcg.get_model_parallel_group().ranks),
+        pp=(hcg.get_pipe_parallel_world_size(), hcg.get_pipe_parallel_rank(),
+            hcg.get_pipe_parallel_group().ranks),
+        sdp=(hcg.get_sharding_parallel_world_size(), hcg.get_sharding_parallel_rank()),
+        sep=(hcg.get_sep_parallel_world_size(), hcg.get_sep_parallel_rank()),
+        comm_mp=hcg.topo.get_comm_list("mp"), comm_dp=hcg.topo.get_comm_list("dp"),
+        sum_mp=float(D.all_reduce(v.clone(), group="mp")),
+        sum_dp=float(D.all_reduce(v.clone(), group=hcg.get_data_parallel_group())),
+        sum_default=float(D.all_reduce(v.clone())),
+        sum_world=float(D.all_reduce(v.clone(), group=D.new_group())),
+        blocks=[_np(t) for t in D.fleet.shard_batch(np.arange(16).reshape(8, 2),
+                                                     np.arange(8))],
+        env=(D.ParallelEnv().rank, D.ParallelEnv().world_size, D.ParallelEnv().local_rank))
+
+
+def topology_errors():
+    """The errors of a world of 2: degrees that do not multiply to it, and
+    the degrees that are not ported."""
+    import paddle_tpu_torch.distributed as D
+
+    D.init_parallel_env(device="cpu")
+    errors = []
+    for kw in (dict(dp_degree=4), dict(dp_degree=1, pp_degree=2), dict(sharding_degree=2),
+               dict(sep_degree=2)):
+        try:
+            D.HybridCommunicateGroup(**kw)
+            errors.append(None)
+        except (ValueError, NotImplementedError) as e:
+            errors.append(f"{type(e).__name__}: {e}")
+    try:
+        D.fleet.shard_batch(np.zeros(3))
+    except RuntimeError as e:
+        errors.append(f"{type(e).__name__}: {e}")
+    s = D.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 2}
+    D.fleet.init(strategy=s, device="cpu")
+    try:
+        D.fleet.shard_batch(np.zeros(3))
+    except ValueError as e:
+        errors.append(f"{type(e).__name__}: {e}")
+    return errors
+
+
+# -- DataParallel ---------------------------------------------------------------
+def ddp_cases():
+    """The reference's ``tests/test_hooks_ddp.py`` cases at world 2: the
+    averaged gradient (ranks feed 1s and 2s), the parameters broadcast from
+    rank 0, the unused-parameter error, ``no_sync`` and
+    ``apply_collective_grads``, and ``find_unused_parameters``."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.nn.layer import Linear
+
+    r = D.get_rank()
+    m = Linear(4, 1, device="cpu", generator=torch.Generator().manual_seed(r))
+    dp = D.DataParallel(m)
+    out = {"grad_sync": dp._grad_sync, "weight": _np(m.weight), "hooks": len(dp._hook_handles)}
+    x = torch.full((2, 4), r + 1.0)
+    loss = dp.scale_loss(dp(x).sum())
+    loss.backward()
+    out["grad"] = _np(m.weight.grad)
+    out["bias_grad"] = _np(m.bias.grad)
+
+    class Two(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a = Linear(3, 3, device="cpu")
+            self.b = Linear(3, 3, device="cpu")
+
+        def forward(self, x):
+            return self.a(x)
+
+    strict = D.DataParallel(Two())  # held: a discarded wrapper syncs nothing
+    try:
+        strict(torch.ones(1, 3)).sum().backward()
+        out["unused_error"] = None
+    except RuntimeError as e:
+        out["unused_error"] = str(e)
+    two = Two()
+    loose = D.DataParallel(two, find_unused_parameters=True)
+    loose(torch.full((1, 3), r + 1.0)).sum().backward()
+    out["loose_grad"] = _np(two.a.weight.grad)
+    out["loose_unused"] = two.b.weight.grad is None
+    m.weight.grad, m.bias.grad = None, None
+    with dp.no_sync():
+        dp(x).sum().backward()
+    out["no_sync_grad"] = _np(m.weight.grad)
+    dp.apply_collective_grads()
+    out["applied_grad"] = _np(m.weight.grad)
+    out["state_keys"] = sorted(dp.state_dict())
+    return out
+
+
+def ddp_world_one():
+    """A world of one: ``DataParallel`` is a passthrough with no hooks."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.nn.layer import Linear
+
+    m = Linear(4, 2, device="cpu")
+    dp = D.DataParallel(m)
+    dp(torch.ones(2, 4)).sum().backward()
+    return dict(grad_sync=dp._grad_sync, hooks=len(dp._hook_handles), world=D.get_world_size(),
+                grad=_np(m.weight.grad))
+
+
+def bucket_plans(shapes, dtypes, budgets):
+    """The reducer's bucket plan (parameter indices per bucket, with the
+    dtype) for parameters of these shapes and dtypes at each budget (MB)."""
+    from paddle_tpu_torch.distributed.parallel import _BucketReducer
+
+    params = [torch.nn.Parameter(torch.zeros(s, dtype=getattr(torch, d)))
+              for s, d in zip(shapes, dtypes)]
+    index = {id(p): i for i, p in enumerate(params)}
+    plans = []
+    for mb in budgets:
+        r = _BucketReducer(params, comm_buffer_mb=mb)
+        plans.append([(dt, [index[id(p)] for p in ps]) for dt, ps in r.buckets])
+    return plans
+
+
+def spawn_target(out_dir):
+    """Writes this rank's world size under its rank's name (``spawn``)."""
+    rank = os.environ["PADDLE_TRAINER_ID"]
+    with open(os.path.join(out_dir, f"rank{rank}"), "w") as f:
+        f.write(os.environ["PADDLE_TRAINERS_NUM"])
+
+
+# -- fleet.distributed_step -------------------------------------------------------
+def _fleet(dp, mp, **strategy):
+    import paddle_tpu_torch.distributed as D
+
+    s = D.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    for k, v in strategy.items():
+        if k == "gradient_merge_configs":  # a plain dict: assigning one is dropped, as in the reference
+            s.gradient_merge_configs.update(v)
+        else:
+            setattr(s, k, v)
+    D.fleet.init(is_collective=True, strategy=s, device="cpu")
+    return D.fleet
+
+
+def bert_steps(dp, mp, cfg_kw, np_state, inputs, labels, steps, lr, clip=None):
+    """``fleet.distributed_step`` of BERT at dp x mp over ``steps`` steps of
+    the global batch ``(inputs, labels)`` (numpy), from the full state
+    ``np_state`` (each rank loads its mp shard): the losses, this rank's
+    final state, its coordinates, the whole global norm of the first step's
+    averaged gradients (what the clip saw), and whether the seeded model
+    held the shards."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining, BertPretrainingCriterion
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils.convert import shard_state
+
+    fleet = _fleet(dp, mp)
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = BertConfig.tiny(**cfg_kw)
+    model = BertForPretraining(cfg, device="cpu", seed=7)
+    mp_rank = hcg.get_model_parallel_rank()
+    # a model made from a seed holds the shards of the one-rank model
+    saved, fleet._hcg = fleet._hcg, None
+    whole = {k: _np(v) for k, v in BertForPretraining(cfg, device="cpu", seed=7).state_dict().items()}
+    fleet._hcg = saved
+    own = shard_state(whole, mp_rank, mp, cfg)
+    seeded_shards = all(np.array_equal(own[k], _np(v)) for k, v in model.state_dict().items())
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           shard_state(np_state, mp_rank, mp, cfg).items()})
+    crit = BertPretrainingCriterion()
+
+    def loss_fn(outs, mlm, nsp):
+        return crit(outs[0], outs[1], mlm, nsp)
+
+    grad_clip = None if clip is None else ClipGradByGlobalNorm(clip)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(), grad_clip=grad_clip)
+    step = fleet.distributed_step(model, opt, loss_fn)
+    x_ids, x_types, x_pos, x_mask, y_mlm, y_nsp = fleet.shard_batch(*inputs, *labels)
+    batch = ((x_ids, x_types, x_pos, x_mask), (y_mlm, y_nsp))
+    losses, norm = [], None
+    for i in range(steps):
+        losses.append(float(step(*batch)["loss"]))
+        if i == 0:  # the step leaves its averaged, unclipped gradients on the parameters
+            norm = clip_norm_of(model)
+    return dict(losses=losses, state={k: _np(v) for k, v in model.state_dict().items()},
+                dp_rank=hcg.get_data_parallel_rank(), mp_rank=mp_rank, seeded_shards=seeded_shards,
+                clip_norm=norm, reducer_buckets=len(step._reducer.buckets))
+
+
+def clip_norm_of(model):
+    """The whole global norm of the model's current gradients."""
+    from paddle_tpu_torch.nn.clip import _reduce_terms, _shard_groups
+
+    params = [p for p in model.parameters() if p.grad is not None]
+    return float(torch.sqrt(_reduce_terms([p.grad.float().square().sum() for p in params],
+                                          _shard_groups(params))))
+
+
+def linear_dist_step(w, b, x, y, lr):
+    """The reference's ``test_dist_matches_single_device`` at dp 2: a
+    ``Linear(16, 4)`` SGD step on an MSE loss through ``distributed_step``
+    and ``shard_batch``; the updated weight and bias."""
+    from paddle_tpu_torch.nn.layer import Linear
+    from paddle_tpu_torch.optimizer import SGD
+
+    fleet = _fleet(2, 1)
+    net = Linear(16, 4, device="cpu")
+    net.load_state_dict({"weight": torch.from_numpy(w), "bias": torch.from_numpy(b)})
+    step = fleet.distributed_step(net, SGD(learning_rate=lr, parameters=net.parameters()),
+                                  lambda out, t: ((out - t) ** 2).mean())
+    loss = float(step(fleet.shard_batch(x), fleet.shard_batch(y))["loss"])
+    return _np(net.weight), _np(net.bias), loss
+
+
+def strategy_errors():
+    """What ``distributed_step`` refuses at world 1."""
+    import warnings
+
+    from paddle_tpu_torch.nn.layer import Linear
+    from paddle_tpu_torch.optimizer import SGD
+
+    errors = {}
+    for name, kw in (("sharding", dict(sharding=True)),
+                     ("fp16", dict(amp=True, amp_configs={"dtype": "float16", "level": "O2"}))):
+        fleet = _fleet(1, 1, **kw)
+        net = Linear(2, 2, device="cpu")
+        try:
+            fleet.distributed_step(net, SGD(parameters=net.parameters()), lambda o, t: o.sum())
+        except (NotImplementedError, ValueError) as e:
+            errors[name] = f"{type(e).__name__}: {e}"
+    fleet = _fleet(1, 1, sharding_configs={"comm_overlap": False}, gradient_merge=True,
+                   gradient_merge_configs={"k_steps": 2}, recompute=True)
+    net = Linear(2, 2, device="cpu")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        step = fleet.distributed_step(net, SGD(parameters=net.parameters()), lambda o, t: o.sum())
+    errors["warned"] = any("comm_overlap" in str(w.message) for w in seen)
+    errors["knobs"] = (step.accumulate_steps, step.remat, step.amp_level)
+    try:
+        fleet.save_inference_model(net, "unused")
+    except NotImplementedError as e:
+        errors["save_inference_model"] = str(e)
+    return errors
+
+
+# -- tensor-parallel layers ----------------------------------------------------------
+def mp_layers(mp, case):
+    """The four tensor-parallel layers at mp (the whole world), each loaded
+    with this rank's shard of ``case``'s full weights: outputs and
+    gradients under the cotangents of ``case``."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.mp_layers import _shard
+
+    fleet = _fleet(1, mp)
+    g = fleet.get_hybrid_communicate_group().get_model_parallel_group()
+    res = {}
+    for gather in (True, False):
+        col = D.ColumnParallelLinear(16, 8 * mp, gather_output=gather, device="cpu")
+        col.weight.data.copy_(_shard(torch.from_numpy(case["col_w"]), 1, g))
+        col.bias.data.copy_(_shard(torch.from_numpy(case["col_b"]), 0, g))
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        out = col(x)
+        ct = torch.from_numpy(case["col_ct"])
+        (out * (ct if gather else _shard(ct, 2, g))).sum().backward()
+        res[f"col_{gather}"] = (_np(out), _np(x.grad), _np(col.weight.grad), _np(col.bias.grad),
+                                col.weight.is_distributed is True, col.weight.split_axis)
+    fused = D.ColumnParallelLinear(16, 12 * mp, gather_output=True, blocks=3, device="cpu")
+    fused.weight.data.copy_(_shard(torch.from_numpy(case["qkv_w"]), 1, g, blocks=3))
+    fused.bias.data.zero_()
+    res["fused"] = _np(fused(torch.from_numpy(case["x"])))
+    for parallel in (False, True):
+        row = D.RowParallelLinear(8 * mp, 16, input_is_parallel=parallel, device="cpu")
+        row.weight.data.copy_(_shard(torch.from_numpy(case["row_w"]), 0, g))
+        row.bias.data.copy_(torch.from_numpy(case["row_b"]))
+        xr = torch.from_numpy(case["xr"])
+        xr = (_shard(xr, 2, g) if parallel else xr).requires_grad_()
+        out = row(xr)
+        (out * torch.from_numpy(case["row_ct"])).sum().backward()
+        res[f"row_{parallel}"] = (_np(out), _np(xr.grad), _np(row.weight.grad), _np(row.bias.grad),
+                                  getattr(row.bias, "mp_group", None) is not None)
+    emb = D.VocabParallelEmbedding(12 * mp, 16, device="cpu")
+    emb.weight.data.copy_(_shard(torch.from_numpy(case["emb_w"]), 0, g))
+    out = emb(torch.from_numpy(case["ids"]))
+    (out * torch.from_numpy(case["emb_ct"])).sum().backward()
+    res["emb"] = (_np(out), _np(emb.weight.grad))
+    try:
+        emb(torch.tensor([12 * mp]))
+        res["emb_range"] = None
+    except ValueError as e:
+        res["emb_range"] = str(e)
+    from paddle_tpu_torch.framework.selected_rows import compiled_step
+
+    with compiled_step():
+        res["emb_bad_inside_step"] = _np(emb(torch.tensor([-1, 12 * mp, 0])))
+    logits = _shard(torch.from_numpy(case["logits"]), 2, g).requires_grad_()
+    loss = D.ParallelCrossEntropy(ignore_index=-100)(logits, torch.from_numpy(case["labels"]))
+    (loss * torch.from_numpy(case["ce_ct"])).sum().backward()
+    res["ce"] = (_np(loss), _np(logits.grad))
+    # TensorParallel: replicated parameters broadcast from the group's rank 0
+    torch.manual_seed(D.get_rank())
+    net = torch.nn.Sequential(torch.nn.Linear(3, 3), D.ColumnParallelLinear(3, 2 * mp,
+                                                                          device="cpu"))
+    D.TensorParallel(net, hcg=fleet.get_hybrid_communicate_group())
+    res["tp_replicated"] = _np(net[0].weight)
+    res["tp_shard"] = _np(net[1].weight)
+    for bad in (lambda: D.ColumnParallelLinear(4, 3 * mp + 1, device="cpu"),
+                lambda: D.VocabParallelEmbedding(5 * mp + 1, 4, device="cpu")):
+        try:
+            bad()
+            res.setdefault("indivisible", []).append(None)
+        except ValueError as e:
+            res.setdefault("indivisible", []).append(str(e))
+    # what waits for later parts of item 13: Lamb over shards, GPT and ERNIE
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import Lamb
+
+    lin = D.ColumnParallelLinear(4, 2 * mp, device="cpu")
+    lin(torch.ones(1, 4)).sum().backward()
+    for name, make in (("lamb", lambda: Lamb(parameters=lin.parameters()).step()),
+                       ("gpt", lambda: GPTForPretraining(GPTConfig.tiny(), device="cpu")),
+                       ("ernie", lambda: ErnieForPretraining(ErnieConfig.tiny(), device="cpu"))):
+        try:
+            make()
+            res[f"refuses_{name}"] = None
+        except NotImplementedError as e:
+            res[f"refuses_{name}"] = str(e)
+    return res
+
+
+def rng_tracker(seed):
+    """Draws from the fleet-seeded model-parallel stream and the default one."""
+    import paddle_tpu_torch.distributed as D
+
+    # tensor_parallel_configs gives the mp degree that hybrid_configs leaves at 1
+    fleet = _fleet(1, 1, tensor_parallel_configs={"tensor_init_seed": seed,
+                                                  "tensor_parallel_degree": D.get_world_size()})
+    mp = fleet.get_hybrid_communicate_group().get_model_parallel_world_size()
+    tracker = D.get_rng_state_tracker()
+    with tracker.rng_state() as gen:
+        shared = torch.rand(4, generator=gen)
+    torch.manual_seed(100 + D.get_rank())
+    own = torch.rand(4)
+    try:
+        tracker.add("model_parallel_rng", seed + 1)
+        clash = None
+    except ValueError as e:
+        clash = str(e)
+    return _np(shared), _np(own), sorted(tracker.get_states_tracker()), clash, mp
+
+
+# -- SyncBatchNorm ------------------------------------------------------------------
+def sync_bn(x, ct, weight, bias, momentum, epsilon):
+    """``SyncBatchNorm`` at dp (the whole world) over this rank's block of
+    ``x``: its output, the input gradient, the weight and bias gradients
+    averaged over the ranks (as ``DataParallel`` averages them), and the
+    running statistics after the step."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.nn.layer import SyncBatchNorm
+
+    fleet = _fleet(D.get_world_size(), 1)
+    xb, cb = fleet.shard_batch(x, ct)
+    bn = SyncBatchNorm(x.shape[1], momentum=momentum, epsilon=epsilon, device="cpu")
+    bn.weight.data.copy_(torch.from_numpy(weight))
+    bn.bias.data.copy_(torch.from_numpy(bias))
+    dp = D.DataParallel(bn)
+    xb.requires_grad_()
+    out = dp(xb)
+    (out * cb).sum().backward()
+    return dict(out=_np(out), dx=_np(xb.grad), dw=_np(bn.weight.grad), db=_np(bn.bias.grad),
+                mean=_np(bn._mean), var=_np(bn._variance))
+
+
+def resnet_sync_bn(np_state, x, y):
+    """The port's ResNet18 with its batch norms converted to
+    ``SyncBatchNorm``, one training forward and loss at dp (the world) over
+    this rank's block of ``x``: the logits, the dp-mean loss and the
+    running statistics of the first batch norm."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.nn.layer import CrossEntropyLoss, SyncBatchNorm
+    from paddle_tpu_torch.vision.models import resnet18
+
+    fleet = _fleet(D.get_world_size(), 1)
+    model = resnet18(num_classes=10, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in np_state.items()})
+    SyncBatchNorm.convert_sync_batchnorm(model)
+    model.train()
+    xb, yb = fleet.shard_batch(x, y)
+    out = model(xb)
+    loss = CrossEntropyLoss()(out, yb)
+    D.all_reduce(loss, op="avg")
+    return dict(logits=_np(out), loss=float(loss), mean=_np(model.bn1._mean),
+                var=_np(model.bn1._variance))
