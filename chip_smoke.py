@@ -208,6 +208,27 @@ non-zero and prints no result. Phases, one JSON line each:
     and L1 decay and each clip) on the card against the CPU, through
     ``step()`` and through the ``TrainStep`` update, on a ``[4096, 1024]``
     weight and a ``[1024]`` bias.
+34. ``zero_gpt3_train`` (run after phase 17): phase 17's step through
+    ``fleet.init(sharding=True, sharding_stage=2)``, ``distributed_step``
+    and ``shard_batch`` in a world of one over NCCL, 8 steps from the same
+    seed: losses bitwise equal to phase 17's, 96 K1 and 48 K2 a step; the
+    sharding layer's device ms (the stream held by a sleep kernel) and
+    host ms, its collective calls a step, peak memory, and a plain
+    ``TrainStep`` over the same model timed in turns with it.
+35. ``hybrid_gpt3``: BASELINE #4 as ``bench_1p3b.py:25-60`` sets it:
+    ``GPTConfig.gpt3_1p3b(max_seq_len=256)`` at full width and depth, f32
+    AdamW lr 1e-4, sdp 2 x mp 2 x pp 2, ZeRO stage 2, 2 micro-batches
+    through ``1f1b``, ids ``[4, 256]`` from ``default_rng(0)``; the port's
+    plain one-process f32 step on the same weights and batch first, then
+    2 steps as 8 gloo processes on ``cuda:0``, each loading its slice of
+    the parent's weights: every rank's losses within rtol 1e-4 of the plain
+    step's, K1 and K2 24 times a step on every rank, stage s holding at
+    most ``pp - s`` micro-batches' inputs; each rank's peak memory, seconds
+    and host-staged bytes.
+36. ``dist_two_rank_de`` (run after ``dist_two_rank``): (d) a narrow GPT
+    at sdp 2 with ZeRO stage 3 and (e) a narrow ERNIE at mp 2, each as two
+    gloo processes on ``cuda:0`` against one process's steps, K1 and K2
+    counted on each rank.
 
 The serving phases (5, 25-30), the vision phases (22-24) and DLRM's (31)
 launch none of K1-K4b: the reference runs no Pallas kernel on those paths
@@ -217,13 +238,14 @@ cuDNN's, batch norms and pools ATen's; the embedding lookup is
 stay 0, in the replica processes too.
 
 Phases 4, 5, 25, 26, 27, 28, 29, 30, 6, 9 (its ``pallas_sorted`` run), 12,
-13, 16, 17, 20, 22, 24 and 31 are the main path: the kernel counts are set to 0 just before
+13, ``dp_bert_train``, 16, 17, 34, 35 (the ranks' counts, summed), 20, 22,
+24 and 31 are the main path: the kernel counts are set to 0 just before
 each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
 K4b at the first MoE layer's rows of the traced step, whose ``bound_ms``
 counts the live rows, the rows the kernels compute; K1 and K2 with
-``d128_rows``: the d = 128 calls of phases 17 and 20) and the script's wall
+``d128_rows``: the d = 128 calls of phases 17, 20 and 35) and the script's wall
 time, and the last line is the ``{"ok": true, ...}`` result.
 """
 from __future__ import annotations
@@ -351,6 +373,31 @@ DIST_CHECK = dict(layers=2, batch=16, seq=512, lr=1e-4, steps=3, bn_shape=(8, 64
 # entry (sums over the batch split in two)
 DIST_CHECK_TOL = dict(loss_rtol=1e-5, grad_rel_l2=1e-4, param_rel_l2=2e-5, bn_atol=1e-5,
                       bn_rtol=1e-5)
+
+# dist_two_rank (d): a narrow GPT (h 1024, 4 layers, 16 heads, d 64, vocab
+# 50304), f32, ids [4, 512], 3 AdamW steps at lr 1e-4, at sdp 2 with ZeRO
+# stage 3; (e): a narrow ERNIE (h 768, 2 layers, 12 heads, vocab 40000),
+# f32, ids [8, 256], 3 steps at lr 1e-4, at mp 2; each against one
+# process's step on the card, to DIST_CHECK_TOL
+DIST_ZERO3 = dict(cfg=dict(vocab_size=50304, hidden_size=1024, num_layers=4, num_heads=16,
+                           max_seq_len=512), batch=4, seq=512, lr=1e-4, steps=3)
+DIST_ERNIE = dict(cfg=dict(vocab_size=40000, hidden_size=768, num_layers=2, num_heads=12,
+                           max_seq_len=256), batch=8, seq=256, lr=1e-4, steps=3)
+# hybrid_gpt3: BASELINE #4 as bench_1p3b.py:25-60 (_cpu_mesh_step) sets it:
+# GPTConfig.gpt3_1p3b(max_seq_len=256) at full width and depth, f32, AdamW
+# lr 1e-4, sdp 2 x mp 2 x pp 2 (dp 1), ZeRO stage 2, accumulate_steps 2
+# through "1f1b", ids [4, 256] from default_rng(0) with labels = ids; 2
+# steps as 8 gloo processes on one card
+HYBRID = dict(sdp=2, mp=2, pp=2, stage=2, accumulate=2, schedule="1f1b", batch=4, seq=256,
+              lr=1e-4, steps=2, timeout=900.0)
+# the ranks' losses against the plain one-process step's: the reference's
+# own hybrid step is held to its serial one at rtol 1e-4
+# (tests/test_pipeline_pp.py:89-93); sums over 24 layers split over mp
+# and micro-batches in another order
+HYBRID_LOSS_RTOL = 1e-4
+# K1/K2's per-rank call in the hybrid step: one micro-batch of [1, 256], 8
+# heads a rank (16 / mp 2), d 128, causal, f32, views of the packed projection
+HYBRID_CALL = (1, 256, 8, 128, True)
 
 # the GPT-MoE of bench.py:_measure_moe (bench.py:304): h 1024, 8 layers, 16
 # heads, 8 experts in every second block, capacity factor 2.0; its step is
@@ -630,6 +677,7 @@ def phase_k1():
     # calls K1 in the forward and the training step
     cases += [(8, 1024, 16, 64, True, dt, True) for dt in (torch.float32, torch.bfloat16)]
     cases += [(*call, torch.bfloat16, True) for call in D128_CALLS.values()]
+    cases += [(*HYBRID_CALL, torch.float32, True)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     main_row, bf16_row, d128_rows, failures = None, None, {}, []
     for b, s, h, d, causal, dt, packed in cases:
@@ -670,6 +718,8 @@ def phase_k1():
             bf16_row = row
         d128_rows.update({path: row for path, call in D128_CALLS.items()
                           if (b, s, h, d, causal, dt, packed) == (*call, torch.bfloat16, True)})
+        if (b, s, h, d, causal, dt, packed) == (*HYBRID_CALL, torch.float32, True):
+            d128_rows["hybrid_gpt3"] = row
         del q, k, v
         torch.cuda.empty_cache()
     if failures:
@@ -690,6 +740,8 @@ def _k2_cases():
     # sdpa/flash runs K2)
     cases += [(*D128_CALLS["gpt3_1p3b_train"], torch.bfloat16, True),
               (*D128_CALLS["ernie_train"], torch.bfloat16, "views")]
+    # the hybrid step's per-rank call, f32, packed gradient (attention_core)
+    cases += [(*HYBRID_CALL, torch.float32, True)]
     return cases
 
 
@@ -758,6 +810,8 @@ def phase_k2():
             f32_row = row
         d128_rows.update({path: row for path, call in D128_CALLS.items()
                           if (b, s, h, d, causal, dt) == (*call, torch.bfloat16) and packed})
+        if (b, s, h, d, causal, dt, packed) == (*HYBRID_CALL, torch.float32, True):
+            d128_rows["hybrid_gpt3"] = row
         del q, k, v, dout, out, lse, got, grads
         torch.cuda.empty_cache()
     if failures:
@@ -2821,6 +2875,158 @@ def _dist_rank_mp():
                 state={k: v.cpu().numpy() for k, v in model.state_dict().items()})
 
 
+def _dist_gpt_model(device):
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+
+    return GPTForPretraining(GPTConfig(**DIST_ZERO3["cfg"]), device=device, seed=SEED + 30)
+
+
+def _dist_gpt_ids():
+    cfg = DIST_ZERO3["cfg"]
+    return np.random.default_rng(SEED + 31).integers(
+        0, cfg["vocab_size"], (DIST_ZERO3["batch"], DIST_ZERO3["seq"])).astype(np.int32)
+
+
+def _dist_rank_zero3():
+    """Rank body of ``dist_two_rank`` (d): a narrow GPT at sdp 2 with ZeRO
+    stage 3 (``group_sharded_parallel(level="p_g_os")``) through
+    ``distributed_step`` and ``shard_batch``; the losses, this rank's
+    blocks and their split dims, and its K1/K2 launches."""
+    from paddle_tpu_torch.distributed import (DistributedStrategy, fleet, group_sharded_parallel,
+                                              state_shardings)
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "sharding_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    model = _dist_gpt_model("cuda")
+    opt = AdamW(learning_rate=DIST_ZERO3["lr"], parameters=model.parameters())
+    model, opt, _ = group_sharded_parallel(model, opt, level="p_g_os")
+    step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
+    x = fleet.shard_batch(_dist_gpt_ids())
+    reset_launches()
+    losses = [float(step(x, x)["loss"]) for _ in range(DIST_ZERO3["steps"])]
+    return dict(losses=losses, sdp_rank=hcg.get_sharding_parallel_rank(),
+                state={k: v.cpu().numpy() for k, v in model.state_dict().items()},
+                sdp_dims=state_shardings(model, hcg), launches=read_launches(),
+                split=len(step._zero.split))
+
+
+def _dist_rank_mp_ernie():
+    """Rank body of ``dist_two_rank`` (e): a narrow ERNIE at mp 2 (its heads
+    split, the word table's vocabulary halved) over the whole batch; the
+    losses, this rank's shards and its K1/K2 launches."""
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    model = ErnieForPretraining(ErnieConfig(**DIST_ERNIE["cfg"]), device="cuda", seed=SEED + 32)
+    step = fleet.distributed_step(
+        model, AdamW(learning_rate=DIST_ERNIE["lr"], parameters=model.parameters()), ernie_loss)
+    inputs, labels = ernie_batch(DIST_ERNIE["batch"], DIST_ERNIE["seq"],
+                                 DIST_ERNIE["cfg"]["vocab_size"])
+    reset_launches()
+    losses = [float(step(inputs, labels)["loss"]) for _ in range(DIST_ERNIE["steps"])]
+    return dict(losses=losses, heads=model.ernie.layers[0].attn.num_heads,
+                state={k: v.cpu().numpy() for k, v in model.state_dict().items()},
+                launches=read_launches())
+
+
+def _one_process_steps(model, inputs, labels, loss_fn, lr, steps):
+    """One process's f32 AdamW steps on the whole batch: the losses, the
+    state after them and the names of the parameters that start at 0."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    zero_init = {n for n, p in model.named_parameters() if not bool(p.any())}
+    step = TrainStep(model, AdamW(learning_rate=lr, parameters=model.parameters()), loss_fn)
+    losses = [float(step(inputs, labels)["loss"]) for _ in range(steps)]
+    return losses, {k: v.cpu().numpy() for k, v in model.state_dict().items()}, zero_init
+
+
+def _held(losses_by_rank, state, ref_losses, ref_state, zero_init, lr, steps):
+    """``DIST_CHECK_TOL`` on whole steps: each rank's losses, and each
+    parameter after them (those that start at 0 within the steps' reach,
+    2 lr a step)."""
+    tol = DIST_CHECK_TOL
+    loss_err = max(abs(a - b) / abs(b) for losses in losses_by_rank
+                   for a, b in zip(losses, ref_losses))
+    rel = _rel_l2(state, ref_state)
+    held = {n: e for n, e in rel.items() if n not in zero_init}
+    reach = max(float(np.abs(state[n] - ref_state[n]).max()) for n in zero_init)
+    worst = max(held, key=held.get)
+    ok = (set(state) == set(ref_state) and loss_err <= tol["loss_rtol"]
+          and held[worst] <= tol["param_rel_l2"] and reach <= 2 * lr * steps)
+    return ok, dict(losses=losses_by_rank[0], ref_losses=ref_losses, loss_rel_err=loss_err,
+                    param_worst=worst, param_rel_l2_worst=held[worst], zero_init_abs_max=reach)
+
+
+def phase_dist_zero3_ernie():
+    """``dist_two_rank`` (d) and (e), two gloo processes on ``cuda:0`` each,
+    held against one process's steps on the same card: (d) a narrow GPT
+    (h 1024, 4 layers, 16 heads, vocab 50304) f32 at sdp 2 with ZeRO stage 3
+    (parameters held as blocks, gathered layer by layer), ids ``[4, 512]``;
+    (e) a narrow ERNIE (h 768, 2 layers, 12 heads, vocab 40000) f32 at mp 2,
+    ids ``[8, 256]``; 3 AdamW steps each. K1 and K2 launched once a layer
+    and step on every rank."""
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.testing.dist import run_ranks
+    from paddle_tpu_torch.utils.convert import gather_state
+
+    t0 = time.perf_counter()
+    ids = torch.from_numpy(_dist_gpt_ids()).cuda()
+    ref = _one_process_steps(_dist_gpt_model("cuda"), ids, ids, GPTPretrainingCriterion(),
+                             DIST_ZERO3["lr"], DIST_ZERO3["steps"])
+    t_ref = time.perf_counter() - t0
+    d_out = run_ranks(_dist_rank_zero3, 2, device="cuda:0", backend="gloo",
+                      timeout=DIST_CHECK["timeout"])
+    t_d = time.perf_counter() - t0 - t_ref
+    d_state = gather_state({(0, o["sdp_rank"], 0): o["state"] for o in d_out},
+                           sdp_dims=d_out[0]["sdp_dims"])
+    d_ok, d_report = _held([o["losses"] for o in d_out], d_state, *ref, DIST_ZERO3["lr"],
+                           DIST_ZERO3["steps"])
+    L, steps = DIST_ZERO3["cfg"]["num_layers"], DIST_ZERO3["steps"]
+    d_launch_ok = all(o["launches"][K1["name"]] == o["launches"][K2["name"]] == L * steps
+                      and o["split"] > 0 for o in d_out)
+    del ids
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    cfg = ErnieConfig(**DIST_ERNIE["cfg"])
+    inputs, labels = ernie_batch(DIST_ERNIE["batch"], DIST_ERNIE["seq"], cfg.vocab_size)
+    ref = _one_process_steps(ErnieForPretraining(cfg, device="cuda", seed=SEED + 32), inputs,
+                             labels, ernie_loss, DIST_ERNIE["lr"], DIST_ERNIE["steps"])
+    e_out = run_ranks(_dist_rank_mp_ernie, 2, device="cuda:0", backend="gloo",
+                      timeout=DIST_CHECK["timeout"])
+    t_e = time.perf_counter() - t1
+    e_ok, e_report = _held([o["losses"] for o in e_out], gather_state([o["state"] for o in e_out],
+                                                                      cfg),
+                           *ref, DIST_ERNIE["lr"], DIST_ERNIE["steps"])
+    L, steps = cfg.num_layers, DIST_ERNIE["steps"]
+    e_launch_ok = all(o["launches"][K1["name"]] == o["launches"][K2["name"]] == L * steps
+                      and o["heads"] == cfg.num_heads // 2 for o in e_out)
+    ok = d_ok and d_launch_ok and e_ok and e_launch_ok
+    emit(phase="dist_two_rank_de", ok=ok, backend="gloo", device="cuda:0", world_size=2,
+         d_zero3_sdp2=dict(ok=d_ok and d_launch_ok, split_parameters=d_out[0]["split"],
+                           launches=[{k: o["launches"][k] for k in (K1["name"], K2["name"])}
+                                     for o in d_out], **d_report),
+         e_ernie_mp2=dict(ok=e_ok and e_launch_ok, heads_per_rank=e_out[0]["heads"],
+                          launches=[{k: o["launches"][k] for k in (K1["name"], K2["name"])}
+                                    for o in e_out], **e_report),
+         **DIST_CHECK_TOL, seconds=dict(reference_d=t_ref, d=t_d, e=t_e))
+    if not ok:
+        raise AssertionError("dist_two_rank (d)/(e) failed")
+
+
 def _dist_bn_batch():
     gen = np.random.default_rng(SEED + 21)
     x = (2 * gen.standard_normal(DIST_CHECK["bn_shape"]) + 0.5).astype(np.float32)
@@ -2994,6 +3200,331 @@ def phase_gpt3_train():
          recompute_variants=variants)
     if not ok:
         raise AssertionError("gpt3_1p3b_train phase failed")
+    return launches, losses[:GPT3_TRAIN["warmup"] + GPT3_TRAIN["steps"]], ms_per_step
+
+
+def _wrap_zero_pass(zero, wrap):
+    """Puts ``wrap(name, method)`` in front of ``zero.reduce`` and
+    ``zero.gather`` (the sharding layer's pass around the update); returns
+    a function that takes the wrappers away again (the class's methods,
+    so no bound method is left in a cycle holding the plan's tensors)."""
+    for name in ("reduce", "gather"):
+        setattr(zero, name, wrap(name, getattr(zero, name)))
+
+    def restore():
+        for name in ("reduce", "gather"):
+            zero.__dict__.pop(name, None)
+
+    return restore
+
+
+def _zero_step_timers(zero):
+    """Records the host seconds of the sharding layer's pass; returns the
+    records and the function that restores the pass."""
+    host = {"reduce": [], "gather": []}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host[name].append(time.perf_counter() - t)
+            return out
+        return run
+
+    return host, _wrap_zero_pass(zero, timed)
+
+
+def phase_zero_gpt3_train(gpt3_losses, gpt3_ms):
+    """``gpt3_1p3b_train``'s step through the distributed layer with ZeRO
+    stage 2, in a world of one over NCCL: ``init_parallel_env()``,
+    ``fleet.init`` (sharding stage 2, AMP O2 bf16 and 2 accumulated
+    micro-batches by the strategy), ``fleet.distributed_step`` and
+    ``fleet.shard_batch``, the same batch and 8 steps from the same seed.
+    At sdp 1 every parameter stays whole (the plan splits none) and a
+    one-rank all-reduce and a division by 1 are exact, so the losses must
+    equal ``gpt3_1p3b_train``'s bit for bit, with 96 K1 and 48 K2 launches
+    a step. Then the sharding layer's device time (the stream held by a
+    sleep kernel while the host enqueues its passes) and host time, and a
+    plain ``TrainStep`` over the same model (its own AdamW) timed in turns
+    with it (plain, zero, zero, plain). Returns the kernel launches of the 8
+    counted steps."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet, init_parallel_env
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    init_parallel_env()
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "sharding_degree": 1}
+    strategy.sharding = True
+    strategy.sharding_configs = {"sharding_stage": 2}
+    strategy.amp = True
+    strategy.amp_configs = {"level": "O2", "dtype": "bfloat16"}
+    strategy.pipeline_configs = {"accumulate_steps": GPT3_TRAIN["accumulate"]}
+    fleet.init(is_collective=True, strategy=strategy)
+    backend, world = dist.get_backend(), dist.get_world_size()
+    cfg = GPTConfig.gpt3_1p3b(recompute=True, recompute_granularity="selective")
+    b, s = GPT3_TRAIN["batch"], GPT3_TRAIN["seq"]
+    n_steps = GPT3_TRAIN["warmup"] + GPT3_TRAIN["steps"]
+    model = GPTForPretraining(cfg, seed=SEED)
+    step = fleet.distributed_step(
+        model, AdamW(learning_rate=GPT3_TRAIN["lr"], parameters=model.parameters()),
+        GPTPretrainingCriterion())
+    ids = fleet.shard_batch(np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s))
+                            .astype(np.int32))
+    zero = step._zero
+    host, restore = _zero_step_timers(zero)
+
+    def timed(run, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            run(ids, ids)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / n
+
+    registry.clear_cache()
+    metrics.reset_counters("kernels.")
+    metrics.reset_counters("collective.")
+    try:
+        before = read_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(ids, ids)["loss"]) for _ in range(GPT3_TRAIN["warmup"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed_losses = [step(ids, ids)["loss"] for _ in range(GPT3_TRAIN["steps"])]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses += [float(x) for x in timed_losses]
+        launches = {k: v - before[k] for k, v in read_launches().items()}
+        peak = torch.cuda.max_memory_allocated()
+        calls = metrics.counters("collective.")
+        picked = metrics.counters("kernels.attention_core.")
+        restore()
+        # the sharding layer's device time: the stream sleeps while the host enqueues
+        device = {"reduce": [], "gather": []}
+
+        def held(name, fn):
+            def run(*args, **kwargs):
+                torch.cuda._sleep(DP_HOLD_CYCLES)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                device[name].append((start, end))
+                return out
+            return run
+
+        unheld = _wrap_zero_pass(zero, held)
+        for _ in range(3):
+            step(ids, ids)
+        torch.cuda.synchronize()
+        unheld()
+        device = {k: [a.elapsed_time(z) for a, z in v] for k, v in device.items()}
+        # a plain TrainStep over the same model (its own AdamW), in turns
+        plain = TrainStep(model, AdamW(learning_rate=GPT3_TRAIN["lr"],
+                                       parameters=model.parameters()),
+                          GPTPretrainingCriterion(), amp_level="O2",
+                          accumulate_steps=GPT3_TRAIN["accumulate"])
+        plain(ids, ids)
+        turns = {"plain": [], "zero": []}
+        for name in ("plain", "zero", "zero", "plain"):
+            turns[name].append(timed(plain if name == "plain" else step, 3))
+        peak_turns = torch.cuda.max_memory_allocated()
+    finally:
+        restore()
+        dist.destroy_process_group()
+        fleet._hcg = None  # the later phases run without a fleet
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    L = cfg.num_layers
+    k = GPT3_TRAIN["accumulate"]
+    want = {K1["name"]: 2 * L * k, K2["name"]: L * k, K3["name"]: 0, K3B["name"]: 0,
+            K4["name"]: 0, K4B["name"]: 0}
+    bitwise = losses == gpt3_losses
+    ms_per_step = 1e3 * seconds / GPT3_TRAIN["steps"]
+    ok = (backend == "nccl" and world == 1 and bitwise and per_step == want
+          and zero.stage == 2 and not zero.split
+          and len(host["reduce"]) == len(host["gather"]) == n_steps
+          and picked == {"kernels.attention_core.picked": 1,
+                         "kernels.attention_core.fallback": 0}
+          and all(p.dtype == torch.float32 for p in model.parameters()))
+    emit(phase="zero_gpt3_train", ok=ok, backend=backend, world_size=world, stage=zero.stage,
+         ids=[b, s], amp_level="O2", recompute="selective", accumulate_steps=k,
+         split_parameters=len(zero.split), buckets=len(zero._reducer.buckets),
+         losses=losses, losses_bitwise_equal_gpt3_train=bitwise, launches=launches,
+         launches_per_step=per_step, expected_per_step=want,
+         collective_calls_per_step={c: v / n_steps for c, v in calls.items()},
+         seconds=seconds, ms_per_step=ms_per_step, gpt3_1p3b_train_ms_per_step=gpt3_ms,
+         turns_ms_per_step=turns,
+         turns_ratio=float(np.mean(turns["zero"]) / np.mean(turns["plain"])),
+         sharding_device_ms=device,
+         sharding_host_ms_per_step={name: [1e3 * t for t in v[GPT3_TRAIN["warmup"]:]]
+                                    for name, v in host.items()},
+         max_memory_allocated=peak, max_memory_allocated_with_plain_step=peak_turns)
+    if not ok:
+        raise AssertionError("zero_gpt3_train phase failed")
+    return launches
+
+
+def _hybrid_strategy():
+    from paddle_tpu_torch.distributed import DistributedStrategy
+
+    s = DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "sharding_degree": HYBRID["sdp"],
+                        "mp_degree": HYBRID["mp"], "pp_degree": HYBRID["pp"]}
+    s.sharding = True
+    s.sharding_configs = {"sharding_stage": HYBRID["stage"]}
+    s.pipeline_configs = {"accumulate_steps": HYBRID["accumulate"],
+                          "schedule": HYBRID["schedule"]}
+    return s
+
+
+def _hybrid_rank(path, ids):
+    """Rank body of ``hybrid_gpt3``: this rank's part of the GPT-3 1.3B
+    (built on the meta device, its slice read from the parent's weights
+    file by ``mmap``), two steps of ``fleet.distributed_step`` on its
+    block of ``ids``; the losses, seconds, launches, peak memory and the
+    collective layer's counters."""
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils.convert import shard_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    fleet.init(is_collective=True, strategy=_hybrid_strategy())
+    hcg = fleet.get_hybrid_communicate_group()
+    pp_rank, mp_rank = hcg.get_pipe_parallel_rank(), hcg.get_model_parallel_rank()
+    cfg = GPTConfig.gpt3_1p3b(max_seq_len=HYBRID["seq"])
+    model = GPTForPretraining(cfg, device="meta")
+    model.to_empty(device="cuda")
+    full = torch.load(path, mmap=True, weights_only=True)
+    part = shard_state(full, mp_rank, HYBRID["mp"], cfg, pp_rank=pp_rank, pp_degree=HYBRID["pp"])
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in part.items()})
+    del full, part
+    n_params = sum(p.numel() for p in model.parameters())
+    step = fleet.distributed_step(
+        model, AdamW(learning_rate=HYBRID["lr"], parameters=model.parameters()),
+        GPTPretrainingCriterion())
+    x = fleet.shard_batch(ids)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    registry.clear_cache()
+    reset_launches()
+    metrics.reset_counters("collective.")
+    metrics.reset_counters("kernels.")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(HYBRID["steps"]):
+        t = time.perf_counter()
+        losses.append(float(step(x, x)["loss"]))
+        step_s.append(time.perf_counter() - t)
+    calls = metrics.counters("collective.")
+    return dict(coord=hcg.coord, losses=losses, load_seconds=load_s, step_seconds=step_s,
+                launches=read_launches(), max_memory_allocated=torch.cuda.max_memory_allocated(),
+                params=n_params, split_parameters=len(step._zero.split),
+                host_staged_bytes=calls.pop(collective.HOST_STAGED, 0), collective_calls=calls,
+                peak_held=step.last_schedule.peak_held, n_micro=step.n_micro,
+                picked=metrics.counters("kernels.attention_core."))
+
+
+def phase_hybrid_gpt3():
+    """BASELINE #4 as ``bench_1p3b.py:25-60`` sets it: GPT-3 1.3B at full
+    width and depth (``GPTConfig.gpt3_1p3b(max_seq_len=256)``), f32 AdamW
+    lr 1e-4, sdp 2 x mp 2 x pp 2 with ZeRO stage 2 and 2 micro-batches
+    through ``1f1b``, ids ``[4, 256]`` from ``default_rng(0)`` with labels =
+    ids. First the port's plain one-process f32 ``TrainStep`` on the same
+    weights and batch (2 steps; the weights are written to a file the
+    ranks map), then 8 gloo processes on ``cuda:0`` (NCCL refuses two ranks
+    on one device), 2 steps. Every rank's losses within
+    ``HYBRID_LOSS_RTOL`` of the plain step's; K1 and K2 launched on every
+    rank, 12 layers x 2 micro-batches of each a step; stage s holding at
+    most ``pp - s`` micro-batches' inputs. Returns the launches summed over
+    the ranks."""
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing.dist import run_ranks
+
+    # the card is shared with 8 rank processes: what earlier phases left in
+    # reference cycles is freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = GPTConfig.gpt3_1p3b(max_seq_len=HYBRID["seq"])
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (HYBRID["batch"], HYBRID["seq"])).astype(np.int32)
+    workdir = Path(__file__).resolve().parent / "build"
+    workdir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=workdir, prefix="hybrid_gpt3_"))
+    try:
+        model = GPTForPretraining(cfg, seed=SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        path = tmp / "weights.pt"
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+        t_save = time.perf_counter() - t0
+        step = TrainStep(model, AdamW(learning_rate=HYBRID["lr"], parameters=model.parameters()),
+                         GPTPretrainingCriterion())
+        x = torch.from_numpy(ids).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        plain_s, plain = [], []
+        for _ in range(HYBRID["steps"]):
+            t = time.perf_counter()
+            plain.append(float(step(x, x)["loss"]))
+            plain_s.append(time.perf_counter() - t)
+        plain_peak = torch.cuda.max_memory_allocated()
+        del model, step, x
+        gc.collect()
+        torch.cuda.empty_cache()
+        parent_allocated = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        world = HYBRID["sdp"] * HYBRID["mp"] * HYBRID["pp"]
+        ranks = run_ranks(_hybrid_rank, world, str(path), ids, device="cuda:0", backend="gloo",
+                          timeout=HYBRID["timeout"])
+        t_world = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    layers = cfg.num_layers // HYBRID["pp"]
+    want = {K1["name"]: layers * HYBRID["accumulate"] * HYBRID["steps"],
+            K2["name"]: layers * HYBRID["accumulate"] * HYBRID["steps"],
+            K3["name"]: 0, K3B["name"]: 0, K4["name"]: 0, K4B["name"]: 0}
+    errs = [max(abs(a - b) / abs(b) for a, b in zip(r["losses"], plain)) for r in ranks]
+    ok = (all(np.isfinite(r["losses"]).all() for r in ranks)
+          and max(errs) <= HYBRID_LOSS_RTOL
+          and all(r["launches"] == want for r in ranks)
+          and all(r["peak_held"] == HYBRID["pp"] - r["coord"][1] for r in ranks)
+          and all(r["picked"] == {"kernels.attention_core.picked": 1,
+                                  "kernels.attention_core.fallback": 0} for r in ranks))
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in want}
+    emit(phase="hybrid_gpt3", ok=ok, backend="gloo", device="cuda:0", world_size=world,
+         mesh={k: HYBRID[k] for k in ("sdp", "mp", "pp")}, zero_stage=HYBRID["stage"],
+         schedule=HYBRID["schedule"], micro_batches=HYBRID["accumulate"],
+         ids=[HYBRID["batch"], HYBRID["seq"]], params=n_params, plain_losses=plain,
+         plain_step_seconds=plain_s, plain_max_memory_allocated=plain_peak,
+         parent_memory_allocated_with_the_ranks=parent_allocated,
+         loss_rel_err_by_rank=errs, loss_rtol=HYBRID_LOSS_RTOL,
+         launches_per_rank=want, launches=launches,
+         ranks=[{k: r[k] for k in ("coord", "losses", "load_seconds", "step_seconds",
+                                   "max_memory_allocated", "params", "split_parameters",
+                                   "host_staged_bytes", "collective_calls", "peak_held",
+                                   "n_micro")} for r in ranks],
+         seconds=dict(save_and_plain=t1 - t0, save=t_save, world=t_world,
+                      total=time.perf_counter() - t0))
+    if not ok:
+        raise AssertionError("hybrid_gpt3 phase failed")
     return launches
 
 
@@ -3898,11 +4429,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dist_two_rank()
     torch.cuda.empty_cache()
+    phase_dist_zero3_ernie()
+    torch.cuda.empty_cache()
     reset_launches()
     phase_flat_check()
     by_path["flat_check"] = read_launches()
     torch.cuda.empty_cache()
-    by_path["gpt3_1p3b_train"] = phase_gpt3_train()
+    by_path["gpt3_1p3b_train"], gpt3_losses, gpt3_ms = phase_gpt3_train()
+    torch.cuda.empty_cache()
+    reset_launches()
+    by_path["zero_gpt3_train"] = phase_zero_gpt3_train(gpt3_losses, gpt3_ms)
+    torch.cuda.empty_cache()
+    by_path["hybrid_gpt3"] = phase_hybrid_gpt3()
     torch.cuda.empty_cache()
     phase_recompute_check()
     torch.cuda.empty_cache()
@@ -3958,6 +4496,8 @@ def main() -> int:
                 "dp_bert_train": [K3["name"], K3B["name"]],
                 "flat_check": [K3["name"], K3B["name"]],
                 "gpt3_1p3b_train": [K1["name"], K2["name"]],
+                "zero_gpt3_train": [K1["name"], K2["name"]],
+                "hybrid_gpt3": [K1["name"], K2["name"]],
                 "ernie_train": [K1["name"], K2["name"]],
                 "resnet50_train": [], "lenet_train": [], "dlrm_train": []}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]

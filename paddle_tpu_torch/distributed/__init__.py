@@ -1,10 +1,12 @@
 """Distributed layer of the port (``paddle_tpu/distributed``): the process
-environment, the hybrid topology, eager collectives over
-``torch.distributed``, ``DataParallel``, the tensor-parallel layers,
+environment, the hybrid topology, eager collectives and point-to-point
+sends over ``torch.distributed``, ``DataParallel``, the tensor-parallel
+layers, ZeRO sharding (``sharding``), the pipeline (``pipeline``),
 ``fleet`` (``init``, ``distributed_step``, ``shard_batch``), plus the
 mixture-of-experts layer (``moe``) and the recommender's embedding table
-in its single-shard form (``embedding``). ZeRO sharding, the pipeline and
-the launcher wait for later slices (ROADMAP.md, Queue 1 items 13b-13d)."""
+in its single-shard form (``embedding``). Sequence parallelism, the fleet
+executor, expert parallelism's exchanges and the launcher wait for later
+slices (ROADMAP.md, Queue 1 items 13c and 13d)."""
 from . import fleet as fleet_mod  # noqa: F401
 from . import utils  # noqa: F401
 from .collective import (  # noqa: F401
@@ -19,6 +21,7 @@ from .collective import (  # noqa: F401
     broadcast,
     get_group,
     new_group,
+    p2p,
     ppermute,
     recv,
     reduce,
@@ -37,6 +40,16 @@ from .mp_layers import (  # noqa: F401
     VocabParallelEmbedding,
     get_rng_state_tracker,
 )
+from .moe import MoELayer  # noqa: F401
 from .parallel import DataParallel, spawn  # noqa: F401
+from .pipeline import (  # noqa: F401
+    LayerDesc,
+    PipelineLayer,
+    SegmentLayers,
+    SharedLayerDesc,
+    pipeline_forward,
+    run_schedule,
+)
+from .sharding import ZeroPlan, group_sharded_parallel, state_shardings  # noqa: F401
 from .strategy import DistributedStrategy  # noqa: F401
 from .topology import AXES, CommunicateTopology, HybridCommunicateGroup, build_mesh  # noqa: F401

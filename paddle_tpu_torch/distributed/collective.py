@@ -21,8 +21,21 @@ compute for the rank at that axis index:
 
 Each collective bumps ``collective.<name>.calls`` and runs under a
 ``collective.<name>`` span. ``AVG`` is a sum divided by the group size
-(``jax.lax.pmean``'s arithmetic). Point-to-point ``send``/``recv`` raise
-as the reference's do: ``ppermute`` is the pattern.
+(``jax.lax.pmean``'s arithmetic).
+
+``send``, ``recv`` and :func:`p2p` (several of them posted together, the
+pipeline's exchanges) are point-to-point; the reference has none (its
+pipeline moves activations by ``ppermute`` inside one program), so they
+follow Paddle's and torch's signatures, with group indices for ranks.
+
+Transport: NCCL refuses two ranks on one device, so a world above one on a
+single card runs over gloo, which takes CUDA tensors for all-reduce,
+all-gather and broadcast but not for point-to-point traffic nor
+reduce-scatter. For those (and only under gloo) the collective layer
+stages a CUDA tensor through pinned host memory: copy out, the gloo call
+on the host copy, copy back. It counts the bytes it stages in
+``collective.host_staged_bytes``. Every computation stays on the card;
+only the transport passes through the host. Under NCCL nothing is staged.
 """
 from __future__ import annotations
 
@@ -36,7 +49,9 @@ from ..observability.spans import span
 
 __all__ = ["ReduceOp", "Group", "all_reduce", "all_gather", "all_gather_concat", "reduce_scatter",
            "alltoall", "all_to_all", "broadcast", "reduce", "scatter", "ppermute", "send", "recv",
-           "barrier", "get_group", "new_group", "wait"]
+           "p2p", "barrier", "get_group", "new_group", "wait"]
+
+HOST_STAGED = "collective.host_staged_bytes"
 
 
 def _collective(name):
@@ -117,6 +132,25 @@ def _group(group) -> Group:
     raise TypeError(f"group must be a Group, an axis name or None, got {type(group).__name__}")
 
 
+def _staged(tensor, g):
+    """Whether ``tensor`` goes through pinned host memory on ``g``: a CUDA
+    tensor under gloo."""
+    return tensor.is_cuda and dist.get_backend(g.process_group) == "gloo"
+
+
+def _to_host(tensor):
+    """A pinned host copy of ``tensor`` (counted in ``HOST_STAGED``)."""
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor)
+    metrics.counter_inc(HOST_STAGED, tensor.numel() * tensor.element_size())
+    return host
+
+
+def _host_buffer(tensor):
+    metrics.counter_inc(HOST_STAGED, tensor.numel() * tensor.element_size())
+    return torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+
+
 def _check_op(op):
     if op not in _TORCH_OP:
         raise ValueError(f"unsupported reduce op {op}")
@@ -173,7 +207,12 @@ def reduce_scatter(output, input, op=ReduceOp.SUM, group=None, sync_op=True, sca
                          f"does not split over {n} ranks")
     x = input.movedim(scatter_axis, 0).contiguous()
     out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, x, op=_check_op(op), group=g.process_group)
+    if _staged(x, g):
+        host_out = _host_buffer(out)
+        dist.reduce_scatter_tensor(host_out, _to_host(x), op=_check_op(op), group=g.process_group)
+        out.copy_(host_out)
+    else:
+        dist.reduce_scatter_tensor(out, x, op=_check_op(op), group=g.process_group)
     if op == ReduceOp.AVG:
         out.div_(n)
     out = out.movedim(0, scatter_axis)
@@ -275,14 +314,41 @@ def ppermute(x, perm, group=None):
     return out
 
 
+def p2p(sends=(), recvs=(), group=None):
+    """Post every ``(tensor, dst)`` of ``sends`` and every ``(tensor, src)``
+    of ``recvs`` together (``dst``/``src`` group indices) and wait for them
+    all; each received tensor is written in place. Posting a pipeline's
+    send and receive as one batch is what keeps neighbouring stages that
+    both send first from waiting on each other."""
+    g = _group(group)
+    staged = [(t, _host_buffer(t)) for t, _ in recvs if _staged(t, g)]
+    host = {id(t): h for t, h in staged}
+    ops = [dist.P2POp(dist.isend, _to_host(t) if _staged(t, g) else t.contiguous(),
+                      g.get_global_rank(dst), g.process_group) for t, dst in sends]
+    ops += [dist.P2POp(dist.irecv, host.get(id(t), t), g.get_global_rank(src), g.process_group)
+            for t, src in recvs]
+    for _ in sends:
+        metrics.counter_inc("collective.send.calls")
+    for _ in recvs:
+        metrics.counter_inc("collective.recv.calls")
+    if ops:
+        with span("collective.p2p"):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+    for t, h in staged:
+        t.copy_(h)
+
+
 def send(tensor, dst=0, group=None, sync_op=True):
-    raise NotImplementedError(
-        "point-to-point send/recv have no single-program analog in the reference; use "
-        "ppermute (collective_permute) — see paddle_tpu_torch.distributed.pipeline for the "
-        "pipeline-parallel pattern")
+    """Send ``tensor`` to the group's rank ``dst``; blocks until it is
+    delivered."""
+    p2p(sends=[(tensor, dst)], group=group)
 
 
-recv = send
+def recv(tensor, src=0, group=None, sync_op=True):
+    """Receive into ``tensor`` from the group's rank ``src``; returns it."""
+    p2p(recvs=[(tensor, src)], group=group)
+    return tensor
 
 
 @_collective("barrier")

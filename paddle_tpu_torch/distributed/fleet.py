@@ -8,9 +8,11 @@ port's runs one process per rank: ``fleet.init`` joins the world and lays
 the ranks on the hybrid grid (:mod:`.topology`); the model's
 tensor-parallel layers hold their shards and run their own collectives
 (:mod:`.mp_layers`); ``distributed_step`` is a ``TrainStep`` over the
-grid, which averages the f32 master gradients over the ``dp`` group before
-the update; ``shard_batch`` gives each rank its block of the global batch.
-ZeRO sharding and the pipeline raise (ROADMAP.md, Queue 1 items 13b, 13c).
+grid, which averages the f32 master gradients over the data group (``dp``
+x ``sdp``) before the update, at the strategy's ZeRO stage
+(:mod:`.sharding`), and at ``pp > 1`` runs the pipeline schedule
+(:mod:`.pipeline`); ``shard_batch`` gives each rank its block of the
+global batch.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ class Fleet:
         self._hcg: Optional[HybridCommunicateGroup] = None
         self._strategy: Optional[DistributedStrategy] = None
         self._is_initialized = False
+        self._batch_axes = ("dp", "sdp")
 
     # -- lifecycle ---------------------------------------------------------
     def init(self, role_maker=None, is_collective=True, strategy=None, device=None):
@@ -39,6 +42,7 @@ class Fleet:
         it at 1, and ``tensor_parallel_configs.tensor_init_seed`` (if set)
         seeds the model-parallel RNG stream."""
         self._strategy = strategy or DistributedStrategy()
+        self._batch_axes = ("dp", "sdp")
         hc = self._strategy.hybrid_configs
         tp = self._strategy.tensor_parallel_configs
         mp_degree = hc.mp_degree if hc.mp_degree > 1 else int(tp.tensor_parallel_degree)
@@ -89,20 +93,31 @@ class Fleet:
         """A ``TrainStep`` over the hybrid grid, per the active strategy:
         ``amp_configs`` (O2 bf16; float16 raises), ``recompute`` /
         ``recompute_configs.enable``, ``gradient_merge`` and, at pp 1,
-        ``pipeline_configs.accumulate_steps`` as micro-batches. Feed it
+        ``pipeline_configs.accumulate_steps`` as micro-batches (at pp > 1
+        the pipeline's, with ``pipeline_configs.schedule``), and the ZeRO
+        stage ``sharding_configs.sharding_stage`` when ``sharding`` is on or
+        ``sharding_degree`` is above 1 (or the stage
+        ``group_sharded_parallel`` recorded); ``sharding_configs.offload``
+        raises. ``batch_sharding``: the axes :meth:`shard_batch` splits the
+        batch over, a subset of ``("dp", "sdp")`` (default both). Feed it
         :meth:`shard_batch`'s blocks."""
         from ..jit import TrainStep
+        from .sharding import _OFFLOAD
 
         if self._hcg is None:
             raise RuntimeError("call fleet.init(strategy=...) first")
         strat = self._strategy
-        if strat.sharding or strat.hybrid_configs.sharding_degree > 1:
-            raise NotImplementedError(
-                "sharding (ZeRO) is not ported yet (ROADMAP.md, Queue 1 item 13b)")
-        if batch_sharding is not None:
-            raise NotImplementedError(
-                "batch_sharding is not ported yet (ROADMAP.md, Queue 1 item 13b): each rank "
-                "feeds its own block from shard_batch")
+        # strategy.sharding names the stage; else group_sharded_parallel's
+        # record; else a sharding degree above 1 takes the strategy's default
+        stage = getattr(model, "_sharding_stage", 0)
+        if strat.sharding or (not stage and strat.hybrid_configs.sharding_degree > 1):
+            stage = int(strat.sharding_configs.sharding_stage)
+        if stage and strat.sharding_configs.offload:
+            raise NotImplementedError(_OFFLOAD)
+        axes = tuple(batch_sharding) if batch_sharding is not None else ("dp", "sdp")
+        if not axes or not set(axes) <= {"dp", "sdp"}:
+            raise ValueError(f"batch_sharding must name axes of ('dp', 'sdp'), got {axes!r}")
+        self._batch_axes = tuple(a for a in ("dp", "sdp") if a in axes)
         if not strat.sharding_configs.comm_overlap:
             warnings.warn(
                 "sharding_configs.comm_overlap=False has no effect: the gradient buckets are "
@@ -126,26 +141,35 @@ class Fleet:
             # when there is no pipeline to micro-batch (the reference's semantics)
             accumulate = int(strat.pipeline_configs.accumulate_steps)
         return TrainStep(model, optimizer, loss_fn, mesh=self._hcg, remat=remat, seed=seed,
-                         amp_level=amp_level, amp_dtype=amp_dtype, accumulate_steps=accumulate)
+                         amp_level=amp_level, amp_dtype=amp_dtype, accumulate_steps=accumulate,
+                         state_shardings=stage or None, batch_shardings=self._batch_axes)
 
     def shard_batch(self, *arrays):
-        """This rank's block of each global batch leaf: rows ``[r * B / dp,
-        (r + 1) * B / dp)`` of dim 0 for dp rank r, the block GSPMD's
-        ``P(("dp", "sdp"))`` gives it (the ranks of one mp group get the
-        same block), on this rank's device."""
+        """This rank's block of each global batch leaf: with ``n`` the size
+        of the data axes (``dp`` x ``sdp``, or those ``batch_sharding``
+        named) and ``r = dp_rank * sdp + sdp_rank`` this rank's index over
+        them, rows ``[r * B / n, (r + 1) * B / n)`` of dim 0, the block
+        GSPMD's ``P(("dp", "sdp"))`` gives it (the ranks of one mp group
+        and of one pipeline get the same block), on this rank's device."""
         if self._hcg is None:
             raise RuntimeError("call fleet.init(strategy=...) first")
-        dp = self._hcg.get_data_parallel_world_size()
-        r = self._hcg.get_data_parallel_rank()
+        hcg = self._hcg
+        sizes = {"dp": hcg.get_data_parallel_world_size(),
+                 "sdp": hcg.get_sharding_parallel_world_size()}
+        ranks = {"dp": hcg.get_data_parallel_rank(), "sdp": hcg.get_sharding_parallel_rank()}
+        n, r = 1, 0
+        for axis in self._batch_axes:
+            n, r = n * sizes[axis], r * sizes[axis] + ranks[axis]
+        names = " x ".join(f"{a} {sizes[a]}" for a in self._batch_axes)
         device = get_device()
         out = []
         for a in arrays:
             t = torch.as_tensor(a)
-            if t.ndim == 0 or t.shape[0] % dp:
+            if t.ndim == 0 or t.shape[0] % n:
                 raise ValueError(f"shard_batch: a leaf of shape {tuple(t.shape)} does not split "
-                                 f"over dp {dp} along dim 0")
-            n = t.shape[0] // dp
-            out.append(t[r * n:(r + 1) * n].to(device))
+                                 f"over {names} along dim 0")
+            b = t.shape[0] // n
+            out.append(t[r * b:(r + 1) * b].to(device))
         return tuple(out) if len(out) > 1 else out[0]
 
     # -- save/load (parity: fleet_base.py:795,833) -------------------------

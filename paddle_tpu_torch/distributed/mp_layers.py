@@ -81,7 +81,7 @@ def _shard(full, axis, group, blocks=1):
 
 def _mark(p, group, axis):
     p.is_distributed = True
-    p.split_axis = axis
+    p.split_axis = p.mp_axis = axis
     p.mp_group = group
     return p
 
@@ -173,6 +173,9 @@ class ColumnParallelLinear(nn.Module):
             w, b = _shard(w, 1, self.group, blocks), b if b is None else _shard(b, 0, self.group, blocks)
         self.weight = nn.Parameter(w)
         self.bias = None if b is None else nn.Parameter(b)
+        self.weight.mp_axis = 1  # the dim the layout splits, at any degree (ZeRO's plan)
+        if self.bias is not None:
+            self.bias.mp_axis = 0
         if self.group is not None:
             _mark(self.weight, self.group, 1)
             if self.bias is not None:
@@ -207,6 +210,7 @@ class RowParallelLinear(nn.Module):
         if self.group is not None:
             w = _shard(w, 0, self.group)
         self.weight = nn.Parameter(w)
+        self.weight.mp_axis = 0
         self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if has_bias else None
         if self.group is not None:
             _mark(self.weight, self.group, 0)
@@ -241,6 +245,7 @@ class VocabParallelEmbedding(nn.Module):
         if self.group is not None:
             w = _shard(w, 0, self.group)
         self.weight = nn.Parameter(w)
+        self.weight.mp_axis = 0
         if self.group is not None:
             _mark(self.weight, self.group, 0)
 

@@ -9,9 +9,13 @@ sits at ``np.unravel_index(r, dims)`` of ``(dp, pp, sdp, mp, sep)``), and
 builds one ``torch.distributed`` process group per slice of each axis:
 every rank calls ``new_group`` for every slice, in the same order, and
 keeps the :class:`~paddle_tpu_torch.distributed.collective.Group` of the
-slices it sits in. Only ``dp`` and ``mp`` are ported: a pipeline,
-sharding or sequence degree above 1 raises (ROADMAP.md, Queue 1 items 13b
-and 13c).
+slices it sits in. Two more kinds of group have no axis of their own:
+``"data"``, the ranks that differ only in their ``dp`` and ``sdp``
+coordinates (the batch is split over them and the gradients averaged over
+them, as the reference's ``P(("dp", "sdp"))`` batch spec has it), and
+``"pp_ends"``, the first and the last stage of each pipeline (they both
+hold GPT's tied word table, whose gradient is their sum). A sequence
+degree above 1 raises (ROADMAP.md, Queue 1 item 13c).
 """
 from __future__ import annotations
 
@@ -24,9 +28,7 @@ from .env import get_rank, get_world_size
 
 AXES = ("dp", "pp", "sdp", "mp", "sep")
 
-_NOT_PORTED = {"pp": "pipeline parallelism (ROADMAP.md, Queue 1 item 13c)",
-               "sdp": "sharding parallelism (ZeRO; ROADMAP.md, Queue 1 item 13b)",
-               "sep": "sequence parallelism (ROADMAP.md, Queue 1 item 13c)"}
+_NOT_PORTED = {"sep": "sequence parallelism (ROADMAP.md, Queue 1 item 13c)"}
 
 
 class CommunicateTopology:
@@ -51,11 +53,15 @@ class CommunicateTopology:
         return tuple(int(c) for c in np.unravel_index(rank, self._dims))
 
     def get_comm_list(self, axis_name):
-        """Every slice along ``axis_name``: lists of ranks that differ only
-        in that axis's coordinate, in rank order."""
-        ax = self._parallel_names.index(axis_name)
-        grid = np.moveaxis(np.arange(self.world_size()).reshape(self._dims), ax, -1)
-        return [[int(r) for r in row] for row in grid.reshape(-1, self._dims[ax])]
+        """Every slice along ``axis_name`` (or along several axes at once, a
+        tuple, the first the slowest): lists of ranks that differ only in
+        those coordinates, in rank order."""
+        names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        axes = [self._parallel_names.index(a) for a in names]
+        grid = np.moveaxis(np.arange(self.world_size()).reshape(self._dims), axes,
+                           list(range(-len(axes), 0)))
+        size = int(np.prod([self._dims[a] for a in axes]))
+        return [[int(r) for r in row] for row in grid.reshape(-1, size)]
 
 
 class HybridCommunicateGroup:
@@ -79,15 +85,28 @@ class HybridCommunicateGroup:
         self.global_rank = get_rank()
         self.coord = self.topo.get_coord(self.global_rank)
         self._groups = {}
-        for axis in AXES:
-            for ranks in self.topo.get_comm_list(axis):  # every rank, every slice, same order
-                group = new_group(ranks, axis_name=axis)
+        slices = [(axis, self.topo.get_comm_list(axis)) for axis in AXES]
+        slices.append(("data", self.topo.get_comm_list(("dp", "sdp"))))
+        slices.append(("pp_ends", [sorted({r[0], r[-1]}) for r in self.topo.get_comm_list("pp")]))
+        for name, lists in slices:
+            for ranks in lists:  # every rank, every slice, same order
+                group = new_group(ranks, axis_name=name)
                 if self.global_rank in ranks:
-                    self._groups[axis] = group
+                    self._groups[name] = group
 
     def group(self, axis) -> Group:
-        """This rank's group along ``axis``."""
+        """This rank's group along ``axis`` (or ``"data"``, ``"pp_ends"``)."""
         return self._groups[axis]
+
+    def get_pp_ends_group(self):
+        """The first and the last stage of this rank's pipeline, or None on
+        a stage between them."""
+        return self._groups.get("pp_ends")
+
+    def get_data_sharding_group(self):
+        """The ranks over which the batch is split: ``dp`` x ``sdp``."""
+        return self._groups["data"]
+
 
     # -- paddle fleet accessors ---------------------------------------------
     def get_data_parallel_world_size(self):

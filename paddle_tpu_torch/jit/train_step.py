@@ -31,18 +31,41 @@ even when it was given bare ``model.parameters()``.
 
 With ``mesh`` (``fleet.distributed_step``), the reference's GSPMD step,
 whose gradient is the global batch's, becomes one process per rank whose
-gradients the ``dp`` group averages (:mod:`paddle_tpu_torch.distributed`).
-The returned loss is the dp group's mean of the ranks' losses: the global
-batch's mean when every rank's loss averages the same count (the MLM loss
-of ranks holding different numbers of labelled tokens weighs them
-differently; ROADMAP.md, Queue 3).
+gradients the data group (``dp`` x ``sdp``) averages
+(:mod:`paddle_tpu_torch.distributed`). The returned loss is the data
+group's mean of the ranks' losses: the global batch's mean when every
+rank's loss averages the same count (the MLM loss of ranks holding
+different numbers of labelled tokens weighs them differently; ROADMAP.md,
+Queue 3). That pass runs whenever a mesh is given, at degree 1 too:
+
+- ``state_shardings`` (a ZeRO stage, 1 to 3; or the stage that
+  ``group_sharded_parallel`` recorded on the model) runs the step's
+  :class:`~paddle_tpu_torch.distributed.sharding.ZeroPlan`: stage 1
+  averages whole gradients and updates each rank's blocks, stage 2
+  reduce-scatters the split gradients over ``sdp`` and all-reduces them
+  over ``dp``, both then all-gather the parameters; at stage 3 the
+  parameters are blocks, gathered for the forward and again in the
+  backward, and their gradients come back reduce-scattered;
+- with ``pp > 1`` the step runs the fleet's pipeline schedule
+  (:func:`~paddle_tpu_torch.distributed.pipeline.run_schedule`,
+  ``pipeline_configs.schedule``) over ``n_micro =
+  pipeline_configs.accumulate_steps`` micro-batches (``2 pp`` when that is
+  1), and its own ``accumulate_steps`` stays 1. The last stage weighs
+  micro-batch i's loss by its share of the batch's averaged terms
+  (``loss_fn.token_count(*labels)``, a loss mask's sum, where the loss
+  says; equal shares otherwise), so the step's loss is the batch's, and
+  broadcasts it to the other stages. A model with
+  ``allreduce_shared_weight_gradients`` (a tied table on the first and
+  last stage) has it called before the gradients are averaged.
 """
 from __future__ import annotations
 
 import torch
 from torch.func import functional_call
 
-from ..distributed.pipeline import microbatch, unmicrobatch
+from ..distributed import collective as C
+from ..distributed.pipeline import (active_pipeline_plan, active_pipeline_schedule, microbatch,
+                                    run_schedule, unmicrobatch)
 from ..distributed.recompute import recompute
 from ..framework.flags import flag
 from ..framework.selected_rows import compiled_step
@@ -86,17 +109,23 @@ class TrainStep:
     under ``"outputs"``. ``mesh``: the fleet's ``HybridCommunicateGroup``;
     then each rank runs the step on its own block of the batch, and after
     the backward the f32 master gradients (and the loss) are averaged over
-    the ``dp`` group, bucketed as ``DataParallel`` does, before the update.
-    That pass runs whenever a mesh is given, at dp 1 too (a sum over one
-    rank, divided by 1: the same bits). ``seed`` is kept for the reference's signature:
-    nothing random runs in the step until dropout is ported. The knobs the
-    port lacks raise ``NotImplementedError``."""
+    the data group, bucketed as ``DataParallel`` does, before the update
+    (or by the ZeRO plan of ``state_shardings``, the stage). That pass runs
+    whenever a mesh is given, at degree 1 too (a sum over one rank,
+    divided by 1: the same bits). ``batch_shardings``: the axes the batch
+    is split over, a subset of ``("dp", "sdp")`` (each rank feeds its own
+    block). ``seed`` is kept for the reference's signature: nothing random
+    runs in the step until dropout is ported. The knobs the port lacks
+    raise ``NotImplementedError``."""
 
     def __init__(self, model, optimizer, loss_fn, mesh=None, state_shardings=None,
                  batch_shardings=None, remat=False, seed=0, amp_level=None, amp_dtype="bfloat16",
                  accumulate_steps=1, return_outputs=False, guard=None):
-        if state_shardings is not None or batch_shardings is not None:
-            raise NotImplementedError(_NOT_PORTED.format("state and batch shardings (ZeRO)", "13b"))
+        if (state_shardings is not None or batch_shardings is not None) and mesh is None:
+            raise ValueError("TrainStep: state_shardings and batch_shardings need a mesh")
+        if batch_shardings is not None and (not set(batch_shardings) <= {"dp", "sdp"}):
+            raise ValueError(f"TrainStep: batch_shardings must name axes of ('dp', 'sdp'), got "
+                             f"{batch_shardings!r}")
         if guard:
             raise NotImplementedError(_NOT_PORTED.format("guard", 6))
         if int(accumulate_steps) < 1:
@@ -119,30 +148,75 @@ class TrainStep:
         self.device = next(model.parameters()).device
         self._param_names = {id(p): n for n, p in model.named_parameters()}
         self.mesh = mesh
-        self._reducer = None
+        self.batch_shardings = tuple(batch_shardings or ("dp", "sdp"))
+        self._reducer = self._zero = None
+        self._gather = {}
+        self.n_micro, self.schedule, self.last_schedule = 1, None, None
+        self._pp_meta = {}
         if mesh is not None:
-            from ..distributed.parallel import _BucketReducer
-            from ..distributed.topology import HybridCommunicateGroup
+            self._init_mesh(mesh, int(state_shardings or getattr(model, "_sharding_stage", 0)))
 
-            if not isinstance(mesh, HybridCommunicateGroup):
-                raise TypeError("TrainStep: mesh must be the fleet's HybridCommunicateGroup, got "
-                                f"{type(mesh).__name__}")
-            self._reducer = _BucketReducer([p for p in model.parameters() if p.requires_grad],
-                                           group=mesh.get_data_parallel_group(),
+    def _init_mesh(self, mesh, stage):
+        from ..distributed.parallel import _BucketReducer
+        from ..distributed.sharding import ZeroPlan
+        from ..distributed.topology import HybridCommunicateGroup
+
+        if not isinstance(mesh, HybridCommunicateGroup):
+            raise TypeError("TrainStep: mesh must be the fleet's HybridCommunicateGroup, got "
+                            f"{type(mesh).__name__}")
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        if stage:
+            self._zero = ZeroPlan(params, stage, mesh, names=self._param_names)
+            self.optimizer._shards = self._zero
+            if stage == 3:
+                self._gather = self._stage3_gathers()
+        else:
+            self._reducer = _BucketReducer(params, group=mesh.get_data_sharding_group(),
                                            names=self._param_names)
+        if mesh.get_pipe_parallel_world_size() > 1:
+            if self.accumulate_steps > 1:
+                raise ValueError("TrainStep: with a pipeline the micro-batches are "
+                                 "pipeline_configs.accumulate_steps; accumulate_steps must be 1")
+            if self.return_outputs:
+                raise NotImplementedError(_NOT_PORTED.format(
+                    "return_outputs with a pipeline (the outputs live on the last stage)", "13c"))
+            plan, n_micro = active_pipeline_plan()
+            self.n_micro = n_micro if plan is not None else 2 * mesh.get_pipe_parallel_world_size()
+            self.schedule = active_pipeline_schedule()
+
+    def _stage3_gathers(self):
+        """The split parameters the step gathers as its forward begins, by
+        name: those of modules that do not gather their own
+        (``zero_gathers_own``), which get theirs in ``_zero_parts``."""
+        z = self._zero
+        own = set()
+        for prefix, mod in self.model.named_modules():
+            if getattr(type(mod), "zero_gathers_own", False):
+                mod._zero_parts = {n: (z.part(p), z.sdp) for n, p in mod.named_parameters(
+                    recurse=False) if z.part(p) is not None}
+                own |= {f"{prefix}.{n}" if prefix else n for n in mod._zero_parts}
+        return {n: (z.part(p), z.sdp) for n, p in self.model.named_parameters()
+                if z.part(p) is not None and n not in own}
 
     def _to_amp(self, t):
         return t.to(self.amp_dtype) if t.dtype == torch.float32 else t
 
     def _loss(self, inputs, labels):
-        """``(loss, model outputs)`` of one (micro-)batch."""
-        if self.amp_level == "O2":
+        """``(loss, model outputs)`` of one (micro-)batch; the loss is None
+        when ``labels`` is (a pipeline stage before the last)."""
+        if self.amp_level == "O2" or self._gather:
             # cast the parameters only: the buffers run as they are, so an
             # in-place update in forward (a running statistic) lands in the
             # module's own buffer, as the reference's new_buffers do. The
-            # casts are made here, outside a remat block, and stay saved.
-            state = {n: self._to_amp(p) for n, p in self.model.named_parameters()}
-            inputs = tuple(self._to_amp(x) for x in inputs)
+            # casts (and at ZeRO stage 3 the gathers of the parameters whose
+            # modules do not gather their own) are made here, outside a remat
+            # block, and stay saved.
+            from ..distributed.sharding import gather_param
+
+            amp = self._to_amp if self.amp_level == "O2" else (lambda t: t)
+            state = {n: gather_param(amp(p), *self._gather[n]) if n in self._gather else amp(p)
+                     for n, p in self.model.named_parameters()}
+            inputs = tuple(amp(x) for x in inputs)
 
             def call(*xs):
                 return functional_call(self.model, state, xs)
@@ -151,19 +225,78 @@ class TrainStep:
 
         def loss_of(*xs):
             out = call(*xs)
-            return self.loss_fn(out, *labels), out
+            return (None if labels is None else self.loss_fn(out, *labels)), out
 
         if self.remat:
             loss, out = recompute(loss_of, *inputs, policy="nothing_saveable", replay=self.model)
         else:
             loss, out = loss_of(*inputs)
-        return (loss.float() if loss.dtype == self.amp_dtype else loss), out
+        if loss is not None and loss.dtype == self.amp_dtype:
+            loss = loss.float()
+        return loss, out
+
+    def _micro_weights(self, labels):
+        """Each micro-batch's share of the batch's averaged loss terms (the
+        loss's ``token_count``, or equal shares)."""
+        count = getattr(self.loss_fn, "token_count", None)
+        if count is None:
+            return [1.0 / len(labels)] * len(labels)
+        counts = [torch.as_tensor(count(*lb), dtype=torch.float32, device=self.device)
+                  for lb in labels]
+        total = torch.stack(counts).sum()
+        return [c / total for c in counts]
+
+    def _pipeline_pass(self, inputs, labels):
+        """This stage's part of the pipeline schedule over the step's
+        micro-batches; the batch's loss on every stage."""
+        hcg = self.mesh
+        group, stage = hcg.get_pipe_parallel_group(), hcg.get_pipe_parallel_rank()
+        n_stages, n = hcg.get_pipe_parallel_world_size(), self.n_micro
+        first, last = stage == 0, stage == n_stages - 1
+        mb_in = [microbatch(x, n) for x in inputs]
+        mb_lb = [microbatch(x, n) for x in labels]
+        labels_of = [tuple(x[i].contiguous() for x in mb_lb) for i in range(n)]
+        weights = self._micro_weights(labels_of) if last else None
+        saved, losses = {}, []
+
+        def forward(i, x):
+            if first:
+                xs = tuple(t[i].contiguous() for t in mb_in)
+            else:
+                xs = (x.requires_grad_(),)
+            with compiled_step():
+                loss, out = self._loss(xs, labels_of[i] if last else None)
+                y = loss * weights[i] if last else out
+            if last:
+                losses.append(y.detach())
+            saved[i] = (x, y)
+            return None if last else y.detach()
+
+        def backward(i, dy):
+            x, y = saved.pop(i)
+            with compiled_step():
+                torch.autograd.backward(y, None if last else dy)
+            return None if first else x.grad
+
+        key = tuple(tuple(t.shape) for t in inputs)
+        self.last_schedule = run_schedule(forward, backward, n, self.schedule, group, stage,
+                                          n_stages, self._pp_meta.setdefault(key, {}), self.device)
+        loss = torch.stack(losses).sum() if last else torch.zeros((), device=self.device)
+        return C.broadcast(loss, src=n_stages - 1, group=group)
 
     def _step(self, inputs, labels):
         """One update; returns ``(loss, lr, outputs or None)``."""
         lr = self.optimizer.lr_at(self.optimizer._step_count)
         self.optimizer.clear_grad()
         inputs, labels = _as_tensors(inputs, self.device), _as_tensors(labels, self.device)
+        if self.schedule is not None:
+            was_training = self.model.training
+            self.model.train()
+            try:
+                loss = self._pipeline_pass(inputs, labels)
+            finally:
+                self.model.train(was_training)
+            return self._update(loss, lr), lr, None
         k = self.accumulate_steps
         mb_in = [microbatch(x, k) for x in inputs]
         mb_lb = [microbatch(x, k) for x in labels]
@@ -186,15 +319,28 @@ class TrainStep:
                 for p in self.model.parameters():
                     if p.grad is not None:
                         p.grad.div_(k)
-        loss = torch.stack(losses).mean()
-        if self._reducer is not None:
-            # the f32 master gradients and the loss averaged over the dp group
-            loss = self._reducer.reduce(find_unused_parameters=True, extra=loss)
-        self.optimizer._traced_update(lr, self._param_names)
+        loss = self._update(torch.stack(losses).mean(), lr)
         outputs = None
         if self.return_outputs:
             outputs = outs[0] if k == 1 else _stack_microbatches(*outs)
         return loss, lr, outputs
+
+    def _update(self, loss, lr):
+        """The gradients (and ``loss``) averaged over the data group, the
+        optimizer's update, and at ZeRO stages 1-2 the parameters gathered;
+        returns the averaged loss."""
+        shared = getattr(self.model, "allreduce_shared_weight_gradients", None)
+        if shared is not None:
+            shared()
+        if self._zero is not None:
+            loss = self._zero.reduce(extra=loss)
+        elif self._reducer is not None:
+            # the f32 master gradients and the loss averaged over the data group
+            loss = self._reducer.reduce(find_unused_parameters=True, extra=loss)
+        self.optimizer._traced_update(lr, self._param_names)
+        if self._zero is not None:
+            self._zero.gather()
+        return loss
 
     def __call__(self, inputs, labels):
         """One step; returns ``{"loss": f32 scalar tensor, "lr": float}``,

@@ -10,6 +10,14 @@ name (:func:`paddle_tpu_torch.utils.convert.state_dict_from_paddle_tpu`).
 Without an attention mask, attention goes through the ``sdpa`` kernel's
 ``flash`` impl: K1 forward and K2 backward on the card.
 
+Under a fleet of model-parallel degree mp > 1 the encoder is BERT's
+tensor-parallel one (``num_heads / mp`` heads a rank, half the FFN, a
+vocabulary shard of the tied word table whose MLM logits stay sharded into
+``ParallelCrossEntropy``), as the reference's mp-annotated ``BertLayer``s
+compute it under GSPMD. The reference's ERNIE is a ``LayerList`` of
+``BertLayer``s (``paddle_tpu/models/ernie.py:8,17``) with no stacked
+trunk, so its pipeline (``pp``) does not apply to it, here as there.
+
 Initialisation follows what the reference does: its task-type table's
 ``weight_attr=I.Normal(0, initializer_range)`` is ignored as BERT's are
 (ROADMAP.md, Queue 3), so the table is drawn Normal(0, 1) like the other
@@ -21,7 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..distributed.mp_layers import model_parallel_degree
+from ..distributed.mp_layers import copy_to_model_parallel
 from ..framework.device import resolve_device
 from ..nn.functional.activation import gelu
 from ..nn.layer import Embedding, LayerNorm, Linear
@@ -94,9 +102,6 @@ class ErnieForPretraining(nn.Module):
 
     def __init__(self, cfg: ErnieConfig, device=None, seed: int = 0):
         super().__init__()
-        if model_parallel_degree() > 1:
-            raise NotImplementedError("ERNIE under model parallelism is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 13c)")
         device = resolve_device(device)
         generator = torch.Generator(device=device).manual_seed(int(seed))
         H = cfg.hidden_size
@@ -110,8 +115,10 @@ class ErnieForPretraining(nn.Module):
         """``(mlm_logits [b, s, V], sop_logits [b, 2])``."""
         h, pooled = self.ernie(input_ids, token_type_ids, position_ids, attn_mask, task_type_ids)
         h = self.transform_norm(gelu(self.transform(h), approximate=True))
-        mlm_logits = h @ self.ernie.embeddings.word_embeddings.weight.T
-        return mlm_logits, self.sop(pooled)
+        table = self.ernie.embeddings.word_embeddings
+        if table.group is not None:  # vocab-sharded logits, for ParallelCrossEntropy
+            h = copy_to_model_parallel(h, table.group)
+        return h @ table.weight.T, self.sop(pooled)
 
 
 class ErniePretrainingCriterion(BertPretrainingCriterion):

@@ -30,6 +30,27 @@ new): bucketed and chunked prefill, per-slot decode windows of W tokens.
 They attend over the cache in plain PyTorch, as the reference's jnp does.
 As in the reference, ``generate()`` and serving need the stacked trunk.
 
+Under a fleet grid the stacked trunk runs as the reference's sharded
+GPT does under GSPMD (``paddle_tpu/models/gpt.py:393-412``): at model
+parallelism mp > 1 each rank holds ``num_heads / mp`` heads (its
+``qkv_w``/``qkv_b`` columns hold the q, k and v of those heads: each of the
+three blocks split on its own), ``out_w`` and ``ffn2_w`` split on their
+input dim and ``ffn1_w``/``ffn1_b`` on their output (Megatron's column and
+row layers, with the copy and reduce regions), the word table split over
+the vocabulary (``VocabParallelEmbedding``) and the tied head giving
+vocab-sharded logits for ``ParallelCrossEntropy``. At pipeline degree
+pp > 1 each stage holds the ``L / pp`` layers of its segment of the
+``[L, ...]`` stack; the first stage also the embeddings, the last the
+final LayerNorm and a copy of the tied word table, whose gradient the two
+sum (:meth:`GPTForPretraining.allreduce_shared_weight_gradients`). A
+stage's forward takes the ids on the first stage and the activation
+received on the others, and gives the logits on the last stage and the
+activation to send on the others; ``TrainStep`` runs the schedule. A
+model built from a seed holds exactly its part of the one-rank model
+(every rank draws every weight and keeps its part; ``device="meta"``
+draws nothing, for a model whose weights are loaded after
+``to_empty``). Serving, the per-layer trunk and GPT-MoE need mp = pp = 1.
+
 Not ported yet: dropout in training and export; see ``ROADMAP.md``.
 """
 from __future__ import annotations
@@ -41,14 +62,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import collective as C
 from ..distributed.moe import MoELayer
 from ..distributed.recompute import recompute as _recompute
-from ..distributed.mp_layers import model_parallel_degree
+from ..distributed.mp_layers import (ParallelCrossEntropy, VocabParallelEmbedding, _mark,
+                                     _mp_group, _shard, copy_to_model_parallel,
+                                     reduce_from_model_parallel)
+from ..distributed.sharding import gather_param, regather_on_backward
 from ..framework.device import resolve_device
 from ..ops import registry
 from ..ops.layer_norm import layer_norm_fused
 from ..nn.functional.attention import scaled_dot_product_attention
-from ..nn.functional.loss import cross_entropy
 
 
 class GPTConfig:
@@ -133,15 +157,43 @@ def _normal(shape, std, generator, device):
     return torch.empty(shape, device=device).normal_(0.0, std, generator=generator)
 
 
+class _Grid:
+    """Where a GPT sits on the fleet's grid: its model-parallel group (None
+    at mp 1), its pipeline stage and the pipeline's groups."""
+
+    def __init__(self):
+        from ..distributed.fleet import fleet
+
+        self.mp = _mp_group(None)
+        hcg = fleet.get_hybrid_communicate_group()
+        self.pp = 1 if hcg is None else hcg.get_pipe_parallel_world_size()
+        self.stage = 0 if hcg is None else hcg.get_pipe_parallel_rank()
+        self.pp_group = hcg.get_pipe_parallel_group() if self.pp > 1 else None
+        self.ends_group = hcg.get_pp_ends_group() if self.pp > 1 else None
+        self.first, self.last = self.stage == 0, self.stage == self.pp - 1
+
+
 class GPTEmbeddings(nn.Module):
-    def __init__(self, cfg: GPTConfig, device, generator):
+    """The word and position tables. At mp 1 the word table is the
+    single-device case of the reference's ``VocabParallelEmbedding``, at
+    mp > 1 it is one; a pipeline's last stage holds the word table only
+    (for the tied head), the middle stages neither."""
+
+    def __init__(self, cfg: GPTConfig, device, generator, grid=None):
         super().__init__()
-        # the single-device case of the reference's VocabParallelEmbedding
-        self.word_embeddings = nn.Embedding.from_pretrained(
-            _normal((cfg.vocab_size, cfg.hidden_size), 0.02, generator, device), freeze=False)
-        self.position_embeddings = nn.Embedding.from_pretrained(
-            _normal((cfg.max_seq_len, cfg.hidden_size), cfg.initializer_range, generator, device),
-            freeze=False)
+        grid = grid or _Grid()
+        table = _normal((cfg.vocab_size, cfg.hidden_size), 0.02, generator, device)
+        pos = _normal((cfg.max_seq_len, cfg.hidden_size), cfg.initializer_range, generator, device)
+        self.word_embeddings = self.position_embeddings = None
+        if grid.first or grid.last:
+            if grid.mp is None:
+                self.word_embeddings = nn.Embedding.from_pretrained(table, freeze=False)
+            else:
+                self.word_embeddings = VocabParallelEmbedding(
+                    cfg.vocab_size, cfg.hidden_size, device="meta", mp_group=grid.mp)
+                self.word_embeddings.weight = nn.Parameter(_shard(table, 0, grid.mp))
+        if grid.first:
+            self.position_embeddings = nn.Embedding.from_pretrained(pos, freeze=False)
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
@@ -155,18 +207,32 @@ def _attn_core_packed(qkv, attn_dropout=0.0, generator=None):
     return registry.dispatch("attention_core", qkv, attn_dropout, generator)
 
 
-def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=1e-5):
+def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=1e-5,
+                 mp_group=None):
     """One pre-LN decoder block; ``lp`` holds the 12 parameter slices of one
-    layer in ``GPTBlockStack._order``."""
+    layer in ``GPTBlockStack._order``. With ``mp_group`` they are this
+    rank's shards and ``num_heads`` its heads: the column layers' input
+    goes through the copy region, the row layers' partial products through
+    the reduce region before their bias."""
     n1w, n1b, qkvw, qkvb, ow, ob, n2w, n2b, f1w, f1b, f2w, f2b = lp
     b, s, d = h.shape
+    dh = qkvw.shape[1] // (3 * num_heads)
     x1 = layer_norm_fused(h, n1w, n1b, epsilon)
-    qkv = (x1 @ qkvw + qkvb).reshape(b, s, 3, num_heads, d // num_heads)
-    att = _attn_core_packed(qkv, attn_dropout, generator).reshape(b, s, d)
-    h = h + att @ ow + ob
+    if mp_group is not None:
+        x1 = copy_to_model_parallel(x1, mp_group)
+    qkv = (x1 @ qkvw + qkvb).reshape(b, s, 3, num_heads, dh)
+    att = _attn_core_packed(qkv, attn_dropout, generator).reshape(b, s, num_heads * dh)
+    if mp_group is None:
+        h = h + att @ ow + ob
+    else:
+        h = h + reduce_from_model_parallel(att @ ow, mp_group) + ob
     x2 = layer_norm_fused(h, n2w, n2b, epsilon)
+    if mp_group is not None:
+        x2 = copy_to_model_parallel(x2, mp_group)
     y = F.gelu(x2 @ f1w + f1b, approximate="tanh")
-    return h + y @ f2w + f2b
+    if mp_group is None:
+        return h + y @ f2w + f2b
+    return h + reduce_from_model_parallel(y @ f2w, mp_group) + f2b
 
 
 # recompute_granularity -> the recompute policy of each block, as in the
@@ -175,34 +241,77 @@ def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=
 _REMAT_POLICY = {"full": "nothing_saveable", "selective": "dots_saveable"}
 
 
-def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None, recompute=None):
-    """Whole-trunk forward: the layer loop of the reference at pp = 1, each
-    block recomputed in the backward under the policy named by
-    ``recompute`` (a granularity, or None for no recompute). The stacked
-    parameters are unbound once, so their gradient is one ``stack`` of the
-    per-layer gradients, not L zero-filled ``[L, ...]`` buffers added up."""
+def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None, recompute=None,
+                   mp_group=None, gathers=None):
+    """Whole-trunk forward: the layer loop of the reference at pp = 1 (or
+    this stage's layers), each block recomputed in the backward under the
+    policy named by ``recompute`` (a granularity, or None for no
+    recompute). The stacked parameters are unbound once, so their gradient
+    is one ``stack`` of the per-layer gradients, not L zero-filled
+    ``[L, ...]`` buffers added up. ``gathers`` (ZeRO stage 3): for each
+    parameter, None or ``(dim, group)`` of its blocks in the stack; each
+    layer's blocks are gathered as the layer runs, and again in its
+    backward (by the recompute, or by :func:`regather_on_backward`)."""
     block = functools.partial(_block_apply, num_heads=num_heads, attn_dropout=attn_dropout,
-                              generator=generator)
+                              generator=generator, mp_group=mp_group)
+    gathers = gathers or [None] * len(params)
+
+    def gathered(lp):
+        return tuple(t if g is None else gather_param(t, g[0] - 1, g[1])
+                     for t, g in zip(lp, gathers))
+
+    def layer(lp, h):
+        return block(gathered(lp), h)
+
     h = x
     for lp in zip(*(p.unbind(0) for p in params)):
         if recompute:
-            h = _recompute(block, lp, h, policy=_REMAT_POLICY[recompute])
+            h = _recompute(layer, lp, h, policy=_REMAT_POLICY[recompute])
+        elif any(gathers):
+            whole = gathered(lp)
+            with regather_on_backward([(w, t, g[0] - 1, g[1]) for w, t, g in zip(whole, lp, gathers)
+                                       if g is not None]):
+                h = block(whole, h)
         else:
             h = block(lp, h)
     return h
 
 
+# the stacked trunk's tensor-parallel layout (reference gpt.py:393-412):
+# (split dim, column blocks) of each sharded parameter; the rest replicated
+STACK_MP_SPLITS = {"qkv_w": (2, 3), "qkv_b": (1, 3), "out_w": (1, 1), "ffn1_w": (2, 1),
+                   "ffn1_b": (1, 1), "ffn2_w": (1, 1)}
+
+
+def stage_layers(num_layers, pp, stage):
+    """The ``[lo, hi)`` layers of pipeline stage ``stage`` of ``pp``."""
+    if num_layers % pp:
+        raise ValueError(f"{num_layers} layers do not split over pp degree {pp}")
+    n = num_layers // pp
+    return stage * n, (stage + 1) * n
+
+
 class GPTBlockStack(nn.Module):
     """All decoder blocks as ``[L, ...]``-stacked parameters, named and laid
-    out (``[in, out]``) as in the reference."""
+    out (``[in, out]``) as in the reference: on a fleet grid, this rank's
+    ``mp`` shards of its stage's layers. At ZeRO stage 3 it gathers its own
+    parameters' blocks, layer by layer (``zero_gathers_own``)."""
 
     _order = ["norm1_w", "norm1_b", "qkv_w", "qkv_b", "out_w", "out_b",
               "norm2_w", "norm2_b", "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b"]
+    zero_gathers_own = True
 
-    def __init__(self, cfg: GPTConfig, device, generator):
+    def __init__(self, cfg: GPTConfig, device, generator, grid=None):
         super().__init__()
+        grid = grid or _Grid()
         self.cfg = cfg
+        self.mp_group = grid.mp
+        mp = 1 if grid.mp is None else grid.mp.nranks
+        if cfg.num_heads % mp:
+            raise ValueError(f"num_heads {cfg.num_heads} does not split over mp degree {mp}")
+        self.num_heads = cfg.num_heads // mp  # this rank's heads
         L, D, Ff = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size
+        lo, hi = stage_layers(L, grid.pp, grid.stage)
         std = cfg.initializer_range
         shapes = {
             "norm1_w": (L, D), "norm1_b": (L, D), "qkv_w": (L, D, 3 * D), "qkv_b": (L, 3 * D),
@@ -217,13 +326,20 @@ class GPTBlockStack(nn.Module):
                 value = torch.zeros(shape, device=device)
             else:
                 value = _normal(shape, std, generator, device)
+            if grid.pp > 1:
+                value = value[lo:hi].contiguous()
+            split = STACK_MP_SPLITS.get(name) if grid.mp is not None else None
+            if split is not None:
+                value = _shard(value, split[0], grid.mp, blocks=split[1])
             self.register_parameter(name, nn.Parameter(value))
 
     def forward(self, x):
         cfg = self.cfg
         _no_training_dropout(self, cfg)
-        return _stack_forward(x, [getattr(self, n) for n in self._order], num_heads=cfg.num_heads,
-                              recompute=cfg.recompute_granularity if cfg.recompute else None)
+        parts = getattr(self, "_zero_parts", None) or {}
+        return _stack_forward(x, [getattr(self, n) for n in self._order], num_heads=self.num_heads,
+                              recompute=cfg.recompute_granularity if cfg.recompute else None,
+                              mp_group=self.mp_group, gathers=[parts.get(n) for n in self._order])
 
 
 def _no_training_dropout(module, cfg):
@@ -306,29 +422,40 @@ class GPTModel(nn.Module):
     """Embedding + N decoder blocks + final LN -> hidden states. The blocks
     are a :class:`GPTBlockStack` (``cfg.stacked``) or a ``ModuleList`` of
     :class:`GPTBlock`; the MoE blocks' routing generators are seeded
-    ``seed + 1 + layer``."""
+    ``seed + 1 + layer``. On a pipeline stage, the stage's part (see the
+    module's docstring)."""
 
-    def __init__(self, cfg: GPTConfig, device, generator, seed=0):
+    def __init__(self, cfg: GPTConfig, device, generator, seed=0, grid=None):
         super().__init__()
+        grid = grid or _Grid()
+        if (grid.mp is not None or grid.pp > 1) and not cfg.stacked:
+            raise NotImplementedError(
+                "GPT's per-layer trunk (and GPT-MoE) under model or pipeline parallelism is not "
+                "ported yet (ROADMAP.md, Queue 1 item 13c): use the stacked trunk")
         self.cfg = cfg
-        self.embeddings = GPTEmbeddings(cfg, device, generator)
+        self._first, self._last = grid.first, grid.last
+        self.embeddings = GPTEmbeddings(cfg, device, generator, grid)
         if cfg.stacked:
-            self.layers = GPTBlockStack(cfg, device, generator)
+            self.layers = GPTBlockStack(cfg, device, generator, grid)
         else:
             self.layers = nn.ModuleList([
                 GPTBlock(cfg, device, generator,
                          use_moe=bool(cfg.moe_num_experts) and (i + 1) % cfg.moe_every == 0,
                          seed=seed + 1 + i)
                 for i in range(cfg.num_layers)])
-        self.final_norm = nn.LayerNorm(cfg.hidden_size, device=device)
+        self.final_norm = nn.LayerNorm(cfg.hidden_size, device=device) if grid.last else None
 
     def forward(self, input_ids, position_ids=None):
-        h = self.embeddings(input_ids, position_ids)
+        """The ids' hidden states; on a pipeline stage after the first,
+        ``input_ids`` is the activation received."""
+        h = self.embeddings(input_ids, position_ids) if self._first else input_ids
         if isinstance(self.layers, GPTBlockStack):
             h = self.layers(h)
         else:
             for blk in self.layers:
                 h = self._block_maybe_remat(blk, h)
+        if not self._last:
+            return h
         return layer_norm_fused(h, self.final_norm.weight, self.final_norm.bias, self.final_norm.eps)
 
     def _block_maybe_remat(self, blk, h):
@@ -353,25 +480,79 @@ class GPTModel(nn.Module):
 class GPTForPretraining(nn.Module):
     """GPT with the LM head tied to the word embedding. Runs on ``cuda``
     unless ``device`` says otherwise (no CUDA and no device raises); the
-    random weights are drawn from a ``torch.Generator`` seeded ``seed``."""
+    random weights are drawn from a ``torch.Generator`` seeded ``seed``
+    (none on the ``meta`` device). On a fleet grid it is this rank's part
+    of the model (see the module's docstring)."""
 
     def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
         super().__init__()
-        if model_parallel_degree() > 1:
-            raise NotImplementedError("GPT under model parallelism is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 13c)")
         device = resolve_device(device)
-        generator = torch.Generator(device=device).manual_seed(int(seed))
-        self.gpt = GPTModel(cfg, device, generator, seed=int(seed))
+        generator = (None if device.type == "meta"
+                     else torch.Generator(device=device).manual_seed(int(seed)))
+        grid = _Grid()
+        self._grid = grid
+        self.gpt = GPTModel(cfg, device, generator, seed=int(seed), grid=grid)
+        self._mark_params()
+
+    def _mark_params(self):
+        """The attributes the distributed layer reads off the parameters:
+        the tensor-parallel shards' (``mp_group``, ``split_axis``), the dim
+        each layout splits at any degree (``mp_axis``), the stacked trunk's
+        (``stacked_layers``), a pipeline stage's (``pp_group``) and the
+        tied table's second copy (``pp_tied_copy``, counted once in a
+        norm)."""
+        grid, g = self._grid, self.gpt
+        if isinstance(g.layers, GPTBlockStack):
+            for name in g.layers._order:
+                p = getattr(g.layers, name)
+                p.stacked_layers = True
+                if name in STACK_MP_SPLITS:
+                    p.mp_axis = STACK_MP_SPLITS[name][0]
+                    if grid.mp is not None:
+                        _mark(p, grid.mp, p.mp_axis)
+        table = g.embeddings.word_embeddings
+        if table is not None:
+            table.weight.mp_axis = 0
+            if grid.mp is not None:
+                _mark(table.weight, grid.mp, 0)
+        if grid.pp > 1:
+            for p in self.parameters():
+                p.pp_group = grid.pp_group  # each stage holds its own layers
+            if grid.last and not grid.first:  # the tied table's second copy counts once
+                table.weight.pp_tied_copy = True
+
+    def to_empty(self, *, device, recurse=True):
+        """``nn.Module.to_empty``, keeping the parameters' distributed
+        attributes (a model built on the ``meta`` device, then loaded)."""
+        out = super().to_empty(device=device, recurse=recurse)
+        self._mark_params()
+        return out
 
     def forward(self, input_ids, position_ids=None):
-        """Logits ``[b, s, V]``; for GPT-MoE ``(logits, aux)``, the gates'
-        summed balancing loss riding the outputs as in the reference."""
+        """Logits ``[b, s, V]`` (at mp > 1 this rank's vocabulary shard
+        ``[b, s, V / mp]``); for GPT-MoE ``(logits, aux)``, the gates'
+        summed balancing loss riding the outputs as in the reference. On a
+        pipeline stage before the last, the activation to send on."""
         h = self.gpt(input_ids, position_ids)
+        if not self._grid.last:
+            return h
+        if self._grid.mp is not None:  # vocab-sharded logits, for ParallelCrossEntropy
+            h = copy_to_model_parallel(h, self._grid.mp)
         logits = h @ self.gpt.embeddings.word_embeddings.weight.T
         if self.gpt.cfg.moe_num_experts:
             return logits, self.gpt.moe_aux_loss
         return logits
+
+    def allreduce_shared_weight_gradients(self):
+        """Sum the tied word table's gradient over the first and the last
+        pipeline stage, which both hold it (``SharedLayerDesc``'s role);
+        ``TrainStep`` calls this after the schedule. Nothing at pp 1."""
+        g = self._grid.ends_group
+        if g is None or g.nranks == 1:
+            return
+        w = self.gpt.embeddings.word_embeddings.weight
+        if w.grad is not None:
+            C.all_reduce(w.grad, group=g)
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, do_sample=False, temperature=1.0, top_k=0,
@@ -426,6 +607,9 @@ class GPTForPretraining(nn.Module):
         if not isinstance(g.layers, GPTBlockStack):
             raise NotImplementedError(
                 "generate() requires the stacked trunk (GPTConfig(stacked=True))")
+        if self._grid.mp is not None or self._grid.pp > 1:
+            raise NotImplementedError("decoding a GPT under model or pipeline parallelism is not "
+                                      "ported yet (ROADMAP.md, Queue 1 item 13c)")
         stack = tuple(getattr(g.layers, n).detach() for n in g.layers._order)
         return (stack, g.embeddings.word_embeddings.weight.detach(),
                 g.embeddings.position_embeddings.weight.detach(),
@@ -433,20 +617,28 @@ class GPTForPretraining(nn.Module):
 
 
 class GPTPretrainingCriterion(nn.Module):
-    """Next-token cross entropy: per-token CE with ``ignore_index=-100`` (the
-    single-device ``ParallelCrossEntropy``), then the mean over tokens, or
-    the mean under ``loss_mask``. For GPT-MoE outputs ``(logits, aux)`` the
-    GShard balancing loss is added with weight ``moe_aux_coef``."""
+    """Next-token cross entropy: per-token CE with ``ignore_index=-100``
+    (``ParallelCrossEntropy``: vocab-parallel under a fleet of mp > 1),
+    then the mean over tokens, or the mean under ``loss_mask``. For GPT-MoE
+    outputs ``(logits, aux)`` the GShard balancing loss is added with
+    weight ``moe_aux_coef``."""
 
     def __init__(self, moe_aux_coef=0.01):
         super().__init__()
         self.moe_aux_coef = moe_aux_coef
+        self.parallel_ce = ParallelCrossEntropy(ignore_index=-100)
+
+    @staticmethod
+    def token_count(labels, loss_mask=None):
+        """How many terms the loss averages: the mask's sum, or every
+        token (a pipeline weighs its micro-batches' losses by it)."""
+        return loss_mask.sum() if loss_mask is not None else labels.numel()
 
     def forward(self, logits, labels, loss_mask=None):
         aux = None
         if isinstance(logits, (tuple, list)):
             logits, aux = logits
-        per_tok = cross_entropy(logits, labels, reduction="none", ignore_index=-100)
+        per_tok = self.parallel_ce(logits, labels)
         if loss_mask is not None:
             m = loss_mask.reshape(per_tok.shape).to(per_tok.dtype)
             loss = (per_tok * m).sum() / m.sum()

@@ -5,44 +5,63 @@ Each clip's ``apply_list(grads)`` returns the clipped gradients as new
 tensors, in their own dtypes, as the optimizers use it. Norms are taken in
 f32.
 
-Under tensor parallelism a norm is the whole parameters', as the
-reference takes it over its unsharded arrays: given ``params`` (the
-gradients' parameters), the terms of the shards of ``is_distributed``
-parameters (those with an ``mp_group``) are all-reduced over their model-parallel group, and each
-replicated parameter, which every rank of the group holds whole, counts
-once."""
+Over a sharded model a norm is the whole parameters', as the reference
+takes it over its unsharded arrays. Given ``params`` (the gradients'
+parameters), each gradient's squares are summed over the groups that hold
+the rest of it: its tensor-parallel group (a shard, ``mp_group``), its
+ZeRO group (a gradient block, ``zero_group``) and, for the global norm,
+its pipeline group (``pp_group``: each stage holds its own layers; the
+last stage's copy of a tied table, ``pp_tied_copy``, counts no more). For
+one parameter's own norm the pipeline group sums only a stacked trunk's
+``[L / pp, ...]`` slice (``stacked_layers``). A replicated parameter,
+which every rank of a group holds whole, counts once.
+"""
 from __future__ import annotations
 
 import torch
 
 
-def _shard_groups(params):
-    """Each parameter's model-parallel group if it is a shard, else None;
-    None when no parameter is a shard."""
+def norm_groups(p, whole_param=False):
+    """The groups over which the squares of ``p``'s gradient are summed for
+    the global norm, or (``whole_param``) for ``p``'s own norm."""
+    groups = [getattr(p, "mp_group", None), getattr(p, "zero_group", None)]
+    if not whole_param or getattr(p, "stacked_layers", False):
+        groups.append(getattr(p, "pp_group", None))
+    return tuple(g for g in groups if g is not None and g.nranks > 1)
+
+
+def _shard_groups(params, whole_param=False):
+    """Each parameter's :func:`norm_groups`, or None (skip its term: a tied
+    copy) ; None when no parameter has any."""
     if params is None:
         return None
-    groups = [getattr(p, "mp_group", None) for p in params]
-    return groups if any(g is not None for g in groups) else None
+    groups = [None if not whole_param and getattr(p, "pp_tied_copy", False)
+              else norm_groups(p, whole_param) for p in params]
+    return groups if any(g != () for g in groups) else None
 
 
 def _reduce_terms(terms, groups, op="sum"):
-    """The sum (or max) of per-parameter ``terms``, those of shards reduced
-    over their groups first."""
+    """The sum (or max) of per-parameter ``terms``, each reduced over its
+    groups (a tuple; None drops the term) after the terms of one tuple are
+    combined."""
     combine = (lambda ts: sum(ts)) if op == "sum" else (lambda ts: torch.stack(ts).max())
     if groups is None:
         return combine(terms)
     from ..distributed import collective
 
-    whole = [t for t, g in zip(terms, groups) if g is None]
-    by_group = {}
-    for t, g in zip(terms, groups):
-        if g is not None:
-            by_group.setdefault(id(g), (g, []))[1].append(t)
-    for g, ts in by_group.values():
+    whole = [t for t, g in zip(terms, groups) if g == ()]
+    by_groups = {}
+    for t, gs in zip(terms, groups):
+        if gs:
+            by_groups.setdefault(tuple(id(g) for g in gs), (gs, []))[1].append(t)
+    for gs, ts in by_groups.values():
         part = combine(ts).clone()
-        collective.all_reduce(part, op=collective.ReduceOp.SUM if op == "sum"
-                              else collective.ReduceOp.MAX, group=g)
+        for g in gs:
+            collective.all_reduce(part, op=collective.ReduceOp.SUM if op == "sum"
+                                  else collective.ReduceOp.MAX, group=g)
         whole.append(part)
+    if not whole:
+        return combine([t.new_zeros(()) for t in terms[:1]])
     return combine(whole)
 
 
@@ -65,7 +84,7 @@ class ClipGradByNorm:
         self.clip_norm = clip_norm
 
     def apply_list(self, grads, params=None):
-        groups = _shard_groups(params)
+        groups = _shard_groups(params, whole_param=True)
         out = []
         for i, g in enumerate(grads):
             sq = g.float().square().sum()

@@ -190,7 +190,11 @@ class AdamWCore(AdamCore):
 
 class LambCore(AdamCore):
     """Layer-wise adaptive rates: ``r = m^ / (sqrt(v^) + eps) + wd p``, each
-    parameter's step scaled by ``||p|| / ||r||`` (1 where either is 0)."""
+    parameter's step scaled by ``||p|| / ||r||`` (1 where either is 0).
+    ``whole_sq`` (None, or one function per parameter) turns the sum of
+    squares of a parameter's piece into its whole parameter's."""
+
+    whole_sq = None
 
     def __init__(self, beta1=0.9, beta2=0.999, epsilon=1e-6, lamb_weight_decay=0.01):
         super().__init__(beta1, beta2, epsilon)
@@ -199,10 +203,15 @@ class LambCore(AdamCore):
     def update(self, grads, state, params, lr, step):
         m, v = self._moments(grads, state)
         bc1, bc2 = self._corrections(step)
-        for p, mm, vv in zip(params, m, v):
+        whole = self.whole_sq or [None] * len(params)
+        for p, mm, vv, sq in zip(params, m, v, whole):
             r = (mm / bc1) / ((vv / bc2).sqrt() + self.eps) + self.wd * p
-            w_norm = torch.linalg.vector_norm(_acc(p))
-            r_norm = torch.linalg.vector_norm(_acc(r))
+            if sq is None:
+                w_norm = torch.linalg.vector_norm(_acc(p))
+                r_norm = torch.linalg.vector_norm(_acc(r))
+            else:
+                w_norm = torch.sqrt(sq(_acc(p).square().sum()))
+                r_norm = torch.sqrt(sq(_acc(r).square().sum()))
             trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm, 1.0)
             p.sub_((lr * trust * r).to(p.dtype))
         return params, state

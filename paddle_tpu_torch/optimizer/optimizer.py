@@ -18,6 +18,13 @@ Two update paths, as in the reference, each the reference's order:
 ``weight_decay`` is a float (L2), ``L2Decay`` or ``L1Decay``: the gradient
 gains ``coeff * p`` or ``coeff * sign(p)``. ``AdamW`` decays decoupled, in
 its core.
+
+Under ZeRO (``TrainStep`` over a fleet grid with sharding) the optimizer
+carries the step's :class:`~paddle_tpu_torch.distributed.sharding.ZeroPlan`
+in ``_shards``: ``_traced_update`` then updates each parameter's block
+with its block of the averaged gradient, and the state covers the blocks
+only. A norm (Lamb's trust ratio, a clip) sums the squares over the groups
+that hold the rest of a parameter (:func:`paddle_tpu_torch.nn.clip.norm_groups`).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ class Optimizer:
         self.core = core if core is not None else Fopt.SGDCore()
         self._state = None
         self._step_count = 0
+        self._shards = None  # a ZeroPlan: the core updates blocks
 
     # -- lr ---------------------------------------------------------------
     def get_lr(self):
@@ -75,24 +83,30 @@ class Optimizer:
         """Per-parameter decay flags of the ``live`` indices, or None."""
         return None
 
+    def _target(self, i):
+        """What the core updates for parameter ``i``: the parameter, or its
+        ZeRO block."""
+        p = self._params[i]
+        return p if self._shards is None else self._shards.local(p)
+
     def _penalized(self, grads, live):
         """``grads`` plus the L1/L2 penalty of their parameters."""
         if not self._weight_decay or self._decoupled_decay:
             return grads
         wd = self._weight_decay
         pen = torch.sign if self._wd_is_l1 else (lambda p: p)
-        return [g + wd * pen(self._params[i]) for g, i in zip(grads, live)]
+        return [g + wd * pen(self._target(i)) for g, i in zip(grads, live)]
 
     def _core_update(self, grads, live, lr, keys=None):
         """The core's update of the parameters ``live`` (indices) at ``lr``."""
         if not live:
             return
         if self._state is None:
-            self._state = self.core.init(self._params)
+            self._state = self.core.init([self._target(i) for i in range(len(self._params))])
         sub = {k: [v[i] for i in live] for k, v in self._state.items()}
         self.core.decay_mask = self._decay_mask(live)
         kw = {"keys": keys} if self._keyed_core else {}
-        self.core.update(grads, sub, [self._params[i] for i in live], lr, self._step_count, **kw)
+        self.core.update(grads, sub, [self._target(i) for i in live], lr, self._step_count, **kw)
 
     @torch.no_grad()
     def step(self):
@@ -123,10 +137,12 @@ class Optimizer:
         self._step_count += 1
 
     def _clip(self, grads, live):
-        """The clip of ``grads`` (of the parameters ``live``); under tensor
-        parallelism the clip takes the parameters too, for whole norms."""
+        """The clip of ``grads`` (of the parameters ``live``); over a sharded
+        model the clip takes the parameters too, for whole norms."""
+        from ..nn.clip import _shard_groups
+
         params = [self._params[i] for i in live]
-        if any(getattr(p, "mp_group", None) is not None for p in params):
+        if _shard_groups(params) is not None:
             return self._grad_clip.apply_list(grads, params=params)
         return self._grad_clip.apply_list(grads)
 
@@ -136,8 +152,9 @@ class Optimizer:
         over every parameter with a gradient; ``keys_by_param`` maps a
         parameter's ``id`` to its name in the model (the core's keys; the
         optimizer's own name where it has none). Advances the step count."""
-        live = [i for i, p in enumerate(self._params) if p.grad is not None]
-        grads = self._penalized([self._params[i].grad for i in live], live)
+        grad_of = (lambda p: p.grad) if self._shards is None else self._shards.grad
+        live = [i for i, p in enumerate(self._params) if grad_of(p) is not None]
+        grads = self._penalized([grad_of(self._params[i]) for i in live], live)
         if self._grad_clip is not None:
             grads = self._clip(grads, live)
         keys_by_param = keys_by_param or {}
@@ -266,10 +283,13 @@ class Lamb(Optimizer):
                          core=Fopt.LambCore(beta1, beta2, epsilon, lamb_weight_decay))
 
     def _core_update(self, grads, live, lr, keys=None):
-        if any(getattr(self._params[i], "mp_group", None) is not None for i in live):
-            raise NotImplementedError(
-                "Lamb over tensor-parallel shards is not ported yet: its trust ratio needs "
-                "each parameter's whole norm (ROADMAP.md, Queue 1 item 13b)")
+        """The trust ratio takes each parameter's whole norms: over a sharded
+        model the squares are summed over the groups holding the rest."""
+        from ..nn.clip import _reduce_terms, norm_groups
+
+        groups = [norm_groups(self._params[i], whole_param=True) for i in live]
+        self.core.whole_sq = None if not any(groups) else [
+            (lambda sq, gs=gs: _reduce_terms([sq], [gs])) if gs else None for gs in groups]
         super()._core_update(grads, live, lr, keys)
 
 

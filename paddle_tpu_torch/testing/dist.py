@@ -4,7 +4,9 @@
 
 spawns ``world`` processes (``torch.multiprocessing``, start method
 ``spawn``) that join one world over a free local port (gloo on the CPU;
-``backend`` names another), each with ``OMP_NUM_THREADS=1`` (several torch
+``backend`` names another: ``run_ranks(fn, 8, device="cuda:0",
+backend="gloo")`` puts 8 ranks on one card, which NCCL refuses), each with
+``OMP_NUM_THREADS=1`` (several torch
 processes with a thread per core each run many times slower), calls
 ``fn(*args)`` on every rank after :func:`~paddle_tpu_torch.distributed.env.init_parallel_env`,
 and returns the ranks' results in rank order. ``fn`` and its results must

@@ -39,6 +39,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..models.gpt import STACK_MP_SPLITS
+
 _STACK = ("norm1_w", "norm1_b", "qkv_w", "qkv_b", "out_w", "out_b",
           "norm2_w", "norm2_b", "ffn1_w", "ffn1_b", "ffn2_w", "ffn2_b")
 _OUTER = ("gpt.embeddings.word_embeddings.weight", "gpt.embeddings.position_embeddings.weight",
@@ -191,69 +193,139 @@ def state_dict_by_name(np_state: Dict[str, np.ndarray],
     return out
 
 
-# BERT's tensor-parallel layout: (axis, blocks) of each sharded leaf. The
-# fused qkv projection splits each of its q, k and v column blocks on its
-# own, so a rank holds whole heads; every name not listed is replicated.
+# The tensor-parallel layout: (axis, blocks) of each sharded leaf. BERT's
+# (and ERNIE's) fused qkv projection splits each of its q, k and v column
+# blocks on its own, so a rank holds whole heads, as GPT's stacked qkv_w and
+# qkv_b do (models.gpt.STACK_MP_SPLITS); every name not listed is
+# replicated.
 _BERT_SHARDS = {"attn.qkv_proj.weight": (1, 3), "attn.qkv_proj.bias": (0, 3),
                 "attn.out_proj.weight": (0, 1), "ffn1.weight": (1, 1), "ffn1.bias": (0, 1),
                 "ffn2.weight": (0, 1)}
-_BERT_LAYER_KEY = re.compile(r"bert\.layers\.\d+\.(.+)$")
+_BERT_LAYER_KEY = re.compile(r"(?:bert|ernie)\.layers\.\d+\.(.+)$")
+_WORD_TABLES = ("bert.embeddings.word_embeddings.weight", "ernie.embeddings.word_embeddings.weight",
+                "gpt.embeddings.word_embeddings.weight")
+_GPT_STACK_KEY = re.compile(r"gpt\.layers\.([a-z0-9_]+)$")
 
 
-def _bert_shard_spec(name):
-    if name == "bert.embeddings.word_embeddings.weight":
+def _mp_spec(name):
+    """``(axis, blocks)`` of a tensor-parallel leaf, or None."""
+    if name in _WORD_TABLES:
         return 0, 1
+    m = _GPT_STACK_KEY.match(name)
+    if m:
+        return STACK_MP_SPLITS.get(m.group(1))
     m = _BERT_LAYER_KEY.match(name)
     return _BERT_SHARDS.get(m.group(1)) if m else None
 
 
+def _stacked(name):
+    m = _GPT_STACK_KEY.match(name)
+    return bool(m) and m.group(1) in _STACK
+
+
+def _on_stage(name, pp_rank, pp_degree):
+    """Whether GPT's pipeline stage ``pp_rank`` holds ``name``: the word
+    table on the first and the last, the position table on the first, the
+    final LayerNorm on the last, the trunk's slice on every stage."""
+    first, last = pp_rank == 0, pp_rank == pp_degree - 1
+    if name == "gpt.embeddings.word_embeddings.weight":
+        return first or last
+    if name == "gpt.embeddings.position_embeddings.weight":
+        return first
+    if name.startswith("gpt.final_norm."):
+        return last
+    return True
+
+
 def _check_mp(cfg, mp_degree):
     if cfg.num_heads % mp_degree or cfg.vocab_size % mp_degree or cfg.ffn_hidden_size % mp_degree:
-        raise ValueError(f"BERT (heads {cfg.num_heads}, vocab {cfg.vocab_size}, FFN "
-                         f"{cfg.ffn_hidden_size}) does not split over mp degree {mp_degree}")
+        raise ValueError(f"{type(cfg).__name__} (heads {cfg.num_heads}, vocab {cfg.vocab_size}, "
+                         f"FFN {cfg.ffn_hidden_size}) does not split over mp degree {mp_degree}")
 
 
-def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int, mp_degree: int,
-                cfg) -> Dict[str, np.ndarray]:
-    """Model-parallel rank ``mp_rank``'s part of a full BERT state (numpy
-    arrays, the reference's names): the vocabulary rows of the word table,
-    the q, k and v columns of the rank's heads in ``qkv_proj``, the column
-    shards of ``ffn1`` and the row shards of ``out_proj`` and ``ffn2``; the
-    rest whole. What ``BertForPretraining`` holds at that rank."""
-    _check_mp(cfg, mp_degree)
+def _split(arr, axis, blocks, n, r):
+    """Piece ``r`` of ``n`` of each of the ``blocks`` blocks along ``axis``."""
+    size = arr.shape[axis]
+    parts = arr.reshape(arr.shape[:axis] + (blocks, n, size // (blocks * n)) + arr.shape[axis + 1:])
+    return np.take(parts, r, axis=axis + 1).reshape(arr.shape[:axis] + (size // n,)
+                                                    + arr.shape[axis + 1:])
+
+
+def _join(parts, axis, blocks):
+    """:func:`_split`'s inverse over the pieces in rank order."""
+    local = parts[0].shape[axis]
+    split = [p.reshape(p.shape[:axis] + (blocks, local // blocks) + p.shape[axis + 1:])
+             for p in parts]
+    full = np.stack(split, axis=axis + 1)  # [.., blocks, n, local / blocks, ..]
+    return full.reshape(full.shape[:axis] + (local * len(parts),) + full.shape[axis + 3:])
+
+
+def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: int = 1, cfg=None,
+                *, pp_rank: int = 0, pp_degree: int = 1, sdp_rank: int = 0, sdp_degree: int = 1,
+                sdp_dims=None) -> Dict[str, np.ndarray]:
+    """What the rank at (``pp_rank``, ``sdp_rank``, ``mp_rank``) of a fleet
+    grid holds of a full state (numpy arrays, the reference's names; BERT,
+    ERNIE or stacked GPT): its model-parallel shard of each
+    tensor-parallel leaf (the vocabulary rows of the word table, the q, k
+    and v columns of the rank's heads in the qkv projection, the column
+    shards of the first FFN layer and the row shards of the output and
+    second FFN layers), for GPT its pipeline stage's layers and tables, and
+    with ``sdp_dims`` (a parameter's ZeRO split dim by name, as
+    ``sharding.state_shardings`` gives it) its ZeRO block (stage 3's
+    parameters, any stage's moments)."""
+    if cfg is not None:
+        _check_mp(cfg, mp_degree)
     out = {}
     for name, arr in np_state.items():
+        if not _on_stage(name, pp_rank, pp_degree):
+            continue
         arr = np.asarray(arr)
-        spec = _bert_shard_spec(name)
+        if pp_degree > 1 and _stacked(name):
+            n = arr.shape[0] // pp_degree
+            arr = arr[pp_rank * n:(pp_rank + 1) * n]
+        spec = _mp_spec(name) if mp_degree > 1 else None
         if spec is not None:
-            axis, blocks = spec
-            size = arr.shape[axis]
-            parts = arr.reshape(arr.shape[:axis] + (blocks, mp_degree, size // (blocks * mp_degree))
-                                + arr.shape[axis + 1:])
-            arr = np.take(parts, mp_rank, axis=axis + 1).reshape(
-                arr.shape[:axis] + (size // mp_degree,) + arr.shape[axis + 1:])
+            arr = _split(arr, spec[0], spec[1], mp_degree, mp_rank)
+        dim = (sdp_dims or {}).get(name)
+        if dim is not None and sdp_degree > 1:
+            arr = _split(arr, dim, 1, sdp_degree, sdp_rank)
         out[name] = np.ascontiguousarray(arr)
     return out
 
 
-def gather_state(states, cfg) -> Dict[str, np.ndarray]:
-    """The full BERT state from every model-parallel rank's (a list in mp
-    rank order, numpy arrays): :func:`shard_state`'s inverse. The
-    replicated entries are taken from rank 0."""
-    mp_degree = len(states)
-    _check_mp(cfg, mp_degree)
+def gather_state(states, cfg=None, sdp_dims=None) -> Dict[str, np.ndarray]:
+    """The full state from the ranks' (numpy arrays): :func:`shard_state`'s
+    inverse. ``states`` is a list in mp rank order, or a dict of them by
+    ``(pp_rank, sdp_rank, mp_rank)``; with ``sdp_dims`` the entries split
+    over ``sdp`` are joined from every sdp rank's block, the rest taken
+    from sdp rank 0 (and the replicated ones from mp rank 0, the tied word
+    table from the first stage)."""
+    if not isinstance(states, dict):
+        states = {(0, 0, m): st for m, st in enumerate(states)}
+    pp = 1 + max(k[0] for k in states)
+    sdp = 1 + max(k[1] for k in states)
+    mp = 1 + max(k[2] for k in states)
+    if cfg is not None:
+        _check_mp(cfg, mp)
+    names = []
+    for key in sorted(states):
+        names += [n for n in states[key] if n not in names]
     out = {}
-    for name in states[0]:
-        spec = _bert_shard_spec(name)
-        if spec is None:
-            out[name] = np.asarray(states[0][name])
-            continue
-        axis, blocks = spec
-        parts = [np.asarray(s[name]) for s in states]
-        local = parts[0].shape[axis]
-        split = [p.reshape(p.shape[:axis] + (blocks, local // blocks) + p.shape[axis + 1:])
-                 for p in parts]
-        full = np.stack(split, axis=axis + 1)  # [.., blocks, mp, local / blocks, ..]
-        out[name] = np.ascontiguousarray(full.reshape(
-            full.shape[:axis] + (local * mp_degree,) + full.shape[axis + 3:]))
+    for name in names:
+        stages = []
+        for s in range(pp):
+            if name not in states[(s, 0, 0)]:
+                continue
+            by_mp = []
+            for m in range(mp):
+                dim = (sdp_dims or {}).get(name)
+                if dim is not None and sdp > 1:
+                    by_mp.append(_join([np.asarray(states[(s, d, m)][name]) for d in range(sdp)],
+                                       dim, 1))
+                else:
+                    by_mp.append(np.asarray(states[(s, 0, m)][name]))
+            spec = _mp_spec(name) if mp > 1 else None
+            stages.append(_join(by_mp, spec[0], spec[1]) if spec is not None else by_mp[0])
+        out[name] = np.ascontiguousarray(np.concatenate(stages) if pp > 1 and _stacked(name)
+                                         else stages[0])
     return out

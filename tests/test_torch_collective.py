@@ -74,7 +74,9 @@ def test_collectives_match_paddle_tpu_shard_map(n):
             tol = SUM_TOL if name in ("all_reduce_sum", "all_reduce_avg", "reduce",
                                       "reduce_scatter_0", "reduce_scatter_1") else dict(atol=0, rtol=0)
             np.testing.assert_allclose(got[r][name], ref[r], err_msg=f"{name} rank {r}", **tol)
-        assert "ppermute" in got[r]["send"]
+        ring = want["ppermute"][r]  # send/recv and p2p around the ring give ppermute's
+        np.testing.assert_array_equal(got[r]["send_recv"], ring)
+        np.testing.assert_array_equal(got[r]["p2p"], ring)
         counts = got[r]["counters"]
         assert counts["collective.all_reduce.calls"] == 5  # four ops and reduce
         for name in ("all_gather", "reduce_scatter", "alltoall", "ppermute", "all_gather_concat"):
@@ -109,8 +111,11 @@ def test_fleet_groups_axis_names_and_topology(tmp_path):
         assert o["env"] == (r, 4, r)
     errors = run_ranks(ranks.topology_errors, 2)[0]
     assert errors[0].startswith("ValueError") and "world has 2 ranks" in errors[0]
-    assert errors[1].startswith("NotImplementedError") and "13c" in errors[1]
-    assert errors[2].startswith("NotImplementedError") and "13b" in errors[2]
+    # pp 2 and sdp 2 build their groups; the data group is dp x sdp; a
+    # pipeline's first and last stage share a group
+    assert errors[1] == ([0, 1], [errors[1][1][0]], errors[1][2], [0, 1])
+    assert errors[1][2] in ([0], [1])
+    assert errors[2][1] == [0, 1] and errors[2][2] == [0, 1] and errors[2][0] == errors[2][3]
     assert errors[3].startswith("NotImplementedError") and "13c" in errors[3]
     assert errors[4].startswith("RuntimeError") and "fleet.init" in errors[4]
     assert errors[5].startswith("ValueError") and "does not split over dp 2" in errors[5]

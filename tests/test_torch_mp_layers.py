@@ -83,6 +83,12 @@ def test_layers_match_paddle_tpu_single_device(mp):
     ce = jmp.ParallelCrossEntropy(ignore_index=-100)(logits, paddle.to_tensor(case["labels"]))
     (ce * paddle.to_tensor(case["ce_ct"])).sum().backward()
     ce_out, ce_grad = np.asarray(ce.numpy()), np.asarray(logits.grad.numpy())
+    lamb = _set(jmp.ColumnParallelLinear(4, 2 * mp),
+                weight=np.arange(8.0 * mp, dtype=np.float32).reshape(4, 2 * mp),
+                bias=np.zeros(2 * mp, np.float32))
+    lamb(paddle.ones([1, 4])).sum().backward()
+    paddle.optimizer.Lamb(learning_rate=0.1, parameters=lamb.parameters()).step()
+    lamb_whole = np.asarray(lamb.weight.numpy())
     for r, o in enumerate(got):
         for gather in (True, False):
             out, dx, dw, db, dist, axis = o[f"col_{gather}"]
@@ -117,7 +123,10 @@ def test_layers_match_paddle_tpu_single_device(mp):
         if r:
             assert not np.array_equal(o["tp_shard"], got[0]["tp_shard"])  # shards stay their own
         assert all("does not split" in e for e in o["indivisible"])
-        assert "13b" in o["refuses_lamb"] and "13c" in o["refuses_gpt"] and "13c" in o["refuses_ernie"]
+        # GPT and ERNIE build at mp > 1 with their heads split; Lamb over the
+        # column shards steps as over the whole weight
+        assert o["gpt_heads"] == 4 // mp and o["ernie_heads"] == 4 // mp
+        np.testing.assert_allclose(o["lamb_weight"], _block(lamb_whole, 1, r, mp), **TOL)
 
 
 def test_rng_tracker_is_shared_within_the_group():

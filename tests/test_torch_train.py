@@ -396,9 +396,16 @@ def test_run_steps_equals_single_steps_and_stacks():
 @pytest.mark.parametrize("kw", [dict(batch_shardings={}), dict(state_shardings={}), dict(guard=True),
                                 dict(amp_level="O1"), dict(amp_level="O2", amp_dtype="float16")])
 def test_unported_train_step_knobs_raise(kw):
+    """The knobs the port lacks raise, citing ROADMAP.md; the state and
+    batch shardings (ZeRO's stage, the batch's axes) are ported and need
+    the fleet's grid as ``mesh``."""
     pm = GPTForPretraining(GPTConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
+    if "batch_shardings" in kw or "state_shardings" in kw:
+        with pytest.raises(ValueError, match="need a mesh"):
+            TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
     with pytest.raises(ValueError, match="amp_level"):
         TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), amp_level="O3")
     # a mesh is the fleet's grid (tests/test_torch_dist_step.py), nothing else

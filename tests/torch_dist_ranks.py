@@ -20,9 +20,22 @@ def _np(t):
 
 
 def imported_reference_modules():
-    """The modules of ``jax`` or ``paddle_tpu`` this rank has imported."""
-    import paddle_tpu_torch.distributed  # noqa: F401
+    """The modules of ``jax`` or ``paddle_tpu`` this rank has imported,
+    after one step of a tiny GPT pipelined over the world (pp = world,
+    1F1B) with ZeRO stage 2."""
+    import paddle_tpu_torch.distributed as D
+    import paddle_tpu_torch.utils.convert  # noqa: F401
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining  # noqa: F401
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
 
+    fleet = _hybrid_fleet(dict(pp=D.get_world_size(), stage=2, accumulate=2, schedule="1f1b"))
+    model = GPTForPretraining(GPTConfig.tiny(), device="cpu")
+    step = fleet.distributed_step(model, AdamW(parameters=model.parameters()),
+                                  GPTPretrainingCriterion())
+    ids = torch.zeros(4, 8, dtype=torch.long)
+    step(ids, ids)
+    D.fleet._hcg = None
     return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 
 
@@ -56,11 +69,17 @@ def collectives(inputs):
     out["ppermute_partial"] = D.ppermute(x["a"], [(0, n - 1)])
     D.barrier()
     D.wait(x["a"])
-    try:
-        D.send(x["a"], dst=0)
-        out["send"] = "no error"
-    except NotImplementedError as e:
-        out["send"] = str(e)
+    # send and recv around the ring: even ranks send first, odd ones receive
+    got = torch.empty_like(x["a"])
+    if r % 2 == 0:
+        D.send(x["a"], dst=(r + 1) % n)
+        D.recv(got, src=(r - 1) % n)
+    else:
+        D.recv(got, src=(r - 1) % n)
+        D.send(x["a"], dst=(r + 1) % n)
+    out["send_recv"] = got
+    out["p2p"] = torch.empty_like(x["a"])
+    D.p2p(sends=[(x["a"], (r + 1) % n)], recvs=[(out["p2p"], (r - 1) % n)])
     res = {k: v if isinstance(v, str) else _np(v) for k, v in out.items()}
     res["counters"] = metrics.counters("collective.")
     return res
@@ -110,8 +129,9 @@ def topology_errors():
     for kw in (dict(dp_degree=4), dict(dp_degree=1, pp_degree=2), dict(sharding_degree=2),
                dict(sep_degree=2)):
         try:
-            D.HybridCommunicateGroup(**kw)
-            errors.append(None)
+            hcg = D.HybridCommunicateGroup(**kw)
+            errors.append((hcg.group("pp").ranks, hcg.group("sdp").ranks, hcg.group("data").ranks,
+                           hcg.get_pp_ends_group().ranks))
         except (ValueError, NotImplementedError) as e:
             errors.append(f"{type(e).__name__}: {e}")
     try:
@@ -304,12 +324,15 @@ def strategy_errors():
     from paddle_tpu_torch.optimizer import SGD
 
     errors = {}
-    for name, kw in (("sharding", dict(sharding=True)),
+    for name, kw in (("sharding", dict(sharding=True, sharding_configs={"sharding_stage": 2})),
+                     ("offload", dict(sharding=True, sharding_configs={"offload": True})),
                      ("fp16", dict(amp=True, amp_configs={"dtype": "float16", "level": "O2"}))):
         fleet = _fleet(1, 1, **kw)
         net = Linear(2, 2, device="cpu")
         try:
-            fleet.distributed_step(net, SGD(parameters=net.parameters()), lambda o, t: o.sum())
+            step = fleet.distributed_step(net, SGD(parameters=net.parameters()),
+                                          lambda o, t: o.sum())
+            errors[name] = f"stage {step._zero.stage}"
         except (NotImplementedError, ValueError) as e:
             errors[name] = f"{type(e).__name__}: {e}"
     fleet = _fleet(1, 1, sharding_configs={"comm_overlap": False}, gradient_merge=True,
@@ -394,21 +417,20 @@ def mp_layers(mp, case):
             res.setdefault("indivisible", []).append(None)
         except ValueError as e:
             res.setdefault("indivisible", []).append(str(e))
-    # what waits for later parts of item 13: Lamb over shards, GPT and ERNIE
+    # what the later parts of item 13 brought: Lamb over shards (its trust
+    # ratio from the whole parameter's norms), GPT and ERNIE at mp > 1
     from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.optimizer import Lamb
 
     lin = D.ColumnParallelLinear(4, 2 * mp, device="cpu")
+    lin.weight.data.copy_(_shard(torch.arange(8.0 * mp).reshape(4, 2 * mp), 1, g))
     lin(torch.ones(1, 4)).sum().backward()
-    for name, make in (("lamb", lambda: Lamb(parameters=lin.parameters()).step()),
-                       ("gpt", lambda: GPTForPretraining(GPTConfig.tiny(), device="cpu")),
-                       ("ernie", lambda: ErnieForPretraining(ErnieConfig.tiny(), device="cpu"))):
-        try:
-            make()
-            res[f"refuses_{name}"] = None
-        except NotImplementedError as e:
-            res[f"refuses_{name}"] = str(e)
+    Lamb(learning_rate=0.1, parameters=lin.parameters()).step()
+    res["lamb_weight"] = _np(lin.weight)
+    res["gpt_heads"] = GPTForPretraining(GPTConfig.tiny(), device="cpu").gpt.layers.num_heads
+    res["ernie_heads"] = ErnieForPretraining(ErnieConfig.tiny(),
+                                             device="cpu").ernie.layers[0].attn.num_heads
     return res
 
 
@@ -475,3 +497,231 @@ def resnet_sync_bn(np_state, x, y):
     D.all_reduce(loss, op="avg")
     return dict(logits=_np(out), loss=float(loss), mean=_np(model.bn1._mean),
                 var=_np(model.bn1._variance))
+
+
+# -- ZeRO, the pipeline and the hybrid step -------------------------------------------
+def _hybrid_fleet(c):
+    """``fleet.init`` at config ``c``'s degrees, ZeRO stage, micro-batches
+    and schedule."""
+    import paddle_tpu_torch.distributed as D
+
+    s = D.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": c.get("dp", 1), "mp_degree": c.get("mp", 1),
+                        "pp_degree": c.get("pp", 1), "sharding_degree": c.get("sdp", 1)}
+    if c.get("stage"):
+        s.sharding = True
+        s.sharding_configs = {"sharding_stage": c["stage"]}
+    s.pipeline_configs = {"accumulate_steps": c.get("accumulate", 1),
+                          "schedule": c.get("schedule", "gpipe")}
+    D.fleet.init(is_collective=True, strategy=s, device="cpu")
+    return D.fleet
+
+
+def _optimizer(c, model):
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, Lamb
+
+    clip = ClipGradByGlobalNorm(c["clip"]) if c.get("clip") else None
+    if c.get("optimizer") == "lamb":
+        return Lamb(learning_rate=c["lr"], parameters=model.parameters(), grad_clip=clip)
+    return AdamW(learning_rate=c["lr"], parameters=model.parameters(), grad_clip=clip)
+
+
+def _moments(opt, model):
+    """The optimizer's moments by parameter name (this rank's ZeRO blocks)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {k: {names[id(p)]: _np(t) for p, t in zip(opt._params, ts)}
+            for k, ts in (opt._state or {}).items()}
+
+
+def gpt_hybrid(configs, np_state, ids, mask=None):
+    """Each config of ``configs`` (its degrees ``dp``, ``mp``, ``pp``,
+    ``sdp``, ZeRO ``stage``, pipeline ``schedule`` and ``accumulate``,
+    ``layers``, ``cfg`` (more ``GPTConfig.tiny`` keywords), ``optimizer``,
+    ``lr``, ``clip``, ``steps``; its world the
+    whole world) in turn: a stacked GPT built on the meta device and
+    loaded with this rank's part of the full state ``np_state``, then
+    ``fleet.distributed_step`` over ``shard_batch``'s block of ``ids``
+    (labels = ids, with ``mask`` as the loss mask if given). Per config:
+    the losses, this rank's coordinates, state, moments and ZeRO split
+    dims, the pipeline's peak of held stage inputs and its order, and the
+    collective counters."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.sharding import state_shardings
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.utils.convert import shard_state
+
+    out = []
+    for c in configs:
+        fleet = _hybrid_fleet(c)
+        hcg = fleet.get_hybrid_communicate_group()
+        cfg = GPTConfig.tiny(num_layers=c.get("layers", 4), **c.get("cfg", {}))
+        model = GPTForPretraining(cfg, device="meta")
+        model.to_empty(device="cpu")
+        pp_rank, mp_rank = hcg.get_pipe_parallel_rank(), hcg.get_model_parallel_rank()
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in shard_state(
+            np_state, mp_rank, c.get("mp", 1), cfg, pp_rank=pp_rank,
+            pp_degree=c.get("pp", 1)).items()})
+        opt = _optimizer(c, model)
+        step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
+        leaves = fleet.shard_batch(ids) if mask is None else fleet.shard_batch(ids, mask)
+        x = leaves if mask is None else leaves[0]
+        labels = x if mask is None else leaves
+        metrics.reset_counters("collective.")
+        metrics.reset_counters("kernels.")
+        registry.clear_cache()
+        losses = [float(step(x, labels)["loss"]) for _ in range(c.get("steps", 3))]
+        sched = step.last_schedule
+        out.append(dict(
+            losses=losses, coord=hcg.coord, stage_rank=(pp_rank, hcg.get_sharding_parallel_rank(),
+                                                        mp_rank),
+            state={k: _np(v) for k, v in model.state_dict().items()},
+            moments=_moments(opt, model), sdp_dims=state_shardings(model, hcg),
+            peak_held=None if sched is None else sched.peak_held,
+            order=None if sched is None else sched.order, n_micro=step.n_micro,
+            counters=metrics.counters("collective."),
+            picked=metrics.counters("kernels.attention_core.")))
+        D.fleet._hcg = None
+    return out
+
+
+def sharding_levels():
+    """``group_sharded_parallel``'s three levels through
+    ``fleet.distributed_step`` at sdp = the world (the strategy names no
+    stage), and what it refuses."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    fleet = _hybrid_fleet(dict(sdp=D.get_world_size()))
+    out = {}
+    for level in ("os", "os_g", "p_g_os"):
+        model = GPTForPretraining(GPTConfig.tiny(), device="cpu", seed=3)
+        opt = AdamW(parameters=model.parameters())
+        m, o, scaler = D.group_sharded_parallel(model, opt, level=level)
+        step = fleet.distributed_step(m, o, GPTPretrainingCriterion())
+        out[level] = (m is model and o is opt, scaler, step._zero.stage,
+                      tuple(model.gpt.layers.qkv_w.shape))
+    for name, call in (("offload", lambda: D.group_sharded_parallel(model, opt, offload=True)),
+                       ("level", lambda: D.group_sharded_parallel(model, opt, level="os_x"))):
+        try:
+            call()
+            out[name] = None
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    fleet._strategy.sharding_configs.offload = True
+    try:
+        fleet.distributed_step(model, opt, GPTPretrainingCriterion())
+        out["strategy_offload"] = None
+    except NotImplementedError as e:
+        out["strategy_offload"] = str(e)
+    D.fleet._hcg = None
+    return out
+
+
+def several(calls):
+    """Each ``(name, args)`` of ``calls`` in turn: this module's function
+    ``name`` on ``args``; their results, in order (one world for several
+    bodies)."""
+    return [globals()[name](*args) for name, args in calls]
+
+
+def _tied_head(layer, x):
+    """The tied use of a shared ``Linear``: ``x @ W^T`` (a language model's
+    head on its embedding)."""
+    return x @ layer.weight.T
+
+
+def pipeline_layers(weights, x, lr, shared=None):
+    """``PipelineLayer`` over the fleet's pp = the world: a ``Linear`` per
+    entry of ``weights`` (``(w, b)``, numpy), this stage's segment loaded;
+    the pipelined inference output of ``x`` (2 micro-batches, on every
+    stage), and this stage's layers after one ``distributed_step`` of SGD
+    at ``lr`` on ``mean(out ** 2)``. With ``shared`` (``(ws, bs, wm,
+    bm)``), a second model: a shared ``Linear`` on the first stage, a plain
+    one, and the shared one's tied use on the last stage; its stages'
+    copies of the shared weight after one such step."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.nn.layer import Linear
+    from paddle_tpu_torch.optimizer import SGD
+
+    world = D.get_world_size()
+    fleet = _hybrid_fleet(dict(pp=world, accumulate=2))
+    hcg = fleet.get_hybrid_communicate_group()
+    stage, group = hcg.get_pipe_parallel_rank(), hcg.get_pipe_parallel_group()
+    d = weights[0][0].shape[0]
+    pl = D.PipelineLayer([D.LayerDesc(Linear, d, d, device="cpu") for _ in weights])
+    lo = pl.segments[stage]
+    with torch.no_grad():
+        for j, layer in enumerate(pl.layers):
+            layer.weight.copy_(torch.from_numpy(weights[lo + j][0]))
+            layer.bias.copy_(torch.from_numpy(weights[lo + j][1]))
+    xt = torch.from_numpy(x)
+    out = D.pipeline_forward(pl, xt, group, stage, world, n_micro=2)
+    step = fleet.distributed_step(pl, SGD(learning_rate=lr, parameters=pl.parameters()),
+                                  lambda o, y: (o ** 2).mean())
+    loss = float(step(xt, xt)["loss"])
+    res = dict(out=_np(out), loss=loss, segments=pl.segments, stage=stage,
+               layers=[(_np(layer.weight), _np(layer.bias)) for layer in pl.layers])
+    if shared is not None:
+        ws, bs, wm, bm = shared
+        tied = D.PipelineLayer([D.SharedLayerDesc("tied", Linear, d, d, device="cpu"),
+                                D.LayerDesc(Linear, d, d, device="cpu"),
+                                D.SharedLayerDesc("tied", Linear, d, d, device="cpu",
+                                                  forward_func=_tied_head)])
+        with torch.no_grad():
+            if stage == 0:  # the copy on the last stage starts from this one
+                tied.shared_layers["tied"].weight.copy_(torch.from_numpy(ws))
+                tied.shared_layers["tied"].bias.copy_(torch.from_numpy(bs))
+                tied.layers[0].weight.copy_(torch.from_numpy(wm))
+                tied.layers[0].bias.copy_(torch.from_numpy(bm))
+            C = D.collective
+            C.broadcast(tied.shared_layers["tied"].weight.data, src=0, group=tied._shared["tied"][0])
+        step = fleet.distributed_step(tied, SGD(learning_rate=lr, parameters=tied.parameters()),
+                                      lambda o, y: (o ** 2).mean())
+        res["tied_loss"] = float(step(xt, xt)["loss"])
+        res["tied_weight"] = _np(tied.shared_layers["tied"].weight)
+        res["tied_segments"] = tied.segments
+    D.fleet._hcg = None
+    return res
+
+
+def ernie_steps(dp, mp, cfg_kw, np_state, inputs, labels, steps, lr):
+    """``fleet.distributed_step`` of ERNIE at dp x mp over ``steps`` steps
+    of the global batch (numpy), from the full state ``np_state`` (each
+    rank loads its mp shard): the losses, this rank's final state and
+    coordinates, and the attention kernels picked."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.models.ernie import (ErnieConfig, ErnieForPretraining,
+                                               ErniePretrainingCriterion)
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils.convert import shard_state
+
+    fleet = _fleet(dp, mp)
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = ErnieConfig.tiny(**cfg_kw)
+    model = ErnieForPretraining(cfg, device="cpu", seed=7)
+    mp_rank = hcg.get_model_parallel_rank()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           shard_state(np_state, mp_rank, mp, cfg).items()})
+    crit = ErniePretrainingCriterion()
+
+    def loss_fn(outs, mlm, sop):
+        return crit(outs[0], outs[1], mlm, sop)
+
+    step = fleet.distributed_step(model, AdamW(learning_rate=lr, parameters=model.parameters()),
+                                  loss_fn)
+    ids, mlm, sop = fleet.shard_batch(*inputs, *labels)
+    metrics.reset_counters("kernels.")
+    registry.clear_cache()
+    losses = [float(step(ids, (mlm, sop))["loss"]) for _ in range(steps)]
+    out = dict(losses=losses, state={k: _np(v) for k, v in model.state_dict().items()},
+               dp_rank=hcg.get_data_parallel_rank(), mp_rank=mp_rank,
+               heads=model.ernie.layers[0].attn.num_heads,
+               picked=metrics.counters("kernels.sdpa."))
+    D.fleet._hcg = None
+    return out
