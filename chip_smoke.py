@@ -229,6 +229,26 @@ non-zero and prints no result. Phases, one JSON line each:
     at sdp 2 with ZeRO stage 3 and (e) a narrow ERNIE at mp 2, each as two
     gloo processes on ``cuda:0`` against one process's steps, K1 and K2
     counted on each rank.
+37. ``ep_moe_train`` (run after phase 9, before phase 8): phase 9's GPT-MoE
+    at full width at dp 2 = ep 2 as two gloo processes on ``cuda:0``, each
+    holding 4 of the 8 experts of every MoE layer and ``[4, 1024]`` of
+    phase 9's ids, GShard jitter on, 3 f32 AdamW steps: every rank's losses
+    within ``EP_LOSS_RTOL`` of phase 9's first 3 (the routing is the global
+    batch's, the jitter the one-process draws) and the global gradient norm
+    after step 1 within ``EP_GRAD_RTOL`` of phase 9's, K4 and K4b 4 times a
+    step on each rank and K1 and K2 8; ms per step (steps 2-3), bytes
+    staged through the host, collective calls, peak memory per rank and the
+    owner's live rows per expert of each MoE layer (read in step 1, which
+    the ms per step leaves out). Phase 8 then holds K4/K4b against their
+    plain versions at the owner's call (4 experts, rank 0's rows).
+38. ``sep_gpt_train`` (run after phase 8): phase 6's O2 GPT at full width
+    at sep 2 through Ulysses, two gloo processes on ``cuda:0`` each holding
+    ``[8, 512]`` of phase 6's ids, 3 steps: every rank's losses within
+    ``SEP_LOSS_RTOL`` of phase 6's first 3 and the global gradient norm
+    after step 1 within ``SEP_GRAD_RTOL`` of phase 6's, K1 and K2 16 times a step on
+    each rank at ``[8, 1024, 8, 64]`` (half the heads over the whole
+    sequence; phase 3 holds K1/K2 against their plain versions there); ms
+    per step and bytes staged.
 
 The serving phases (5, 25-30), the vision phases (22-24) and DLRM's (31)
 launch none of K1-K4b: the reference runs no Pallas kernel on those paths
@@ -237,16 +257,18 @@ cuDNN's, batch norms and pools ATen's; the embedding lookup is
 ``jnp.take``, the optimizers jnp); the script checks that their counts
 stay 0, in the replica processes too.
 
-Phases 4, 5, 25, 26, 27, 28, 29, 30, 6, 9 (its ``pallas_sorted`` run), 12,
-13, ``dp_bert_train``, 16, 17, 34, 35 (the ranks' counts, summed), 20, 22,
-24 and 31 are the main path: the kernel counts are set to 0 just before
-each of them and read just after it. Then one JSON line lists every kernel
+Phases 4, 5, 25, 26, 27, 28, 29, 30, 6, 9 (its ``pallas_sorted`` run), 37
+and 38 (the ranks' counts, summed), 12, 13, ``dp_bert_train``, 16, 17, 34,
+35 (summed), 20, 22, 24 and 31 are the main path: the kernel counts are set
+to 0 just before each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
 K4b at the first MoE layer's rows of the traced step, whose ``bound_ms``
-counts the live rows, the rows the kernels compute; K1 and K2 with
-``d128_rows``: the d = 128 calls of phases 17, 20 and 35) and the script's wall
-time, and the last line is the ``{"ok": true, ...}`` result.
+counts the live rows, the rows the kernels compute, with an ``ep_row``: the
+ep 2 owner's call, its ``bound_ms`` over its live rows too and its
+``bound_padded_ms`` over all its rows; K1 and K2 with ``d128_rows``: the d = 128 calls of phases
+17, 20 and 35, and the sep 2 call of phase 38) and the script's wall time,
+and the last line is the ``{"ok": true, ...}`` result.
 """
 from __future__ import annotations
 
@@ -398,6 +420,34 @@ HYBRID_LOSS_RTOL = 1e-4
 # K1/K2's per-rank call in the hybrid step: one micro-batch of [1, 256], 8
 # heads a rank (16 / mp 2), d 128, causal, f32, views of the packed projection
 HYBRID_CALL = (1, 256, 8, 128, True)
+
+# ep_moe_train: moe_train's GPT-MoE (MOE_CFG, f32 AdamW lr 1e-4, GShard
+# jitter on) at dp 2 = ep 2 as two gloo processes on cuda:0, each holding 4
+# of the 8 experts of every MoE layer and [4, 1024] of moe_train's ids; 3
+# steps. Each rank's losses within rtol 1e-6 of moe_train's first 3 from the
+# same weights, and the global gradient norm after step 1 within rtol 1e-7
+# of moe_train's: the routing is the global batch's and the jitter draws are
+# the one-process draws, so only f32 sums in another order part them (the
+# gate and attention products over half the rows, the gradients averaged
+# over the ranks). Measured on the H100: losses 9.1e-8 (one f32 ulp at
+# 10.8), gradient norm 1.2e-8
+EP_MOE = dict(dp=2, steps=3, timeout=600.0)
+EP_LOSS_RTOL = 1e-6
+EP_GRAD_RTOL = 1e-7
+# sep_gpt_train: train's O2 GPT (SERVE_CFG) at sep 2 through Ulysses as two
+# gloo processes on cuda:0, each holding [8, 512] of train's ids; 3 steps.
+# Each rank's losses within rtol 1e-4 of train's first 3 from the same
+# weights, and the global gradient norm after step 1 within rtol 2e-5 of
+# train's: bf16 products over half the sequence may round in another order
+# (2**-8 relative each, averaged over 8192 tokens), the f32 master gradients
+# summed over the ranks. Measured on the H100: losses 9.7e-6, gradient norm
+# 1.7e-6
+SEP_GPT = dict(sep=2, steps=3, timeout=600.0)
+SEP_LOSS_RTOL = 1e-4
+SEP_GRAD_RTOL = 2e-5
+# the attention call after Ulysses' exchange: 8 of the 16 heads over the
+# whole sequence, views of the packed projection, bf16 (AMP O2)
+SEP_CALL = (8, 1024, 8, 64, True)
 
 # the GPT-MoE of bench.py:_measure_moe (bench.py:304): h 1024, 8 layers, 16
 # heads, 8 experts in every second block, capacity factor 2.0; its step is
@@ -677,7 +727,7 @@ def phase_k1():
     # calls K1 in the forward and the training step
     cases += [(8, 1024, 16, 64, True, dt, True) for dt in (torch.float32, torch.bfloat16)]
     cases += [(*call, torch.bfloat16, True) for call in D128_CALLS.values()]
-    cases += [(*HYBRID_CALL, torch.float32, True)]
+    cases += [(*HYBRID_CALL, torch.float32, True), (*SEP_CALL, torch.bfloat16, True)]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     main_row, bf16_row, d128_rows, failures = None, None, {}, []
     for b, s, h, d, causal, dt, packed in cases:
@@ -720,6 +770,8 @@ def phase_k1():
                           if (b, s, h, d, causal, dt, packed) == (*call, torch.bfloat16, True)})
         if (b, s, h, d, causal, dt, packed) == (*HYBRID_CALL, torch.float32, True):
             d128_rows["hybrid_gpt3"] = row
+        if (b, s, h, d, causal, dt, packed) == (*SEP_CALL, torch.bfloat16, True):
+            d128_rows["sep_gpt_train"] = row
         del q, k, v
         torch.cuda.empty_cache()
     if failures:
@@ -740,8 +792,9 @@ def _k2_cases():
     # sdpa/flash runs K2)
     cases += [(*D128_CALLS["gpt3_1p3b_train"], torch.bfloat16, True),
               (*D128_CALLS["ernie_train"], torch.bfloat16, "views")]
-    # the hybrid step's per-rank call, f32, packed gradient (attention_core)
-    cases += [(*HYBRID_CALL, torch.float32, True)]
+    # the hybrid step's per-rank call, f32, packed gradient (attention_core);
+    # the sep 2 step's call after Ulysses' exchange, bf16, packed gradient
+    cases += [(*HYBRID_CALL, torch.float32, True), (*SEP_CALL, torch.bfloat16, True)]
     return cases
 
 
@@ -812,6 +865,8 @@ def phase_k2():
                           if (b, s, h, d, causal, dt) == (*call, torch.bfloat16) and packed})
         if (b, s, h, d, causal, dt, packed) == (*HYBRID_CALL, torch.float32, True):
             d128_rows["hybrid_gpt3"] = row
+        if (b, s, h, d, causal, dt, packed) == (*SEP_CALL, torch.bfloat16, True):
+            d128_rows["sep_gpt_train"] = row
         del q, k, v, dout, out, lse, got, grads
         torch.cuda.empty_cache()
     if failures:
@@ -1840,7 +1895,8 @@ def phase_train():
     """bench.py's flagship step at full width: AMP O2 TrainStep over AdamW,
     3 warm-up steps then 10 timed steps (synchronised) on one ids batch with
     labels = ids, then one step traced for its breakdown. Returns the K1 and
-    K2 launches of the 13 counted steps."""
+    K2 launches of the 13 counted steps, their losses and the global
+    gradient norm after the first."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
     from paddle_tpu_torch.observability import metrics
@@ -1858,7 +1914,9 @@ def phase_train():
     metrics.reset_counters("kernels.")
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    losses = [float(step(ids, ids)["loss"]) for _ in range(TRAIN["warmup"])]
+    losses = [float(step(ids, ids)["loss"])]
+    grad1 = grad_norm(model)
+    losses += [float(step(ids, ids)["loss"]) for _ in range(TRAIN["warmup"] - 1)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     timed = [step(ids, ids)["loss"] for _ in range(TRAIN["steps"])]
@@ -1879,14 +1937,36 @@ def phase_train():
           and per_step == {K1["name"]: cfg.num_layers, K2["name"]: cfg.num_layers,
                            K3["name"]: 0, K3B["name"]: 0, K4["name"]: 0, K4B["name"]: 0}
           and all(p.dtype == torch.float32 for p in model.parameters()))
-    emit(phase="train", ok=ok, ids=[b, s], amp_level="O2", losses=losses, attention_core=picked,
+    emit(phase="train", ok=ok, ids=[b, s], amp_level="O2", losses=losses,
+         grad_norm_step1=grad1, attention_core=picked,
          launches=launches, launches_per_step=per_step, seconds=seconds, ms_per_step=ms_per_step,
          tokens_per_s=b * s * TRAIN["steps"] / seconds,
          max_memory_allocated=peak, model_flops_per_step=_model_flops_per_step(cfg, b, s),
          model_flops_bound_ms=bound_ms, bound_share=bound_ms / ms_per_step, profile=breakdown)
     if not ok:
         raise AssertionError("train phase failed")
-    return launches
+    return launches, losses, grad1
+
+
+def grad_norm(model):
+    """The global L2 norm of ``model``'s gradients as one process holds
+    them: an expert shard's squares summed over its expert group, every
+    other gradient (whole, or the same on every rank) counted once."""
+    from paddle_tpu_torch.distributed import collective
+
+    whole, shards, group = 0.0, torch.zeros((), dtype=torch.float64), None
+    for p in model.parameters():
+        if p.grad is None:
+            continue
+        sq = p.grad.double().pow(2).sum().cpu()
+        g = getattr(p, "expert_group", None)
+        if g is not None and g.nranks > 1:
+            shards, group = shards + sq, g
+        else:
+            whole += float(sq)
+    if group is not None:
+        collective.all_reduce(shards, group=group)
+    return math.sqrt(whole + float(shards))
 
 
 def _grad_rel_l2(grads, ref):
@@ -1991,13 +2071,16 @@ def moe_ffn_bound(E, cap, D, H, dtype, backward=False, live=None):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _moe_cases(step_rows):
+def _moe_cases(step_rows, ep_rows):
     """(E, cap, D, H, dtype, activation, layer): the main call first, at
     each MoE layer's live rows in ``step_rows`` (``layer`` indexes it), and
-    then with every row live (``layer`` None)."""
+    then with every row live (``layer`` None); the owner's call of the ep 2
+    step (4 experts) at rank 0's live rows of its first MoE layer
+    (``ep_rows``, ``layer`` "ep")."""
     full = (8, 4096, 1024, 4096)  # the GPT-MoE step's call: E, cap, D, H
     cases = [(*full, dt, "gelu", layer) for layer in (*range(len(step_rows)), None)
              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(len(ep_rows), 4096, 1024, 4096, torch.float32, "gelu", "ep")]
     # H <= 512 (the reference's single-hidden-tile kernels) and a capacity
     # that is no multiple of the 128-row tile
     cases += [(8, 4096, 1024, 512, dt, "gelu", None) for dt in (torch.float32, torch.bfloat16)]
@@ -2008,26 +2091,27 @@ def _moe_cases(step_rows):
     return cases
 
 
-def phase_moe_kernels(step_rows):
+def phase_moe_kernels(step_rows, ep_rows):
     """K4 and K4b against their plain versions; returns the rows of the main
     path's call ([8 x 4096, 1024] rows, H 4096, f32 gelu) at the first MoE
     layer's live rows in ``step_rows`` (each MoE layer's rows per expert at
-    ``moe_train``'s traced step). Every row of xg and dy holds random
+    ``moe_train``'s traced step), and the rows of the ep 2 owner's call ([4
+    x 4096, 1024], f32) at ``ep_rows``. Every row of xg and dy holds random
     values: past ``rows[e]`` they are junk that the kernels and the plain
     versions must ignore."""
     from paddle_tpu_torch.ops import moe_pallas as mp
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    main, failures = {}, []
-    for E, cap, D, H, dt, act, layer in _moe_cases(step_rows):
+    main, ep_main, failures = {}, {}, []
+    for E, cap, D, H, dt, act, layer in _moe_cases(step_rows, ep_rows):
         def rand(*shape, scale=1.0):
             return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dt)
 
         args = (rand(E * cap, D), rand(E, D, H, scale=D ** -0.5), rand(E, 1, H, scale=0.1),
                 rand(E, H, D, scale=H ** -0.5), rand(E, 1, D, scale=0.1))
         dy = rand(E * cap, D)
-        rows = None if layer is None else torch.tensor(step_rows[layer], dtype=torch.int32,
-                                                       device="cuda")
+        live = ep_rows if layer == "ep" else None if layer is None else step_rows[layer]
+        rows = None if live is None else torch.tensor(live, dtype=torch.int32, device="cuda")
         n_live = E * cap if rows is None else int(rows.sum())
         before = read_launches()
         y, s = mp.moe_grouped_ffn_fwd(*args, act, rows)
@@ -2080,10 +2164,12 @@ def phase_moe_kernels(step_rows):
                 failures.append((K["name"], row["shape"], row["dtype"], row["fill"]))
             if (E, cap, D, H, dt, act, layer) == (8, 4096, 1024, 4096, torch.float32, "gelu", 0):
                 main[K["name"]] = row
+            if layer == "ep":
+                ep_main[K["name"]] = row
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"K4/K4b disagree with their plain versions in {failures}")
-    return main
+    return main, ep_main
 
 
 def _moe_flops_per_step(cfg, batch, seq, fills=None):
@@ -2149,8 +2235,9 @@ def phase_moe_train():
     warm-up and 5 timed steps (synchronised) on one ids batch with labels =
     ids, GShard jitter on, through ``pallas_sorted`` and then ``moe=dense``
     (a fresh model from the same seed each); one more step of each traced.
-    Returns the kernel launches of the ``pallas_sorted`` run's 7 steps and
-    its traced step's live rows per expert in each MoE layer."""
+    Returns the kernel launches of the ``pallas_sorted`` run's 7 steps, its
+    traced step's live rows per expert in each MoE layer, its losses and its
+    global gradient norm after the first step."""
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
@@ -2166,7 +2253,7 @@ def phase_moe_train():
                         generator=torch.Generator(device="cuda").manual_seed(SEED + 6))
     flops = _moe_flops_per_step(cfg, b, s)
     bound_ms = 1e3 * flops / PEAK_FLOPS[torch.float32]
-    runs, main_launches, step_rows = {}, None, None
+    runs, main_launches, step_rows, main_losses, main_grad1 = {}, None, None, None, None
     for path, overrides in (("pallas_sorted", ""), ("dense", "moe=dense")):
         set_flags({"FLAGS_kernel_overrides": overrides})
         try:
@@ -2179,7 +2266,9 @@ def phase_moe_train():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
-            losses = [float(step(ids, ids)["loss"]) for _ in range(MOE_TRAIN["warmup"])]
+            losses = [float(step(ids, ids)["loss"])]
+            grad1 = grad_norm(model)
+            losses += [float(step(ids, ids)["loss"]) for _ in range(MOE_TRAIN["warmup"] - 1)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             timed = [step(ids, ids)["loss"] for _ in range(MOE_TRAIN["steps"])]
@@ -2202,7 +2291,8 @@ def phase_moe_train():
         ok = (all(np.isfinite(losses)) and losses[-1] < losses[0] and per_step == want
               and picked == {"kernels.moe.picked": int(path == "pallas_sorted"),
                              "kernels.moe.fallback": int(path == "dense")})
-        runs[path] = dict(ok=ok, losses=losses, moe_kernel=picked, launches=launches,
+        runs[path] = dict(ok=ok, losses=losses, grad_norm_step1=grad1, moe_kernel=picked,
+                          launches=launches,
                           launches_per_step=per_step, seconds=seconds, ms_per_step=ms_per_step,
                           tokens_per_s=b * s * MOE_TRAIN["steps"] / seconds,
                           max_memory_allocated=peak, bound_share=bound_ms / ms_per_step,
@@ -2210,7 +2300,7 @@ def phase_moe_train():
                           / PEAK_FLOPS[torch.float32] / ms_per_step,
                           expert_row_fill=fill, expert_rows=layer_rows, profile=breakdown)
         if path == "pallas_sorted":
-            main_launches, step_rows = launches, layer_rows
+            main_launches, step_rows, main_losses, main_grad1 = launches, layer_rows, losses, grad1
         del model, step
         torch.cuda.empty_cache()
     ok = all(r["ok"] for r in runs.values())
@@ -2218,7 +2308,7 @@ def phase_moe_train():
          flops_per_step=flops, flops_bound_ms=bound_ms, **runs)
     if not ok:
         raise AssertionError("moe_train phase failed")
-    return main_launches, step_rows
+    return main_launches, step_rows, main_losses, main_grad1
 
 
 def phase_moe_check():
@@ -3528,6 +3618,234 @@ def phase_hybrid_gpt3():
     return launches
 
 
+def _rank_steps(fleet, model, opt, ids, steps, record=None):
+    """``steps`` steps of ``fleet.distributed_step`` on this rank's block of
+    ``ids`` (labels = ids), each synchronised and timed, with the launches
+    and the collective counters counted over them; ``record`` (a callable
+    taking ``True``/``False``) is switched on for the first step, which the
+    ms per step leaves out. Returns the losses, step seconds, the global
+    gradient norm after the first step, launches, host-staged bytes,
+    collective calls and peak memory."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+
+    step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
+    x = fleet.shard_batch(ids)
+    torch.cuda.synchronize()
+    registry.clear_cache()
+    reset_launches()
+    metrics.reset_counters("collective.")
+    metrics.reset_counters("kernels.")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, grad1 = [], [], None
+    for i in range(steps):
+        if record is not None:
+            record(i == 0)
+        t = time.perf_counter()
+        losses.append(float(step(x, x)["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        if i == 0:
+            grad1 = grad_norm(model)
+    calls = metrics.counters("collective.")
+    return dict(losses=losses, step_seconds=step_s, grad_norm_step1=grad1,
+                launches=read_launches(),
+                host_staged_bytes=calls.pop(collective.HOST_STAGED, 0), collective_calls=calls,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                picked=metrics.counters("kernels."), block=list(x.shape))
+
+
+def _ep_rank(ids):
+    """Rank body of ``ep_moe_train``: moe_train's GPT-MoE from the same seed
+    under ``fleet.init(dp_degree=2)`` (each rank draws every weight and keeps
+    its 4 experts of each MoE layer), 3 f32 AdamW steps on its rows of
+    ``ids``; the owner's live rows per expert of each MoE layer in the first
+    step."""
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.ops import moe_pallas as mp
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    strat = DistributedStrategy()
+    strat.hybrid_configs = {"dp_degree": EP_MOE["dp"]}
+    fleet.init(is_collective=True, strategy=strat)
+    hcg = fleet.get_hybrid_communicate_group()
+    model = GPTForPretraining(GPTConfig(**MOE_CFG), device="cuda", seed=SEED)
+    experts = [tuple(m.w1.shape) for m in model.modules() if hasattr(m, "expert_group")]
+    seen, on = [], [False]
+    ffn = mp.grouped_ffn
+
+    def recording_ffn(xg, w1, b1, w2, b2, activation="gelu", rows=None):
+        if on[0]:
+            seen.append(rows.tolist())
+        return ffn(xg, w1, b1, w2, b2, activation, rows)
+
+    mp.grouped_ffn = recording_ffn  # the exchange looks it up at each call
+    try:
+        load_s = time.perf_counter() - t0
+        out = _rank_steps(fleet, model, AdamW(learning_rate=MOE_TRAIN["lr"],
+                                              parameters=model.parameters()),
+                          ids, EP_MOE["steps"], record=lambda last: on.__setitem__(0, last))
+    finally:
+        mp.grouped_ffn = ffn
+    return dict(out, dp_rank=hcg.get_data_parallel_rank(), load_seconds=load_s,
+                expert_shapes=experts, owner_rows=seen,
+                params=sum(p.numel() for p in model.parameters()))
+
+
+def phase_ep_moe_train(moe_losses, moe_grad1):
+    """moe_train's GPT-MoE at full width at dp 2 = ep 2: two gloo processes
+    on ``cuda:0`` (NCCL refuses two ranks on one device), each holding 4 of
+    the 8 experts of every MoE layer and ``[4, 1024]`` of moe_train's ids,
+    GShard jitter on, 3 f32 AdamW steps. Every rank's losses within
+    ``EP_LOSS_RTOL`` of moe_train's first 3 (``moe_losses``: the same
+    weights and jitter draws), its global gradient norm after step 1 within
+    ``EP_GRAD_RTOL`` of moe_train's (``moe_grad1``); K4 and K4b 4 times a
+    step on each rank (one
+    per MoE layer, each owner's 4 experts), K1 and K2 8. Returns the
+    launches summed over the ranks and rank 0's live rows per expert in its
+    first MoE layer."""
+    import gc
+
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.testing.dist import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPTConfig(**MOE_CFG)
+    b, s = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    ids = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 6)).cpu()
+    t0 = time.perf_counter()
+    ranks = run_ranks(_ep_rank, EP_MOE["dp"], ids, device="cuda:0", backend="gloo",
+                      timeout=EP_MOE["timeout"])
+    t_world = time.perf_counter() - t0
+    steps, n_moe = EP_MOE["steps"], cfg.num_layers // cfg.moe_every
+    want = {K1["name"]: cfg.num_layers * steps, K2["name"]: cfg.num_layers * steps,
+            K3["name"]: 0, K3B["name"]: 0, K4["name"]: n_moe * steps, K4B["name"]: n_moe * steps}
+    ref = moe_losses[:steps]
+    errs = [max(abs(a - r) / abs(r) for a, r in zip(o["losses"], ref)) for o in ranks]
+    grad_errs = [abs(o["grad_norm_step1"] - moe_grad1) / moe_grad1 for o in ranks]
+    E = cfg.moe_num_experts // EP_MOE["dp"]
+    ok = (all(np.isfinite(o["losses"]).all() for o in ranks) and max(errs) <= EP_LOSS_RTOL
+          and max(grad_errs) <= EP_GRAD_RTOL
+          and all(o["launches"] == want for o in ranks)
+          and all(o["picked"].get("kernels.moe.picked") == 1
+                  and o["picked"].get("kernels.moe.fallback", 0) == 0 for o in ranks)
+          and all(shape[0] == E for o in ranks for shape in o["expert_shapes"])
+          and all(len(o["owner_rows"]) == n_moe and all(len(r) == E for r in o["owner_rows"])
+                  for o in ranks))
+    per_step = lambda o: {k: v / steps for k, v in o["launches"].items()}  # noqa: E731
+    emit(phase="ep_moe_train", ok=ok, backend="gloo", device="cuda:0", world_size=EP_MOE["dp"],
+         ids=[b, s], config=MOE_CFG, dtype="float32", experts_per_rank=E,
+         reference_losses=ref, loss_rel_err_by_rank=errs, loss_rtol=EP_LOSS_RTOL,
+         reference_grad_norm_step1=moe_grad1, grad_norm_rel_err_by_rank=grad_errs,
+         grad_norm_rtol=EP_GRAD_RTOL,
+         launches_per_rank_per_step=[per_step(o) for o in ranks],
+         ranks=[dict(dp_rank=o["dp_rank"], losses=o["losses"],
+                     grad_norm_step1=o["grad_norm_step1"], step_seconds=o["step_seconds"],
+                     ms_per_step=1e3 * float(np.mean(o["step_seconds"][1:])),
+                     host_staged_bytes_per_step=o["host_staged_bytes"] / steps,
+                     collective_calls_per_step={k: v / steps
+                                                for k, v in o["collective_calls"].items()},
+                     max_memory_allocated=o["max_memory_allocated"], params=o["params"],
+                     load_seconds=o["load_seconds"], block=o["block"],
+                     owner_live_rows_per_expert=o["owner_rows"]) for o in ranks],
+         world_seconds=t_world)
+    if not ok:
+        raise AssertionError("ep_moe_train phase failed")
+    launches = {n: sum(o["launches"][n] for o in ranks) for n in want}
+    return launches, ranks[0]["owner_rows"][0]
+
+
+def _sep_rank(ids):
+    """Rank body of ``sep_gpt_train``: train's GPT from the same seed under
+    ``fleet.init(sep_degree=2)`` with AMP O2, 3 AdamW steps on its block of
+    the sequence."""
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    strat = DistributedStrategy()
+    strat.hybrid_configs = {"sep_degree": SEP_GPT["sep"]}
+    strat.amp = True
+    strat.amp_configs = {"level": "O2", "dtype": "bfloat16"}
+    fleet.init(is_collective=True, strategy=strat)
+    hcg = fleet.get_hybrid_communicate_group()
+    model = GPTForPretraining(GPTConfig(**SERVE_CFG), device="cuda", seed=SEED)
+    load_s = time.perf_counter() - t0
+    out = _rank_steps(fleet, model, AdamW(learning_rate=TRAIN["lr"],
+                                          parameters=model.parameters()), ids, SEP_GPT["steps"])
+    return dict(out, sep_rank=hcg.get_sep_parallel_rank(), load_seconds=load_s,
+                heads=model.gpt.layers.num_heads // SEP_GPT["sep"])
+
+
+def phase_sep_gpt_train(train_losses, train_grad1):
+    """train's O2 GPT at full width at sep 2 through Ulysses: two gloo
+    processes on ``cuda:0``, each holding ``[8, 512]`` of train's ids (its
+    block of the sequence), 3 AdamW steps. Every rank's losses within
+    ``SEP_LOSS_RTOL`` of train's first 3 (``train_losses``: the same
+    weights), its global gradient norm after step 1 within ``SEP_GRAD_RTOL``
+    of train's (``train_grad1``); K1 and K2 16 times a step on each rank, at ``SEP_CALL`` (8 of
+    the 16 heads over the whole sequence). Returns the launches summed over
+    the ranks."""
+    import gc
+
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.testing.dist import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPTConfig(**SERVE_CFG)
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    ids = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 2)).cpu()
+    t0 = time.perf_counter()
+    ranks = run_ranks(_sep_rank, SEP_GPT["sep"], ids, device="cuda:0", backend="gloo",
+                      timeout=SEP_GPT["timeout"])
+    t_world = time.perf_counter() - t0
+    steps = SEP_GPT["steps"]
+    want = {K1["name"]: cfg.num_layers * steps, K2["name"]: cfg.num_layers * steps,
+            K3["name"]: 0, K3B["name"]: 0, K4["name"]: 0, K4B["name"]: 0}
+    ref = train_losses[:steps]
+    errs = [max(abs(a - r) / abs(r) for a, r in zip(o["losses"], ref)) for o in ranks]
+    grad_errs = [abs(o["grad_norm_step1"] - train_grad1) / train_grad1 for o in ranks]
+    ok = (all(np.isfinite(o["losses"]).all() for o in ranks) and max(errs) <= SEP_LOSS_RTOL
+          and max(grad_errs) <= SEP_GRAD_RTOL
+          and all(o["launches"] == want for o in ranks)
+          and all(o["heads"] == SEP_CALL[2] and o["block"] == [b, s // SEP_GPT["sep"]]
+                  for o in ranks)
+          and all(o["picked"].get("kernels.attention_core.picked") == 1
+                  and o["picked"].get("kernels.attention_core.fallback", 0) == 0 for o in ranks))
+    emit(phase="sep_gpt_train", ok=ok, backend="gloo", device="cuda:0",
+         world_size=SEP_GPT["sep"], ids=[b, s], config=SERVE_CFG, amp_level="O2",
+         attention_call=list(SEP_CALL), reference_losses=ref, loss_rel_err_by_rank=errs,
+         loss_rtol=SEP_LOSS_RTOL, reference_grad_norm_step1=train_grad1,
+         grad_norm_rel_err_by_rank=grad_errs, grad_norm_rtol=SEP_GRAD_RTOL,
+         launches_per_rank_per_step=[{k: v / steps for k, v in o["launches"].items()}
+                                     for o in ranks],
+         ranks=[dict(sep_rank=o["sep_rank"], losses=o["losses"],
+                     grad_norm_step1=o["grad_norm_step1"], step_seconds=o["step_seconds"],
+                     ms_per_step=1e3 * float(np.mean(o["step_seconds"][1:])),
+                     host_staged_bytes_per_step=o["host_staged_bytes"] / steps,
+                     collective_calls_per_step={k: v / steps
+                                                for k, v in o["collective_calls"].items()},
+                     max_memory_allocated=o["max_memory_allocated"],
+                     load_seconds=o["load_seconds"], block=o["block"]) for o in ranks],
+         world_seconds=t_world)
+    if not ok:
+        raise AssertionError("sep_gpt_train phase failed")
+    return {n: sum(o["launches"][n] for o in ranks) for n in want}
+
+
 def _f32_step(model, inputs, labels, loss_fn, accumulate_steps=1):
     """One f32 AdamW step: ``(loss, gradients, launches by kernel)``."""
     from paddle_tpu_torch.jit import TrainStep
@@ -4397,13 +4715,18 @@ def main() -> int:
         by_path[path] = read_launches()
     del model
     torch.cuda.empty_cache()
-    by_path["train"] = phase_train()
+    by_path["train"], train_losses, train_grad1 = phase_train()
     torch.cuda.empty_cache()
     phase_train_check()
     torch.cuda.empty_cache()
-    by_path["moe_train"], step_rows = phase_moe_train()
+    by_path["moe_train"], step_rows, moe_losses, moe_grad1 = phase_moe_train()
     torch.cuda.empty_cache()
-    rows.update(phase_moe_kernels(step_rows))
+    by_path["ep_moe_train"], ep_rows = phase_ep_moe_train(moe_losses, moe_grad1)
+    torch.cuda.empty_cache()
+    moe_rows, ep_moe_rows = phase_moe_kernels(step_rows, ep_rows)
+    rows.update(moe_rows)
+    torch.cuda.empty_cache()
+    by_path["sep_gpt_train"] = phase_sep_gpt_train(train_losses, train_grad1)
     torch.cuda.empty_cache()
     phase_moe_check()
     torch.cuda.empty_cache()
@@ -4464,10 +4787,16 @@ def main() -> int:
 
     keys = ("shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # K4/K4b's main call computes the live rows only: its bound counts them
+    # K4/K4b compute the live rows only: the bounds of their main call and of
+    # their ep call count them, the ep row keeps the padded rows' bound apart
     for K in (K4, K4B):
         row = rows[K["name"]]
         rows[K["name"]] = dict(row, bound_ms=row["bound_live_ms"], bound_by=row["bound_live_by"])
+        if K["name"] in ep_moe_rows:
+            row = ep_moe_rows[K["name"]]
+            ep_moe_rows[K["name"]] = dict(row, bound_padded_ms=row["bound_ms"],
+                                          bound_ms=row["bound_live_ms"],
+                                          bound_by=row["bound_live_by"])
     kernels = [dict(K, launches=sum(p[K["name"]] for p in by_path.values()),
                     launches_by_path={path: p[K["name"]] for path, p in by_path.items()},
                     **{k: rows[K["name"]][k] for k in keys if k in rows[K["name"]]},
@@ -4479,7 +4808,11 @@ def main() -> int:
                        if K["name"] in f32_rows else {}),
                     **({"d128_rows": {path: {k: row[k] for k in keys + ("packed_qkv",) if k in row}
                                       for path, row in d128_rows[K["name"]].items()}}
-                       if K["name"] in d128_rows else {}))
+                       if K["name"] in d128_rows else {}),
+                    **({"ep_row": {k: ep_moe_rows[K["name"]][k]
+                                   for k in keys + ("experts", "rows", "fill", "bound_padded_ms")
+                                   if k in ep_moe_rows[K["name"]]}}
+                       if K["name"] in ep_moe_rows else {}))
                for K in KERNELS]
     emit(kernels=kernels, wall_s=time.perf_counter() - t_start)
     # K1 runs in the forward and in training, K2 in training, K4 and K4b in
@@ -4492,6 +4825,8 @@ def main() -> int:
                 "fleet": [], "procfleet": [], "ingress": [], "alerts": [],
                 "train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
+                "ep_moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
+                "sep_gpt_train": [K1["name"], K2["name"]],
                 "bert_forward": [K3["name"]], "bert_train": [K3["name"], K3B["name"]],
                 "dp_bert_train": [K3["name"], K3B["name"]],
                 "flat_check": [K3["name"], K3B["name"]],

@@ -2,11 +2,14 @@
 environment, the hybrid topology, eager collectives and point-to-point
 sends over ``torch.distributed``, ``DataParallel``, the tensor-parallel
 layers, ZeRO sharding (``sharding``), the pipeline (``pipeline``),
-``fleet`` (``init``, ``distributed_step``, ``shard_batch``), plus the
-mixture-of-experts layer (``moe``) and the recommender's embedding table
-in its single-shard form (``embedding``). Sequence parallelism, the fleet
-executor, expert parallelism's exchanges and the launcher wait for later
-slices (ROADMAP.md, Queue 1 items 13c and 13d)."""
+``fleet`` (``init``, ``distributed_step``, ``shard_batch``), the
+mixture-of-experts layer with its experts over ``dp`` (``moe``, the
+exchanges ``utils.global_scatter``/``global_gather``), sequence parallelism
+over ``sep`` (``ring_attention``: ring and Ulysses attention), the host
+actor runtime (``fleet_executor``) and the recommender's embedding table
+in its single-shard form (``embedding``). The launcher, checkpoints and
+the sharded embedding's exchange wait for a later slice (ROADMAP.md, Queue
+1 item 13d)."""
 from . import fleet as fleet_mod  # noqa: F401
 from . import utils  # noqa: F401
 from .collective import (  # noqa: F401
@@ -40,6 +43,7 @@ from .mp_layers import (  # noqa: F401
     VocabParallelEmbedding,
     get_rng_state_tracker,
 )
+from .fleet_executor import Carrier, FleetExecutor, TaskNode  # noqa: F401
 from .moe import MoELayer  # noqa: F401
 from .parallel import DataParallel, spawn  # noqa: F401
 from .pipeline import (  # noqa: F401
@@ -50,6 +54,8 @@ from .pipeline import (  # noqa: F401
     pipeline_forward,
     run_schedule,
 )
+from .ring_attention import ring_attention, ulysses_attention  # noqa: F401
 from .sharding import ZeroPlan, group_sharded_parallel, state_shardings  # noqa: F401
 from .strategy import DistributedStrategy  # noqa: F401
 from .topology import AXES, CommunicateTopology, HybridCommunicateGroup, build_mesh  # noqa: F401
+from .utils import global_gather, global_scatter  # noqa: F401

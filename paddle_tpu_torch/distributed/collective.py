@@ -30,8 +30,8 @@ follow Paddle's and torch's signatures, with group indices for ranks.
 
 Transport: NCCL refuses two ranks on one device, so a world above one on a
 single card runs over gloo, which takes CUDA tensors for all-reduce,
-all-gather and broadcast but not for point-to-point traffic nor
-reduce-scatter. For those (and only under gloo) the collective layer
+all-gather and broadcast but not for point-to-point traffic, all-to-all
+nor reduce-scatter. For those (and only under gloo) the collective layer
 stages a CUDA tensor through pinned host memory: copy out, the gloo call
 on the host copy, copy back. It counts the bytes it stages in
 ``collective.host_staged_bytes``. Every computation stays on the card;
@@ -222,13 +222,27 @@ def reduce_scatter(output, input, op=ReduceOp.SUM, group=None, sync_op=True, sca
     return out
 
 
+def _all_to_all_single(x, g, in_splits=None, out_splits=None):
+    """Rows of ``x``'s dim 0 to each rank of ``g`` (``in_splits[j]`` rows to
+    rank j, or equal blocks), and the rows received, in group order, along
+    dim 0 (``out_splits[j]`` from rank j, or equal blocks)."""
+    x = x.contiguous()
+    rows = x.shape[0] if out_splits is None else int(sum(out_splits))
+    out = x.new_empty((rows, *x.shape[1:]))
+    if _staged(x, g):
+        host_out = _host_buffer(out)
+        dist.all_to_all_single(host_out, _to_host(x), out_splits, in_splits,
+                               group=g.process_group)
+        out.copy_(host_out)
+    else:
+        dist.all_to_all_single(out, x, out_splits, in_splits, group=g.process_group)
+    return out
+
+
 def _all_to_all_dim0(x, g):
     """Block j of ``x``'s dim 0 to rank j; the blocks received, in group
     order, along dim 0."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=g.process_group)
-    return out
+    return _all_to_all_single(x, g)
 
 
 @_collective("alltoall")
@@ -300,18 +314,33 @@ def ppermute(x, perm, group=None):
     me = g.rank
     out = torch.zeros_like(x)
     x = x.contiguous()
-    ops = []
+    sends, recvs = [], []
     for src, dst in perm:
         if src == me and dst == me:
             out.copy_(x)
         elif src == me:
-            ops.append(dist.P2POp(dist.isend, x, g.get_global_rank(dst), g.process_group))
+            sends.append((x, dst))
         elif dst == me:
-            ops.append(dist.P2POp(dist.irecv, out, g.get_global_rank(src), g.process_group))
+            recvs.append((out, src))
+    _post(sends, recvs, g)
+    return out
+
+
+def _post(sends, recvs, g):
+    """Post every ``(tensor, dst)`` send and ``(tensor, src)`` receive of
+    ``g`` together and wait for them; a CUDA tensor under gloo goes through
+    pinned host memory."""
+    staged = [(t, _host_buffer(t)) for t, _ in recvs if _staged(t, g)]
+    host = {id(t): h for t, h in staged}
+    ops = [dist.P2POp(dist.isend, _to_host(t) if _staged(t, g) else t.contiguous(),
+                      g.get_global_rank(dst), g.process_group) for t, dst in sends]
+    ops += [dist.P2POp(dist.irecv, host.get(id(t), t), g.get_global_rank(src), g.process_group)
+            for t, src in recvs]
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    return out
+    for t, h in staged:
+        t.copy_(h)
 
 
 def p2p(sends=(), recvs=(), group=None):
@@ -321,22 +350,13 @@ def p2p(sends=(), recvs=(), group=None):
     send and receive as one batch is what keeps neighbouring stages that
     both send first from waiting on each other."""
     g = _group(group)
-    staged = [(t, _host_buffer(t)) for t, _ in recvs if _staged(t, g)]
-    host = {id(t): h for t, h in staged}
-    ops = [dist.P2POp(dist.isend, _to_host(t) if _staged(t, g) else t.contiguous(),
-                      g.get_global_rank(dst), g.process_group) for t, dst in sends]
-    ops += [dist.P2POp(dist.irecv, host.get(id(t), t), g.get_global_rank(src), g.process_group)
-            for t, src in recvs]
     for _ in sends:
         metrics.counter_inc("collective.send.calls")
     for _ in recvs:
         metrics.counter_inc("collective.recv.calls")
-    if ops:
+    if sends or recvs:
         with span("collective.p2p"):
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-    for t, h in staged:
-        t.copy_(h)
+            _post(sends, recvs, g)
 
 
 def send(tensor, dst=0, group=None, sync_op=True):

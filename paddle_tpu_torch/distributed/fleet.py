@@ -12,7 +12,10 @@ grid, which averages the f32 master gradients over the data group (``dp``
 x ``sdp``) before the update, at the strategy's ZeRO stage
 (:mod:`.sharding`), and at ``pp > 1`` runs the pipeline schedule
 (:mod:`.pipeline`); ``shard_batch`` gives each rank its block of the
-global batch.
+global batch. At a sequence degree above 1 ``shard_batch`` also gives
+each ``sep`` rank its block of the sequence, and the step sums a
+replicated parameter's gradient over ``sep`` (:mod:`.ring_attention`; GPT's
+stacked trunk exchanges its heads by Ulysses).
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ class Fleet:
     # -- lifecycle ---------------------------------------------------------
     def init(self, role_maker=None, is_collective=True, strategy=None, device=None):
         """Join the world (:func:`~.env.init_parallel_env` on ``device``) and
-        build the hybrid grid of ``strategy.hybrid_configs``; ``mp_degree``
+        build the hybrid grid of ``strategy.hybrid_configs`` (``dp``,
+        ``mp``, ``pp``, ``sharding`` and ``sep`` degrees); ``mp_degree``
         comes from ``tensor_parallel_configs`` when ``hybrid_configs`` leaves
         it at 1, and ``tensor_parallel_configs.tensor_init_seed`` (if set)
         seeds the model-parallel RNG stream."""
@@ -150,7 +154,11 @@ class Fleet:
         named) and ``r = dp_rank * sdp + sdp_rank`` this rank's index over
         them, rows ``[r * B / n, (r + 1) * B / n)`` of dim 0, the block
         GSPMD's ``P(("dp", "sdp"))`` gives it (the ranks of one mp group
-        and of one pipeline get the same block), on this rank's device."""
+        and of one pipeline get the same block), on this rank's device. At
+        a sequence degree m above 1, a leaf of two or more dims is also
+        cut along dim 1: ``sep`` rank j gets positions ``[j * S / m, (j +
+        1) * S / m)``, the block of ``P(("dp", "sdp"), "sep")``
+        (``paddle_tpu/models/gpt.py:343``)."""
         if self._hcg is None:
             raise RuntimeError("call fleet.init(strategy=...) first")
         hcg = self._hcg
@@ -161,6 +169,7 @@ class Fleet:
         for axis in self._batch_axes:
             n, r = n * sizes[axis], r * sizes[axis] + ranks[axis]
         names = " x ".join(f"{a} {sizes[a]}" for a in self._batch_axes)
+        m, j = hcg.get_sep_parallel_world_size(), hcg.get_sep_parallel_rank()
         device = get_device()
         out = []
         for a in arrays:
@@ -169,7 +178,14 @@ class Fleet:
                 raise ValueError(f"shard_batch: a leaf of shape {tuple(t.shape)} does not split "
                                  f"over {names} along dim 0")
             b = t.shape[0] // n
-            out.append(t[r * b:(r + 1) * b].to(device))
+            t = t[r * b:(r + 1) * b]
+            if m > 1 and t.ndim >= 2:
+                if t.shape[1] % m:
+                    raise ValueError(f"shard_batch: a leaf of shape {tuple(a.shape)} does not "
+                                     f"split over sep {m} along dim 1")
+                c = t.shape[1] // m
+                t = t[:, j * c:(j + 1) * c]
+            out.append(t.contiguous().to(device))
         return tuple(out) if len(out) > 1 else out[0]
 
     # -- save/load (parity: fleet_base.py:795,833) -------------------------

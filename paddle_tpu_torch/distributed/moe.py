@@ -6,15 +6,34 @@ Routing (gate scores, top-k, GShard's random second-expert jitter, capacity
 dropping, the aux loss) happens here; the dispatch / expert FFN / combine
 core goes through the ``moe`` registry kernel: ``pallas_sorted``
 (:mod:`paddle_tpu_torch.ops.moe_pallas`, the CUDA kernels K4/K4b on the
-card) where it takes the call, else the ``dense`` fallback below. The
-reference's expert sharding (``expert_axis``) annotates a mesh the port
-does not have yet, so it is not carried.
+card) where it takes the call, else the ``dense`` fallback below.
+
+Expert parallelism (``expert_axis="dp"``, the reference's default): built
+after ``fleet.init`` with a ``dp`` degree n above 1, a layer holds experts
+``[r * E / n, (r + 1) * E / n)`` of rank r of the ``dp`` group (the
+reference marks its expert weights ``P("dp", ...)``) and routes as the
+reference's GSPMD program does over the global batch: the capacity comes
+from the global token count; a pair's queue position in its expert is its
+position among this rank's pairs plus the pairs the lower ranks sent there
+(one all-gather of the ``[E]`` counts); the aux loss takes ``me`` and ``ce``
+from sums all-reduced over the group. The kept rows go to their owners by
+``global_scatter``, the owner runs the grouped FFN on the rows it received
+(stacked in rank order, so row p of expert e is the one-process buffer's
+row p) and sends the outputs back by ``global_gather``; the sender
+combines them with its gate weights
+(:func:`expert_parallel_dispatch_combine`, called by the layer, which takes
+the registry's pick for the call to choose the owner's FFN). Each owner keeps its experts'
+gradient: the reducers leave a parameter marked ``expert_group`` out of
+their all-reduce. Expert parallelism together with ``mp``, ``pp``, ``sdp``
+or ``sep`` raises (ROADMAP.md, Queue 1 item 13c).
 
 The jitter draws from a ``torch.Generator`` that the layer owns, seeded at
 construction (``MoELayer.seed``), not from a global key: re-seeding it
 (``layer.generator.manual_seed(layer.seed)``) repeats the routing. Under
-activation recompute, :func:`routing_replay` makes the recompute draw what
-the forward drew.
+expert parallelism it draws over the global token count and each rank
+takes its rows' slice, so a world of n ranks routes as a world of one.
+Under activation recompute, :func:`routing_replay` makes the recompute draw
+what the forward drew.
 """
 from __future__ import annotations
 
@@ -28,9 +47,10 @@ from torch import nn
 from ..framework.device import resolve_device
 from ..ops import moe_pallas as _moe_pallas  # registers 'pallas_sorted'
 from ..ops import registry as _registry
+from ..ops.moe_pallas import sort_pairs
 
 __all__ = ["NaiveGate", "GShardGate", "SwitchGate", "MoELayer", "dense_dispatch_combine",
-           "routing_replay"]
+           "expert_parallel_dispatch_combine", "routing_replay"]
 
 
 def _xavier_normal(shape, generator, device):
@@ -63,7 +83,7 @@ class NaiveGate(nn.Module):
         return x @ self.weight
 
     @staticmethod
-    def aux_loss(probs, gate_idx, num_expert):
+    def aux_loss(probs, gate_idx, num_expert, group=None):
         return torch.zeros((), dtype=probs.dtype, device=probs.device)
 
 
@@ -80,10 +100,24 @@ class GShardGate(NaiveGate):
         self.random_routing = bool(random_routing)
 
     @staticmethod
-    def aux_loss(probs, gate_idx, num_expert):
-        # GShard eq. 4: mean gate prob * top-1 dispatch fraction, scaled by E
+    def aux_loss(probs, gate_idx, num_expert, group=None):
+        """GShard eq. 4: E * sum(me * ce), ``me`` the mean gate probability
+        and ``ce`` the top-1 dispatch fraction per expert. Over an expert
+        ``group`` both are the whole group's means (sums all-reduced): the
+        value is the global batch's, and ``me``'s gradient is this rank's
+        tokens' mean, which the data group's averaging makes the global
+        one's."""
         me = probs.mean(dim=0)
         ce = F.one_hot(gate_idx[:, 0], num_expert).to(probs.dtype).mean(dim=0)
+        if group is not None:
+            from . import collective
+
+            sums = torch.stack([probs.detach().sum(dim=0),
+                                F.one_hot(gate_idx[:, 0], num_expert).to(probs.dtype).sum(dim=0)])
+            collective.all_reduce(sums, group=group)
+            sums = sums / (probs.shape[0] * group.nranks)
+            me = me + (sums[0] - me.detach())
+            ce = sums[1]
         return num_expert * (me * ce).sum()
 
 
@@ -99,6 +133,17 @@ class SwitchGate(NaiveGate):
     aux_loss = staticmethod(GShardGate.aux_loss)
 
 
+def _einsum_ffn(xg, w1, b1, w2, b2, activation, rows=None):
+    """The expert FFN over the padded ``[E*cap, D]`` layout as batched
+    einsums, the dense composite's (every row computed; ``rows`` is taken
+    for the grouped FFN's signature)."""
+    E, D, _ = w1.shape
+    act = {"gelu": lambda x: F.gelu(x, approximate="tanh"), "relu": F.relu,
+           "silu": F.silu}[activation]
+    h = act(torch.einsum("ecd,edh->ech", xg.reshape(E, -1, D), w1) + b1)
+    return (torch.einsum("ech,ehd->ecd", h, w2) + b2).reshape(xg.shape)
+
+
 def dense_dispatch_combine(tokens, gate_vals, gate_idx, drop_mask, w1, b1, w2, b2, *, capacity,
                            activation):
     """The GShard/Switch dense composite: one-hot + cumsum queue positions,
@@ -108,8 +153,6 @@ def dense_dispatch_combine(tokens, gate_vals, gate_idx, drop_mask, w1, b1, w2, b
     T, D = tokens.shape
     E = w1.shape[0]
     K = gate_idx.shape[1]
-    act = {"gelu": lambda x: F.gelu(x, approximate="tanh"), "relu": F.relu,
-           "silu": F.silu}[activation]
 
     flat_idx = gate_idx.reshape(-1).long()  # [T*K] expert ids (k-major per token)
     onehot = F.one_hot(flat_idx, E)  # [T*K, E]
@@ -130,10 +173,8 @@ def dense_dispatch_combine(tokens, gate_vals, gate_idx, drop_mask, w1, b1, w2, b
     disp = torch.zeros((E, capacity, D), dtype=tokens.dtype, device=tokens.device)
     disp = disp.index_put((e_ids, p_ids), contrib, accumulate=True)
 
-    h = act(torch.einsum("ecd,edh->ech", disp, w1) + b1)
-    y = torch.einsum("ech,ehd->ecd", h, w2) + b2
-
-    gathered = y[e_ids, p_ids]  # [T*K, D]
+    y = _einsum_ffn(disp.reshape(E * capacity, D), w1, b1, w2, b2, activation)
+    gathered = y.reshape(E, capacity, D)[e_ids, p_ids]  # [T*K, D]
     combined = torch.zeros((T, D), dtype=y.dtype, device=y.device)
     return combined.index_add(0, tok_rep, gathered * gv[:, None])
 
@@ -143,16 +184,109 @@ _registry.register(
     doc="one-hot/cumsum dispatch + padded [E, capacity, D] einsums (plain PyTorch composite)")
 
 
-def jitter_drop_mask(gate_vals, generator):
+def expert_parallel_dispatch_combine(tokens, gate_vals, gate_idx, drop_mask, w1, b1, w2, b2, *,
+                                     capacity, activation, group, ffn):
+    """The ``moe`` dispatch/combine with the experts over ``group``: this
+    rank holds ``El = w1.shape[0]`` of the ``E = El * n`` experts (rank r
+    experts ``[r * El, (r + 1) * El)``) and routes its tokens ``[T, D]``
+    (gate_idx over all E) as one process routes the group's tokens, ranks
+    in order:
+
+    1. route: the sort of :func:`~paddle_tpu_torch.ops.moe_pallas.sort_pairs`;
+       one all-gather of each rank's per-expert counts; a pair's global
+       queue position is its own plus the lower ranks' counts for its
+       expert, and it is kept below ``capacity``;
+    2. exchange: the kept rows, in expert order, to their owners by
+       ``global_scatter`` (counts from the all-gather: one host sync);
+    3. FFN: the owner lays out what it received, expert by expert in rank
+       order (row p of expert e is the one-process layout's row p), and
+       runs ``ffn`` (the grouped FFN, K4/K4b on the card) with ``rows`` the
+       live rows per expert, ``min(count, capacity)``, on the device;
+    4. combine: the outputs back by ``global_gather`` and the weighted
+       scatter-add to token order.
+
+    The backward runs the exchanges in reverse (each one's backward is the
+    other). Returns ``[T, D]``."""
+    from .utils import global_gather, global_scatter
+
+    T, D = tokens.shape
+    El = w1.shape[0]
+    n, me = group.nranks, group.rank
+    E = El * n
+    cap = int(capacity)
+    device = tokens.device
+    e_sorted, tok_sorted, gv_sorted, counts, pos = sort_pairs(gate_vals, gate_idx, drop_mask, E)
+
+    from . import collective
+
+    every = collective.all_gather(counts[:E].contiguous(), group=group)  # [n, E]
+    before = torch.cumsum(every, 0) - every  # the lower ranks' pairs per expert
+    offset = torch.cat([before[me], before.new_zeros(1)])  # a dropped pair: none
+    keep = (e_sorted < E) & (pos + offset[e_sorted] < cap)
+    kept = torch.minimum((cap - before).clamp(min=0), every)  # [n, E] rows each rank sends
+    host = kept.cpu()  # the split sizes of the exchange
+    local_count = host[me].tolist()
+    global_count = host[:, me * El:(me + 1) * El].reshape(-1).tolist()
+
+    sel = keep.nonzero().squeeze(1)  # kept pairs, by expert then queue position
+    send = tokens.index_select(0, tok_sorted[sel])
+    recv = global_scatter(send, local_count, global_count, group=group)
+
+    # the owner's padded [El * cap, D] layout: expert i's rows in rank order
+    per_expert = host[:, me * El:(me + 1) * El].sum(0)  # [El]
+    R = int(per_expert.sum())
+    expert = torch.repeat_interleave(torch.arange(El), per_expert)
+    first = torch.cumsum(per_expert, 0) - per_expert
+    slot = (expert * cap + torch.arange(R) - first[expert]).to(device)
+    row_ids = torch.full((El * cap,), R, dtype=torch.long, device=device)
+    row_ids.scatter_(0, slot, torch.arange(R, device=device))
+    xg = torch.cat([recv, recv.new_zeros((1, D))]).index_select(0, row_ids)
+    # the live rows of each expert, counted on the device: the kernels read them there
+    rows = kept[:, me * El:(me + 1) * El].sum(0).to(torch.int32)
+    yg = ffn(xg, w1, b1, w2, b2, activation, rows)
+
+    back = global_gather(yg.index_select(0, slot), local_count, global_count, group=group)
+    weights = gv_sorted.index_select(0, sel).to(back.dtype)
+    out = torch.zeros((T, D), dtype=back.dtype, device=device)
+    return out.index_add(0, tok_sorted.index_select(0, sel), back * weights[:, None])
+
+
+def jitter_drop_mask(gate_vals, generator, total=None, offset=0):
     """GShard random routing: ``[T, K]`` bool, True where a pair is not
     dispatched. Each token keeps its second expert with probability
     ``min(1, 2·p2)`` (the reference's ``2*topk_val > rand`` test); the
-    other ranks always dispatch."""
+    other ranks always dispatch. Under expert parallelism the draw is over
+    the group's ``total`` tokens and this rank's take rows ``[offset,
+    offset + T)`` of it."""
     n_tok, K = gate_vals.shape
-    r = torch.rand(n_tok, generator=generator, device=gate_vals.device, dtype=gate_vals.dtype)
+    r = torch.rand(n_tok if total is None else total, generator=generator,
+                   device=gate_vals.device, dtype=gate_vals.dtype)[offset:offset + n_tok]
     drop = torch.zeros((n_tok, K), dtype=torch.bool, device=gate_vals.device)
     drop[:, 1] = 2.0 * gate_vals[:, 1].detach() <= r
     return drop
+
+
+def _expert_group(expert_axis):
+    """The active fleet's group along ``expert_axis``, or None (no fleet, or
+    a degree of 1)."""
+    from .fleet import fleet
+    from .topology import AXES
+
+    hcg = fleet.get_hybrid_communicate_group()
+    if hcg is None:
+        return None
+    if expert_axis != "dp":
+        raise NotImplementedError(f"expert_axis {expert_axis!r}: the port shards experts over "
+                                  "'dp' only, the reference's default")
+    group = hcg.group(expert_axis)
+    if group.nranks == 1:
+        return None
+    other = {f"{a}_degree": d for a, d in zip(AXES, hcg.dims) if a != expert_axis and d > 1}
+    if other:
+        raise NotImplementedError(
+            f"expert parallelism over {expert_axis} together with {other} is not ported yet "
+            "(ROADMAP.md, Queue 1 item 13c): a mixture of experts runs at dp > 1 alone")
+    return group
 
 
 class MoELayer(nn.Module):
@@ -162,35 +296,57 @@ class MoELayer(nn.Module):
 
     ``capacity_factor``: an explicit per-expert capacity factor; ``None``
     takes the gate's (train, eval) pair. ``activation``: ``'gelu'`` (tanh
-    form), ``'relu'`` or ``'silu'``. ``device`` as the port's entry points;
+    form), ``'relu'`` or ``'silu'``. ``expert_axis``: the fleet axis the
+    experts shard over (``"dp"``, the reference's default; see the module's
+    docstring): built under a fleet of ``dp`` degree n > 1 the layer holds
+    ``E / n`` experts, this rank's slice of the weights drawn for all E.
+    ``device`` as the port's entry points (``"meta"`` draws nothing);
     ``generator`` draws the initial weights (a fresh one seeded ``seed``
     when None); ``seed`` seeds the layer's own routing generator. After a
     forward, ``aux_loss`` holds the gate's load-balancing loss."""
 
     def __init__(self, d_model, d_hidden, num_experts, top_k=2, capacity_factor=None,
-                 gate="gshard", activation="gelu", *, device=None, generator=None, seed=0):
+                 gate="gshard", activation="gelu", expert_axis="dp", *, device=None,
+                 generator=None, seed=0):
         super().__init__()
         if activation not in _moe_pallas.ACTIVATIONS:
             raise ValueError(f"activation must be one of {_moe_pallas.ACTIVATIONS}, "
                              f"got {activation!r}")
         device = resolve_device(device)
-        if generator is None:
+        meta = device.type == "meta"
+        if generator is None and not meta:
             generator = torch.Generator(device=device).manual_seed(int(seed))
         self.num_experts = num_experts
         self.top_k = 1 if gate == "switch" else top_k
         self.capacity_factor = capacity_factor
         self.activation = activation
+        self.expert_axis = expert_axis
+        self.expert_group = _expert_group(expert_axis)
+        n = 1 if self.expert_group is None else self.expert_group.nranks
+        if num_experts % n:
+            raise ValueError(f"{num_experts} experts do not split over {expert_axis} degree {n}")
         self.seed = int(seed)
-        self.generator = torch.Generator(device=device).manual_seed(self.seed)
+        self.generator = None if meta else torch.Generator(device=device).manual_seed(self.seed)
         gate_cls = {"naive": NaiveGate, "gshard": GShardGate, "switch": SwitchGate}[gate]
         self.gate = gate_cls(d_model, num_experts, topk=self.top_k, device=device,
                              generator=generator)
         E, D, H = num_experts, d_model, d_hidden
-        self.w1 = nn.Parameter(_xavier_normal((E, D, H), generator, device))
-        self.b1 = nn.Parameter(torch.zeros((E, 1, H), device=device))
-        self.w2 = nn.Parameter(_xavier_normal((E, H, D), generator, device))
-        self.b2 = nn.Parameter(torch.zeros((E, 1, D), device=device))
+        lo, hi = (0, E) if n == 1 else (self.expert_group.rank * E // n,
+                                        (self.expert_group.rank + 1) * E // n)
+        self.w1 = nn.Parameter(_xavier_normal((E, D, H), generator, device)[lo:hi].contiguous())
+        self.b1 = nn.Parameter(torch.zeros((hi - lo, 1, H), device=device))
+        self.w2 = nn.Parameter(_xavier_normal((E, H, D), generator, device)[lo:hi].contiguous())
+        self.b2 = nn.Parameter(torch.zeros((hi - lo, 1, D), device=device))
+        self.mark_experts()
         self.aux_loss = None
+
+    def mark_experts(self):
+        """Mark the expert weights for the distributed layer: ``expert_group``
+        (None when every rank holds all experts) and ``expert_axis``. A
+        model that remakes its parameters (``to_empty``) marks them again."""
+        for p in (self.w1, self.b1, self.w2, self.b2):
+            p.expert_group = self.expert_group
+            p.expert_axis = self.expert_axis
 
     def _capacity_factor(self):
         if self.capacity_factor is not None:
@@ -205,20 +361,35 @@ class MoELayer(nn.Module):
                                     / self.num_experts)))
 
     def forward(self, x):
-        """x: ``[batch, seq, d_model]`` (or ``[tokens, d_model]``)."""
+        """x: ``[batch, seq, d_model]`` (or ``[tokens, d_model]``); under
+        expert parallelism this rank's rows of the group's batch, every
+        rank holding as many."""
         xs = x if x.ndim == 3 else x[None]
         B, S, D = xs.shape
         tokens = xs.reshape(B * S, D)
         E, K = self.num_experts, self.top_k
+        group = self.expert_group
+        n, r = (1, 0) if group is None else (group.nranks, group.rank)
+        if self.generator is None:  # built on the meta device
+            self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
         probs = torch.softmax(self.gate.score(tokens), dim=-1)  # [T, E]
         gate_vals, gate_idx = torch.topk(probs, K, dim=-1)  # [T, K]
         drop_mask = None
         if self.training and self.gate.random_routing and K >= 2:
-            drop_mask = jitter_drop_mask(gate_vals, self.generator)
-        self.aux_loss = type(self.gate).aux_loss(probs, gate_idx, E)
-        out = _registry.dispatch(
-            "moe", tokens, gate_vals, gate_idx, drop_mask, self.w1, self.b1, self.w2, self.b2,
-            capacity=self.capacity(B * S), activation=self.activation)
+            where = {} if group is None else dict(total=n * B * S, offset=r * B * S)
+            drop_mask = jitter_drop_mask(gate_vals, self.generator, **where)
+        self.aux_loss = type(self.gate).aux_loss(probs, gate_idx, E, group=group)
+        args = (tokens, gate_vals, gate_idx, drop_mask, self.w1, self.b1, self.w2, self.b2)
+        kw = dict(capacity=self.capacity(n * B * S), activation=self.activation)
+        if n == 1:
+            out = _registry.dispatch("moe", *args, **kw)
+        else:
+            # the registry's pick (counted there) chooses the owner's expert
+            # FFN: the grouped FFN (K4/K4b on the card) where pallas_sorted
+            # takes the call, else the dense composite's einsums
+            impl = _registry.select("moe", *args, **kw)
+            ffn = _moe_pallas.grouped_ffn if impl.name == "pallas_sorted" else _einsum_ffn
+            out = expert_parallel_dispatch_combine(*args, group=group, ffn=ffn, **kw)
         out = out.reshape(B, S, D)
         return out[0] if x.ndim == 2 else out
 

@@ -13,6 +13,18 @@ end of the backward from a callback queued on the autograd engine by the
 first gradient of the pass. ``TrainStep`` over a fleet grid reduces its f32
 master gradients with the same reducer.
 
+A mixture of experts' sharded weights (marked ``expert_group``, the ``dp``
+group: :mod:`.moe`) are left out of the buckets: each owner keeps its own
+experts' gradient, as GSPMD does for the reference's ``P("dp", ...)``
+weights. That gradient is the sum of every rank's loss terms (their rows
+came through the exchange), so the reducer divides it by the group size,
+as it divides the averaged ones. Experts that every rank of a group above
+one holds whole (a model built before ``fleet.init``) raise: each rank
+would route its own tokens alone. With ``sum_group`` (the ``data_sep``
+group at a sequence degree above 1: each ``sep`` rank holds other tokens
+of the same rows) a bucket is summed over it and divided by the averaging
+group's size.
+
 At world size 1 ``DataParallel`` is a passthrough with no hooks, as the
 reference's single controller is. Above 1 it broadcasts the parameters
 and buffers from the group's rank 0 at construction (Paddle's
@@ -37,18 +49,51 @@ def _dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
-class _BucketReducer:
-    """Coalesced gradient averaging over ``group`` along a fixed bucket
-    plan: ``buckets`` is a list of ``(dtype name, [params])``; ``names``
-    maps a parameter's ``id`` to the name an error shows."""
+def expert_params(params, group):
+    """The expert-sharded parameters among ``params`` (marked
+    ``expert_group``), checked against the averaging ``group``: experts
+    that every rank holds whole raise when the group has more than one
+    rank, and a shard's group must be ``group``."""
+    out = []
+    for p in params:
+        if not hasattr(p, "expert_group"):
+            continue
+        eg = p.expert_group
+        if eg is None and group.nranks > 1:
+            raise NotImplementedError(
+                "a mixture of experts whose experts every rank holds whole, under data "
+                f"parallelism over {group.nranks} ranks, would route each rank's tokens alone: "
+                "build the model after fleet.init(dp_degree=n) so its experts shard over dp "
+                "(ROADMAP.md, Queue 1 item 13c)")
+        if eg is not None:
+            if eg.ranks != group.ranks:
+                raise NotImplementedError(
+                    f"experts sharded over ranks {eg.ranks}, gradients averaged over "
+                    f"{group.ranks}: expert parallelism needs the two to be the dp group "
+                    "(ROADMAP.md, Queue 1 item 13c)")
+            out.append(p)
+    return out
 
-    def __init__(self, params, comm_buffer_mb=25, group=None, names=None):
+
+class _BucketReducer:
+    """Coalesced gradient averaging over ``group`` (the sum over
+    ``sum_group`` divided by ``group``'s size, with one) along a fixed
+    bucket plan: ``buckets`` is a list of ``(dtype name, [params])``;
+    ``names`` maps a parameter's ``id`` to the name an error shows. Expert
+    shards (``experts``) are divided by the group size and not reduced."""
+
+    def __init__(self, params, comm_buffer_mb=25, group=None, names=None, sum_group=None):
         self.group = collective._group(group)
+        self.sum_group = self.group if sum_group is None else collective._group(sum_group)
         self.names = names or {}
         budget = int(comm_buffer_mb * 1024 * 1024)
+        params = list(params)
+        self.experts = expert_params(params, self.group)
+        local = {id(p) for p in self.experts}
         by_dtype = {}
         for p in params:
-            by_dtype.setdefault(_dtype_name(p.dtype), []).append(p)
+            if id(p) not in local:
+                by_dtype.setdefault(_dtype_name(p.dtype), []).append(p)
         self.buckets = []
         for dt, ps in by_dtype.items():
             cur, cur_bytes = [], 0
@@ -75,7 +120,14 @@ class _BucketReducer:
         no gradient). Every bucket is reduced, so ranks whose passes used
         different parameters still issue the same collectives. ``extra``
         (a tensor, e.g. the loss) rides at the end of the last bucket of
-        its dtype and comes back averaged."""
+        its dtype and comes back averaged (over ``group``: every rank of one
+        ``sum_group`` slice holds the same value)."""
+        with torch.no_grad():
+            for p in self.experts:
+                if p.grad is not None:
+                    p.grad.div_(self.group.nranks)
+        if extra is not None and self.sum_group is not self.group:
+            extra = extra / (self.sum_group.nranks // self.group.nranks)
         all_ps = [p for _, ps in self.buckets for p in ps]
         if not any(p.grad is not None for p in all_ps):
             return None if extra is None else self._average(extra.reshape(-1).clone()).view_as(extra)
@@ -109,7 +161,7 @@ class _BucketReducer:
         return out
 
     def _average(self, flat):
-        collective.all_reduce(flat, group=self.group)
+        collective.all_reduce(flat, group=self.sum_group)
         return flat.div_(self.group.nranks)
 
 
@@ -137,9 +189,11 @@ class DataParallel(nn.Module):
         if not self._grad_sync:
             return
         g = collective._group(group)
-        with torch.no_grad():
+        experts = {id(p) for p in expert_params(layers.parameters(), g)}
+        with torch.no_grad():  # each rank keeps its own experts
             for t in list(layers.parameters()) + list(layers.buffers()):
-                collective.broadcast(t.data, src=0, group=g)
+                if id(t) not in experts:
+                    collective.broadcast(t.data, src=0, group=g)
         tracked = [p for p in layers.parameters() if p.requires_grad]
         self._reducer = _BucketReducer(tracked, comm_buffer_mb=comm_buffer_size, group=g,
                                        names={id(p): n for n, p in layers.named_parameters()})

@@ -14,8 +14,13 @@ slices it sits in. Two more kinds of group have no axis of their own:
 coordinates (the batch is split over them and the gradients averaged over
 them, as the reference's ``P(("dp", "sdp"))`` batch spec has it), and
 ``"pp_ends"``, the first and the last stage of each pipeline (they both
-hold GPT's tied word table, whose gradient is their sum). A sequence
-degree above 1 raises (ROADMAP.md, Queue 1 item 13c).
+hold GPT's tied word table, whose gradient is their sum). At a sequence
+degree above 1 a third, ``"data_sep"``, holds the ranks that differ only in
+their ``dp``, ``sdp`` and ``sep`` coordinates: each ``sep`` rank holds other
+tokens of the same rows, so a replicated parameter's gradient is summed
+over ``sep`` and averaged over the data axes in one all-reduce over it.
+The expert group of a mixture of experts is the ``dp`` group, as the
+reference's default ``expert_axis="dp"`` has it.
 """
 from __future__ import annotations
 
@@ -27,8 +32,6 @@ from .collective import Group, new_group
 from .env import get_rank, get_world_size
 
 AXES = ("dp", "pp", "sdp", "mp", "sep")
-
-_NOT_PORTED = {"sep": "sequence parallelism (ROADMAP.md, Queue 1 item 13c)"}
 
 
 class CommunicateTopology:
@@ -73,10 +76,6 @@ class HybridCommunicateGroup:
     def __init__(self, dp_degree=1, mp_degree=1, pp_degree=1, sharding_degree=1, sep_degree=1):
         self.dims = (int(dp_degree), int(pp_degree), int(sharding_degree), int(mp_degree),
                      int(sep_degree))
-        for axis, degree in zip(AXES, self.dims):
-            if axis in _NOT_PORTED and degree > 1:
-                raise NotImplementedError(
-                    f"{axis}_degree {degree}: {_NOT_PORTED[axis]} is not ported yet")
         world = get_world_size()
         if int(np.prod(self.dims)) != world:
             raise ValueError(f"hybrid degrees {dict(zip(AXES, self.dims))} multiply to "
@@ -88,6 +87,8 @@ class HybridCommunicateGroup:
         slices = [(axis, self.topo.get_comm_list(axis)) for axis in AXES]
         slices.append(("data", self.topo.get_comm_list(("dp", "sdp"))))
         slices.append(("pp_ends", [sorted({r[0], r[-1]}) for r in self.topo.get_comm_list("pp")]))
+        if self.dims[4] > 1:
+            slices.append(("data_sep", self.topo.get_comm_list(("dp", "sdp", "sep"))))
         for name, lists in slices:
             for ranks in lists:  # every rank, every slice, same order
                 group = new_group(ranks, axis_name=name)
@@ -95,7 +96,8 @@ class HybridCommunicateGroup:
                     self._groups[name] = group
 
     def group(self, axis) -> Group:
-        """This rank's group along ``axis`` (or ``"data"``, ``"pp_ends"``)."""
+        """This rank's group along ``axis`` (or ``"data"``, ``"pp_ends"``,
+        ``"data_sep"``)."""
         return self._groups[axis]
 
     def get_pp_ends_group(self):
@@ -107,6 +109,10 @@ class HybridCommunicateGroup:
         """The ranks over which the batch is split: ``dp`` x ``sdp``."""
         return self._groups["data"]
 
+    def get_data_sep_group(self):
+        """The ranks over which a replicated parameter's gradient is summed:
+        ``dp`` x ``sdp`` x ``sep`` (the data group at sep 1)."""
+        return self._groups.get("data_sep", self._groups["data"])
 
     # -- paddle fleet accessors ---------------------------------------------
     def get_data_parallel_world_size(self):

@@ -56,7 +56,17 @@ Queue 3). That pass runs whenever a mesh is given, at degree 1 too:
   says; equal shares otherwise), so the step's loss is the batch's, and
   broadcasts it to the other stages. A model with
   ``allreduce_shared_weight_gradients`` (a tied table on the first and
-  last stage) has it called before the gradients are averaged.
+  last stage) has it called before the gradients are averaged;
+- at a sequence degree above 1 each rank holds a block of the sequence
+  (``fleet.shard_batch``), the model must say it runs so
+  (``sequence_parallel``: GPT's stacked trunk), and a replicated
+  parameter's gradient is summed over ``sep`` and averaged over the data
+  group in one all-reduce (the ``data_sep`` group);
+- a mixture of experts' weights sharded over ``dp`` (``expert_group``)
+  keep their owner's gradient, divided by the data group's size, and are
+  left out of the all-reduce. ZeRO (a stage, or ``sdp > 1``) together
+  with a mixture of experts or with ``sep > 1`` raises (ROADMAP.md,
+  Queue 1 item 13c).
 """
 from __future__ import annotations
 
@@ -165,6 +175,14 @@ class TrainStep:
             raise TypeError("TrainStep: mesh must be the fleet's HybridCommunicateGroup, got "
                             f"{type(mesh).__name__}")
         params = [p for p in self.model.parameters() if p.requires_grad]
+        sep = mesh.get_sep_parallel_world_size()
+        if sep > 1 and not getattr(self.model, "sequence_parallel", False):
+            raise NotImplementedError(
+                f"TrainStep: sep_degree {sep} cuts each row's sequence over ranks, which only "
+                "GPT's stacked trunk runs (ROADMAP.md, Queue 1 item 13c)")
+        if stage and (sep > 1 or any(hasattr(p, "expert_axis") for p in params)):
+            raise NotImplementedError(_NOT_PORTED.format(
+                "ZeRO together with sequence parallelism or a mixture of experts", "13c"))
         if stage:
             self._zero = ZeroPlan(params, stage, mesh, names=self._param_names)
             self.optimizer._shards = self._zero
@@ -172,7 +190,8 @@ class TrainStep:
                 self._gather = self._stage3_gathers()
         else:
             self._reducer = _BucketReducer(params, group=mesh.get_data_sharding_group(),
-                                           names=self._param_names)
+                                           names=self._param_names,
+                                           sum_group=mesh.get_data_sep_group())
         if mesh.get_pipe_parallel_world_size() > 1:
             if self.accumulate_steps > 1:
                 raise ValueError("TrainStep: with a pipeline the micro-batches are "

@@ -49,7 +49,16 @@ activation to send on the others; ``TrainStep`` runs the schedule. A
 model built from a seed holds exactly its part of the one-rank model
 (every rank draws every weight and keeps its part; ``device="meta"``
 draws nothing, for a model whose weights are loaded after
-``to_empty``). Serving, the per-layer trunk and GPT-MoE need mp = pp = 1.
+``to_empty``). At a sequence degree sep > 1 (the stacked trunk, pp = 1)
+each ``sep`` rank holds a block of the sequence: the position embeddings
+read its global positions, each block exchanges its packed qkv by
+Ulysses (:func:`~paddle_tpu_torch.distributed.ring_attention.seq_to_heads`)
+so attention (K1/K2 on the card) runs over the whole sequence on
+``num_heads / sep`` heads, and exchanges the output back before the output
+projection; the criterion's mean is over the global tokens. GPT-MoE (the
+per-layer trunk) runs at dp > 1 with its experts sharded over ``dp``
+(:mod:`paddle_tpu_torch.distributed.moe`). Serving and the per-layer trunk
+need mp = pp = sep = 1.
 
 Not ported yet: dropout in training and export; see ``ROADMAP.md``.
 """
@@ -65,6 +74,7 @@ from torch import nn
 from ..distributed import collective as C
 from ..distributed.moe import MoELayer
 from ..distributed.recompute import recompute as _recompute
+from ..distributed.ring_attention import heads_to_seq, seq_to_heads
 from ..distributed.mp_layers import (ParallelCrossEntropy, VocabParallelEmbedding, _mark,
                                      _mp_group, _shard, copy_to_model_parallel,
                                      reduce_from_model_parallel)
@@ -153,19 +163,31 @@ class GPTConfig:
         return GPTConfig(**cfg)
 
 
+def _sep_group():
+    """The active fleet's ``sep`` group, or None at sep 1 (or no fleet)."""
+    from ..distributed.fleet import fleet
+
+    hcg = fleet.get_hybrid_communicate_group()
+    if hcg is None or hcg.get_sep_parallel_world_size() == 1:
+        return None
+    return hcg.get_sep_parallel_group()
+
+
 def _normal(shape, std, generator, device):
     return torch.empty(shape, device=device).normal_(0.0, std, generator=generator)
 
 
 class _Grid:
     """Where a GPT sits on the fleet's grid: its model-parallel group (None
-    at mp 1), its pipeline stage and the pipeline's groups."""
+    at mp 1), its pipeline stage and the pipeline's groups, its sequence
+    group (None at sep 1)."""
 
     def __init__(self):
         from ..distributed.fleet import fleet
 
         self.mp = _mp_group(None)
         hcg = fleet.get_hybrid_communicate_group()
+        self.sep = _sep_group()
         self.pp = 1 if hcg is None else hcg.get_pipe_parallel_world_size()
         self.stage = 0 if hcg is None else hcg.get_pipe_parallel_rank()
         self.pp_group = hcg.get_pipe_parallel_group() if self.pp > 1 else None
@@ -182,6 +204,7 @@ class GPTEmbeddings(nn.Module):
     def __init__(self, cfg: GPTConfig, device, generator, grid=None):
         super().__init__()
         grid = grid or _Grid()
+        self.sep_group = grid.sep
         table = _normal((cfg.vocab_size, cfg.hidden_size), 0.02, generator, device)
         pos = _normal((cfg.max_seq_len, cfg.hidden_size), cfg.initializer_range, generator, device)
         self.word_embeddings = self.position_embeddings = None
@@ -196,8 +219,12 @@ class GPTEmbeddings(nn.Module):
             self.position_embeddings = nn.Embedding.from_pretrained(pos, freeze=False)
 
     def forward(self, input_ids, position_ids=None):
+        """At sep > 1 ``input_ids`` is this rank's block of the sequence, and
+        the default positions are its global ones."""
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
+            s = input_ids.shape[1]
+            first = 0 if self.sep_group is None else self.sep_group.rank * s
+            position_ids = torch.arange(first, first + s, device=input_ids.device)
         return self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
 
 
@@ -208,12 +235,15 @@ def _attn_core_packed(qkv, attn_dropout=0.0, generator=None):
 
 
 def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=1e-5,
-                 mp_group=None):
+                 mp_group=None, sep_group=None):
     """One pre-LN decoder block; ``lp`` holds the 12 parameter slices of one
     layer in ``GPTBlockStack._order``. With ``mp_group`` they are this
     rank's shards and ``num_heads`` its heads: the column layers' input
     goes through the copy region, the row layers' partial products through
-    the reduce region before their bias."""
+    the reduce region before their bias. With ``sep_group`` ``h`` is this
+    rank's block of the sequence: the packed qkv goes by Ulysses to
+    ``[b, s, 3, num_heads / sep, dh]`` for the attention core, and its
+    output back to this block."""
     n1w, n1b, qkvw, qkvb, ow, ob, n2w, n2b, f1w, f1b, f2w, f2b = lp
     b, s, d = h.shape
     dh = qkvw.shape[1] // (3 * num_heads)
@@ -221,7 +251,12 @@ def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=
     if mp_group is not None:
         x1 = copy_to_model_parallel(x1, mp_group)
     qkv = (x1 @ qkvw + qkvb).reshape(b, s, 3, num_heads, dh)
-    att = _attn_core_packed(qkv, attn_dropout, generator).reshape(b, s, num_heads * dh)
+    if sep_group is None:
+        att = _attn_core_packed(qkv, attn_dropout, generator)
+    else:
+        att = heads_to_seq(_attn_core_packed(seq_to_heads(qkv, sep_group, head_axis=3),
+                                             attn_dropout, generator), sep_group)
+    att = att.reshape(b, s, num_heads * dh)
     if mp_group is None:
         h = h + att @ ow + ob
     else:
@@ -242,7 +277,7 @@ _REMAT_POLICY = {"full": "nothing_saveable", "selective": "dots_saveable"}
 
 
 def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None, recompute=None,
-                   mp_group=None, gathers=None):
+                   mp_group=None, gathers=None, sep_group=None):
     """Whole-trunk forward: the layer loop of the reference at pp = 1 (or
     this stage's layers), each block recomputed in the backward under the
     policy named by ``recompute`` (a granularity, or None for no
@@ -253,7 +288,7 @@ def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None, re
     layer's blocks are gathered as the layer runs, and again in its
     backward (by the recompute, or by :func:`regather_on_backward`)."""
     block = functools.partial(_block_apply, num_heads=num_heads, attn_dropout=attn_dropout,
-                              generator=generator, mp_group=mp_group)
+                              generator=generator, mp_group=mp_group, sep_group=sep_group)
     gathers = gathers or [None] * len(params)
 
     def gathered(lp):
@@ -306,10 +341,14 @@ class GPTBlockStack(nn.Module):
         grid = grid or _Grid()
         self.cfg = cfg
         self.mp_group = grid.mp
+        self.sep_group = grid.sep
         mp = 1 if grid.mp is None else grid.mp.nranks
         if cfg.num_heads % mp:
             raise ValueError(f"num_heads {cfg.num_heads} does not split over mp degree {mp}")
         self.num_heads = cfg.num_heads // mp  # this rank's heads
+        sep = 1 if grid.sep is None else grid.sep.nranks
+        if self.num_heads % sep:
+            raise ValueError(f"{self.num_heads} heads a rank do not split over sep degree {sep}")
         L, D, Ff = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size
         lo, hi = stage_layers(L, grid.pp, grid.stage)
         std = cfg.initializer_range
@@ -339,7 +378,8 @@ class GPTBlockStack(nn.Module):
         parts = getattr(self, "_zero_parts", None) or {}
         return _stack_forward(x, [getattr(self, n) for n in self._order], num_heads=self.num_heads,
                               recompute=cfg.recompute_granularity if cfg.recompute else None,
-                              mp_group=self.mp_group, gathers=[parts.get(n) for n in self._order])
+                              mp_group=self.mp_group, gathers=[parts.get(n) for n in self._order],
+                              sep_group=self.sep_group)
 
 
 def _no_training_dropout(module, cfg):
@@ -428,10 +468,14 @@ class GPTModel(nn.Module):
     def __init__(self, cfg: GPTConfig, device, generator, seed=0, grid=None):
         super().__init__()
         grid = grid or _Grid()
-        if (grid.mp is not None or grid.pp > 1) and not cfg.stacked:
+        if (grid.mp is not None or grid.pp > 1 or grid.sep is not None) and not cfg.stacked:
             raise NotImplementedError(
-                "GPT's per-layer trunk (and GPT-MoE) under model or pipeline parallelism is not "
-                "ported yet (ROADMAP.md, Queue 1 item 13c): use the stacked trunk")
+                "GPT's per-layer trunk (and GPT-MoE) under model, pipeline or sequence "
+                "parallelism is not ported yet (ROADMAP.md, Queue 1 item 13c): it runs at dp > 1 "
+                "(GPT-MoE's experts over dp); use the stacked trunk for mp, pp and sep")
+        if grid.sep is not None and grid.pp > 1:
+            raise NotImplementedError("GPT under sequence and pipeline parallelism together is "
+                                      "not ported yet (ROADMAP.md, Queue 1 item 13c)")
         self.cfg = cfg
         self._first, self._last = grid.first, grid.last
         self.embeddings = GPTEmbeddings(cfg, device, generator, grid)
@@ -492,6 +536,8 @@ class GPTForPretraining(nn.Module):
         grid = _Grid()
         self._grid = grid
         self.gpt = GPTModel(cfg, device, generator, seed=int(seed), grid=grid)
+        # the step's reducer sums the gradients over sep; shard_batch cuts the sequence
+        self.sequence_parallel = grid.sep is not None
         self._mark_params()
 
     def _mark_params(self):
@@ -520,6 +566,9 @@ class GPTForPretraining(nn.Module):
                 p.pp_group = grid.pp_group  # each stage holds its own layers
             if grid.last and not grid.first:  # the tied table's second copy counts once
                 table.weight.pp_tied_copy = True
+        for m in self.modules():
+            if isinstance(m, MoELayer):
+                m.mark_experts()
 
     def to_empty(self, *, device, recurse=True):
         """``nn.Module.to_empty``, keeping the parameters' distributed
@@ -607,9 +656,10 @@ class GPTForPretraining(nn.Module):
         if not isinstance(g.layers, GPTBlockStack):
             raise NotImplementedError(
                 "generate() requires the stacked trunk (GPTConfig(stacked=True))")
-        if self._grid.mp is not None or self._grid.pp > 1:
-            raise NotImplementedError("decoding a GPT under model or pipeline parallelism is not "
-                                      "ported yet (ROADMAP.md, Queue 1 item 13c)")
+        if self._grid.mp is not None or self._grid.pp > 1 or self._grid.sep is not None:
+            raise NotImplementedError("decoding a GPT under model, pipeline or sequence "
+                                      "parallelism is not ported yet (ROADMAP.md, Queue 1 item "
+                                      "13c): a serving model is built without a fleet")
         stack = tuple(getattr(g.layers, n).detach() for n in g.layers._order)
         return (stack, g.embeddings.word_embeddings.weight.detach(),
                 g.embeddings.position_embeddings.weight.detach(),
@@ -621,7 +671,10 @@ class GPTPretrainingCriterion(nn.Module):
     (``ParallelCrossEntropy``: vocab-parallel under a fleet of mp > 1),
     then the mean over tokens, or the mean under ``loss_mask``. For GPT-MoE
     outputs ``(logits, aux)`` the GShard balancing loss is added with
-    weight ``moe_aux_coef``."""
+    weight ``moe_aux_coef``. Under a fleet of sequence degree above 1 each
+    rank holds a block of the sequence: the mean is over the global tokens
+    (the sums and counts all-reduced over ``sep``), and its gradient is this
+    rank's terms', which the step sums over ``sep``."""
 
     def __init__(self, moe_aux_coef=0.01):
         super().__init__()
@@ -639,7 +692,15 @@ class GPTPretrainingCriterion(nn.Module):
         if isinstance(logits, (tuple, list)):
             logits, aux = logits
         per_tok = self.parallel_ce(logits, labels)
-        if loss_mask is not None:
+        sep = _sep_group()
+        if sep is not None:
+            m = (torch.ones_like(per_tok) if loss_mask is None
+                 else loss_mask.reshape(per_tok.shape).to(per_tok.dtype))
+            part = (per_tok * m).sum()
+            total = torch.stack([part.detach(), m.sum()])
+            C.all_reduce(total, group=sep)
+            loss = (part + (total[0] - part.detach())) / total[1]
+        elif loss_mask is not None:
             m = loss_mask.reshape(per_tok.shape).to(per_tok.dtype)
             loss = (per_tok * m).sum() / m.sum()
         else:

@@ -9,7 +9,9 @@ Over a sharded model a norm is the whole parameters', as the reference
 takes it over its unsharded arrays. Given ``params`` (the gradients'
 parameters), each gradient's squares are summed over the groups that hold
 the rest of it: its tensor-parallel group (a shard, ``mp_group``), its
-ZeRO group (a gradient block, ``zero_group``) and, for the global norm,
+ZeRO group (a gradient block, ``zero_group``), its expert group (a
+mixture of experts' slice of the experts, ``expert_group``) and, for the
+global norm,
 its pipeline group (``pp_group``: each stage holds its own layers; the
 last stage's copy of a tied table, ``pp_tied_copy``, counts no more). For
 one parameter's own norm the pipeline group sums only a stacked trunk's
@@ -24,7 +26,8 @@ import torch
 def norm_groups(p, whole_param=False):
     """The groups over which the squares of ``p``'s gradient are summed for
     the global norm, or (``whole_param``) for ``p``'s own norm."""
-    groups = [getattr(p, "mp_group", None), getattr(p, "zero_group", None)]
+    groups = [getattr(p, "mp_group", None), getattr(p, "zero_group", None),
+              getattr(p, "expert_group", None)]
     if not whole_param or getattr(p, "stacked_layers", False):
         groups.append(getattr(p, "pp_group", None))
     return tuple(g for g in groups if g is not None and g.nranks > 1)

@@ -44,7 +44,7 @@ from . import _cuda
 from . import registry
 
 __all__ = ["moe_dispatch_combine", "moe_available", "moe_kernel_available", "grouped_ffn",
-           "moe_grouped_ffn_fwd", "moe_grouped_ffn_bwd"]
+           "sort_pairs", "moe_grouped_ffn_fwd", "moe_grouped_ffn_bwd"]
 
 #: dtypes and activations the CUDA kernels are compiled for
 DTYPES = (torch.float32, torch.bfloat16)
@@ -371,6 +371,29 @@ def grouped_ffn(xg, w1, b1, w2, b2, activation="gelu", rows=None):
 # -- public op ---------------------------------------------------------------
 
 
+def sort_pairs(gate_vals, gate_idx, drop_mask, num_experts):
+    """The route: the T·K (token, expert) pairs (k-major per token) sorted
+    stably by expert id, a pair under ``drop_mask`` past every expert (id
+    ``num_experts``). Returns ``(e_sorted, tok_sorted, gv_sorted, counts,
+    pos)``: each sorted pair's expert, token and gate value, the pairs per
+    expert ``[E + 1]`` (the last: dropped ones) and each sorted pair's queue
+    position in its expert, its arrival order."""
+    T, K = gate_idx.shape
+    E = num_experts
+    flat_e = gate_idx.reshape(-1).long()
+    if drop_mask is not None:
+        # dropped pairs sort past every real expert and never claim a slot
+        flat_e = torch.where(drop_mask.reshape(-1), torch.full_like(flat_e, E), flat_e)
+    order = torch.argsort(flat_e, stable=True)
+    e_sorted = flat_e[order]
+    tok_sorted = order // K
+    gv_sorted = gate_vals.reshape(-1)[order]
+    counts = torch.bincount(flat_e, minlength=E + 1)
+    starts = torch.cumsum(counts, 0) - counts  # [E+1] run starts
+    pos = torch.arange(T * K, device=gate_idx.device) - starts[e_sorted]
+    return e_sorted, tok_sorted, gv_sorted, counts, pos
+
+
 def moe_dispatch_combine(tokens, gate_vals, gate_idx, drop_mask, w1, b1, w2, b2, *, capacity,
                          activation):
     """Sort-based dispatch -> grouped FFN -> weighted combine.
@@ -385,22 +408,10 @@ def moe_dispatch_combine(tokens, gate_vals, gate_idx, drop_mask, w1, b1, w2, b2,
     """
     T, D = tokens.shape
     E = w1.shape[0]
-    K = gate_idx.shape[1]
     cap = int(capacity)
     device = tokens.device
 
-    flat_e = gate_idx.reshape(-1).long()
-    if drop_mask is not None:
-        # dropped pairs sort past every real expert and never claim a slot
-        flat_e = torch.where(drop_mask.reshape(-1), torch.full_like(flat_e, E), flat_e)
-    order = torch.argsort(flat_e, stable=True)
-    e_sorted = flat_e[order]
-    tok_sorted = order // K
-    gv_sorted = gate_vals.reshape(-1)[order]
-
-    counts = torch.bincount(flat_e, minlength=E + 1)
-    starts = torch.cumsum(counts, 0) - counts  # [E+1] run starts
-    pos = torch.arange(T * K, device=device) - starts[e_sorted]
+    e_sorted, tok_sorted, gv_sorted, counts, pos = sort_pairs(gate_vals, gate_idx, drop_mask, E)
     keep = (e_sorted < E) & (pos < cap)
     slot = torch.where(keep, e_sorted * cap + pos, torch.full_like(pos, E * cap))
 

@@ -218,6 +218,15 @@ def _mp_spec(name):
     return _BERT_SHARDS.get(m.group(1)) if m else None
 
 
+_EXPERT_KEY = re.compile(r"gpt\.layers\.\d+\.moe\.(w1|b1|w2|b2)$")
+
+
+def _expert(name):
+    """Whether ``name`` is a GPT-MoE expert weight, split over the expert
+    group along dim 0."""
+    return bool(_EXPERT_KEY.match(name))
+
+
 def _stacked(name):
     m = _GPT_STACK_KEY.match(name)
     return bool(m) and m.group(1) in _STACK
@@ -262,7 +271,7 @@ def _join(parts, axis, blocks):
 
 def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: int = 1, cfg=None,
                 *, pp_rank: int = 0, pp_degree: int = 1, sdp_rank: int = 0, sdp_degree: int = 1,
-                sdp_dims=None) -> Dict[str, np.ndarray]:
+                sdp_dims=None, ep_rank: int = 0, ep_degree: int = 1) -> Dict[str, np.ndarray]:
     """What the rank at (``pp_rank``, ``sdp_rank``, ``mp_rank``) of a fleet
     grid holds of a full state (numpy arrays, the reference's names; BERT,
     ERNIE or stacked GPT): its model-parallel shard of each
@@ -272,7 +281,10 @@ def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: in
     second FFN layers), for GPT its pipeline stage's layers and tables, and
     with ``sdp_dims`` (a parameter's ZeRO split dim by name, as
     ``sharding.state_shardings`` gives it) its ZeRO block (stage 3's
-    parameters, any stage's moments)."""
+    parameters, any stage's moments); for GPT-MoE, at expert degree
+    ``ep_degree`` (the ``dp`` degree), its experts: rows ``[ep_rank * E /
+    ep, (ep_rank + 1) * E / ep)`` of each expert weight (``moe.w1``,
+    ``b1``, ``w2``, ``b2``)."""
     if cfg is not None:
         _check_mp(cfg, mp_degree)
     out = {}
@@ -289,6 +301,11 @@ def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: in
         dim = (sdp_dims or {}).get(name)
         if dim is not None and sdp_degree > 1:
             arr = _split(arr, dim, 1, sdp_degree, sdp_rank)
+        if ep_degree > 1 and _expert(name):
+            if arr.shape[0] % ep_degree:
+                raise ValueError(f"{name}: {arr.shape[0]} experts do not split over expert "
+                                 f"degree {ep_degree}")
+            arr = _split(arr, 0, 1, ep_degree, ep_rank)
         out[name] = np.ascontiguousarray(arr)
     return out
 
@@ -296,12 +313,19 @@ def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: in
 def gather_state(states, cfg=None, sdp_dims=None) -> Dict[str, np.ndarray]:
     """The full state from the ranks' (numpy arrays): :func:`shard_state`'s
     inverse. ``states`` is a list in mp rank order, or a dict of them by
-    ``(pp_rank, sdp_rank, mp_rank)``; with ``sdp_dims`` the entries split
-    over ``sdp`` are joined from every sdp rank's block, the rest taken
-    from sdp rank 0 (and the replicated ones from mp rank 0, the tied word
-    table from the first stage)."""
+    ``(pp_rank, sdp_rank, mp_rank)`` or ``(pp_rank, sdp_rank, mp_rank,
+    ep_rank)``; with ``sdp_dims`` the entries split over ``sdp`` are joined
+    from every sdp rank's block, the rest taken from sdp rank 0 (and the
+    replicated ones from mp rank 0, the tied word table from the first
+    stage); GPT-MoE's expert weights are joined from every ep rank's, the
+    rest taken from ep rank 0."""
     if not isinstance(states, dict):
         states = {(0, 0, m): st for m, st in enumerate(states)}
+    if len(next(iter(states))) == 4:
+        by_ep = [gather_state({k[:3]: st for k, st in states.items() if k[3] == e}, cfg, sdp_dims)
+                 for e in range(1 + max(k[3] for k in states))]
+        return {n: np.ascontiguousarray(np.concatenate([part[n] for part in by_ep]))
+                if _expert(n) else v for n, v in by_ep[0].items()}
     pp = 1 + max(k[0] for k in states)
     sdp = 1 + max(k[1] for k in states)
     mp = 1 + max(k[2] for k in states)

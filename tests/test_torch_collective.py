@@ -116,7 +116,8 @@ def test_fleet_groups_axis_names_and_topology(tmp_path):
     assert errors[1] == ([0, 1], [errors[1][1][0]], errors[1][2], [0, 1])
     assert errors[1][2] in ([0], [1])
     assert errors[2][1] == [0, 1] and errors[2][2] == [0, 1] and errors[2][0] == errors[2][3]
-    assert errors[3].startswith("NotImplementedError") and "13c" in errors[3]
+    # sep 2 builds its group; a replicated gradient is summed over dp x sdp x sep
+    assert errors[3] == ([0, 1], [0, 1], [errors[3][2][0]]) and errors[3][2] in ([0], [1])
     assert errors[4].startswith("RuntimeError") and "fleet.init" in errors[4]
     assert errors[5].startswith("ValueError") and "does not split over dp 2" in errors[5]
 

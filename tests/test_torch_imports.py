@@ -95,13 +95,17 @@ DISTRIBUTED_MODULES = {"paddle_tpu_torch.distributed.env", "paddle_tpu_torch.dis
 # modules of the ZeRO / pipeline / hybrid slice
 HYBRID_MODULES = {"paddle_tpu_torch.distributed.sharding", "paddle_tpu_torch.distributed.pipeline",
                   "paddle_tpu_torch.models.gpt", "paddle_tpu_torch.models.ernie"}
+# modules of the expert- and sequence-parallel slice
+EP_SEP_MODULES = {"paddle_tpu_torch.distributed.ring_attention",
+                  "paddle_tpu_torch.distributed.fleet_executor",
+                  "paddle_tpu_torch.distributed.moe", "paddle_tpu_torch.distributed.utils"}
 
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
               | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES
-              | DISTRIBUTED_MODULES | HYBRID_MODULES)
+              | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -110,7 +114,8 @@ def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
 
 def test_rank_processes_import_no_jax_or_paddle_tpu():
     """A rank that ``testing.dist.run_ranks`` spawns, running the parity
-    tests' rank bodies (here a pipelined ZeRO-2 GPT step), imports neither
+    tests' rank bodies (here a pipelined ZeRO-2 GPT step, a GPT-MoE step
+    with its experts over dp and a GPT step over sep), imports neither
     ``jax`` nor ``paddle_tpu``, even from a test process that has both."""
     import jax  # noqa: F401  (the parent has the reference loaded)
 

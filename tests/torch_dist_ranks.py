@@ -22,7 +22,8 @@ def _np(t):
 def imported_reference_modules():
     """The modules of ``jax`` or ``paddle_tpu`` this rank has imported,
     after one step of a tiny GPT pipelined over the world (pp = world,
-    1F1B) with ZeRO stage 2."""
+    1F1B) with ZeRO stage 2, one of a tiny GPT-MoE with its experts over dp
+    = world, and one of a tiny GPT over sep = world."""
     import paddle_tpu_torch.distributed as D
     import paddle_tpu_torch.utils.convert  # noqa: F401
     from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining  # noqa: F401
@@ -36,6 +37,15 @@ def imported_reference_modules():
     ids = torch.zeros(4, 8, dtype=torch.long)
     step(ids, ids)
     D.fleet._hcg = None
+    for degrees, cfg in ((dict(dp=D.get_world_size()), GPTConfig.tiny(moe=4)),
+                         (dict(sep=D.get_world_size()), GPTConfig.tiny())):
+        fleet = _hybrid_fleet(degrees)
+        model = GPTForPretraining(cfg, device="cpu")
+        step = fleet.distributed_step(model, AdamW(parameters=model.parameters()),
+                                      GPTPretrainingCriterion())
+        x = fleet.shard_batch(ids)
+        step(x, x)
+        D.fleet._hcg = None
     return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 
 
@@ -120,8 +130,10 @@ def groups_and_axis_names(save_dir):
 
 
 def topology_errors():
-    """The errors of a world of 2: degrees that do not multiply to it, and
-    the degrees that are not ported."""
+    """The errors of a world of 2: degrees that do not multiply to it; the
+    groups of pp 2, sdp 2 and (the ``sep``, ``data_sep`` and data groups)
+    sep 2; and ``shard_batch`` before ``fleet.init`` and on a batch that
+    does not split."""
     import paddle_tpu_torch.distributed as D
 
     D.init_parallel_env(device="cpu")
@@ -130,6 +142,10 @@ def topology_errors():
                dict(sep_degree=2)):
         try:
             hcg = D.HybridCommunicateGroup(**kw)
+            if "sep_degree" in kw:
+                errors.append((hcg.get_sep_parallel_group().ranks,
+                               hcg.get_data_sep_group().ranks, hcg.group("data").ranks))
+                continue
             errors.append((hcg.group("pp").ranks, hcg.group("sdp").ranks, hcg.group("data").ranks,
                            hcg.get_pp_ends_group().ranks))
         except (ValueError, NotImplementedError) as e:
@@ -501,13 +517,14 @@ def resnet_sync_bn(np_state, x, y):
 
 # -- ZeRO, the pipeline and the hybrid step -------------------------------------------
 def _hybrid_fleet(c):
-    """``fleet.init`` at config ``c``'s degrees, ZeRO stage, micro-batches
-    and schedule."""
+    """``fleet.init`` at config ``c``'s degrees (``dp``, ``mp``, ``pp``,
+    ``sdp``, ``sep``), ZeRO stage, micro-batches and schedule."""
     import paddle_tpu_torch.distributed as D
 
     s = D.DistributedStrategy()
     s.hybrid_configs = {"dp_degree": c.get("dp", 1), "mp_degree": c.get("mp", 1),
-                        "pp_degree": c.get("pp", 1), "sharding_degree": c.get("sdp", 1)}
+                        "pp_degree": c.get("pp", 1), "sharding_degree": c.get("sdp", 1),
+                        "sep_degree": c.get("sep", 1)}
     if c.get("stage"):
         s.sharding = True
         s.sharding_configs = {"sharding_stage": c["stage"]}
@@ -723,5 +740,148 @@ def ernie_steps(dp, mp, cfg_kw, np_state, inputs, labels, steps, lr):
                dp_rank=hcg.get_data_parallel_rank(), mp_rank=mp_rank,
                heads=model.ernie.layers[0].attn.num_heads,
                picked=metrics.counters("kernels.sdpa."))
+    D.fleet._hcg = None
+    return out
+
+
+# -- expert parallelism ------------------------------------------------------------
+def gpt_moe(configs, ids):
+    """Each config of ``configs`` in turn (``dp``, the world; ``experts``;
+    ``cfg``, more ``GPTConfig.tiny`` keywords; ``state``, the full numpy state or None to build from ``seed``;
+    ``jitter``, GShard's random routing on; ``meta``, build on the meta
+    device; ``clip``; ``lr``; ``steps``): a tiny GPT-MoE (every block MoE)
+    whose experts shard over dp, loaded with this rank's experts of
+    ``state``, then ``fleet.distributed_step`` of AdamW over
+    ``shard_batch``'s block of ``ids`` (labels = ids). Per config: the
+    losses, this rank's dp rank and state, the moe kernel picked, and the
+    collective counters."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.utils.convert import shard_state
+
+    out = []
+    for c in configs:
+        fleet = _hybrid_fleet(dict(dp=c["dp"]))
+        r = fleet.get_hybrid_communicate_group().get_data_parallel_rank()
+        cfg = GPTConfig.tiny(moe=c["experts"], moe_every=1, **c.get("cfg", {}))
+        model = GPTForPretraining(cfg, device="meta" if c.get("meta") else "cpu",
+                                  seed=c.get("seed", 0))
+        if c.get("meta"):
+            model.to_empty(device="cpu")
+        if c.get("state") is not None:
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in shard_state(
+                c["state"], ep_rank=r, ep_degree=c["dp"]).items()})
+        for blk in model.gpt.layers:
+            blk.moe.gate.random_routing = bool(c.get("jitter"))
+        step = fleet.distributed_step(model, _optimizer(dict(lr=c.get("lr", 1e-3),
+                                                             clip=c.get("clip")), model),
+                                      GPTPretrainingCriterion())
+        x = fleet.shard_batch(ids)
+        metrics.reset_counters("collective.")
+        metrics.reset_counters("kernels.")
+        registry.clear_cache()
+        losses = [float(step(x, x)["loss"]) for _ in range(c.get("steps", 3))]
+        out.append(dict(losses=losses, dp_rank=r, state={k: _np(v) for k, v in
+                                                         model.state_dict().items()},
+                        picked=metrics.counters("kernels.moe."),
+                        counters=metrics.counters("collective.")))
+        D.fleet._hcg = None
+    return out
+
+
+def expert_exchange(counts, width):
+    """``global_scatter`` then ``global_gather`` over the world: this rank
+    sends ``counts[r][j * ne + i]`` rows (row values ``1000 r + k``) to
+    expert i of rank j; what it received, what came back, and the gradient
+    of a weighted sum through both; plus the count errors."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.utils import global_gather, global_scatter
+
+    r, n = D.get_rank(), D.get_world_size()
+    counts = np.asarray(counts)
+    lc = counts[r]
+    gc = counts[:, r * (counts.shape[1] // n):(r + 1) * (counts.shape[1] // n)].reshape(-1)
+    rows = int(lc.sum())
+    x = (1000.0 * r + torch.arange(rows * width, dtype=torch.float32).reshape(rows, width))
+    x.requires_grad_(True)
+    recv = global_scatter(x, torch.from_numpy(lc), torch.from_numpy(gc))
+    back = global_gather(recv * 2.0, lc, gc)
+    (back * torch.arange(1.0, rows + 1)[:, None]).sum().backward()
+    errors = []
+    for call in (lambda: global_scatter(x[:-1], lc, gc), lambda: global_gather(recv, gc, gc[:-1]),
+                 lambda: global_scatter(x, np.append(lc, 0), np.append(gc, 0))):
+        try:
+            call()
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    return dict(recv=_np(recv), back=_np(back), grad=_np(x.grad), errors=errors)
+
+
+def moe_refusals():
+    """What a world of 2 refuses around GPT-MoE: ZeRO with sharded experts,
+    the per-layer trunk at mp 2 and at sep 2, and experts that every rank
+    holds whole under ``DataParallel``."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig.tiny(moe=4, moe_every=1)
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+        D.fleet._hcg = None
+
+    def zero():
+        fleet = _hybrid_fleet(dict(dp=2, stage=2))
+        model = GPTForPretraining(cfg, device="cpu")
+        fleet.distributed_step(model, AdamW(parameters=model.parameters()),
+                               GPTPretrainingCriterion())
+
+    def on(**degrees):
+        _hybrid_fleet(degrees)
+        GPTForPretraining(cfg, device="cpu")
+
+    attempt("zero", zero)
+    attempt("mp", lambda: on(mp=2))
+    attempt("sep", lambda: on(sep=2))
+    attempt("replicated", lambda: D.DataParallel(GPTForPretraining(cfg, device="cpu")))
+    return out
+
+
+# -- sequence parallelism ----------------------------------------------------------
+def seq_attention(q, k, v):
+    """``ring_attention`` and ``ulysses_attention`` over the world as one
+    ``sep`` group, causal and full, on this rank's sequence block of the
+    global ``[b, s, h, d]`` q, k, v: per case the output block and the
+    gradients of ``mean(out ** 2)`` over the global output for this rank's
+    q, k and v blocks."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.ring_attention import ring_attention, ulysses_attention
+
+    fleet = _hybrid_fleet(dict(sep=D.get_world_size()))
+    hcg = fleet.get_hybrid_communicate_group()
+    r, n = hcg.get_sep_parallel_rank(), hcg.get_sep_parallel_world_size()
+    c = q.shape[1] // n
+    out = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        for causal in (True, False):
+            qkv = [torch.from_numpy(np.ascontiguousarray(t[:, r * c:(r + 1) * c])).requires_grad_()
+                   for t in (q, k, v)]
+            o = fn(*qkv, group="sep", causal=causal)
+            ((o ** 2).sum() / (q.size)).backward()
+            out[(name, causal)] = dict(out=_np(o), grads=[_np(t.grad) for t in qkv])
+    try:
+        ulysses_attention(*(torch.zeros(1, 4, n + 1, 8) for _ in range(3)), group="sep")
+        out["uneven_heads"] = None
+    except ValueError as e:
+        out["uneven_heads"] = str(e)
     D.fleet._hcg = None
     return out

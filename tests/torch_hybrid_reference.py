@@ -36,24 +36,30 @@ IDS = np.random.default_rng(0).integers(0, 512, (8, 16)).astype(np.int64)
 
 def reference_gpt(dp=1, mp=1, pp=1, sdp=1, stage=0, schedule="gpipe", accumulate=1, layers=4,
                   optimizer="adamw", lr=1e-3, clip=None, steps=3, ids=IDS, mask=None, seed=7,
-                  cfg=None):
+                  cfg=None, sep=1, moe=False):
     """The reference's steps at these degrees from the model of ``seed``
-    (``GPTConfig.tiny(**cfg)`` at ``layers``): ``(initial state, losses,
-    parameters, moments)``, numpy."""
+    (``GPTConfig.tiny(**cfg)`` at ``layers``; with ``moe``, GShard's random
+    routing off in every MoE layer): ``(initial state, losses, parameters,
+    moments)``, numpy."""
     jfleet._hcg = None
     strat = JStrategy()
     strat.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp,
-                            "sharding_degree": sdp}
+                            "sharding_degree": sdp, "sep_degree": sep}
     if stage:
         strat.sharding = True
         strat.sharding_configs = {"sharding_stage": stage}
     strat.pipeline_configs = {"accumulate_steps": accumulate, "schedule": schedule}
-    jfleet.init(is_collective=True, strategy=strat, devices=jax.devices()[:dp * mp * pp * sdp])
+    jfleet.init(is_collective=True, strategy=strat,
+                devices=jax.devices()[:dp * mp * pp * sdp * sep])
     try:
         paddle.seed(seed)
         config = JGPTConfig.tiny(**(cfg or {}))
         config.num_layers = layers
         model = JGPT(config)
+        if moe:
+            for blk in model.gpt.layers:
+                if blk.moe is not None:
+                    blk.moe.gate.random_routing = False
         state = {k: np.asarray(v.numpy()) for k, v in model.state_dict().items()}
         grad_clip = None if clip is None else paddle.nn.ClipGradByGlobalNorm(clip_norm=clip)
         make = paddle.optimizer.Lamb if optimizer == "lamb" else paddle.optimizer.AdamW
