@@ -249,17 +249,45 @@ non-zero and prints no result. Phases, one JSON line each:
     each rank at ``[8, 1024, 8, 64]`` (half the heads over the whole
     sequence; phase 3 holds K1/K2 against their plain versions there); ms
     per step and bytes staged.
+39. ``mp_decode`` (run after phase 30): GPT decoding at mp 2: the serving
+    GPT's greedy ``generate`` of 32 tokens on ``[4, 64]`` prompts by this
+    process and by two gloo processes on ``cuda:0`` at ``mp_degree`` 2
+    (half the heads, the KV cache and the vocabulary each): the tokens
+    bitwise equal on both ranks and to this process's; per step the
+    largest logit difference and the smallest top-2 margin; ms per token.
+    No kernel of this repository runs (decoding attends in plain PyTorch).
+40. ``resilient_gpt_train`` (run after phase 38): phase 6's O2 GPT with
+    ``guard=True`` through ``run_resilient`` and a ``CheckpointManager``
+    under ``build/`` (a checkpoint every 2 steps, 2 kept), 6 steps, a crash
+    at step 3 whose HOLD checkpoint is corrupted on disk (the restore walks
+    back to step 2) and NaN gradients at dispatch 4 (skipped): every loss
+    equal in bits to an uninterrupted guarded run's, the restored state
+    bitwise the saved one leaf by leaf, the skipped step leaving the state
+    bitwise, 16 K1 and 16 K2 per dispatch; checkpoint bytes and the seconds
+    of each save and restore.
+41. ``elastic_gpt_rescale``: ``python -m paddle_tpu_torch.distributed.launch
+    --nnodes 2 --nproc_per_node 1 --elastic_np 1:2`` twice (node ranks 0
+    and 1) over ``examples/elastic_gpt_torch.py``: phase 6's O2 GPT at sdp 2
+    with ZeRO-2, two gloo workers on ``cuda:0``, a checkpoint every step;
+    the second node leaves after 2 steps, the first relaunches at world 1
+    (NCCL), restores through the converter and trains 2 more steps: the
+    restored state bitwise the sdp-2 checkpoint, the world-1 losses equal in
+    bits to this process's from the same checkpoint, the world-2 losses
+    within ``ELASTIC_WORLD2_RTOL`` of phase 6's; then ``--serve`` boots 2
+    replicas of the serving GPT that ``ProcServingFleet.attach`` adopts: 8
+    requests with an in-process fleet's tokens, the launcher's exit 0.
 
-The serving phases (5, 25-30), the vision phases (22-24) and DLRM's (31)
+The serving phases (5, 25-30, 39), the vision phases (22-24) and DLRM's (31)
 launch none of K1-K4b: the reference runs no Pallas kernel on those paths
 (serving attends in jnp, the port in plain PyTorch; convolutions are
 cuDNN's, batch norms and pools ATen's; the embedding lookup is
 ``jnp.take``, the optimizers jnp); the script checks that their counts
 stay 0, in the replica processes too.
 
-Phases 4, 5, 25, 26, 27, 28, 29, 30, 6, 9 (its ``pallas_sorted`` run), 37
-and 38 (the ranks' counts, summed), 12, 13, ``dp_bert_train``, 16, 17, 34,
-35 (summed), 20, 22, 24 and 31 are the main path: the kernel counts are set
+Phases 4, 5, 25, 26, 27, 28, 29, 30, 39, 6, 9 (its ``pallas_sorted`` run),
+37 and 38 (the ranks' counts, summed), 40, 41 (this process's steps from
+the checkpoint), 12, 13, ``dp_bert_train``, 16, 17, 34, 35 (summed), 20,
+22, 24 and 31 are the main path: the kernel counts are set
 to 0 just before each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
@@ -448,6 +476,21 @@ SEP_GRAD_RTOL = 2e-5
 # the attention call after Ulysses' exchange: 8 of the 16 heads over the
 # whole sequence, views of the packed projection, bf16 (AMP O2)
 SEP_CALL = (8, 1024, 8, 64, True)
+# GPT decoding at mp 2 (mp_decode): the serving GPT's greedy decode of 32
+# tokens on [4, 64] prompts, as 2 gloo processes on cuda:0, tokens bitwise
+MP_DECODE = dict(mp=2, batch=4, prompt=64, new_tokens=32, timeout=600.0)
+# resumed O2 training (resilient_gpt_train): 6 steps of train's GPT through
+# run_resilient, a checkpoint every 2 steps, the last 2 kept; a crash at step
+# 3 (its HOLD checkpoint corrupted), NaN gradients at dispatch 4
+RESILIENT = dict(steps=6, every=2, keep_last_k=2, crash_at=3, nan_at=4)
+# the elastic rescale (elastic_gpt_rescale): 2 steps at sdp 2, then 2 at
+# world 1 after the restore; 3 checkpoints kept (the restored one stays for
+# this process's comparison); then --serve with 2 replicas, 8 requests
+ELASTIC = dict(world_steps=2, total_steps=4, keep=3, timeout=900.0, serve_replicas=2,
+               serve_requests=8, serve_new_tokens=16)
+# the world-2 (sdp 2, ZeRO-2) losses against train's first two (read 8.8e-8 and
+# 1.7e-5 on the card: bf16 compute on half batches, their gradients averaged)
+ELASTIC_WORLD2_RTOL = 2e-4
 
 # the GPT-MoE of bench.py:_measure_moe (bench.py:304): h 1024, 8 layers, 16
 # heads, 8 experts in every second block, capacity factor 2.0; its step is
@@ -3498,7 +3541,7 @@ def _hybrid_rank(path, ids):
     model.to_empty(device="cuda")
     full = torch.load(path, mmap=True, weights_only=True)
     part = shard_state(full, mp_rank, HYBRID["mp"], cfg, pp_rank=pp_rank, pp_degree=HYBRID["pp"])
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in part.items()})
+    model.load_state_dict(part)
     del full, part
     n_params = sum(p.numel() for p in model.parameters())
     step = fleet.distributed_step(
@@ -4673,6 +4716,435 @@ def phase_optim_check():
         raise AssertionError("optim_check phase failed: an optimizer's card step and CPU step disagree")
 
 
+def _mp_decode_rank(ids, new_tokens):
+    """Rank body of ``mp_decode``: the serving GPT from the same seed under
+    ``fleet.init(mp_degree=2)`` (each rank drawing every weight and keeping
+    its shards), greedy ``generate``; the tokens, each step's whole logits
+    (the gathered vocabulary shards, as the pick sees them), the decode's
+    seconds and the kernel launches (none: decoding attends in plain
+    PyTorch)."""
+    import paddle_tpu_torch.models.gpt as G
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    strat = DistributedStrategy()
+    strat.hybrid_configs = {"mp_degree": MP_DECODE["mp"]}
+    fleet.init(is_collective=True, strategy=strat)
+    hcg = fleet.get_hybrid_communicate_group()
+    model = G.GPTForPretraining(G.GPTConfig(**SERVE_CFG), device="cuda", seed=SEED).eval()
+    model.generate(ids.cuda(), max_new_tokens=2)  # warm-up
+    reset_launches()
+    tokens, logits, seconds = _decode_with_logits(model, ids.cuda(), new_tokens)
+    return dict(tokens=tokens, logits=logits, seconds=seconds, launches=read_launches(),
+                mp_rank=hcg.get_model_parallel_rank(), heads=model.gpt.layers.num_heads,
+                qkv=list(model.gpt.layers.qkv_w.shape))
+
+
+def _decode_with_logits(model, ids, new_tokens):
+    """``model.generate(ids, new_tokens)`` (greedy, synchronised and timed),
+    with the logits of every pick recorded: ``(tokens, [steps, b, V] f32
+    logits on the host, seconds)``."""
+    import paddle_tpu_torch.models.gpt as G
+
+    seen, pick = [], G._select_token
+
+    def recording(logits, *args):
+        seen.append(logits.detach().float().cpu())
+        return pick(logits, *args)
+
+    G._select_token = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = model.generate(ids, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        G._select_token = pick
+    return tokens.cpu(), torch.stack(seen), seconds
+
+
+def phase_mp_decode(model):
+    """GPT decoding at mp 2: the serving GPT's greedy ``generate`` of
+    ``MP_DECODE["new_tokens"]`` tokens on ``[4, 64]`` prompts, by this
+    process and by two gloo processes on ``cuda:0`` at mp 2 (each with half
+    the heads, its half of the KV cache and of the vocabulary). Gate: the
+    tokens are bitwise equal on both ranks and to this process's. Shown per
+    step: the largest logit difference from this process's and the
+    smallest top-2 margin of its logits (a near tie would show there)."""
+    import gc
+
+    from paddle_tpu_torch.testing.dist import run_ranks
+
+    M = MP_DECODE
+    t_phase = time.perf_counter()
+    ids = torch.randint(0, SERVE_CFG["vocab_size"], (M["batch"], M["prompt"]), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+    model.generate(ids, max_new_tokens=2)  # warm-up
+    want, logits, seconds = _decode_with_logits(model, ids, M["new_tokens"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mp_decode_rank, M["mp"], ids.cpu(), M["new_tokens"], device="cuda:0",
+                      backend="gloo", timeout=M["timeout"])
+    world_s = time.perf_counter() - t0
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).amin(dim=-1)  # [steps]
+    diffs = [(o["logits"] - logits).abs().amax(dim=(1, 2)).tolist() for o in ranks]
+    equal = [torch.equal(o["tokens"], want) for o in ranks]
+    no_kernel = {n: 0 for n in read_launches()}
+    ok = (all(equal) and torch.equal(ranks[0]["tokens"], ranks[1]["tokens"])
+          and all(o["launches"] == no_kernel for o in ranks)
+          and all(o["heads"] == SERVE_CFG["num_heads"] // M["mp"] for o in ranks))
+    emit(phase="mp_decode", ok=ok, mp=M["mp"], backend="gloo", device="cuda:0",
+         prompts=[M["batch"], M["prompt"]], new_tokens=M["new_tokens"], config=SERVE_CFG,
+         tokens_equal_one_process_by_rank=equal,
+         max_logit_diff_by_step_by_rank=diffs, top2_margin_min_by_step=margin.tolist(),
+         ms_per_token_one_process=1e3 * seconds / M["new_tokens"],
+         ms_per_token_by_rank=[1e3 * o["seconds"] / M["new_tokens"] for o in ranks],
+         heads_by_rank=[o["heads"] for o in ranks], qkv_shard_by_rank=[o["qkv"] for o in ranks],
+         world_seconds=world_s, seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("mp_decode: the mp 2 tokens differ from one process's (see the "
+                             "logit differences and top-2 margins)")
+
+
+def _ckpt_dir(name):
+    """A fresh directory under this checkout's ``build/`` (gitignored)."""
+    import shutil
+    from pathlib import Path
+
+    d = Path(__file__).resolve().parent / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _gpt_o2_step(cfg, guard):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForPretraining(cfg, seed=SEED)
+    return TrainStep(model, AdamW(learning_rate=TRAIN["lr"], parameters=model.parameters()),
+                     GPTPretrainingCriterion(), amp_level="O2", guard=guard)
+
+
+def _states_equal(a, b):
+    """Whether two whole host states (``converter.gather_to_host``) hold the
+    same leaves, bit for bit."""
+    from paddle_tpu_torch.distributed.checkpoint import flatten
+
+    fa, fb = dict(flatten(a)), dict(flatten(b))
+    return set(fa) == set(fb) and all(
+        torch.equal(torch.as_tensor(fa[k]), torch.as_tensor(fb[k])) for k in fa)
+
+
+def phase_resilient_gpt_train():
+    """train's O2 GPT (``[8, 1024]``, AdamW) with ``guard=True`` through
+    ``run_resilient``: a ``CheckpointManager`` under ``build/``
+    (``keep_last_k`` 2), a checkpoint every 2 steps, 6 steps, one
+    ``ElasticNode`` over an in-process TCPStore, and three faults: a crash
+    of the ``train_step`` point at step 3, the HOLD checkpoint of that
+    crash corrupted on disk (so the restore walks back to step 2), and NaN
+    gradients at dispatch 4, which the guard skips. Gates: the loss of every
+    step equals in bits that of an uninterrupted guarded run on the same
+    batch (its NaN at the same dispatch); the skipped step leaves the
+    state bitwise; the restored state is bitwise the state saved at step 2,
+    leaf by leaf; K1 and K2 16 times per dispatch (7 dispatches). Shows the
+    checkpoint's bytes and the seconds of each save (gather, write, CRC)
+    and restore (read, CRC, convert)."""
+    import gc
+    import shutil
+
+    from paddle_tpu_torch.distributed.checkpoint import load_state
+    from paddle_tpu_torch.distributed.converter import gather_to_host
+    from paddle_tpu_torch.distributed.elastic import ElasticNode
+    from paddle_tpu_torch.distributed.resilience import CheckpointManager, run_resilient
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.testing import chaos
+
+    R = RESILIENT
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(**SERVE_CFG)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN["batch"], TRAIN["seq"]), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    with chaos.inject(FLAGS_chaos_nan_at_step=R["nan_at"]):
+        plain = _gpt_o2_step(cfg, guard=True)
+    want = [float(plain(ids, ids)["loss"]) for _ in range(R["steps"])]
+    want_skipped = plain.state["skipped"]
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    d = _ckpt_dir("resilient_ckpt")
+    with chaos.inject(FLAGS_chaos_nan_at_step=R["nan_at"]):
+        step = _gpt_o2_step(cfg, guard=True)
+    mgr = CheckpointManager(str(d), keep_last_k=R["keep_last_k"])
+    saves, restores, events, losses, checks = [], [], [], {}, {}
+    save = mgr.save
+
+    def timed_save(state, n):
+        out = save(state, n)
+        saves.append(dict(step=n, **mgr.last_save))
+        return out
+
+    mgr.save = timed_save
+
+    def on_event(kind, info):
+        events.append((kind, info.get("step")))
+        if kind == "hold":  # the HOLD checkpoint of the crash lands corrupted
+            set_flags({"FLAGS_chaos_corrupt_ckpt": True})
+        elif kind == "resume":
+            set_flags({"FLAGS_chaos_corrupt_ckpt": False})
+            restores.append(dict(step=info["step"], **mgr.last_restore))
+            saved = load_state(os.path.join(mgr._step_dir(info["step"]), "state"))
+            checks["restored_bitwise"] = _states_equal(gather_to_host(step), saved)
+
+    def train(ts, n, members):
+        bad_next = ts._dispatched == R["nan_at"]
+        before = gather_to_host(ts) if bad_next else None
+        m = ts(ids, ids)
+        losses[n] = float(m["loss"])
+        if bad_next:  # the skipped step: the state as it was, the skip counted
+            after = gather_to_host(ts)
+            checks["skipped_step_bitwise"] = (
+                bool(m["health"]["bad_step"]) and after.pop("skipped") == before.pop("skipped") + 1
+                and _states_equal(before, after))
+        return ts
+
+    store = TCPStore(is_master=True, timeout=60.0)
+    node = ElasticNode(store, heartbeat_interval=0.2, timeout=5.0)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with chaos.inject(FLAGS_chaos_crash_point="train_step",
+                          FLAGS_chaos_crash_at_step=R["crash_at"]):
+            _, restarts = run_resilient(train, node=node, manager=mgr, init_state=step,
+                                        num_steps=R["steps"], checkpoint_every=R["every"],
+                                        max_restarts=2, backoff=0.0, settle=0.0,
+                                        on_event=on_event)
+    finally:
+        node.leave()
+        store.close()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    got = [losses[n] for n in range(R["steps"])]
+    ckpt_bytes = saves[0]["bytes"] if saves else 0
+    shutil.rmtree(d, ignore_errors=True)
+    n_calls = 7  # steps 0-2, the crash at 3, then 2-5 again
+    per = cfg.num_layers * n_calls
+    want_launch = {K1["name"]: per, K2["name"]: per, K3["name"]: 0,
+                   K3B["name"]: 0, K4["name"]: 0, K4B["name"]: 0}
+    ok = ([x.hex() for x in got] == [x.hex() for x in want] and restarts == 1
+          and checks.get("restored_bitwise") is True and checks.get("skipped_step_bitwise") is True
+          and step.state["skipped"] == want_skipped == 1 and launches == want_launch
+          and [e for e in events if e[0] in ("hold", "resume")] == [("hold", 3), ("resume", 2)])
+    emit(phase="resilient_gpt_train", ok=ok, ids=[TRAIN["batch"], TRAIN["seq"]],
+         amp_level="O2", guard=True, faults=dict(crash_at=R["crash_at"], corrupted="hold",
+                                                 nan_at_dispatch=R["nan_at"]),
+         losses=got, uninterrupted_losses=want, losses_bitwise=[x.hex() for x in got] == [
+             x.hex() for x in want], events=events, restarts=restarts, checks=checks,
+         skipped=step.state["skipped"], launches=launches, expected_launches=want_launch,
+         dispatches=n_calls, checkpoint_bytes=ckpt_bytes, saves=saves, restores=restores,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), run_seconds=run_s,
+         seconds=time.perf_counter() - t_phase)
+    del step, mgr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("resilient_gpt_train: a gate failed (losses, restore, skip or "
+                             "launches)")
+    return launches
+
+
+def _read_jsonl(path):
+    return [json.loads(line) for line in open(path)] if os.path.exists(path) else []
+
+
+def _launcher(args, log):
+    return subprocess.Popen([sys.executable, "-m", "paddle_tpu_torch.distributed.launch", *args],
+                            stdout=log, stderr=subprocess.STDOUT)
+
+
+def phase_elastic_gpt_rescale(train_losses):
+    """The launcher's elastic rescale on the card, as ``tests/test_elastic.py:121-171``
+    drives it: two launchers (``--nnodes 2 --nproc_per_node 1 --elastic_np
+    1:2``, node ranks 0 and 1) run ``examples/elastic_gpt_torch.py``: train's
+    O2 GPT at sdp 2 with ZeRO-2, two gloo workers on ``cuda:0``, the global
+    batch ``[8, 1024]``, a checkpoint every step (written whole by rank 0).
+    After 2 steps the second node leaves (SIGTERM); the first launcher
+    relaunches its worker at world 1 (NCCL), which restores the sdp-2
+    checkpoint through the converter and trains 2 more steps. Gates: the
+    restored world-1 state gathered back is bitwise the sdp-2 checkpoint;
+    the world-1 losses equal in bits those of this process loading the same
+    checkpoint; the world-2 losses within ``ELASTIC_WORLD2_RTOL`` of
+    train's first two (the same weights and batch); every worker's step
+    launched K1 and K2 once per layer and no other kernel (each step's
+    counts, set to 0 just before it, as the workers log them). Returns those
+    launches summed over the workers' steps. Then ``--serve``: the
+    launcher boots 2 replicas of the serving GPT on the card,
+    ``ProcServingFleet.attach`` serves 8 requests, the tokens equal an
+    in-process fleet's, and after ``shutdown()`` the launcher exits 0."""
+    import gc
+    import shutil
+    import socket
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed.resilience import CheckpointManager
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    E = ELASTIC
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = _ckpt_dir("elastic")
+    ck, log = str(root / "ckpt"), str(root / "log.jsonl")
+    worker = str(Path(__file__).resolve().parent / "examples" / "elastic_gpt_torch.py")
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    common = ["--nnodes", "2", "--nproc_per_node", "1", "--master", f"127.0.0.1:{free_port()}",
+              "--elastic_np", "1:2", "--elastic_timeout", "5.0", worker,
+              "--config", json.dumps(SERVE_CFG), "--seed", str(SEED), "--batch",
+              str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]), "--lr", str(TRAIN["lr"]),
+              "--device", "cuda:0", "--ckpt", ck, "--log", log, "--keep", str(E["keep"]),
+              "--world_steps", str(E["world_steps"]), "--total_steps", str(E["total_steps"])]
+    outs = [open(root / f"launcher{r}.out", "wb") for r in (0, 1)]
+    t0 = time.perf_counter()
+    a = _launcher(["--rank", "0"] + common, outs[0])
+    b = _launcher(["--rank", "1"] + common, outs[1])
+    try:
+        deadline = time.monotonic() + E["timeout"]
+        while sum(e["event"] == "step" for e in _read_jsonl(log)) < E["world_steps"]:
+            if time.monotonic() > deadline or a.poll() is not None or b.poll() is not None:
+                raise AssertionError("elastic_gpt_rescale: the world-2 steps did not come")
+            time.sleep(0.5)
+        t_world2 = time.perf_counter() - t0
+        b.send_signal(15)  # SIGTERM: the second node leaves
+        rc_b = b.wait(timeout=120)
+        rc_a = a.wait(timeout=E["timeout"])
+    finally:
+        for p in (a, b):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in outs:
+            f.close()
+    rescale_s = time.perf_counter() - t0 - t_world2
+    launcher0 = (root / "launcher0.out").read_text(errors="replace")
+    events = _read_jsonl(log)
+    steps = [e for e in events if e["event"] == "step"]
+    restored = [e for e in events if e["event"] == "restored"]
+
+    # this process loads the same checkpoint and takes the same 2 steps
+    cfg = GPTConfig(**SERVE_CFG)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN["batch"], TRAIN["seq"]), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    one = _gpt_o2_step(cfg, guard=False)
+    CheckpointManager(ck, keep_last_k=E["keep"])._load_verified(E["world_steps"], one, None)
+    reset_launches()
+    mine = [float(one(ids, ids)["loss"]).hex()
+            for _ in range(E["total_steps"] - E["world_steps"])]
+    launches = read_launches()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    world2 = [e["loss"] for e in steps if e["world"] == 2]
+    world2_err = [abs(x - r) / abs(r) for x, r in zip(world2, train_losses)]
+    world1 = [e["loss_hex"] for e in steps if e["world"] == 1]
+    shutil.rmtree(ck, ignore_errors=True)
+    # the workers' own launches: K1 and K2 once per layer in each rank's step
+    want = {K["name"]: cfg.num_layers if K in (K1, K2) else 0 for K in KERNELS}
+    launches_ok = all(e.get("launches_by_rank") == [want] * e["world"] for e in steps)
+    worker_launches = {n: sum(r[n] for e in steps for r in e.get("launches_by_rank") or [])
+                       for n in want}
+    ok_train = (rc_a == 0 and rc_b == 143 and launches_ok
+                and [(e["world"], e["step"]) for e in steps]
+                == [(2, i) for i in range(E["world_steps"])]
+                + [(1, i) for i in range(E["world_steps"], E["total_steps"])]
+                and len(restored) == 1 and restored[0]["bitwise"] is True
+                and world1 == mine and max(world2_err) <= ELASTIC_WORLD2_RTOL)
+    serve = _elastic_serve_check(root)
+    ok = ok_train and serve["ok"]
+    emit(phase="elastic_gpt_rescale", ok=ok, ids=[TRAIN["batch"], TRAIN["seq"]], amp_level="O2",
+         zero_stage=2, launcher_rc=[rc_a, rc_b], steps=steps, restored=restored,
+         world1_losses_bitwise_one_process=world1 == mine, one_process_losses=mine,
+         world2_rel_err_vs_train=world2_err, world2_rtol=ELASTIC_WORLD2_RTOL,
+         world2_seconds=t_world2, rescale_and_world1_seconds=rescale_s,
+         launches_per_rank_per_step=want, worker_launches_ok=launches_ok,
+         worker_launches=worker_launches, one_process_launches=launches,
+         membership_lines=[ln for ln in launcher0.splitlines() if "membership=" in ln],
+         serve=serve, seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("elastic_gpt_rescale: a gate failed (see its line)")
+    return worker_launches
+
+
+def _elastic_serve_check(root):
+    """``--serve`` on the card: 2 replicas of the serving GPT booted by the
+    launcher, adopted by ``ProcServingFleet.attach``, 8 requests against an
+    in-process fleet's tokens; the launcher's exit code after shutdown."""
+    import socket
+
+    from paddle_tpu_torch.inference import ProcServingFleet, ServingFleet
+    from paddle_tpu_torch.inference.procfleet import current_torch_config
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+
+    E = ELASTIC
+    P = SERVE_PROCFLEET
+    kw = dict(max_batch_slots=P["slots"], max_seq_len=P["max_seq_len"], prefill_chunk=P["chunk"],
+              fuse=P["fuse"])
+    cfg = GPTConfig(**SERVE_CFG)
+    prompts = _fleet_prompts(cfg.vocab_size, P["chunk"], E["serve_requests"], shared=False)
+    model = GPTForPretraining(cfg, seed=SEED).eval()
+    fids, done, _ = _fleet_run(ServingFleet(model, replicas=1, **kw), prompts,
+                               E["serve_new_tokens"])
+    want = [list(done[f].tokens) for f in fids]
+    del model
+    torch.cuda.empty_cache()
+    spec = {"ns": "elastic-serve", "model": {"seed": SEED, "config": SERVE_CFG},
+            "engine_kwargs": kw, "torch_config": current_torch_config()}
+    (root / "serve.json").write_text(json.dumps(spec))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        master = f"127.0.0.1:{s.getsockname()[1]}"
+    out = open(root / "serve.out", "wb")
+    t0 = time.perf_counter()
+    p = _launcher(["--serve", "--nnodes", "1", "--nproc_per_node", str(E["serve_replicas"]),
+                   "--master", master, str(root / "serve.json")], out)
+    try:
+        fleet = ProcServingFleet.attach(master, E["serve_replicas"], ns="elastic-serve",
+                                        heartbeat_timeout=P["heartbeat_timeout"],
+                                        boot_timeout=300.0, **kw)
+        boot_s = time.perf_counter() - t0
+        try:
+            fids, done, run_s = _fleet_run(fleet, prompts, E["serve_new_tokens"], timeout_s=600)
+            got = [list(fleet.requests[f].tokens) for f in fids]
+            child = _child_kernel_launches(fleet)
+        finally:
+            fleet.shutdown()
+        rc = p.wait(timeout=120)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        out.close()
+    child_launches = sum(n for c in child.values() for n in c.values())
+    return dict(ok=got == want and rc == 0 and child_launches == 0,
+                replicas=E["serve_replicas"], requests=len(prompts),
+                new_tokens=E["serve_new_tokens"], tokens_equal_inproc=got == want,
+                launcher_rc=rc, boot_seconds=boot_s, run_seconds=run_s,
+                child_kernel_launches=child)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card", file=sys.stderr)
@@ -4709,7 +5181,8 @@ def main() -> int:
                       ("fleet", lambda: phase_fleet(model)),
                       ("procfleet", lambda: phase_procfleet(model)),
                       ("ingress", phase_ingress),
-                      ("alerts", lambda: phase_alerts(model))):
+                      ("alerts", lambda: phase_alerts(model)),
+                      ("mp_decode", lambda: phase_mp_decode(model))):
         reset_launches()
         run()
         by_path[path] = read_launches()
@@ -4727,6 +5200,10 @@ def main() -> int:
     rows.update(moe_rows)
     torch.cuda.empty_cache()
     by_path["sep_gpt_train"] = phase_sep_gpt_train(train_losses, train_grad1)
+    torch.cuda.empty_cache()
+    by_path["resilient_gpt_train"] = phase_resilient_gpt_train()
+    torch.cuda.empty_cache()
+    by_path["elastic_gpt_rescale"] = phase_elastic_gpt_rescale(train_losses)
     torch.cuda.empty_cache()
     phase_moe_check()
     torch.cuda.empty_cache()
@@ -4822,11 +5299,13 @@ def main() -> int:
     # the 1.3B and ERNIE steps; the vision steps and DLRM's none (their
     # phases check that every count stays 0)
     expected = {"forward": [K1["name"]], "serve": [], "serve_round2": [], "serve_spec": [],
-                "fleet": [], "procfleet": [], "ingress": [], "alerts": [],
+                "fleet": [], "procfleet": [], "ingress": [], "alerts": [], "mp_decode": [],
                 "train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "ep_moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "sep_gpt_train": [K1["name"], K2["name"]],
+                "resilient_gpt_train": [K1["name"], K2["name"]],
+                "elastic_gpt_rescale": [K1["name"], K2["name"]],
                 "bert_forward": [K3["name"]], "bert_train": [K3["name"], K3B["name"]],
                 "dp_bert_train": [K3["name"], K3B["name"]],
                 "flat_check": [K3["name"], K3B["name"]],

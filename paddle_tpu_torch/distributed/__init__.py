@@ -7,9 +7,12 @@ mixture-of-experts layer with its experts over ``dp`` (``moe``, the
 exchanges ``utils.global_scatter``/``global_gather``), sequence parallelism
 over ``sep`` (``ring_attention``: ring and Ulysses attention), the host
 actor runtime (``fleet_executor``) and the recommender's embedding table
-in its single-shard form (``embedding``). The launcher, checkpoints and
-the sharded embedding's exchange wait for a later slice (ROADMAP.md, Queue
-1 item 13d)."""
+in its single-shard form (``embedding``), checkpoints (``checkpoint``,
+``converter``: written whole, restored onto any mesh), the fault-tolerant
+runtime (``resilience``: ``CheckpointManager``, ``watchdog``,
+``run_resilient``), elastic membership (``elastic``) and the launcher
+(``launch``). The sharded embedding's exchange waits for a later slice
+(ROADMAP.md, Queue 1 item 13d)."""
 from . import fleet as fleet_mod  # noqa: F401
 from . import utils  # noqa: F401
 from .collective import (  # noqa: F401
@@ -54,6 +57,8 @@ from .pipeline import (  # noqa: F401
     pipeline_forward,
     run_schedule,
 )
+from .resilience import (CheckpointCorruption, CheckpointManager, WorkerFault,  # noqa: F401
+                         run_resilient, watchdog)
 from .ring_attention import ring_attention, ulysses_attention  # noqa: F401
 from .sharding import ZeroPlan, group_sharded_parallel, state_shardings  # noqa: F401
 from .strategy import DistributedStrategy  # noqa: F401

@@ -219,12 +219,20 @@ def expert_parallel_dispatch_combine(tokens, gate_vals, gate_idx, drop_mask, w1,
 
     from . import collective
 
-    every = collective.all_gather(counts[:E].contiguous(), group=group)  # [n, E]
+    # each rank's pairs per expert, and its token count: the capacity and
+    # the split sizes assume every rank holds as many tokens
+    table = collective.all_gather(torch.cat([counts[:E], counts.new_tensor([T])]), group=group)
+    every = table[:, :E]  # [n, E]
     before = torch.cumsum(every, 0) - every  # the lower ranks' pairs per expert
     offset = torch.cat([before[me], before.new_zeros(1)])  # a dropped pair: none
     keep = (e_sorted < E) & (pos + offset[e_sorted] < cap)
     kept = torch.minimum((cap - before).clamp(min=0), every)  # [n, E] rows each rank sends
-    host = kept.cpu()  # the split sizes of the exchange
+    host = torch.cat([kept, table[:, E:]], 1).cpu()  # the split sizes of the exchange
+    tokens_each = host[:, E].tolist()
+    if len(set(tokens_each)) > 1:
+        raise ValueError(f"expert parallelism needs the same token count on every rank of the "
+                         f"expert group; the ranks hold {tokens_each} (batch x sequence)")
+    host = host[:, :E]
     local_count = host[me].tolist()
     global_count = host[:, me * El:(me + 1) * El].reshape(-1).tolist()
 

@@ -43,6 +43,7 @@ import torch.distributed as dist
 from torch import nn
 
 from . import collective
+from .resilience import watchdog
 
 
 def _dtype_name(dtype):
@@ -148,7 +149,11 @@ class _BucketReducer:
                      for p in ps]
             if i == rider:
                 parts.append(extra.reshape(-1))
-            flat = self._average(torch.cat(parts))
+            # the watchdog (armed by FLAGS_collective_timeout_s) names the
+            # bucket a dead peer leaves pending
+            with watchdog(f"ddp all-reduce bucket {i} ({self.buckets[i][0]}, "
+                          f"{len(ps)} params)"):
+                flat = self._average(torch.cat(parts))
             off = 0
             for p in ps:
                 if p.grad is not None:

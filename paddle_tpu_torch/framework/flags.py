@@ -65,7 +65,9 @@ define_flag("FLAGS_metrics_port", 0, "live metrics export (observability/exporte
 define_flag("FLAGS_sanitize", False, "runtime sanitizer (analysis/sanitizer.py): in the port it arms only the host-ledger growth sentinel on the in-process and cross-process fleets' ticks (sanitizer.ledger_growth, a 'sanitizer' run-log event, a warning or under FLAGS_sanitize_strict a LedgerGrowthError); the reference's transfer guard, recompile-churn sentinel and donated-state poisoning in TrainStep and DecodeEngine are not ported (ROADMAP.md, Queue 1 item 15), so the flag checks nothing there")
 define_flag("FLAGS_sanitize_strict", False, "escalate the sanitizer's ledger-growth warning to a raise; forwarded to replica processes with FLAGS_sanitize")
 define_flag("FLAGS_sanitize_max_recompiles", 8, "the reference's recompile-churn threshold; nothing in the port reads it (the sentinel is not ported, ROADMAP.md Queue 1 item 15); forwarded to replica processes with FLAGS_sanitize, as in the reference")
-# store hardening (distributed/resilience.py)
+# store hardening, the watchdog and the training guard (distributed/resilience.py, jit/train_step.py)
+define_flag("FLAGS_collective_timeout_s", 0.0, "watchdog: report a cross-process collective still pending after this many seconds (0 = off)")
+define_flag("FLAGS_train_guard", False, "run an all-finite check over loss+grads in every jit.TrainStep step and skip the param/opt/step update when it trips (state stays bitwise at its pre-step value); read at TrainStep construction")
 define_flag("FLAGS_store_retry_jitter", True, "full jitter on the retry/RetryingStore exponential backoff: attempt i sleeps uniform(0, min(max_delay, base_delay*2**i)) from a seeded host stream instead of the deterministic cap")
 
 # deterministic fault injection (testing/chaos.py): every hook is a no-op

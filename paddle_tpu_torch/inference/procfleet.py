@@ -49,10 +49,10 @@ unchanged — only the transport is new:
   each kernel's launches) ride its heartbeat: :meth:`child_counters`.
 
 :meth:`ProcServingFleet.attach` adopts replicas that another supervisor
-booted with store-registered membership (``spawn=False``). The reference's
-launcher mode, ``distributed.launch --serve``, is not ported (ROADMAP.md,
-Queue 1 item 13); neither is the AOT cache (``FLAGS_compile_cache_dir``,
-item 4), which raises here as in the engine.
+booted with store-registered membership (``spawn=False``): the launcher's
+``python -m paddle_tpu_torch.distributed.launch --serve`` or replicas
+started by hand. The AOT cache (``FLAGS_compile_cache_dir``, ROADMAP.md
+Queue 1 item 4) is not ported, and raises here as in the engine.
 """
 from __future__ import annotations
 
@@ -560,8 +560,8 @@ class ProcServingFleet:
     def attach(cls, endpoint: str, replicas: Optional[int] = None, *,
                ns: str = "serve", **kw) -> "ProcServingFleet":
         """Adopt replicas already booted by another supervisor (each a
-        ``replica_main`` under this ``ns``; the reference's ``launch
-        --serve`` is not ported) instead of spawning: connect to the store at
+        ``replica_main`` under this ``ns``, e.g. by ``distributed.launch
+        --serve``) instead of spawning: connect to the store at
         ``endpoint``, wait for the store-registered membership, and serve
         through them. ``replicas=None`` reads the member count the children
         registered. Supervision still applies — same-host pids are probed,

@@ -1,2 +1,3 @@
-"""Training step of the port (the ported part of ``paddle_tpu.jit``)."""
-from .train_step import TrainStep  # noqa: F401
+"""Training step of the port (the ported part of ``paddle_tpu.jit``):
+``TrainStep`` and the ``MultiStepRunner`` loop."""
+from .train_step import MultiStepRunner, TrainStep  # noqa: F401

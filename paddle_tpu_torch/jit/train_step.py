@@ -67,6 +67,32 @@ Queue 3). That pass runs whenever a mesh is given, at degree 1 too:
   left out of the all-reduce. ZeRO (a stage, or ``sdp > 1``) together
   with a mixture of experts or with ``sep > 1`` raises (ROADMAP.md,
   Queue 1 item 13c).
+
+``guard=True`` (or ``FLAGS_train_guard``) is the reference's training-health
+guard. After the backward (and the mesh's gradient pass), one all-finite
+reduction runs over the loss and the gradients: the f32 sum of squares of
+every gradient (its shards' squares summed over the groups holding the
+rest, as the global-norm clip sums them) feeds both the global gradient
+norm and the bad-step flag, reduced over the world so every rank skips
+together. The update then runs, and every parameter, optimizer moment and
+buffer is set back to its pre-step value where the flag is set
+(``torch.where`` on the card: a bad step leaves them bit for bit), the
+step count stays, and ``skipped`` counts the step. The metrics carry
+``health = {bad_step, grad_norm, skipped}`` as tensors on the card. The
+host learns the flag one step late: a step's flag is read at the next
+step's update, after that step's forward and backward are queued, so the
+card never waits on the host for it (``state`` reads it at once). The
+chaos injector ``FLAGS_chaos_nan_at_step`` fills the gradients with NaN
+at that dispatch (counted as ``step + skipped``), once per process, as
+the reference's does.
+
+``state`` is the step's whole training state as the reference keys it
+(``params``: the f32 masters, or the model's parameters without AMP;
+``buffers``; ``opt``: each optimizer moment by parameter name; ``step``;
+``skipped`` with the guard; ``lr``: the LR schedule's state; ``rng``: each
+MoE layer's generator); ``load_state`` puts one back. Under a mesh they
+are this rank's pieces: :mod:`paddle_tpu_torch.distributed.converter`
+joins and cuts them for a checkpoint.
 """
 from __future__ import annotations
 
@@ -74,12 +100,15 @@ import torch
 from torch.func import functional_call
 
 from ..distributed import collective as C
+from ..distributed.env import get_world_size
 from ..distributed.pipeline import (active_pipeline_plan, active_pipeline_schedule, microbatch,
                                     run_schedule, unmicrobatch)
 from ..distributed.recompute import recompute
 from ..framework.flags import flag
 from ..framework.selected_rows import compiled_step
+from ..nn.clip import _reduce_terms, _shard_groups
 from ..observability import metrics, slo
+from ..testing import chaos
 
 _NOT_PORTED = "TrainStep: {} is not ported yet (ROADMAP.md, Queue 1 item {})"
 
@@ -136,8 +165,6 @@ class TrainStep:
         if batch_shardings is not None and (not set(batch_shardings) <= {"dp", "sdp"}):
             raise ValueError(f"TrainStep: batch_shardings must name axes of ('dp', 'sdp'), got "
                              f"{batch_shardings!r}")
-        if guard:
-            raise NotImplementedError(_NOT_PORTED.format("guard", 6))
         if int(accumulate_steps) < 1:
             raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
         if amp_level not in (None, "O0", "O1", "O2"):
@@ -163,6 +190,15 @@ class TrainStep:
         self._gather = {}
         self.n_micro, self.schedule, self.last_schedule = 1, None, None
         self._pp_meta = {}
+        self.guard = bool(flag("FLAGS_train_guard")) if guard is None else bool(guard)
+        # chaos: NaN gradients at a dispatch, armed once per process (read at
+        # construction, as the reference compiles it into its program)
+        self._nan_chaos = chaos.nan_grads_due()
+        self.chaos_nan_armed = 0 if self._nan_chaos is None else self._nan_chaos[1]
+        self._dispatched = 0  # step + skipped: the monotonic dispatch counter
+        self.skipped = 0  # settled bad steps
+        self._pending = None  # the last step's bad flag, not read yet
+        self._skipped_t = None  # the cumulative count on the device
         if mesh is not None:
             self._init_mesh(mesh, int(state_shardings or getattr(model, "_sharding_stage", 0)))
 
@@ -304,10 +340,12 @@ class TrainStep:
         return C.broadcast(loss, src=n_stages - 1, group=group)
 
     def _step(self, inputs, labels):
-        """One update; returns ``(loss, lr, outputs or None)``."""
-        lr = self.optimizer.lr_at(self.optimizer._step_count)
+        """One update; returns ``(loss, lr, outputs or None, health or None)``."""
         self.optimizer.clear_grad()
         inputs, labels = _as_tensors(inputs, self.device), _as_tensors(labels, self.device)
+        # buffers updated in the forward go back with the rest on a bad step
+        buffers = ([b.clone() for b in self.model.buffers()]
+                   if self.guard and any(True for _ in self.model.buffers()) else None)
         if self.schedule is not None:
             was_training = self.model.training
             self.model.train()
@@ -315,7 +353,7 @@ class TrainStep:
                 loss = self._pipeline_pass(inputs, labels)
             finally:
                 self.model.train(was_training)
-            return self._update(loss, lr), lr, None
+            return (*self._update(loss, buffers), None)
         k = self.accumulate_steps
         mb_in = [microbatch(x, k) for x in inputs]
         mb_lb = [microbatch(x, k) for x in labels]
@@ -338,16 +376,20 @@ class TrainStep:
                 for p in self.model.parameters():
                     if p.grad is not None:
                         p.grad.div_(k)
-        loss = self._update(torch.stack(losses).mean(), lr)
+        loss, lr, health = self._update(torch.stack(losses).mean(), buffers)
         outputs = None
         if self.return_outputs:
             outputs = outs[0] if k == 1 else _stack_microbatches(*outs)
-        return loss, lr, outputs
+        return loss, lr, health, outputs
 
-    def _update(self, loss, lr):
+    def _grad_of(self, p):
+        return p.grad if self._zero is None else self._zero.grad(p)
+
+    def _update(self, loss, buffers=None):
         """The gradients (and ``loss``) averaged over the data group, the
-        optimizer's update, and at ZeRO stages 1-2 the parameters gathered;
-        returns the averaged loss."""
+        chaos NaN and the guard, the optimizer's update, and at ZeRO stages
+        1-2 the parameters gathered; returns ``(averaged loss, lr, health
+        or None)``."""
         shared = getattr(self.model, "allreduce_shared_weight_gradients", None)
         if shared is not None:
             shared()
@@ -356,18 +398,154 @@ class TrainStep:
         elif self._reducer is not None:
             # the f32 master gradients and the loss averaged over the data group
             loss = self._reducer.reduce(find_unused_parameters=True, extra=loss)
-        self.optimizer._traced_update(lr, self._param_names)
+        opt = self.optimizer
+        if self._nan_chaos is not None and self.chaos_nan_armed > 0 \
+                and self._dispatched >= self._nan_chaos[0]:
+            self.chaos_nan_armed -= 1
+            for p in opt._params:
+                g = self._grad_of(p)
+                if g is not None:
+                    g.fill_(float("nan"))
+        self._dispatched += 1
+        health = bad = None
+        if self.guard:
+            bad, gnorm = self._health(loss)
+            self._settle()  # the previous step's flag: this step's work is queued by now
+            opt._ensure_state()
+            kept = [opt._target(i) for i in range(len(opt._params))] + [
+                t for ts in opt._state.values() for t in ts]
+            snapshot = [t.clone() for t in kept]
+        lr = opt.lr_at(opt._step_count)
+        opt._traced_update(lr, self._param_names)
+        if self.guard:
+            with torch.no_grad():
+                for t, old in zip(kept, snapshot):
+                    t.copy_(torch.where(bad, old, t))
+                if buffers is not None:
+                    for b, old in zip(self.model.buffers(), buffers):
+                        b.copy_(torch.where(bad, old, b))
+            del snapshot
+            opt._step_count -= 1  # counted when the flag is read (_settle)
+            self._pending = bad
+            self._skipped_t = self._skipped_count() + bad.to(torch.int32)
+            health = {"bad_step": bad, "grad_norm": gnorm, "skipped": self._skipped_t}
         if self._zero is not None:
             self._zero.gather()
-        return loss
+        return loss, lr, health
+
+    def _skipped_count(self):
+        if self._skipped_t is None:
+            self._skipped_t = torch.tensor(self.skipped, dtype=torch.int32, device=self.device)
+        return self._skipped_t
+
+    @torch.no_grad()
+    def _health(self, loss):
+        """``(bad, global gradient norm)`` of this step, on the device: one
+        f32 sum of squares over every gradient (shards summed over their
+        groups), the flag reduced over the world under a mesh."""
+        params = [p for p in self.optimizer._params if self._grad_of(p) is not None]
+        terms = [self._grad_of(p).float().square().sum() for p in params]
+        sumsq = _reduce_terms(terms, _shard_groups(params)) if terms else \
+            torch.zeros((), device=self.device)
+        bad = ~(torch.isfinite(sumsq) & torch.isfinite(loss.float()))
+        if self.mesh is not None and get_world_size() > 1:
+            flag_ = bad.to(torch.float32)
+            C.all_reduce(flag_, op=C.ReduceOp.MAX)
+            bad = flag_ > 0
+        return bad, torch.sqrt(sumsq)
+
+    def _settle(self):
+        """Read the last step's bad flag (a host sync) into the step and
+        skip counts."""
+        if self._pending is None:
+            return
+        bad, self._pending = bool(self._pending), None
+        if bad:
+            self.skipped += 1
+        else:
+            self.optimizer._step_count += 1
+
+    # -- state -----------------------------------------------------------------
+    def _opt_names(self):
+        opt = self.optimizer
+        return [self._param_names.get(id(p), opt._names[i]) for i, p in enumerate(opt._params)]
+
+    def _moe_layers(self):
+        from ..distributed.moe import MoELayer
+
+        return [(n, m) for n, m in self.model.named_modules() if isinstance(m, MoELayer)]
+
+    @property
+    def state(self):
+        """The training state (see the module's docstring): detached views
+        of the step's own tensors, not copies; this rank's pieces under a
+        mesh."""
+        from ..optimizer.lr import LRScheduler
+
+        self._settle()
+        opt = self.optimizer
+        opt._ensure_state()
+        names = self._opt_names()
+        out = {"params": {n: p.detach() for n, p in self.model.named_parameters()},
+               "buffers": {n: b.detach() for n, b in self.model.named_buffers()},
+               "opt": {k: dict(zip(names, ts)) for k, ts in opt._state.items()},
+               "step": int(opt._step_count)}
+        if self.guard:
+            out["skipped"] = int(self.skipped)
+        if isinstance(opt._lr, LRScheduler):
+            out["lr"] = opt._lr.state_dict()
+        moe = self._moe_layers()
+        if moe:
+            rng = {}
+            for n, m in moe:
+                if m.generator is None:  # built on the meta device: as its forward makes it
+                    m.generator = torch.Generator(device=m.w1.device).manual_seed(m.seed)
+                rng[n] = m.generator.get_state()
+            out["rng"] = rng
+        return out
+
+    @torch.no_grad()
+    def load_state(self, state):
+        """Put a state (:attr:`state`'s structure, host or device tensors) back
+        into the model, the optimizer and the step's counters."""
+        from ..optimizer.lr import LRScheduler
+
+        params = dict(self.model.named_parameters())
+        for n, v in state["params"].items():
+            params[n].copy_(torch.as_tensor(v))
+        buffers = dict(self.model.named_buffers())
+        for n, v in state.get("buffers", {}).items():
+            buffers[n].copy_(torch.as_tensor(v))
+        opt = self.optimizer
+        opt._ensure_state()
+        index = {n: i for i, n in enumerate(self._opt_names())}
+        for k, tree in state.get("opt", {}).items():
+            for n, v in tree.items():
+                opt._state[k][index[n]].copy_(torch.as_tensor(v))
+        opt._step_count = int(state["step"])
+        self.skipped = int(state.get("skipped", 0))
+        self._pending, self._skipped_t = None, None
+        self._dispatched = opt._step_count + self.skipped
+        if "lr" in state and isinstance(opt._lr, LRScheduler):
+            opt._lr.set_state_dict(dict(state["lr"]))
+        if "rng" in state:
+            layers = dict(self._moe_layers())
+            for n, v in state["rng"].items():
+                m = layers[n]
+                if m.generator is None:
+                    m.generator = torch.Generator(device=m.w1.device)
+                m.generator.set_state(torch.as_tensor(v))
 
     def __call__(self, inputs, labels):
         """One step; returns ``{"loss": f32 scalar tensor, "lr": float}``,
-        plus ``"outputs"`` with ``return_outputs``."""
-        loss, lr, outputs = self._step(inputs, labels)
+        plus ``"health"`` with the guard and ``"outputs"`` with
+        ``return_outputs``."""
+        loss, lr, health, outputs = self._step(inputs, labels)
         metrics.counter_inc("train_step.dispatches")
         metrics.counter_inc("train_step.steps")
         result = {"loss": loss, "lr": lr}
+        if health is not None:
+            result["health"] = health
         if self.return_outputs:
             result["outputs"] = outputs
         return result
@@ -397,8 +575,61 @@ class TrainStep:
         metrics.counter_inc("train_step.steps", len(results))
         out = {"loss": torch.stack([r[0] for r in results]),
                "lr": torch.tensor([r[1] for r in results], dtype=torch.float32)}
+        if self.guard:
+            out["health"] = {k: torch.stack([r[2][k] for r in results])
+                             for k in ("bad_step", "grad_norm", "skipped")}
         if self.return_outputs:
-            out["outputs"] = _tree_map(lambda *xs: torch.stack(xs), *(r[2] for r in results))
+            out["outputs"] = _tree_map(lambda *xs: torch.stack(xs), *(r[3] for r in results))
         # judgment layer: a single flag check per call until FLAGS_slo arms it
         slo.on_tick()
         return out
+
+
+class MultiStepRunner:
+    """Amortized training loop over a batch stream
+    (``paddle_tpu/jit/__init__.py:MultiStepRunner``): groups every K
+    batches and runs them through :meth:`TrainStep.run_steps`.
+
+    ``batch_iter`` yields per-step ``(inputs, labels)`` batches; with
+    ``prestacked=True`` it yields ``[k, ...]``-stacked pairs. Iterating the
+    runner yields one stacked metrics dict per group; a trailing group
+    smaller than K still runs.
+
+    ``monitor`` (a :class:`paddle_tpu_torch.stability.HealthMonitor`) makes
+    the runner health-aware: every group's stacked metrics are fed to the
+    monitor, which handles periodic checkpointing and divergence rollback
+    (restoring the step in place — the stream just keeps going with the
+    rewound state). One observe per K steps.
+    """
+
+    def __init__(self, step: TrainStep, k: int, prestacked: bool = False, monitor=None):
+        if int(k) < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.step = step
+        self.k = int(k)
+        self.prestacked = prestacked
+        self.monitor = monitor
+        if monitor is not None and monitor.train_step is None:
+            monitor.train_step = step
+
+    def _emit(self, metrics_):
+        if self.monitor is not None:
+            self.monitor.observe(metrics_)
+        return metrics_
+
+    def run(self, batch_iter):
+        if self.prestacked:
+            for inputs, labels in batch_iter:
+                lead = (inputs[0] if isinstance(inputs, (list, tuple)) else inputs).shape[0]
+                yield self._emit(self.step.run_steps((inputs, labels), k=lead))
+            return
+        group = []
+        for batch in batch_iter:
+            group.append(batch)
+            if len(group) == self.k:
+                yield self._emit(self.step.run_steps(group))
+                group = []
+        if group:
+            yield self._emit(self.step.run_steps(group))
+
+    __call__ = run

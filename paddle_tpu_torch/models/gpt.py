@@ -57,8 +57,9 @@ so attention (K1/K2 on the card) runs over the whole sequence on
 ``num_heads / sep`` heads, and exchanges the output back before the output
 projection; the criterion's mean is over the global tokens. GPT-MoE (the
 per-layer trunk) runs at dp > 1 with its experts sharded over ``dp``
-(:mod:`paddle_tpu_torch.distributed.moe`). Serving and the per-layer trunk
-need mp = pp = sep = 1.
+(:mod:`paddle_tpu_torch.distributed.moe`). ``generate()`` decodes at
+mp > 1 (each rank its heads, its cache and its vocabulary shard); the
+serving engine and the per-layer trunk need mp = pp = sep = 1.
 
 Not ported yet: dropout in training and export; see ``ROADMAP.md``.
 """
@@ -611,9 +612,18 @@ class GPTForPretraining(nn.Module):
         (the reference's ``lax.scan`` as a loop). Greedy by default;
         ``do_sample`` samples with temperature / top-k / top-p, drawing the
         token after position p from a generator seeded by ``(seed, p)``.
-        Returns ``[b, s0 + max_new_tokens]`` token ids (int64)."""
+        Returns ``[b, s0 + max_new_tokens]`` token ids (int64).
+
+        Under a fleet with mp > 1 (and pp = sep = 1) every rank of the
+        model-parallel group calls this with the same ids: each decodes
+        with its own heads (its slice of the fused qkv, its
+        ``[L, b, H / mp, S, dh]`` cache, its FFN rows and vocabulary rows),
+        the row-parallel products are summed over the group and the
+        vocabulary shards' logits gathered before the pick, so every rank
+        returns the same tokens (the reference's mp-sharded decode)."""
         cfg = self.gpt.cfg
-        params, wte, wpe, fnw, fnb = self._decode_params()
+        params, wte, wpe, fnw, fnb = self._decode_params(tensor_parallel=True)
+        mp = self._grid.mp
         device = wte.device
         ids = torch.as_tensor(input_ids, device=device).long()
         if ids.ndim == 1:
@@ -622,7 +632,7 @@ class GPTForPretraining(nn.Module):
         if s0 + max_new_tokens > cfg.max_seq_len:
             raise ValueError(f"prompt {s0} + max_new_tokens {max_new_tokens} exceeds "
                              f"max_seq_len {cfg.max_seq_len}")
-        H, dh = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        H, dh = self.gpt.layers.num_heads, cfg.hidden_size // cfg.num_heads  # this rank's heads
         shape = (cfg.num_layers, b, H, s0 + max_new_tokens, dh)
         cache_k = _kv_zeros(shape, wte.dtype, device)
         cache_v = _kv_zeros(shape, wte.dtype, device)
@@ -632,14 +642,15 @@ class GPTForPretraining(nn.Module):
             gen = _position_generator(seed, position, device) if do_sample else None
             return _select_token(logits.float(), gen, *sample)
 
-        logits = _cache_forward(params, wte, wpe, fnw, fnb, ids, cache_k, cache_v, 0, num_heads=H)
+        logits = _cache_forward(params, wte, wpe, fnw, fnb, ids, cache_k, cache_v, 0, num_heads=H,
+                                mp_group=mp)
         tok = pick(logits[:, -1], s0 - 1)
         done = torch.zeros(b, dtype=torch.bool, device=device) if eos_token_id is None \
             else tok == eos_token_id
         out = [tok]
         for i in range(max_new_tokens - 1):
             logits = _cache_forward(params, wte, wpe, fnw, fnb, tok[:, None], cache_k, cache_v,
-                                    s0 + i, num_heads=H)
+                                    s0 + i, num_heads=H, mp_group=mp)
             nxt = pick(logits[:, -1], s0 + i)
             if eos_token_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
@@ -648,18 +659,23 @@ class GPTForPretraining(nn.Module):
             out.append(tok)
         return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
 
-    def _decode_params(self):
+    def _decode_params(self, tensor_parallel=False):
         """The decode-path parameter pack ``(stack, wte, wpe, fnw, fnb)``,
         ``stack`` in ``GPTBlockStack._order``; detached views of the
-        parameters. Decoding needs the stacked trunk, as in the reference."""
+        parameters (at mp > 1, with ``tensor_parallel``, this rank's
+        shards). Decoding needs the stacked trunk, as in the reference; the
+        serving engine never meshes."""
         g = self.gpt
         if not isinstance(g.layers, GPTBlockStack):
             raise NotImplementedError(
                 "generate() requires the stacked trunk (GPTConfig(stacked=True))")
-        if self._grid.mp is not None or self._grid.pp > 1 or self._grid.sep is not None:
-            raise NotImplementedError("decoding a GPT under model, pipeline or sequence "
-                                      "parallelism is not ported yet (ROADMAP.md, Queue 1 item "
-                                      "13c): a serving model is built without a fleet")
+        if self._grid.pp > 1 or self._grid.sep is not None:
+            raise NotImplementedError("decoding a GPT under pipeline or sequence parallelism is "
+                                      "not ported yet (ROADMAP.md, Queue 1 item 13c)")
+        if self._grid.mp is not None and not tensor_parallel:
+            raise ValueError("the serving engine decodes an unmeshed model (as the reference's "
+                             "never meshes): build the serving model without a fleet; "
+                             "generate() decodes at mp > 1")
         stack = tuple(getattr(g.layers, n).detach() for n in g.layers._order)
         return (stack, g.embeddings.word_embeddings.weight.detach(),
                 g.embeddings.position_embeddings.weight.detach(),
@@ -822,42 +838,73 @@ def _attend(q, rk, rv, visible, out_dtype):
     return (p.float() @ rv.float()).to(out_dtype)
 
 
-def _cache_block(lp, h, ck, cv, start_pos, *, num_heads, epsilon=1e-5):
+def _mp_sum(x, mp_group):
+    """``x`` summed over the model-parallel group (``x`` itself at mp 1):
+    a row-parallel layer's partial product, before its bias."""
+    return x if mp_group is None else C.all_reduce(x.contiguous(), group=mp_group)
+
+
+def _cache_block(lp, h, ck, cv, start_pos, *, num_heads, epsilon=1e-5, mp_group=None):
     """One decoder block over a fixed-size cache. ``h`` [b, s, d]; ``ck``/
     ``cv`` [b, H, S, dh] (or int8 packs) hold keys/values of positions <
     ``start_pos`` and are written in place at [start_pos, start_pos + s); row
-    j attends cache positions <= start_pos + j. Returns the new ``h``."""
+    j attends cache positions <= start_pos + j. Returns the new ``h``. With
+    ``mp_group`` the parameters are this rank's shards, ``num_heads`` (and
+    the cache's H) its heads, and the output and second FFN products are
+    summed over the group before their biases."""
     n1w, n1b, qkvw, qkvb, ow, ob, n2w, n2b, f1w, f1b, f2w, f2b = lp
     b, s, d = h.shape
     S = _kv_payload(ck).shape[2]
+    dh = qkvw.shape[-1] // (3 * num_heads)
     x1 = _ln(h, n1w, n1b, epsilon)
-    qkv = (x1 @ qkvw + qkvb).reshape(b, s, 3, num_heads, d // num_heads)
+    qkv = (x1 @ qkvw + qkvb).reshape(b, s, 3, num_heads, dh)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [b, H, s, dh]
     _kvc_update(ck, k, (0, 0, start_pos, 0))
     _kvc_update(cv, v, (0, 0, start_pos, 0))
     q_pos = start_pos + torch.arange(s, device=h.device)[:, None]
     visible = torch.arange(S, device=h.device)[None] <= q_pos  # [s, S]
     att = _attend(q, _kvc_read(ck, h.dtype), _kvc_read(cv, h.dtype), visible, h.dtype)
-    h = h + att.transpose(1, 2).reshape(b, s, d) @ ow + ob
+    h = h + _mp_sum(att.transpose(1, 2).reshape(b, s, num_heads * dh) @ ow, mp_group) + ob
     y = F.gelu(_ln(h, n2w, n2b, epsilon) @ f1w + f1b, approximate="tanh")
-    return h + y @ f2w + f2b
+    return h + _mp_sum(y @ f2w, mp_group) + f2b
 
 
-def _logits(h, wte, fnw, fnb):
-    return _ln(h, fnw, fnb) @ wte.T
+def _logits(h, wte, fnw, fnb, mp_group=None):
+    """The tied head's logits ``[.., V]``; with ``mp_group`` ``wte`` is this
+    rank's vocabulary rows, and the shards' logits are gathered."""
+    logits = _ln(h, fnw, fnb) @ wte.T
+    if mp_group is None:
+        return logits
+    return C.all_gather_concat(logits.contiguous(), group=mp_group, concat_axis=-1)
 
 
-def _cache_forward(params, wte, wpe, fnw, fnb, ids, cache_k, cache_v, start_pos, *, num_heads):
+def _embed(wte, ids, mp_group=None):
+    """The word rows of ``ids``; with ``mp_group`` ``wte`` is this rank's
+    vocabulary rows and each id's row comes from the rank holding it (the
+    others add zeros: the sum is that row, bit for bit)."""
+    if mp_group is None:
+        return wte[ids]
+    lo = mp_group.rank * wte.shape[0]
+    mine = (ids >= lo) & (ids < lo + wte.shape[0])
+    rows = wte[(ids - lo).clamp(0, wte.shape[0] - 1)] * mine[..., None].to(wte.dtype)
+    return C.all_reduce(rows, group=mp_group)
+
+
+def _cache_forward(params, wte, wpe, fnw, fnb, ids, cache_k, cache_v, start_pos, *, num_heads,
+                   mp_group=None):
     """Trunk forward over a fixed cache: ``ids`` [b, s] at positions from
     ``start_pos``; ``cache_k``/``cache_v`` [L, b, H, S, dh] (or packs) are
-    written in place. Returns logits [b, s, V]."""
+    written in place. Returns logits [b, s, V]. With ``mp_group``, this
+    rank's part of the tensor-parallel decode (:meth:`GPTForPretraining.generate`):
+    its shards, its heads' cache, and the whole logits on every rank."""
     s = ids.shape[1]
     pos = torch.arange(start_pos, start_pos + s, device=ids.device)
-    h = (wte[ids] + wpe[pos][None]).to(wte.dtype)
+    h = (_embed(wte, ids, mp_group) + wpe[pos][None]).to(wte.dtype)
     for i in range(_kv_payload(cache_k).shape[0]):
         h = _cache_block(_layer_params(params, i, wte.dtype), h, _kv_layer(cache_k, i),
-                         _kv_layer(cache_v, i), start_pos, num_heads=num_heads)
-    return _logits(h, wte, fnw, fnb)
+                         _kv_layer(cache_v, i), start_pos, num_heads=num_heads,
+                         mp_group=mp_group)
+    return _logits(h, wte, fnw, fnb, mp_group)
 
 
 def _slot_write(c, new, slots, rows, active):

@@ -97,12 +97,17 @@ class Optimizer:
         pen = torch.sign if self._wd_is_l1 else (lambda p: p)
         return [g + wd * pen(self._target(i)) for g, i in zip(grads, live)]
 
+    def _ensure_state(self):
+        """The core's state over every parameter (its ZeRO block), made at
+        zero if no update made it yet."""
+        if self._state is None:
+            self._state = self.core.init([self._target(i) for i in range(len(self._params))])
+
     def _core_update(self, grads, live, lr, keys=None):
         """The core's update of the parameters ``live`` (indices) at ``lr``."""
         if not live:
             return
-        if self._state is None:
-            self._state = self.core.init([self._target(i) for i in range(len(self._params))])
+        self._ensure_state()
         sub = {k: [v[i] for i in live] for k, v in self._state.items()}
         self.core.decay_mask = self._decay_mask(live)
         kw = {"keys": keys} if self._keyed_core else {}

@@ -2,8 +2,9 @@
 ``paddle_tpu/testing/chaos.py``).
 
 Production code calls the hooks below at its failure seams (in the port:
-TCPStore ops and the serving fleet, its RPC transport and its ingress; the
-training-side hooks are kept with them, and nothing calls them yet).
+TCPStore ops, the checkpoint manager, the elastic supervisor and node, the
+training step's NaN injection, and the serving fleet, its RPC transport and
+its ingress).
 With ``FLAGS_chaos`` off — the default — every hook is a single dict
 lookup; tests turn individual failure modes on through flags (or the
 ``inject`` context manager) and get the *same* failure on every run:

@@ -252,30 +252,50 @@ def _check_mp(cfg, mp_degree):
                          f"FFN {cfg.ffn_hidden_size}) does not split over mp degree {mp_degree}")
 
 
+def _array(x):
+    """A tensor as it is, anything else as a numpy array."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _contiguous(x):
+    return x.contiguous() if isinstance(x, torch.Tensor) else np.ascontiguousarray(x)
+
+
+def _cat(parts):
+    return torch.cat(parts) if isinstance(parts[0], torch.Tensor) else np.concatenate(parts)
+
+
 def _split(arr, axis, blocks, n, r):
-    """Piece ``r`` of ``n`` of each of the ``blocks`` blocks along ``axis``."""
+    """Piece ``r`` of ``n`` of each of the ``blocks`` blocks along ``axis``
+    (of a numpy array or a tensor, returned as the same)."""
     size = arr.shape[axis]
-    parts = arr.reshape(arr.shape[:axis] + (blocks, n, size // (blocks * n)) + arr.shape[axis + 1:])
-    return np.take(parts, r, axis=axis + 1).reshape(arr.shape[:axis] + (size // n,)
-                                                    + arr.shape[axis + 1:])
+    if size % (blocks * n):
+        raise ValueError(f"dim {axis} of size {size} does not split into {blocks} x {n}")
+    head, tail = tuple(arr.shape[:axis]), tuple(arr.shape[axis + 1:])
+    parts = arr.reshape(head + (blocks, n, size // (blocks * n)) + tail)
+    piece = (parts.select(axis + 1, r) if isinstance(parts, torch.Tensor)
+             else np.take(parts, r, axis=axis + 1))
+    return piece.reshape(head + (size // n,) + tail)
 
 
 def _join(parts, axis, blocks):
     """:func:`_split`'s inverse over the pieces in rank order."""
     local = parts[0].shape[axis]
-    split = [p.reshape(p.shape[:axis] + (blocks, local // blocks) + p.shape[axis + 1:])
-             for p in parts]
-    full = np.stack(split, axis=axis + 1)  # [.., blocks, n, local / blocks, ..]
-    return full.reshape(full.shape[:axis] + (local * len(parts),) + full.shape[axis + 3:])
+    head, tail = tuple(parts[0].shape[:axis]), tuple(parts[0].shape[axis + 1:])
+    split = [p.reshape(head + (blocks, local // blocks) + tail) for p in parts]
+    # [.., blocks, n, local / blocks, ..]
+    full = (torch.stack(split, dim=axis + 1) if isinstance(split[0], torch.Tensor)
+            else np.stack(split, axis=axis + 1))
+    return full.reshape(head + (local * len(parts),) + tail)
 
 
 def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: int = 1, cfg=None,
                 *, pp_rank: int = 0, pp_degree: int = 1, sdp_rank: int = 0, sdp_degree: int = 1,
                 sdp_dims=None, ep_rank: int = 0, ep_degree: int = 1) -> Dict[str, np.ndarray]:
     """What the rank at (``pp_rank``, ``sdp_rank``, ``mp_rank``) of a fleet
-    grid holds of a full state (numpy arrays, the reference's names; BERT,
-    ERNIE or stacked GPT): its model-parallel shard of each
-    tensor-parallel leaf (the vocabulary rows of the word table, the q, k
+    grid holds of a full state (numpy arrays or tensors, returned as they
+    came; the reference's names; BERT, ERNIE or stacked GPT): its
+    model-parallel shard of each tensor-parallel leaf (the vocabulary rows of the word table, the q, k
     and v columns of the rank's heads in the qkv projection, the column
     shards of the first FFN layer and the row shards of the output and
     second FFN layers), for GPT its pipeline stage's layers and tables, and
@@ -291,28 +311,27 @@ def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: in
     for name, arr in np_state.items():
         if not _on_stage(name, pp_rank, pp_degree):
             continue
-        arr = np.asarray(arr)
-        if pp_degree > 1 and _stacked(name):
-            n = arr.shape[0] // pp_degree
-            arr = arr[pp_rank * n:(pp_rank + 1) * n]
-        spec = _mp_spec(name) if mp_degree > 1 else None
-        if spec is not None:
-            arr = _split(arr, spec[0], spec[1], mp_degree, mp_rank)
-        dim = (sdp_dims or {}).get(name)
-        if dim is not None and sdp_degree > 1:
-            arr = _split(arr, dim, 1, sdp_degree, sdp_rank)
-        if ep_degree > 1 and _expert(name):
-            if arr.shape[0] % ep_degree:
-                raise ValueError(f"{name}: {arr.shape[0]} experts do not split over expert "
-                                 f"degree {ep_degree}")
-            arr = _split(arr, 0, 1, ep_degree, ep_rank)
-        out[name] = np.ascontiguousarray(arr)
+        arr = _array(arr)
+        try:
+            if pp_degree > 1 and _stacked(name):
+                arr = _split(arr, 0, 1, pp_degree, pp_rank)
+            spec = _mp_spec(name) if mp_degree > 1 else None
+            if spec is not None:
+                arr = _split(arr, spec[0], spec[1], mp_degree, mp_rank)
+            dim = (sdp_dims or {}).get(name)
+            if dim is not None and sdp_degree > 1:
+                arr = _split(arr, dim, 1, sdp_degree, sdp_rank)
+            if ep_degree > 1 and _expert(name):
+                arr = _split(arr, 0, 1, ep_degree, ep_rank)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+        out[name] = _contiguous(arr)
     return out
 
 
 def gather_state(states, cfg=None, sdp_dims=None) -> Dict[str, np.ndarray]:
-    """The full state from the ranks' (numpy arrays): :func:`shard_state`'s
-    inverse. ``states`` is a list in mp rank order, or a dict of them by
+    """The full state from the ranks' (numpy arrays or tensors):
+    :func:`shard_state`'s inverse. ``states`` is a list in mp rank order, or a dict of them by
     ``(pp_rank, sdp_rank, mp_rank)`` or ``(pp_rank, sdp_rank, mp_rank,
     ep_rank)``; with ``sdp_dims`` the entries split over ``sdp`` are joined
     from every sdp rank's block, the rest taken from sdp rank 0 (and the
@@ -324,8 +343,8 @@ def gather_state(states, cfg=None, sdp_dims=None) -> Dict[str, np.ndarray]:
     if len(next(iter(states))) == 4:
         by_ep = [gather_state({k[:3]: st for k, st in states.items() if k[3] == e}, cfg, sdp_dims)
                  for e in range(1 + max(k[3] for k in states))]
-        return {n: np.ascontiguousarray(np.concatenate([part[n] for part in by_ep]))
-                if _expert(n) else v for n, v in by_ep[0].items()}
+        return {n: _contiguous(_cat([_array(part[n]) for part in by_ep])) if _expert(n) else v
+                for n, v in by_ep[0].items()}
     pp = 1 + max(k[0] for k in states)
     sdp = 1 + max(k[1] for k in states)
     mp = 1 + max(k[2] for k in states)
@@ -344,12 +363,11 @@ def gather_state(states, cfg=None, sdp_dims=None) -> Dict[str, np.ndarray]:
             for m in range(mp):
                 dim = (sdp_dims or {}).get(name)
                 if dim is not None and sdp > 1:
-                    by_mp.append(_join([np.asarray(states[(s, d, m)][name]) for d in range(sdp)],
+                    by_mp.append(_join([_array(states[(s, d, m)][name]) for d in range(sdp)],
                                        dim, 1))
                 else:
-                    by_mp.append(np.asarray(states[(s, 0, m)][name]))
+                    by_mp.append(_array(states[(s, 0, m)][name]))
             spec = _mp_spec(name) if mp > 1 else None
             stages.append(_join(by_mp, spec[0], spec[1]) if spec is not None else by_mp[0])
-        out[name] = np.ascontiguousarray(np.concatenate(stages) if pp > 1 and _stacked(name)
-                                         else stages[0])
+        out[name] = _contiguous(_cat(stages) if pp > 1 and _stacked(name) else stages[0])
     return out

@@ -71,7 +71,8 @@ def worlds(interpret):
                          dict(dp=2, experts=4, seed=5, jitter=True),
                          dict(dp=2, experts=4, state=s4, cfg=CF, meta=True, steps=1)], IDS)),
            ("expert_exchange", (EXCHANGE[2], 3)),
-           ("moe_refusals", ())]
+           ("moe_refusals", ()),
+           ("moe_unequal_tokens", ())]
     four = [("gpt_moe", ([dict(dp=4, experts=8, state=s8, cfg=CF)], IDS)),
             ("expert_exchange", (EXCHANGE[4], 2))]
     return {2: started(ranks.several, 2, two), 4: started(ranks.several, 4, four)}
@@ -208,6 +209,15 @@ def test_expert_parallelism_refuses_what_it_cannot_hold(worlds):
     assert "13c" in refusals["mp"] and "model" in refusals["mp"]
     assert "fleet.init" in refusals["replicated"]
     assert "13c" in refusals["sep"]
+
+
+def test_unequal_token_counts_raise_instead_of_hanging(worlds):
+    """The capacity and the exchange's split sizes assume every rank of the
+    expert group holds as many tokens: ranks fed 8 and 10 tokens get a
+    ValueError naming the counts (before the exchange), not a hang."""
+    for out in worlds[2].result():
+        msg = out[3]
+        assert msg is not None and "same token count" in msg and "[8, 10]" in msg
 
 
 def test_global_scatter_in_a_world_of_one_passes_rows_through():

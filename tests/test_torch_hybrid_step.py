@@ -1,7 +1,10 @@
 """The hybrid step of the port against ``paddle_tpu``'s GSPMD step, on the
 CPU: BASELINE #4's mesh (``bench_1p3b.py:25-60``: sdp 2 x mp 2 x pp 2,
-ZeRO stage 2, 2 micro-batches, ``1f1b``) and dp 2 x mp 2 x pp 2, each as
-8 gloo ranks against the reference's 8-device step; GPT at mp 2 alone;
+ZeRO stage 2, 2 micro-batches, ``1f1b``), dp 2 x mp 2 x pp 2 and dp 2 x
+mp 2 x sep 2 (``tests/test_pipeline_moe_ring.py:150-185``'s world, at
+hidden 256 with 4 heads so each rank keeps a head after mp and sep, 2
+steps), each as 8 gloo ranks against the reference's 8-device step; GPT
+at mp 2 alone;
 ERNIE at dp 2 x mp 2 (its ``BertLayer`` trunk has no pipeline).
 
 GPT: ``GPTConfig.tiny(hidden_size=128, num_heads=2)`` (d 64, so the
@@ -43,6 +46,9 @@ BASE = dict(lr=1e-3, steps=3, layers=4, cfg=dict(hidden_size=128, num_heads=2))
 BASELINE4 = dict(BASE, sdp=2, mp=2, pp=2, stage=2, accumulate=2, schedule="1f1b")
 DP_MP_PP = dict(BASE, dp=2, mp=2, pp=2, accumulate=2)
 MP2 = dict(BASE, mp=2)
+# tests/test_pipeline_moe_ring.py:150-185's world, dp 2 x mp 2 x sep 2, for 2
+# steps: 4 heads of d 64, so each rank holds 2 (mp) and attends over 1 (sep)
+DP_MP_SEP = dict(BASE, dp=2, mp=2, sep=2, steps=2, cfg=dict(hidden_size=256, num_heads=4))
 ERNIE_CFG = dict(hidden_size=256, num_heads=4, max_seq_len=64)
 EB, ES, ELR, ESTEPS = 4, 32, 1e-4, 3
 
@@ -64,7 +70,9 @@ def worlds():
     paddle.seed(7)
     ernie = {k: np.asarray(v.numpy()) for k, v in JErnie(JErnieConfig.tiny(**ERNIE_CFG))
              .state_dict().items()}
-    return {8: started(ranks.gpt_hybrid, 8, [DP_MP_PP, BASELINE4], initial, IDS),
+    sep_state = reference_gpt(steps=0, cfg=DP_MP_SEP["cfg"])[0]
+    return {8: started(ranks.gpt_hybrid, 8, [DP_MP_PP, BASELINE4, dict(DP_MP_SEP, state=sep_state)],
+                       initial, IDS),
             4: started(ranks.ernie_steps, 4, 2, 2, ERNIE_CFG, ernie, inputs, labels, ESTEPS, ELR),
             2: started(ranks.gpt_hybrid, 2, [MP2], initial, IDS), "ernie_state": ernie}
 
@@ -125,6 +133,16 @@ def test_baseline4_sdp2_mp2_pp2_zero2_1f1b_matches_paddle_tpu(worlds):
         b = next(o for o in last if o["coord"][2:] == a["coord"][2:])
         np.testing.assert_array_equal(a["state"]["gpt.embeddings.word_embeddings.weight"],
                                       b["state"]["gpt.embeddings.word_embeddings.weight"])
+
+
+def test_dp2_mp2_sep2_matches_paddle_tpu(worlds):
+    """The reference's hybrid sep world (``tests/test_pipeline_moe_ring.py:150-185``):
+    8 ranks, each with 2 of the 4 heads, a vocabulary half of the tied
+    table and its quarter of the batch's sequence block."""
+    outs = _check(worlds, 8, 2, DP_MP_SEP)
+    for o in outs:
+        assert o["state"]["gpt.layers.qkv_w"].shape == (4, 256, 384)
+        assert o["counters"]["collective.alltoall.calls"] > 0
 
 
 def test_gpt_mp2_matches_paddle_tpu(worlds):

@@ -101,11 +101,20 @@ EP_SEP_MODULES = {"paddle_tpu_torch.distributed.ring_attention",
                   "paddle_tpu_torch.distributed.moe", "paddle_tpu_torch.distributed.utils"}
 
 
+# modules of checkpoints, resume, the training guard and the launcher
+RESILIENCE_MODULES = {"paddle_tpu_torch.distributed.checkpoint",
+                      "paddle_tpu_torch.distributed.converter",
+                      "paddle_tpu_torch.distributed.elastic", "paddle_tpu_torch.stability",
+                      "paddle_tpu_torch.distributed.launch",
+                      "paddle_tpu_torch.distributed.launch.main",
+                      "paddle_tpu_torch.distributed.launch.__main__"}
+
+
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
               | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES
-              | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES)
+              | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES | RESILIENCE_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -123,6 +132,94 @@ def test_rank_processes_import_no_jax_or_paddle_tpu():
     from paddle_tpu_torch.testing.dist import run_ranks
 
     assert run_ranks(torch_dist_ranks.imported_reference_modules, 2) == [[], []]
+
+
+# a sitecustomize that records, at exit, the foreign modules its process
+# imported (the launcher's workers and replicas run no code of the test's)
+_PROBE = """
+import atexit, os, sys
+
+def _dump():
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+    with open(os.path.join(os.environ["IMPORT_PROBE_DIR"], f"{os.getpid()}.txt"), "w") as f:
+        f.write(repr(bad))
+
+atexit.register(_dump)
+"""
+
+_WORKER = """
+import sys
+import paddle_tpu_torch.distributed as D
+from paddle_tpu_torch.distributed import checkpoint, converter, elastic, resilience  # noqa: F401
+from paddle_tpu_torch import stability  # noqa: F401
+D.init_parallel_env(device="cpu")
+t = __import__("torch").ones(2)
+D.all_reduce(t)
+sys.exit(0 if float(t[0]) == D.get_world_size() else 1)
+"""
+
+
+def test_launched_workers_and_replicas_import_no_jax_or_paddle_tpu(tmp_path):
+    """The launcher, two training workers it spawns (importing the
+    checkpoint, converter, elastic, resilience and stability modules) and a
+    serving replica it boots with ``--serve`` import neither ``jax`` nor
+    ``paddle_tpu``, even from a test process that has both loaded."""
+    import json
+    import socket
+    import time
+
+    import jax  # noqa: F401  (the parent has the reference loaded)
+
+    from paddle_tpu_torch.inference import ProcServingFleet
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    site, probes = tmp_path / "site", tmp_path / "probes"
+    site.mkdir()
+    probes.mkdir()
+    (site / "sitecustomize.py").write_text(_PROBE)
+    (tmp_path / "train.py").write_text(_WORKER)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=f"{site}{os.pathsep}{ROOT}", IMPORT_PROBE_DIR=str(probes),
+               OMP_NUM_THREADS="1")
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    launch = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch"]
+    proc = subprocess.run(launch + ["--nproc_per_node", "2", "--master",
+                                    f"127.0.0.1:{free_port()}", "train.py"],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    kw = dict(max_batch_slots=1, max_seq_len=32, prefill_chunk=8)
+    spec = {"ns": "probe", "model": {"seed": 0, "config": GPTConfig.tiny().to_dict()},
+            "engine_kwargs": kw, "device": "cpu"}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    master = f"127.0.0.1:{free_port()}"
+    serve = subprocess.Popen(launch + ["--serve", "--master", master, "spec.json"], cwd=tmp_path,
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        fleet = ProcServingFleet.attach(master, 1, ns="probe", device="cpu",
+                                        heartbeat_timeout=60.0, boot_timeout=120.0, **kw)
+        try:
+            fid = fleet.submit([1, 2, 3], max_new_tokens=2)
+            fleet.run(timeout_s=120)
+            assert fleet.requests[fid].status == "finished"
+        finally:
+            fleet.shutdown()
+        out, _ = serve.communicate(timeout=60)
+        assert serve.returncode == 0, out
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+            serve.wait()
+    deadline = time.monotonic() + 10
+    while len(list(probes.iterdir())) < 5 and time.monotonic() < deadline:
+        time.sleep(0.1)
+    found = {p.name: p.read_text() for p in probes.iterdir()}
+    # two launchers, two workers, one replica
+    assert len(found) == 5 and set(found.values()) == {"[]"}, found
 
 
 def test_observability_flags_arm_in_both_fleets(monkeypatch):

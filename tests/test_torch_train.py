@@ -398,11 +398,16 @@ def test_run_steps_equals_single_steps_and_stacks():
 def test_unported_train_step_knobs_raise(kw):
     """The knobs the port lacks raise, citing ROADMAP.md; the state and
     batch shardings (ZeRO's stage, the batch's axes) are ported and need
-    the fleet's grid as ``mesh``."""
+    the fleet's grid as ``mesh``; ``guard`` is ported too (its parity is
+    ``tests/test_torch_stability.py``): a guarded step reports health."""
     pm = GPTForPretraining(GPTConfig.tiny(), device="cpu")
     if "batch_shardings" in kw or "state_shardings" in kw:
         with pytest.raises(ValueError, match="need a mesh"):
             TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
+    elif kw.get("guard"):
+        step = TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
+        ids = np.zeros((2, 8), np.int64)
+        assert step.guard and not bool(step(ids, ids)["health"]["bad_step"])
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)

@@ -555,9 +555,10 @@ def gpt_hybrid(configs, np_state, ids, mask=None):
     """Each config of ``configs`` (its degrees ``dp``, ``mp``, ``pp``,
     ``sdp``, ZeRO ``stage``, pipeline ``schedule`` and ``accumulate``,
     ``layers``, ``cfg`` (more ``GPTConfig.tiny`` keywords), ``optimizer``,
-    ``lr``, ``clip``, ``steps``; its world the
-    whole world) in turn: a stacked GPT built on the meta device and
-    loaded with this rank's part of the full state ``np_state``, then
+    ``lr``, ``clip``, ``steps``, and ``state``, the full state to load in
+    place of ``np_state``; its world the whole world) in turn: a stacked
+    GPT built on the meta device and loaded with this rank's part of the
+    full state, then
     ``fleet.distributed_step`` over ``shard_batch``'s block of ``ids``
     (labels = ids, with ``mask`` as the loss mask if given). Per config:
     the losses, this rank's coordinates, state, moments and ZeRO split
@@ -572,6 +573,7 @@ def gpt_hybrid(configs, np_state, ids, mask=None):
 
     out = []
     for c in configs:
+        state = c.get("state", np_state)
         fleet = _hybrid_fleet(c)
         hcg = fleet.get_hybrid_communicate_group()
         cfg = GPTConfig.tiny(num_layers=c.get("layers", 4), **c.get("cfg", {}))
@@ -579,7 +581,7 @@ def gpt_hybrid(configs, np_state, ids, mask=None):
         model.to_empty(device="cpu")
         pp_rank, mp_rank = hcg.get_pipe_parallel_rank(), hcg.get_model_parallel_rank()
         model.load_state_dict({k: torch.from_numpy(v) for k, v in shard_state(
-            np_state, mp_rank, c.get("mp", 1), cfg, pp_rank=pp_rank,
+            state, mp_rank, c.get("mp", 1), cfg, pp_rank=pp_rank,
             pp_degree=c.get("pp", 1)).items()})
         opt = _optimizer(c, model)
         step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
@@ -885,3 +887,155 @@ def seq_attention(q, k, v):
         out["uneven_heads"] = str(e)
     D.fleet._hcg = None
     return out
+
+
+# -- decoding at mp > 1, the ep token-count check, checkpoints over a mesh ---------
+def gpt_mp_decode(np_state, ids, max_new, cfg_kw=None):
+    """Greedy ``generate`` of a stacked GPT at mp = the world: each rank
+    built on the meta device and loaded with its shard of ``np_state``.
+    Returns the tokens, the rank's heads and its qkv shard's shape."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.utils.convert import shard_state
+
+    world = D.get_world_size()
+    fleet = _hybrid_fleet(dict(mp=world))
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = GPTConfig.tiny(**(cfg_kw or {}))
+    model = GPTForPretraining(cfg, device="meta")
+    model.to_empty(device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in shard_state(
+        np_state, hcg.get_model_parallel_rank(), world, cfg).items()})
+    tokens = model.eval().generate(torch.as_tensor(ids), max_new_tokens=max_new)
+    D.fleet._hcg = None
+    return dict(tokens=_np(tokens), heads=model.gpt.layers.num_heads,
+                qkv=tuple(model.gpt.layers.qkv_w.shape))
+
+
+def gpt_decode_refusals():
+    """What decoding refuses at the world's degree: ``generate`` at pp =
+    world, the serving engine over an mp-sharded model."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+
+    out = {}
+    for name, degrees, call in (
+            ("pp", dict(pp=D.get_world_size()),
+             lambda m: m.generate(torch.zeros(1, 4, dtype=torch.long), max_new_tokens=2)),
+            ("engine_mp", dict(mp=D.get_world_size()),
+             lambda m: DecodeEngine(m, max_batch_slots=1, max_seq_len=32))):
+        _hybrid_fleet(degrees)
+        try:
+            call(GPTForPretraining(GPTConfig.tiny(), device="cpu").eval())
+            out[name] = None
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+        D.fleet._hcg = None
+    return out
+
+
+def moe_unequal_tokens():
+    """A MoE layer with its experts over dp = the world, fed a batch of a
+    different length on each rank: the error the forward raises (not a
+    hang in the exchange)."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.moe import MoELayer
+
+    _hybrid_fleet(dict(dp=D.get_world_size()))
+    layer = MoELayer(16, 32, num_experts=4, device="cpu", seed=0)
+    x = torch.randn(1, 8 + 2 * D.get_rank(), 16, generator=torch.Generator().manual_seed(1))
+    try:
+        layer(x)
+        out = None
+    except ValueError as e:
+        out = str(e)
+    D.fleet._hcg = None
+    return out
+
+
+def mesh_checkpoints(cases, ids, restore_dir, steps):
+    """Checkpoints over meshes of the world's size: for each case (its
+    degrees and ZeRO ``stage``, as ``gpt_hybrid``'s configs, ``dir`` and
+    ``async_dir``), a tiny GPT (f32, AdamW) takes ``steps`` steps on its
+    block of ``ids`` and a ``CheckpointManager`` saves it whole into the
+    case's ``dir``; ``save_train_step(async_save=True)`` writes it again
+    into ``async_dir`` and one more step runs before the handle is waited
+    on; then a fresh step on the same mesh restores the world-1 checkpoint
+    under ``restore_dir``. Per case: what the rank holds after the save
+    and after the restore (numpy), its ``(pp, sdp, mp)`` coordinates and
+    ZeRO split dims, the losses, whether the asynchronous save gave this
+    rank a handle and the loss of the step after it."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.checkpoint import save_train_step
+    from paddle_tpu_torch.distributed.resilience import CheckpointManager
+    from paddle_tpu_torch.distributed.sharding import state_shardings
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def held(step):  # copies: the step's state is views of its tensors
+        st = step.state
+        return dict(params={n: _np(t).copy() for n, t in st["params"].items()},
+                    opt={k: {n: _np(t).copy() for n, t in v.items()}
+                         for k, v in st["opt"].items()},
+                    step=st["step"])
+
+    out = []
+    for c in cases:
+        res = {}
+        for key in ("written", "restored"):
+            fleet = _hybrid_fleet(c)
+            hcg = fleet.get_hybrid_communicate_group()
+            model = GPTForPretraining(GPTConfig.tiny(), device="cpu", seed=3)
+            step = TrainStep(model, AdamW(learning_rate=1e-3, parameters=model.parameters()),
+                             GPTPretrainingCriterion(), mesh=hcg,
+                             state_shardings=c.get("stage", 0))
+            if key == "written":
+                block = fleet.shard_batch(torch.as_tensor(ids))
+                res["losses"] = [float(step(block, block)["loss"]) for _ in range(steps)]
+                CheckpointManager(c["dir"]).save(step, steps)
+                res[key] = held(step)
+                # an asynchronous save, then a step (its collectives) at once
+                pending = save_train_step(step, c["async_dir"], async_save=True)
+                res["async_handle"] = pending is not None
+                res["after_async_loss"] = float(step(block, block)["loss"])
+                if pending is not None:
+                    pending.wait()
+            else:
+                restored = CheckpointManager(restore_dir).restore_latest(target=step)
+                assert restored is not None and restored[0] is step
+                res[key] = held(step)
+            res["coord"] = (hcg.get_pipe_parallel_rank(), hcg.get_sharding_parallel_rank(),
+                            hcg.get_model_parallel_rank())
+            res["sdp_dims"] = state_shardings(model, hcg, c.get("stage", 0) or 1)
+            D.fleet._hcg = None
+        out.append(res)
+    return out
+
+
+def guarded_mesh_steps(ids, nan_at, steps):
+    """A guarded tiny GPT (f32, AdamW, ZeRO stage 2 over sdp = the world)
+    with NaN gradients injected at dispatch ``nan_at``: ``steps`` steps in
+    one ``run_steps`` on its block of ``ids``. Returns the health leaves,
+    the losses and the whole state gathered back (numpy)."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.converter import gather_to_host
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing import chaos
+
+    fleet = _hybrid_fleet(dict(sdp=D.get_world_size(), stage=2))
+    hcg = fleet.get_hybrid_communicate_group()
+    model = GPTForPretraining(GPTConfig.tiny(), device="cpu", seed=3)
+    with chaos.inject(FLAGS_chaos_nan_at_step=nan_at):
+        step = TrainStep(model, AdamW(learning_rate=1e-3, parameters=model.parameters()),
+                         GPTPretrainingCriterion(), mesh=hcg, state_shardings=2, guard=True)
+    block = fleet.shard_batch(torch.as_tensor(ids))
+    m = step.run_steps([(block, block)] * steps)
+    whole = gather_to_host(step)
+    D.fleet._hcg = None
+    return dict(bad=_np(m["health"]["bad_step"]).tolist(),
+                skipped=_np(m["health"]["skipped"]).tolist(), losses=_np(m["loss"]).tolist(),
+                params={n: _np(t) for n, t in whole["params"].items()}, step=whole["step"])
