@@ -276,9 +276,35 @@ non-zero and prints no result. Phases, one JSON line each:
     within ``ELASTIC_WORLD2_RTOL`` of phase 6's; then ``--serve`` boots 2
     replicas of the serving GPT that ``ProcServingFleet.attach`` adopts: 8
     requests with an in-process fleet's tokens, the launcher's exit 0.
+42. ``amp_o1_gpt_train`` (run after phase 7): bench.py's train GPT with the
+    per-layer trunk under ``TrainStep(amp_level="O1", amp_dtype="bfloat16")``,
+    3 AdamW steps at ``[8, 1024]`` through K1/K2 and through ``sdpa=xla``
+    from the same weights: the bf16 instances of K1 and K2 16 times a step
+    each, the losses within ``AMP_LOSS_RTOL`` of the plain run's.
+43. ``fp16_gpt_train``: the same GPT trained eagerly under
+    ``auto_cast(dtype="float16")`` with a ``GradScaler`` and the eager AdamW,
+    5 steps, an inf planted in step 1's gradients: the float16 instances of
+    K1 and K2 16 times a step each, step 1 skipped with the parameters
+    bitwise and the scale halved, the scale doubled after 2 clean steps,
+    the losses within ``AMP_LOSS_RTOL`` of the plain run's. Phase 3 holds
+    the float16 instances against their plain versions at
+    :data:`F16_CALLS` and times them against their bound and SDPA.
+44. ``zero_offload_gpt3_train`` (after phase 18): phase 18's step with
+    ``sharding_configs.offload``: the AdamW moments in pinned host memory,
+    streamed through the card chunk by chunk; the losses equal in bits to
+    phase 17's, 96 K1 and 48 K2 a step, the peak device memory below phase
+    18's; the pinned bytes and the last update's copy times.
+45. ``dlrm_sharded_train`` (last): phase 31's config at 4 shards as 4 gloo
+    processes on ``cuda:0`` (200,000 table rows and a quarter of each
+    global batch of 4096 each) against one process's run: lookup and
+    table gradient of one batch bitwise, 8 steps' losses and moments within
+    the reference's dp4-against-dp1 gate, the table by ``DLRM_SHARDED_TOL``,
+    ``exchange_stats``'s bytes equal to the exchange's counters and to
+    the bytes the collectives moved; then the rotation dp 4 -> dp 2 -> dp 4
+    through ``EmbeddingCheckpointRotation``, bitwise.
 
-The serving phases (5, 25-30, 39), the vision phases (22-24) and DLRM's (31)
-launch none of K1-K4b: the reference runs no Pallas kernel on those paths
+The serving phases (5, 25-30, 39), the vision phases (22-24) and DLRM's (31,
+45) launch none of K1-K4b: the reference runs no Pallas kernel on those paths
 (serving attends in jnp, the port in plain PyTorch; convolutions are
 cuDNN's, batch norms and pools ATen's; the embedding lookup is
 ``jnp.take``, the optimizers jnp); the script checks that their counts
@@ -286,8 +312,8 @@ stay 0, in the replica processes too.
 
 Phases 4, 5, 25, 26, 27, 28, 29, 30, 39, 6, 9 (its ``pallas_sorted`` run),
 37 and 38 (the ranks' counts, summed), 40, 41 (this process's steps from
-the checkpoint), 12, 13, ``dp_bert_train``, 16, 17, 34, 35 (summed), 20,
-22, 24 and 31 are the main path: the kernel counts are set
+the checkpoint), 42, 43, 12, 13, ``dp_bert_train``, 16, 17, 34, 44, 35
+(summed), 20, 22, 24, 31 and 45 (the ranks' counts, summed) are the main path: the kernel counts are set
 to 0 just before each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
@@ -295,7 +321,8 @@ K4b at the first MoE layer's rows of the traced step, whose ``bound_ms``
 counts the live rows, the rows the kernels compute, with an ``ep_row``: the
 ep 2 owner's call, its ``bound_ms`` over its live rows too and its
 ``bound_padded_ms`` over all its rows; K1 and K2 with ``d128_rows``: the d = 128 calls of phases
-17, 20 and 35, and the sep 2 call of phase 38) and the script's wall time,
+17, 20 and 35, and the sep 2 call of phase 38; and with ``f16_rows``: their
+float16 instances at the O2 and the 1.3B calls) and the script's wall time,
 and the last line is the ``{"ok": true, ...}`` result.
 """
 from __future__ import annotations
@@ -312,7 +339,7 @@ import torch
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores (the K1 kernel's f32 FMA path), and HBM3 bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 # the serving configuration of bench_serve.py (GPT, h=1024, L=16, 16 heads),
@@ -361,14 +388,19 @@ SEED = 0
 # bf16: the kernel's bf16 output against the plain version in f32 on the same
 # bf16 inputs, atol 2e-2 (one bf16 rounding of values of order 1). lse is
 # f32 on both sides in both cases.
-TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 0.0)}
+# float16: atol 5e-3, one float16 rounding (2**-11) of values of a few units
+# (read 2.0e-3 on the card).
+TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 0.0), torch.float16: (5e-3, 0.0)}
 LSE_TOL = (1e-5, 1e-4)
 # K2's dq, dk, dv. f32: atol 2e-5 / rtol 1e-4, the reference's gradient
 # tolerance for its own kernel pair (tests/test_flash_interpret.py). bf16:
 # the kernel's bf16 gradients against the plain version in f32 on the same
 # bf16 inputs, atol 2e-2 / rtol 1e-2 (one bf16 rounding is 2**-8 relative;
 # gradients reach a few units).
-GRAD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+# float16: atol 5e-3 / rtol 2e-3 (one float16 rounding; read 3.9e-3 on
+# gradients up to 6).
+GRAD_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 1e-2),
+            torch.float16: (5e-3, 2e-3)}
 # logits of the whole forward, flash vs plain attention in f32: the
 # attention outputs differ by f32 rounding (~1e-6), which 16 layers carry
 # into logits of order 1
@@ -608,6 +640,10 @@ CHECK_LAYERS = 2
 # step's per micro-batch (attention_core, whose backward writes one packed
 # gradient) and ERNIE's (sdpa/flash, whose backward makes three buffers)
 D128_CALLS = {"gpt3_1p3b_train": (2, 2048, 16, 128, True), "ernie_train": (16, 512, 24, 128, False)}
+# the float16 instances of K1 and K2 are held and timed at the O2 step's
+# call and at the 1.3B step's, (b, s, h, d, causal), views of the packed
+# projection; fp16_gpt_train runs the first
+F16_CALLS = {"o2_call": (8, 1024, 16, 64, True), "gpt3_1p3b_call": (2, 2048, 16, 128, True)}
 
 
 def launch_counters():
@@ -771,8 +807,10 @@ def phase_k1():
     cases += [(8, 1024, 16, 64, True, dt, True) for dt in (torch.float32, torch.bfloat16)]
     cases += [(*call, torch.bfloat16, True) for call in D128_CALLS.values()]
     cases += [(*HYBRID_CALL, torch.float32, True), (*SEP_CALL, torch.bfloat16, True)]
+    # the float16 instance at the O2 call and at the 1.3B call (F16_CALLS)
+    cases += [(*call, torch.float16, True) for call in F16_CALLS.values()]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main_row, bf16_row, d128_rows, failures = None, None, {}, []
+    main_row, bf16_row, d128_rows, f16_rows, failures = None, None, {}, {}, []
     for b, s, h, d, causal, dt, packed in cases:
         if packed:
             qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(dt)
@@ -815,11 +853,13 @@ def phase_k1():
             d128_rows["hybrid_gpt3"] = row
         if (b, s, h, d, causal, dt, packed) == (*SEP_CALL, torch.bfloat16, True):
             d128_rows["sep_gpt_train"] = row
+        f16_rows.update({name: row for name, call in F16_CALLS.items()
+                         if (b, s, h, d, causal, dt, packed) == (*call, torch.float16, True)})
         del q, k, v
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"K1 disagrees with its plain version in {len(failures)} case(s)")
-    return main_row, bf16_row, d128_rows
+    return main_row, bf16_row, d128_rows, f16_rows
 
 
 def _k2_cases():
@@ -838,6 +878,8 @@ def _k2_cases():
     # the hybrid step's per-rank call, f32, packed gradient (attention_core);
     # the sep 2 step's call after Ulysses' exchange, bf16, packed gradient
     cases += [(*HYBRID_CALL, torch.float32, True), (*SEP_CALL, torch.bfloat16, True)]
+    # the float16 instance, packed gradient, at the O2 and the 1.3B calls
+    cases += [(*call, torch.float16, True) for call in F16_CALLS.values()]
     return cases
 
 
@@ -852,7 +894,7 @@ def phase_k2():
     from paddle_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    main_row, f32_row, d128_rows, failures = None, None, {}, []
+    main_row, f32_row, d128_rows, f16_rows, failures = None, None, {}, {}, []
     for b, s, h, d, causal, dt, packed in _k2_cases():
         grads = None
         if packed:
@@ -910,11 +952,13 @@ def phase_k2():
             d128_rows["hybrid_gpt3"] = row
         if (b, s, h, d, causal, dt, packed) == (*SEP_CALL, torch.bfloat16, True):
             d128_rows["sep_gpt_train"] = row
+        f16_rows.update({name: row for name, call in F16_CALLS.items()
+                         if (b, s, h, d, causal, dt, packed) == (*call, torch.float16, True)})
         del q, k, v, dout, out, lse, got, grads
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"K2 disagrees with its plain version in {len(failures)} case(s)")
-    return main_row, f32_row, d128_rows
+    return main_row, f32_row, d128_rows, f16_rows
 
 
 def phase_forward(model, ids):
@@ -3380,7 +3424,8 @@ def phase_zero_gpt3_train(gpt3_losses, gpt3_ms):
     sleep kernel while the host enqueues its passes) and host time, and a
     plain ``TrainStep`` over the same model (its own AdamW) timed in turns
     with it (plain, zero, zero, plain). Returns the kernel launches of the 8
-    counted steps."""
+    counted steps, the peak device memory of those steps and their ms a
+    step."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.distributed import DistributedStrategy, fleet, init_parallel_env
@@ -3501,7 +3546,7 @@ def phase_zero_gpt3_train(gpt3_losses, gpt3_ms):
          max_memory_allocated=peak, max_memory_allocated_with_plain_step=peak_turns)
     if not ok:
         raise AssertionError("zero_gpt3_train phase failed")
-    return launches
+    return launches, peak, ms_per_step
 
 
 def _hybrid_strategy():
@@ -4716,6 +4761,539 @@ def phase_optim_check():
         raise AssertionError("optim_check phase failed: an optimizer's card step and CPU step disagree")
 
 
+# ---------------------------------------------------------------- slice 10
+# dlrm_sharded_train: bench_recsys.py:49-54's config (8 x 100,000 x 64 fused
+# into one 800,000 x 64 f32 table, global batch 4096, the bench's power-law
+# ids, RowSparseAdam lr 1e-3) at 4 shards: the table row-sharded over dp 4,
+# the MLPs data-parallel, as 4 gloo processes on cuda:0. 8 steps against
+# one process's 8 from the same weights and batches; then a rotation: the
+# dp 4 state saved through EmbeddingCheckpointRotation, restored onto dp 2,
+# saved again, restored onto dp 4.
+DLRM_SHARDED = dict(shards=4, batch=4096, steps=8, lr=1e-3, timeout=600.0)
+# the losses and the table's moments after the steps against the
+# one-process run: tests/test_recsys.py's dp4-against-dp1 gate (rtol 2e-5,
+# atol 2e-6), the reference's own; the lookup and the table gradient of one
+# batch are held bitwise. The table itself: every entry within the steps'
+# reach (2 lr a step) and the whole within a relative L2 error of
+# table_rel_l2. A rank's MLPs run on a quarter of the batch, for which
+# cuBLAS picks other GEMM kernels than for the whole, so the table's
+# gradients differ in their last bits; Adam moves an entry whose gradient
+# is rounding noise by about lr times its sign (read on the card: losses
+# 6.3e-8, moments 1.5e-6; the table 2.4e-7 relative L2, 35-86 entries a
+# rank outside the reference's gate, the largest 9.7e-4 apart)
+DLRM_SHARDED_TOL = dict(rtol=2e-5, atol=2e-6, table_rel_l2=3e-6)
+# zero_offload_gpt3_train: zero_gpt3_train's step (GPT-3 1.3B, selective
+# recompute, O2, 2 micro-batches, ZeRO stage 2 at world 1 over NCCL) with
+# sharding_configs.offload: the AdamW moments in pinned host memory
+# amp_o1_gpt_train / fp16_gpt_train: bench.py's train GPT (SERVE_CFG) with
+# the per-layer trunk, whose linears and attention the AMP lists cast (the
+# stacked trunk is one unlisted op in the reference, so O1 would run its
+# attention in f32), ids [8, 1024], AdamW lr 1e-4
+AMP_GPT = dict(batch=8, seq=1024, lr=1e-4, o1_steps=3, fp16_steps=5)
+# fp16_gpt_train's GradScaler: a small initial scale (no overflow of its
+# own at this config), growth after 2 clean steps, a back-off at the first
+# overflow; the planted inf is in the gradients of step 1
+FP16_SCALER = dict(init_loss_scaling=4096.0, incr_every_n_steps=2, decr_every_n_nan_or_inf=1)
+FP16_PLANT_STEP = 1
+# the AMP steps' losses through K1/K2 against the same steps with the plain
+# attention (sdpa=xla) from the same weights: bf16 (O1) and float16 round
+# the attention's outputs and gradients at other places than the plain
+# version's f32 math (read on the card: 6.2e-6 in bf16, 2.7e-6 in float16)
+AMP_LOSS_RTOL = {"bfloat16": 6e-5, "float16": 3e-5}
+
+
+def _dlrm_sharded_rank(root):
+    """Rank body of ``dlrm_sharded_train`` at dp = the world: the lookup and
+    table gradient of batch 0 against one process's; the steps over this
+    rank's blocks (losses, s a step, staged and exchanged bytes); this
+    rank's table rows and moments against the one-process run's; then the
+    state published through the rotation (``root/ckpt_a``)."""
+    from pathlib import Path
+
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.embedding import (EmbeddingCheckpointRotation,
+                                                        ShardedEmbedding)
+    from paddle_tpu_torch.distributed.resilience import CheckpointManager
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.optimizer import RowSparseAdam
+    from paddle_tpu_torch.utils.convert import shard_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(root)
+    c = DLRM_SHARDED
+    cfg = dlrm_config()
+    full = torch.load(root / "weights.pt", mmap=True, weights_only=True)
+    batches = dlrm_batches(cfg, c["batch"], c["steps"], 1, seed=SEED + 1)[0]
+    offsets = np.cumsum((0,) + cfg.vocab_sizes[:-1])
+    fused = torch.from_numpy(batches[0][0][1] + offsets).to("cuda")
+    dy = torch.randn((*fused.shape, cfg.embedding_dim), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(SEED + 3))
+    # one process's lookup of the whole batch (no fleet yet: one shard)
+    one = ShardedEmbedding(cfg.total_vocab, cfg.embedding_dim, device="cuda")
+    with torch.no_grad():
+        one.weight.copy_(full["embedding.weight"])
+    e_one = one(fused)
+    e_one.backward(dy)
+    fleet.init(is_collective=True, strategy=_dp_strategy(c["shards"]))
+    hcg = fleet.get_hybrid_communicate_group()
+    r, n = hcg.get_data_parallel_rank(), c["shards"]
+    model = DLRM(cfg, seed=SEED)
+    model.load_state_dict(shard_state(full, ep_rank=r, ep_degree=n))
+    lo, hi = model.embedding.rows
+    blk = c["batch"] // n
+    e = model.embedding(fused[r * blk:(r + 1) * blk])
+    e.backward(dy[r * blk:(r + 1) * blk])
+    lookup_bitwise = bool(torch.equal(e, e_one[r * blk:(r + 1) * blk]))
+    grad_bitwise = bool(torch.equal(model.embedding.weight.grad, one.weight.grad[lo:hi]))
+    del one, e_one, e, dy
+    model.zero_grad(set_to_none=True)
+    opt = RowSparseAdam(learning_rate=c["lr"], parameters=model.parameters(),
+                        sparse_params=model.sparse_param_names())
+    step = fleet.distributed_step(model, opt, DLRMCriterion())
+    feeds = [(fleet.shard_batch(*x), (fleet.shard_batch(*y),)) for x, y in batches]
+    metrics.reset_counters("collective.")
+    metrics.reset_counters("embedding.")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step.run_steps(feeds)
+    losses = [float(v) for v in out["loss"]]
+    seconds = time.perf_counter() - t0
+    calls = metrics.counters("collective.")
+    emb = metrics.counters("embedding.")
+    ref = torch.load(root / "one.pt", weights_only=True)
+    table, m, v = (t.detach() for t in _table_state(model, opt))
+    tol = DLRM_SHARDED_TOL
+
+    def err(got, want):
+        d = (got.cpu() - want).abs()
+        return dict(max_abs=float(d.max()), ok=bool((d <= tol["atol"] + tol["rtol"] * want.abs()).all()),
+                    outside_ref_tol=int((d > tol["atol"] + tol["rtol"] * want.abs()).sum()),
+                    sq_err=float(d.double().square().sum()), sq_ref=float(want.double().square().sum()))
+
+    held = {"table": err(table, ref["table"][lo:hi]), "m": err(m, ref["m"][lo:hi]),
+            "v": err(v, ref["v"][lo:hi])}
+    reach = 2 * c["lr"] * c["steps"]
+    held["table"]["ok"] = held["table"]["max_abs"] <= reach
+    # the rotation's first save: the dp 4 state, written whole
+    rot = EmbeddingCheckpointRotation(CheckpointManager(str(root / "ckpt_a"), keep_last_k=1),
+                                      every=c["steps"], table_names=model.sparse_param_names())
+    t1 = time.perf_counter()
+    rot.maybe_save(step, c["steps"])
+    save_s = time.perf_counter() - t1
+    rows_checkpointed = metrics.counters("embedding.").get("embedding.rows_checkpointed", 0)
+    fleet._hcg = None
+    return dict(rank=r, rows=[lo, hi], lookup_bitwise=lookup_bitwise, grad_bitwise=grad_bitwise,
+                losses=losses, one_losses=ref["losses"], seconds_per_step=seconds / c["steps"],
+                host_staged_bytes_per_step=calls.get(collective.HOST_STAGED, 0) / c["steps"],
+                a2a_bytes_per_step=emb.get("embedding.a2a_bytes", 0) / c["steps"],
+                ids_exchanged_per_step=emb.get("embedding.ids_exchanged", 0) / c["steps"],
+                rows_checkpointed=rows_checkpointed, held=held,
+                save_seconds=save_s, launches=read_launches())
+
+
+def _dp_strategy(dp):
+    """A strategy of ``dp`` data-parallel ranks."""
+    from paddle_tpu_torch.distributed import DistributedStrategy
+
+    s = DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp}
+    return s
+
+
+def _dlrm_rotation_rank(root, source, target, compare_with):
+    """Rank body of the rotation at dp = the world: a fresh DLRM step
+    restored from the newest checkpoint under ``root/source``, published
+    again under ``root/target`` (when given); with ``compare_with``, the
+    whole restored state against that checkpoint's, bitwise."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.converter import gather_to_host
+    from paddle_tpu_torch.distributed.checkpoint import flatten
+    from paddle_tpu_torch.distributed.embedding import EmbeddingCheckpointRotation
+    from paddle_tpu_torch.distributed.resilience import CheckpointManager
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMCriterion
+    from paddle_tpu_torch.optimizer import RowSparseAdam
+
+    root = Path(root)
+    cfg = dlrm_config()
+    fleet.init(is_collective=True, strategy=_dp_strategy(dist.get_world_size()))
+    model = DLRM(cfg, seed=SEED + 7)  # other weights: the restore must overwrite them
+    opt = RowSparseAdam(learning_rate=DLRM_SHARDED["lr"], parameters=model.parameters(),
+                        sparse_params=model.sparse_param_names())
+    step = fleet.distributed_step(model, opt, DLRMCriterion())
+    rot = EmbeddingCheckpointRotation(CheckpointManager(str(root / source)), every=1,
+                                      table_names=model.sparse_param_names())
+    t0 = time.perf_counter()
+    _, at = rot.restore(target=step)
+    restore_s = time.perf_counter() - t0
+    out = dict(at=at, restore_seconds=restore_s, rows=list(model.embedding.rows))
+    if target is not None:
+        EmbeddingCheckpointRotation(CheckpointManager(str(root / target)), every=1,
+                                    table_names=model.sparse_param_names()).save(step, at)
+    if compare_with is not None:
+        whole = dict(flatten(gather_to_host(step)))
+        saved, _ = CheckpointManager(str(root / compare_with)).restore_latest()
+        saved = dict(flatten(saved))
+        same = whole.keys() == saved.keys() and all(
+            torch.equal(torch.as_tensor(whole[k]), torch.as_tensor(saved[k])) for k in saved)
+        out.update(bitwise=same, leaves=len(saved))
+    fleet._hcg = None
+    return out
+
+
+def phase_dlrm_sharded_train():
+    """``bench_recsys.py:49-54`` at 4 shards (:data:`DLRM_SHARDED`): one
+    process's 8 ``run_steps`` steps on the card from the weights it writes,
+    then 4 gloo processes on ``cuda:0``, each holding 200,000 table rows
+    and its block of each global batch. Gates: each rank's lookup and table
+    gradient of batch 0 bitwise equal to the one-process lookup's (a single
+    shard's ``F.embedding`` and its backward over the whole batch); the
+    losses, the rank's rows and moments within :data:`DLRM_SHARDED_TOL` of
+    the one-process run; then the rotation dp 4 -> dp 2 -> dp 4, the
+    restored state bitwise equal to the saved one. Prints s a step, the
+    bytes staged through the host a rank, ``exchange_stats``'s bytes
+    against the exchange counters, and the rows each rank owns of a
+    batch's unique ids. Returns the launches (none: the path runs no repo
+    kernel)."""
+    import gc
+    import shutil
+
+    from paddle_tpu_torch.distributed.embedding import exchange_stats
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMCriterion
+    from paddle_tpu_torch.optimizer import RowSparseAdam
+    from paddle_tpu_torch.testing.dist import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = DLRM_SHARDED
+    cfg = dlrm_config()
+    root = _ckpt_dir("dlrm_sharded")
+    t0 = time.perf_counter()
+    try:
+        model = DLRM(cfg, seed=SEED)
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                   root / "weights.pt")
+        opt = RowSparseAdam(learning_rate=c["lr"], parameters=model.parameters(),
+                            sparse_params=model.sparse_param_names())
+        step = TrainStep(model, opt, DLRMCriterion())
+        batches = dlrm_batches(cfg, c["batch"], c["steps"], 1, seed=SEED + 1)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one = step.run_steps(batches)
+        one_losses = [float(v) for v in one["loss"]]
+        one_s = (time.perf_counter() - t1) / c["steps"]
+        torch.save({"losses": one_losses, **{k: t.detach().cpu() for k, t in zip(
+            ("table", "m", "v"), _table_state(model, opt))}}, root / "one.pt")
+        del model, opt, step, one
+        gc.collect()
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        ranks = run_ranks(_dlrm_sharded_rank, c["shards"], str(root), device="cuda:0",
+                          backend="gloo", timeout=c["timeout"])
+        t3 = time.perf_counter()
+        down = run_ranks(_dlrm_rotation_rank, 2, str(root), "ckpt_a", "ckpt_b", None,
+                         device="cuda:0", backend="gloo", timeout=c["timeout"])
+        up = run_ranks(_dlrm_rotation_rank, c["shards"], str(root), "ckpt_b", None, "ckpt_a",
+                       device="cuda:0", backend="gloo", timeout=c["timeout"])
+        t4 = time.perf_counter()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tol = DLRM_SHARDED_TOL
+    loss_ok = all(abs(a - b) <= tol["atol"] + tol["rtol"] * abs(b)
+                  for r in ranks for a, b in zip(r["losses"], one_losses))
+    table_rel_l2 = math.sqrt(sum(r["held"]["table"]["sq_err"] for r in ranks)
+                             / sum(r["held"]["table"]["sq_ref"] for r in ranks))
+    stats = exchange_stats(c["batch"] * cfg.num_sparse, cfg.total_vocab, cfg.embedding_dim,
+                           c["shards"])
+    moved = sum(r["host_staged_bytes_per_step"] for r in ranks) / 2  # copied out and back in
+    counted = sum(r["a2a_bytes_per_step"] for r in ranks)
+    offsets = np.cumsum((0,) + cfg.vocab_sizes[:-1])
+    uniq = np.unique(batches[0][0][1] + offsets)
+    owner_rows = np.bincount(uniq // (cfg.total_vocab // c["shards"]),
+                             minlength=c["shards"]).tolist()
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in ranks[0]["launches"]}
+    ok = (all(r["lookup_bitwise"] and r["grad_bitwise"] for r in ranks) and loss_ok
+          and all(h["ok"] for r in ranks for h in r["held"].values())
+          and table_rel_l2 <= tol["table_rel_l2"]
+          and all(np.isfinite(r["losses"]).all() for r in ranks)
+          and counted == stats["bytes_total"] and moved == stats["bytes_total"]
+          and all(d["at"] == c["steps"] for d in down + up)
+          and all(u["bitwise"] for u in up)
+          and ranks[0]["rows_checkpointed"] == cfg.total_vocab
+          and all(v == 0 for v in launches.values()))
+    emit(phase="dlrm_sharded_train", ok=ok, backend="gloo", device="cuda:0", shards=c["shards"],
+         batch=c["batch"], total_vocab=cfg.total_vocab, embedding_dim=cfg.embedding_dim,
+         steps=c["steps"], one_process_losses=one_losses, one_process_seconds_per_step=one_s,
+         ranks=[{k: r[k] for k in ("rank", "rows", "lookup_bitwise", "grad_bitwise", "losses",
+                                   "seconds_per_step", "host_staged_bytes_per_step",
+                                   "a2a_bytes_per_step", "ids_exchanged_per_step", "held",
+                                   "save_seconds", "rows_checkpointed")} for r in ranks],
+         tol=tol, table_rel_l2=table_rel_l2, table_reach=2 * c["lr"] * c["steps"],
+         exchange_stats_bytes_per_step=stats["bytes_total"],
+         exchange_counter_bytes_per_step=counted, exchange_moved_bytes_per_step=moved,
+         owner_rows_of_batch0_unique_ids=owner_rows, unique_ids_batch0=int(uniq.size),
+         rotation=dict(down=down, up=up), launches=launches,
+         seconds=dict(one_process=t2 - t0, world4=t3 - t2, rotation=t4 - t3))
+    if not ok:
+        raise AssertionError("dlrm_sharded_train phase failed")
+    return launches
+
+
+def phase_zero_offload_gpt3_train(gpt3_losses, zero_peak, zero_ms):
+    """``zero_gpt3_train``'s step with ``sharding_configs.offload``: the same
+    model, batch and 8 steps from the same seed through
+    ``fleet.distributed_step`` at ZeRO stage 2 in a world of one over NCCL,
+    the AdamW moments in pinned host memory, streamed through the card
+    chunk by chunk for the update. Gates: the losses bitwise equal to
+    ``gpt3_1p3b_train``'s, 96 K1 and 48 K2 launches a step, the moments
+    pinned on the host, the peak device memory below ``zero_gpt3_train``'s.
+    Prints the peak against it, the pinned bytes, ms a step and the last
+    update's copy times. Returns the launches of the 8 counted steps."""
+    import gc
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet, init_parallel_env
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_parallel_env()
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "sharding_degree": 1}
+    strategy.sharding = True
+    strategy.sharding_configs = {"sharding_stage": 2, "offload": True}
+    strategy.amp = True
+    strategy.amp_configs = {"level": "O2", "dtype": "bfloat16"}
+    strategy.pipeline_configs = {"accumulate_steps": GPT3_TRAIN["accumulate"]}
+    fleet.init(is_collective=True, strategy=strategy)
+    backend, world = dist.get_backend(), dist.get_world_size()
+    cfg = GPTConfig.gpt3_1p3b(recompute=True, recompute_granularity="selective")
+    b, s = GPT3_TRAIN["batch"], GPT3_TRAIN["seq"]
+    n_steps = GPT3_TRAIN["warmup"] + GPT3_TRAIN["steps"]
+    try:
+        model = GPTForPretraining(cfg, seed=SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = AdamW(learning_rate=GPT3_TRAIN["lr"], parameters=model.parameters())
+        step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
+        ids = fleet.shard_batch(np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s))
+                                .astype(np.int32))
+        registry.clear_cache()
+        before = read_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(ids, ids)["loss"]) for _ in range(GPT3_TRAIN["warmup"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = [step(ids, ids)["loss"] for _ in range(GPT3_TRAIN["steps"])]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses += [float(x) for x in timed]
+        launches = {k: v - before[k] for k, v in read_launches().items()}
+        peak = torch.cuda.max_memory_allocated()
+        stats = opt.offload_stats()
+        on_host = all(t.device.type == "cpu" and t.is_pinned()
+                      for ts in opt._state.values() for t in ts)
+        offloaded = opt._offload
+    finally:
+        dist.destroy_process_group()
+        fleet._hcg = None
+    L, k = cfg.num_layers, GPT3_TRAIN["accumulate"]
+    want = {K1["name"]: 2 * L * k, K2["name"]: L * k, K3["name"]: 0, K3B["name"]: 0,
+            K4["name"]: 0, K4B["name"]: 0}
+    per_step = {n: v / n_steps for n, v in launches.items()}
+    bitwise = losses == gpt3_losses
+    moment_bytes = 2 * n_params * 4
+    ms_per_step = 1e3 * seconds / GPT3_TRAIN["steps"]
+    ok = (backend == "nccl" and world == 1 and offloaded and on_host and bitwise
+          and per_step == want and stats["pinned_bytes"] == moment_bytes and peak < zero_peak)
+    emit(phase="zero_offload_gpt3_train", ok=ok, backend=backend, world_size=world, stage=2,
+         offload=offloaded, ids=[b, s], params=n_params, losses=losses,
+         losses_bitwise_equal_gpt3_train=bitwise, launches=launches, launches_per_step=per_step,
+         max_memory_allocated=peak, zero_gpt3_train_max_memory_allocated=zero_peak,
+         device_bytes_saved=zero_peak - peak, moment_bytes=moment_bytes,
+         pinned_host_bytes=stats["pinned_bytes"], chunks_per_update=stats["chunks"],
+         copy_in_ms_last_update=stats["copy_in_ms"], copy_out_ms_last_update=stats["copy_out_ms"],
+         copy_bytes_each_way=moment_bytes, ms_per_step=ms_per_step,
+         zero_gpt3_train_ms_per_step=zero_ms)
+    if not ok:
+        raise AssertionError("zero_offload_gpt3_train phase failed")
+    return launches
+
+
+def _amp_gpt_model():
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+
+    return GPTForPretraining(GPTConfig(**SERVE_CFG, stacked=False), seed=SEED)
+
+
+def _amp_ids(vocab):
+    c = AMP_GPT
+    return torch.randint(0, vocab, (c["batch"], c["seq"]), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+
+
+def _dtype_launches():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {w.__name__: dict(w.launches_by_dtype)
+            for w in (fa.flash_attention_fwd, fa.flash_attention_bwd)}
+
+
+def _dtype_delta(after, before, dtype):
+    return {n: after[n].get(dtype, 0) - before[n].get(dtype, 0) for n in after}
+
+
+def _with_overrides(overrides, fn):
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import registry
+
+    registry.clear_cache()
+    set_flags({"FLAGS_kernel_overrides": overrides})
+    try:
+        return fn()
+    finally:
+        set_flags({"FLAGS_kernel_overrides": ""})
+        registry.clear_cache()
+
+
+def phase_amp_o1_gpt_train():
+    """bench.py's train GPT (per-layer trunk) under ``TrainStep(amp_level=
+    "O1", amp_dtype="bfloat16")``: its linears and attention in bf16 by the
+    AMP lists, LayerNorms and the loss in f32, f32 weights; 3 AdamW steps at
+    [8, 1024], through K1/K2 and again with the plain attention (sdpa=xla)
+    from the same weights. Gates: the bf16 instances of K1 and K2 launched
+    exactly 16 times a step each (and no other instance); the plain run
+    none; the losses within ``AMP_LOSS_RTOL`` of the plain run's. Returns
+    the launches of the kernel run."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = AMP_GPT
+    model = _amp_gpt_model()
+    start = {n: t.clone() for n, t in model.state_dict().items()}
+    ids = _amp_ids(model.gpt.cfg.vocab_size)
+
+    def run():
+        model.load_state_dict(start)
+        step = TrainStep(model, AdamW(learning_rate=c["lr"], parameters=model.parameters()),
+                         GPTPretrainingCriterion(), amp_level="O1", amp_dtype="bfloat16")
+        before, before_dt = read_launches(), _dtype_launches()
+        losses = [float(step(ids, ids)["loss"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [float(step(ids, ids)["loss"]) for _ in range(c["o1_steps"] - 1)]
+        ms = 1e3 * (time.perf_counter() - t0) / (c["o1_steps"] - 1)
+        after, after_dt = read_launches(), _dtype_launches()
+        return (losses, {n: after[n] - before[n] for n in after},
+                _dtype_delta(after_dt, before_dt, "bfloat16"), ms,
+                all(p.dtype == torch.float32 for p in model.parameters()))
+
+    losses, launches, bf16, ms, f32_weights = _with_overrides("", run)
+    plain, plain_launches, _, plain_ms, _ = _with_overrides("sdpa=xla", run)
+    L = model.gpt.cfg.num_layers
+    want = L * c["o1_steps"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    ok = (bf16 == {K1["name"]: want, K2["name"]: want}
+          and launches == {**{K["name"]: 0 for K in KERNELS}, K1["name"]: want, K2["name"]: want}
+          and all(v == 0 for v in plain_launches.values()) and f32_weights
+          and all(np.isfinite(losses)) and max(rel) <= AMP_LOSS_RTOL["bfloat16"])
+    emit(phase="amp_o1_gpt_train", ok=ok, amp_level="O1", amp_dtype="bfloat16", trunk="per-layer",
+         ids=[c["batch"], c["seq"]], losses=losses, plain_losses=plain, loss_rel_err=rel,
+         loss_rtol=AMP_LOSS_RTOL["bfloat16"], bf16_launches=bf16, launches=launches,
+         expected_bf16_launches_each=want, ms_per_step=ms, plain_ms_per_step=plain_ms)
+    if not ok:
+        raise AssertionError("amp_o1_gpt_train phase failed")
+    del model, start
+    return launches
+
+
+def phase_fp16_gpt_train():
+    """The same GPT trained eagerly in float16: the forward under
+    ``auto_cast(dtype="float16")``, the loss outside it, ``loss.backward()``
+    through ``GradScaler.scale``, ``GradScaler.step`` over the eager AdamW;
+    5 steps, an inf planted in one gradient of step 1. Then the same with
+    the plain attention. Gates: the float16 instances of K1 and K2 launched
+    exactly 16 times a step each; step 1 skipped, the parameters bitwise
+    as before it and the scale halved; the scale doubled after
+    ``incr_every_n_steps`` clean steps; the losses finite and within
+    ``AMP_LOSS_RTOL`` of the plain run's. Returns the launches of the
+    kernel run."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = AMP_GPT
+    model = _amp_gpt_model()
+    start = {n: t.clone() for n, t in model.state_dict().items()}
+    ids = _amp_ids(model.gpt.cfg.vocab_size)
+    crit = GPTPretrainingCriterion()
+
+    def run():
+        model.load_state_dict(start)
+        opt = AdamW(learning_rate=c["lr"], parameters=model.parameters())
+        scaler = amp.GradScaler(**FP16_SCALER)
+        before, before_dt = read_launches(), _dtype_launches()
+        losses, scales, skipped_unchanged, dtypes = [], [], None, set()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(c["fp16_steps"]):
+            with amp.auto_cast(dtype="float16"):
+                logits = model(ids)
+            dtypes.add(str(logits.dtype))
+            loss = crit(logits, ids)
+            scaler.scale(loss).backward()
+            if i == FP16_PLANT_STEP:
+                params = [p.detach().clone() for p in model.parameters()]
+                next(model.parameters()).grad.view(-1)[0] = float("inf")
+            scaler.step(opt)
+            opt.clear_grad()
+            if i == FP16_PLANT_STEP:
+                skipped_unchanged = all(torch.equal(a, p) for a, p in zip(params, model.parameters()))
+                del params
+            losses.append(float(loss))
+            scales.append(scaler.get_loss_scaling())
+        ms = 1e3 * (time.perf_counter() - t0) / c["fp16_steps"]
+        after, after_dt = read_launches(), _dtype_launches()
+        return (losses, scales, skipped_unchanged, {n: after[n] - before[n] for n in after},
+                _dtype_delta(after_dt, before_dt, "float16"), ms, sorted(dtypes))
+
+    losses, scales, unchanged, launches, f16, ms, dtypes = _with_overrides("", run)
+    plain, plain_scales, _, plain_launches, _, plain_ms, _ = _with_overrides("sdpa=xla", run)
+    L = model.gpt.cfg.num_layers
+    want = L * c["fp16_steps"]
+    init = FP16_SCALER["init_loss_scaling"]
+    p, n = FP16_PLANT_STEP, FP16_SCALER["incr_every_n_steps"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    ok = (f16 == {K1["name"]: want, K2["name"]: want}
+          and launches == {**{K["name"]: 0 for K in KERNELS}, K1["name"]: want, K2["name"]: want}
+          and all(v == 0 for v in plain_launches.values()) and dtypes == ["torch.float16"]
+          and unchanged and scales[p] == init / 2 and scales[p + n] == init
+          and scales == plain_scales and all(np.isfinite(losses))
+          and max(rel) <= AMP_LOSS_RTOL["float16"])
+    emit(phase="fp16_gpt_train", ok=ok, amp_dtype="float16", trunk="per-layer", eager=True,
+         ids=[c["batch"], c["seq"]], losses=losses, plain_losses=plain, loss_rel_err=rel,
+         loss_rtol=AMP_LOSS_RTOL["float16"], scales=scales, planted_inf_step=p,
+         skipped_step_params_bitwise=unchanged, scaler=FP16_SCALER, f16_launches=f16,
+         launches=launches, expected_f16_launches_each=want, ms_per_step=ms,
+         plain_ms_per_step=plain_ms, logits_dtypes=dtypes)
+    if not ok:
+        raise AssertionError("fp16_gpt_train phase failed")
+    del model, start
+    return launches
+
+
 def _mp_decode_rank(ids, new_tokens):
     """Rank body of ``mp_decode``: the serving GPT from the same seed under
     ``fleet.init(mp_degree=2)`` (each rank drawing every weight and keeping
@@ -5156,8 +5734,8 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
-    k1_row, k1_bf16_row, k1_d128 = phase_k1()
-    k2_row, k2_f32_row, k2_d128 = phase_k2()
+    k1_row, k1_bf16_row, k1_d128, k1_f16 = phase_k1()
+    k2_row, k2_f32_row, k2_d128, k2_f16 = phase_k2()
     rows = {K1["name"]: k1_row, K2["name"]: k2_row, **phase_flat_kernels()}
     # the bf16 calls of the O2 steps, beside K1's f32 main row (the forward's
     # call); K3's main row is already BERT's O2 call
@@ -5166,6 +5744,8 @@ def main() -> int:
     f32_rows = {K2["name"]: k2_f32_row}
     # K1's and K2's d = 128 calls of the 1.3B and ERNIE steps
     d128_rows = {K1["name"]: k1_d128, K2["name"]: k2_d128}
+    # K1's and K2's float16 instances at the O2 and 1.3B calls
+    f16_rows = {K1["name"]: k1_f16, K2["name"]: k2_f16}
 
     model = GPTForPretraining(GPTConfig(**SERVE_CFG), seed=SEED).eval()
     ids = torch.randint(0, SERVE_CFG["vocab_size"], (8, 1024), device="cuda",
@@ -5191,6 +5771,10 @@ def main() -> int:
     by_path["train"], train_losses, train_grad1 = phase_train()
     torch.cuda.empty_cache()
     phase_train_check()
+    torch.cuda.empty_cache()
+    by_path["amp_o1_gpt_train"] = phase_amp_o1_gpt_train()
+    torch.cuda.empty_cache()
+    by_path["fp16_gpt_train"] = phase_fp16_gpt_train()
     torch.cuda.empty_cache()
     by_path["moe_train"], step_rows, moe_losses, moe_grad1 = phase_moe_train()
     torch.cuda.empty_cache()
@@ -5238,7 +5822,11 @@ def main() -> int:
     by_path["gpt3_1p3b_train"], gpt3_losses, gpt3_ms = phase_gpt3_train()
     torch.cuda.empty_cache()
     reset_launches()
-    by_path["zero_gpt3_train"] = phase_zero_gpt3_train(gpt3_losses, gpt3_ms)
+    by_path["zero_gpt3_train"], zero_peak, zero_ms = phase_zero_gpt3_train(gpt3_losses, gpt3_ms)
+    torch.cuda.empty_cache()
+    reset_launches()
+    by_path["zero_offload_gpt3_train"] = phase_zero_offload_gpt3_train(gpt3_losses, zero_peak,
+                                                                       zero_ms)
     torch.cuda.empty_cache()
     by_path["hybrid_gpt3"] = phase_hybrid_gpt3()
     torch.cuda.empty_cache()
@@ -5261,6 +5849,8 @@ def main() -> int:
     phase_dlrm_check()
     torch.cuda.empty_cache()
     phase_optim_check()
+    torch.cuda.empty_cache()
+    by_path["dlrm_sharded_train"] = phase_dlrm_sharded_train()
 
     keys = ("shape", "causal", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -5286,6 +5876,9 @@ def main() -> int:
                     **({"d128_rows": {path: {k: row[k] for k in keys + ("packed_qkv",) if k in row}
                                       for path, row in d128_rows[K["name"]].items()}}
                        if K["name"] in d128_rows else {}),
+                    **({"f16_rows": {call: {k: row[k] for k in keys + ("packed_qkv",) if k in row}
+                                     for call, row in f16_rows[K["name"]].items()}}
+                       if K["name"] in f16_rows else {}),
                     **({"ep_row": {k: ep_moe_rows[K["name"]][k]
                                    for k in keys + ("experts", "rows", "fill", "bound_padded_ms")
                                    if k in ep_moe_rows[K["name"]]}}
@@ -5301,6 +5894,8 @@ def main() -> int:
     expected = {"forward": [K1["name"]], "serve": [], "serve_round2": [], "serve_spec": [],
                 "fleet": [], "procfleet": [], "ingress": [], "alerts": [], "mp_decode": [],
                 "train": [K1["name"], K2["name"]],
+                "amp_o1_gpt_train": [K1["name"], K2["name"]],
+                "fp16_gpt_train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "ep_moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
                 "sep_gpt_train": [K1["name"], K2["name"]],
@@ -5311,9 +5906,11 @@ def main() -> int:
                 "flat_check": [K3["name"], K3B["name"]],
                 "gpt3_1p3b_train": [K1["name"], K2["name"]],
                 "zero_gpt3_train": [K1["name"], K2["name"]],
+                "zero_offload_gpt3_train": [K1["name"], K2["name"]],
                 "hybrid_gpt3": [K1["name"], K2["name"]],
                 "ernie_train": [K1["name"], K2["name"]],
-                "resnet50_train": [], "lenet_train": [], "dlrm_train": []}
+                "resnet50_train": [], "lenet_train": [], "dlrm_train": [],
+                "dlrm_sharded_train": []}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]
     if missing:
         raise AssertionError(f"the main path launched these kernels no time: {missing}")

@@ -5,8 +5,8 @@
 // function, FlashAttention-2 style from the forward's lse: with
 // S = Q K^T * scale, P = exp(S - lse) (causal-masked to 0), di = rowsum(dO o O),
 //   dV = P^T dO,   dS = P o (dO V^T - di),   dQ = dS K * scale,   dK = dS^T Q * scale.
-// q, k, v, out, dout [b, s, h, d] (any strides, unit stride on d) in f32 or
-// bf16, lse [b, h, s] f32 as K1 writes it; dq, dk, dv [b, s, h, d] in the
+// q, k, v, out, dout [b, s, h, d] (any strides, unit stride on d) in f32,
+// bf16 or float16, lse [b, h, s] f32 as K1 writes it; dq, dk, dv [b, s, h, d] in the
 // input dtype through the caller's strides (so the three can be slices of
 // one packed [b, s, 3, h, d] gradient).
 //
@@ -14,10 +14,11 @@
 // di pre-kernel, a dk/dv kernel per k tile and a dq kernel per q tile.
 // Their bodies, shared with K3b (flash_flat_bwd.cu), are in flash_bwd.cuh;
 // K2 is their no-bias instance, with lse as the row max and log l = 0.
-// f32 inputs take the SIMT bodies (64-row tiles, f32 FMA); bf16 inputs the
-// Hopper bodies: three warpgroups per block, 128 resident rows, 64-row
-// tiles streamed by TMA, every product on wgmma, P^T / dS^T (dk/dv) and dS
-// (dq) in bf16 registers as the A operand of the product that follows.
+// f32 inputs take the SIMT bodies (64-row tiles, f32 FMA); bf16 and float16
+// inputs the Hopper bodies, one instance each: three warpgroups per block,
+// 128 resident rows, 64-row tiles streamed by TMA, every product on wgmma
+// (f32 accumulation), P^T / dS^T (dk/dv) and dS (dq) in 16-bit registers as
+// the A operand of the product that follows.
 //
 // Bound. Five matmuls of 2 d flops per visible pair against q, k, v, out,
 // dout and lse read once and dq, dk, dv written once; at the O2 step's call
@@ -64,48 +65,49 @@ __global__ void __launch_bounds__(kThreads)
                                      vs, gs, BiasStrides{0, 0}, dqs, causal, scale);
 }
 
-// The bf16 instances: the tensor-core bodies (flash_bwd.cuh, flash::sm90).
-template <int D>
+// The 16-bit instances (E: bf16 or f16): the tensor-core bodies
+// (flash_bwd.cuh, flash::sm90).
+template <typename E, int D>
 __global__ void __launch_bounds__(flash::sm90::kThreads, 1)
     bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
-                      const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int s, int h, Strides dks, Strides dvs,
-                      int causal, float scale) {
-  flash::sm90::dkv_body_tc<float, D, false>(&tq, &tk, &tv, &tdo, nullptr, BiasStrides{0, 0}, lse,
-                                            nullptr, di, dk, dv, dks, dvs, s, h, causal, scale);
+                      const float* __restrict__ di, E* __restrict__ dk, E* __restrict__ dv, int s,
+                      int h, Strides dks, Strides dvs, int causal, float scale) {
+  flash::sm90::dkv_body_tc<float, D, false, E>(&tq, &tk, &tv, &tdo, nullptr, BiasStrides{0, 0},
+                                               lse, nullptr, di, dk, dv, dks, dvs, s, h, causal,
+                                               scale);
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(flash::sm90::kThreads, 1)
     bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
-                     const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int s, int h,
-                     Strides dqs, int causal, float scale) {
-  flash::sm90::dq_body_tc<float, D, false>(&tq, &tk, &tv, &tdo, nullptr, BiasStrides{0, 0}, lse,
-                                           nullptr, di, dq, dqs, s, h, causal, scale);
+                     const float* __restrict__ di, E* __restrict__ dq, int s, int h, Strides dqs,
+                     int causal, float scale) {
+  flash::sm90::dq_body_tc<float, D, false, E>(&tq, &tk, &tv, &tdo, nullptr, BiasStrides{0, 0}, lse,
+                                              nullptr, di, dq, dqs, s, h, causal, scale);
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, const float* lse, float* di, void* dq, void* dk, void* dv,
                       int b, int s, int h, const long long* st, int causal, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
   constexpr int dkv_bytes = flash::sm90::dkv_smem_bytes<D, false>();
   constexpr int dq_bytes = flash::sm90::dq_smem_bytes<D, false>();
-  cudaError_t err = cudaFuncSetAttribute(bwd_dkv_kernel_tc<D>,
+  constexpr CUtensorMapDataType ty = flash::sm90::map_dtype<E>();
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkv_kernel_tc<E, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(bwd_dq_kernel_tc<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_bytes);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv, tdo;
-  if ((err = flash::sm90::make_map(&tq, q, b, s, h, D, Strides{st[0], st[1], st[2]})) != cudaSuccess ||
-      (err = flash::sm90::make_map(&tk, k, b, s, h, D, Strides{st[3], st[4], st[5]})) != cudaSuccess ||
-      (err = flash::sm90::make_map(&tv, v, b, s, h, D, Strides{st[6], st[7], st[8]})) != cudaSuccess ||
-      (err = flash::sm90::make_map(&tdo, dout, b, s, h, D, Strides{st[12], st[13], st[14]})) !=
+  if ((err = flash::sm90::make_map(&tq, q, b, s, h, D, Strides{st[0], st[1], st[2]}, ty)) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tk, k, b, s, h, D, Strides{st[3], st[4], st[5]}, ty)) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tv, v, b, s, h, D, Strides{st[6], st[7], st[8]}, ty)) != cudaSuccess ||
+      (err = flash::sm90::make_map(&tdo, dout, b, s, h, D, Strides{st[12], st[13], st[14]}, ty)) !=
           cudaSuccess)
     return err;
   const Strides os{st[9], st[10], st[11]}, gs{st[12], st[13], st[14]};
@@ -115,20 +117,20 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* o
 
   const long long rows = (long long)b * s * h;
   const int rows_per_block = kThreads / 32;
-  bwd_di_kernel<bf16, D><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), kThreads, 0,
-                           stream>>>(static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+  bwd_di_kernel<E, D><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block), kThreads, 0,
+                           stream>>>(static_cast<const E*>(out), static_cast<const E*>(dout),
                                      di, b, s, h, os, gs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const dim3 grid((s + 127) / 128, h, b);
-  bwd_dkv_kernel_tc<D><<<grid, flash::sm90::kThreads, dkv_bytes, stream>>>(
-      tq, tk, tv, tdo, lse, di, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, h, dks, dvs,
+  bwd_dkv_kernel_tc<E, D><<<grid, flash::sm90::kThreads, dkv_bytes, stream>>>(
+      tq, tk, tv, tdo, lse, di, static_cast<E*>(dk), static_cast<E*>(dv), s, h, dks, dvs,
       causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel_tc<D><<<grid, flash::sm90::kThreads, dq_bytes, stream>>>(
-      tq, tk, tv, tdo, lse, di, static_cast<bf16*>(dq), s, h, dqs, causal, scale);
+  bwd_dq_kernel_tc<E, D><<<grid, flash::sm90::kThreads, dq_bytes, stream>>>(
+      tq, tk, tv, tdo, lse, di, static_cast<E*>(dq), s, h, dqs, causal, scale);
   return cudaGetLastError();
 }
 
@@ -173,13 +175,14 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, const void*
 }
 
 
-// f32 takes the SIMT bodies, bf16 the tensor-core bodies (di is SIMT for both).
+// f32 takes the SIMT bodies, bf16 and f16 the tensor-core bodies (di is SIMT
+// for all).
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* di, void* dq, void* dk, void* dv,
                    int b, int s, int h, const long long* st, int causal, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return launch_tc<D>(q, k, v, out, dout, lse, di, dq, dk, dv, b, s, h, st, causal, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, __half>) {
+    return launch_tc<T, D>(q, k, v, out, dout, lse, di, dq, dk, dv, b, s, h, st, causal, stream);
   } else {
     return launch_simt<T, D>(q, k, v, out, dout, lse, di, dq, dk, dv, b, s, h, st, causal, stream);
   }
@@ -190,7 +193,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 // Plain C entry point, loaded with ctypes. `strides` holds the element
 // strides of dims b, s, h for q, k, v, out, dout, dq, dk and dv (24 values);
 // d has unit stride. `di` is caller-allocated f32 scratch of b*h*s elements.
-// dtype: 0 = float32, 1 = bfloat16. Returns the first failing launch's
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns the first failing launch's
 // cudaError_t, else that of the last launch.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* di, void* dq,
@@ -210,5 +213,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (dtype == 1 && d == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, h, strides,
                                       causal, st);
+  if (dtype == 2 && d == 64)
+    return launch<__half, 64>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, h, strides, causal, st);
+  if (dtype == 2 && d == 128)
+    return launch<__half, 128>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, h, strides, causal, st);
   return cudaErrorInvalidValue;
 }

@@ -398,15 +398,15 @@ constexpr int dq_smem_bytes() {
 //   S^T = K Q^T, P^T = exp(S^T scale (+ bias^T) - m - log l),
 //   dV += P^T dO,  dP^T = V dO^T,  dS^T = P^T o (dP^T - di),  dK += dS^T Q.
 // Q and dO are read K-major for S^T and dP^T and MN-major for dK and dV.
-template <typename BT, int D, bool kBias>
+template <typename BT, int D, bool kBias, typename E = __nv_bfloat16>
 __device__ __forceinline__ void dkv_body_tc(const CUtensorMap* tq, const CUtensorMap* tk,
                                             const CUtensorMap* tv, const CUtensorMap* tdo,
                                             const BT* __restrict__ bias, BiasStrides bst,
                                             const float* __restrict__ m,
                                             const float* __restrict__ logl,
                                             const float* __restrict__ di,
-                                            __nv_bfloat16* __restrict__ dk,
-                                            __nv_bfloat16* __restrict__ dv, Strides dks,
+                                            E* __restrict__ dk,
+                                            E* __restrict__ dv, Strides dks,
                                             Strides dvs, int s, int h, int causal, float scale) {
   constexpr int kTile = tile_bytes<D>();
   uint8_t* base = smem_base();
@@ -509,9 +509,9 @@ __device__ __forceinline__ void dkv_body_tc(const CUtensorMap* tq, const CUtenso
         for (int i = 0; i < 32; ++i) sT[i] = dpT[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sT, desc_k(k_tile, kk), desc_k(q_tile, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64<E>(sT, desc_k(k_tile, kk), desc_k(q_tile, kk), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dpT, desc_k(v_tile, kk), desc_k(do_tile, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64<E>(dpT, desc_k(v_tile, kk), desc_k(do_tile, kk), kk > 0);
         wgmma_commit();
         if constexpr (kBias) {
           if (qt_first + t + 1 < n_q) bias_load(bv, bias, bst, bi, q0 + 64, kw0, s, vec);
@@ -540,14 +540,14 @@ __device__ __forceinline__ void dkv_body_tc(const CUtensorMap* tq, const CUtenso
         uint32_t pa[4][4], da[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          a_frag<32>(pa[kk], sT, kk);
-          a_frag<32>(da[kk], dpT, kk);
+          a_frag<E, 32>(pa[kk], sT, kk);
+          a_frag<E, 32>(da[kk], dpT, kk);
         }
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(dv_acc, pa[kk], desc_mn(do_tile, kk));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<E, D>(dv_acc, pa[kk], desc_mn(do_tile, kk));
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(dk_acc, da[kk], desc_mn(q_tile, kk));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<E, D>(dk_acc, da[kk], desc_mn(q_tile, kk));
         wgmma_commit();
         wgmma_wait();
         fence_regs(dv_acc);
@@ -560,8 +560,8 @@ __device__ __forceinline__ void dkv_body_tc(const CUtensorMap* tq, const CUtenso
     for (int hh = 0; hh < 2; ++hh) {
       const int key = key_lo + 8 * hh;
       if (key >= s) continue;
-      __nv_bfloat16* gk = dk + bi * dks.b + key * dks.s + hi * dks.h + c_off;
-      __nv_bfloat16* gv = dv + bi * dvs.b + key * dvs.s + hi * dvs.h + c_off;
+      E* gk = dk + bi * dks.b + key * dks.s + hi * dks.h + c_off;
+      E* gv = dv + bi * dvs.b + key * dvs.s + hi * dvs.h + c_off;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         store_pair(gk + 8 * j, dk_acc[4 * j + 2 * hh] * scale, dk_acc[4 * j + 2 * hh + 1] * scale);
@@ -577,14 +577,14 @@ __device__ __forceinline__ void dkv_body_tc(const CUtensorMap* tq, const CUtenso
 // Warp 0 streams 64-key K and V tiles by TMA up to the diagonal:
 //   S = Q K^T, P = exp(S scale (+ bias) - m - log l), dP = dO V^T,
 //   dS = P o (dP - di), dQ += dS K  (K read MN-major, dS as the A operand).
-template <typename BT, int D, bool kBias>
+template <typename BT, int D, bool kBias, typename E = __nv_bfloat16>
 __device__ __forceinline__ void dq_body_tc(const CUtensorMap* tq, const CUtensorMap* tk,
                                            const CUtensorMap* tv, const CUtensorMap* tdo,
                                            const BT* __restrict__ bias, BiasStrides bst,
                                            const float* __restrict__ m,
                                            const float* __restrict__ logl,
                                            const float* __restrict__ di,
-                                           __nv_bfloat16* __restrict__ dq, Strides dqs, int s,
+                                           E* __restrict__ dq, Strides dqs, int s,
                                            int h, int causal, float scale) {
   constexpr int kTile = tile_bytes<D>();
   uint8_t* base = smem_base();
@@ -676,9 +676,9 @@ __device__ __forceinline__ void dq_body_tc(const CUtensorMap* tq, const CUtensor
         for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sc, desc_k(q_tile, kk), desc_k(k_tile, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64<E>(sc, desc_k(q_tile, kk), desc_k(k_tile, kk), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dp, desc_k(do_tile, kk), desc_k(v_tile, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64<E>(dp, desc_k(do_tile, kk), desc_k(v_tile, kk), kk > 0);
         wgmma_commit();
         if constexpr (kBias) {
           if (t < w_last) bias_load(bv, bias, bst, bi, q0 + 64 * w, k0 + 64, s, vec);
@@ -702,10 +702,10 @@ __device__ __forceinline__ void dq_body_tc(const CUtensorMap* tq, const CUtensor
         }
         uint32_t da[4][4];  // dS rounded to bf16, as the reference rounds it before dQ
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) a_frag<32>(da[kk], sc, kk);
+        for (int kk = 0; kk < 4; ++kk) a_frag<E, 32>(da[kk], sc, kk);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(acc, da[kk], desc_mn(k_tile, kk));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<E, D>(acc, da[kk], desc_mn(k_tile, kk));
         wgmma_commit();
         wgmma_wait();
         fence_regs(acc);
@@ -717,7 +717,7 @@ __device__ __forceinline__ void dq_body_tc(const CUtensorMap* tq, const CUtensor
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r_lo + 8 * hh;
       if (row >= s) continue;
-      __nv_bfloat16* g = dq + bi * dqs.b + row * dqs.s + hi * dqs.h + c_off;
+      E* g = dq + bi * dqs.b + row * dqs.s + hi * dqs.h + c_off;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         store_pair(g + 8 * j, acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);

@@ -5,6 +5,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -26,6 +27,7 @@ struct BiasStrides {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -34,6 +36,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
 }
 
 // Rows row0 .. row0+63 of head (bi, hi) into dst[64][D + 4] as f32; rows at

@@ -243,10 +243,10 @@ constexpr int fwd_smem_bytes() {
 // the accumulator fragment, P rounded to bf16 in registers as the A operand
 // of O += P V (V read MN-major from the same panels). A consumer skips a K/V
 // tile that lies wholly above its rows' diagonal, but still frees it.
-template <typename BT, int D, bool kBias>
+template <typename BT, int D, bool kBias, typename E = __nv_bfloat16>
 __device__ __forceinline__ void fwd_body_tc(const CUtensorMap* tq, const CUtensorMap* tk,
                                             const CUtensorMap* tv, const BT* __restrict__ bias,
-                                            BiasStrides bst, __nv_bfloat16* __restrict__ out,
+                                            BiasStrides bst, E* __restrict__ out,
                                             Strides os, float* __restrict__ m_out,
                                             float* __restrict__ logl_out, int s, int h,
                                             int causal, float scale) {
@@ -326,7 +326,7 @@ __device__ __forceinline__ void fwd_body_tc(const CUtensorMap* tq, const CUtenso
         const uint32_t k_tile = Ks + st * kTile;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sc, desc_k(q_tile, kk), desc_k(k_tile, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64<E>(sc, desc_k(q_tile, kk), desc_k(k_tile, kk), kk > 0);
         wgmma_commit();
         if constexpr (kBias) {
           if (t < w_last) bias_load(bv, bias, bst, bi, q0 + 64 * w, k0 + 64, s, vec);
@@ -370,10 +370,10 @@ __device__ __forceinline__ void fwd_body_tc(const CUtensorMap* tq, const CUtenso
         const uint32_t v_tile = Vs + st * kTile;
         uint32_t pa[4][4];  // P rounded to bf16, as the reference rounds it before P V
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) a_frag<32>(pa[kk], sc, kk);
+        for (int kk = 0; kk < 4; ++kk) a_frag<E, 32>(pa[kk], sc, kk);
         wgmma_fence();  // after the writes of o and pa that the products read
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<D>(o, pa[kk], desc_mn(v_tile, kk));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb<E, D>(o, pa[kk], desc_mn(v_tile, kk));
         wgmma_commit();
         wgmma_wait();
         fence_regs(o);
@@ -387,7 +387,7 @@ __device__ __forceinline__ void fwd_body_tc(const CUtensorMap* tq, const CUtenso
       const float lsum = quad_sum(l[hh]);
       if (row >= s) continue;
       const float inv = 1.f / lsum;
-      __nv_bfloat16* dst = out + bi * os.b + row * os.s + hi * os.h + c_off;
+      E* dst = out + bi * os.b + row * os.s + hi * os.h + c_off;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         store_pair(dst + 8 * j, o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);

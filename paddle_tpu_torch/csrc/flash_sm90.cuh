@@ -1,5 +1,6 @@
-// Hopper building blocks of the bf16 flash-attention bodies (flash_fwd.cuh,
-// flash_bwd.cuh): the 4-D TMA tile loads of a [b, s, h, d] operand, the
+// Hopper building blocks of the 16-bit flash-attention bodies (flash_fwd.cuh,
+// flash_bwd.cuh), each an instance per element type E (__nv_bfloat16 or
+// __half; both two bytes, f32 accumulation): the 4-D TMA tile loads of a [b, s, h, d] operand, the
 // wgmma instructions the bodies issue, the accumulator-to-operand fragment,
 // the additive bias's staging, and the tensor map of a [b, s, h, d]
 // operand. The generic pieces (mbarriers, descriptors, fences, setmaxnreg,
@@ -13,6 +14,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,7 +54,11 @@ constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-__host__ __device__ constexpr int tile_bytes() { return 64 * D * 2; }  // one 64-row bf16 tile: D / 64 panels
+__host__ __device__ constexpr int tile_bytes() { return 64 * D * 2; }  // one 64-row 16-bit tile: D / 64 panels
+
+// The PTX type of an element type in a wgmma instruction.
+template <typename E>
+__host__ __device__ constexpr bool is_half() { return std::is_same_v<E, __half>; }
 
 // ---- TMA --------------------------------------------------------------------
 
@@ -78,59 +84,89 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
 
 // ---- wgmma --------------------------------------------------------------------
 
-// wgmma instruction wrappers: m64nNk16, bf16 in, f32 accumulate.
+// wgmma instruction wrappers: m64nNk16, E in (bf16 or f16), f32 accumulate. Each
+// asm body is a macro of the PTX type, instanced per E.
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define FLASH_WGMMA_SS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
       : "l"(da), "l"(db), "r"(accumulate));
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers (E pairs), B in
+// shared memory MN-major (transposed: N contiguous).
+#define FLASH_WGMMA_RS_N64_TB(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers (E pairs), B in
+// shared memory MN-major (transposed: N contiguous).
+#define FLASH_WGMMA_RS_N128_TB(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+
+template <typename E>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (is_half<E>()) {
+    FLASH_WGMMA_SS_N64("f16");
+  } else {
+    FLASH_WGMMA_SS_N64("bf16");
+  }
 }
 
-// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers (bf16 pairs), B in
-// shared memory MN-major (transposed: N contiguous).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (is_half<E>()) {
+    FLASH_WGMMA_RS_N64_TB("f16");
+  } else {
+    FLASH_WGMMA_RS_N64_TB("bf16");
+  }
 }
 
-// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers (bf16 pairs), B in
-// shared memory MN-major (transposed: N contiguous).
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (is_half<E>()) {
+    FLASH_WGMMA_RS_N128_TB("f16");
+  } else {
+    FLASH_WGMMA_RS_N128_TB("bf16");
+  }
 }
 
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 64) {
-    wgmma_rs_n64_tb(d, a, db);
+    wgmma_rs_n64_tb<E>(d, a, db);
   } else {
-    wgmma_rs_n128_tb(d, a, db);
+    wgmma_rs_n128_tb<E>(d, a, db);
   }
 }
 
 // Accumulator fragment of a 64 x N f32 wgmma result, thread t of the
 // warpgroup: element 4j + 2hh + e is row 16 (t / 32) + (t % 32) / 4 + 8 hh,
 // column 8j + 2 (t % 4) + e. Its columns 16 kk .. 16 kk + 15, rounded to
-// bf16, are exactly the register A operand of k-step kk.
-template <int N>
+// E, are exactly the register A operand of k-step kk.
+template <typename E, int N>
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&d)[N], int kk) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
-    a[i] = *reinterpret_cast<uint32_t*>(&v);
+    if constexpr (is_half<E>()) {
+      __half2 v = __floats2half2_rn(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+      a[i] = *reinterpret_cast<uint32_t*>(&v);
+    } else {
+      __nv_bfloat162 v = __floats2bfloat162_rn(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+      a[i] = *reinterpret_cast<uint32_t*>(&v);
+    }
   }
 }
 
@@ -264,15 +300,18 @@ __device__ __forceinline__ void warpgroup_sync(int w) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
 }
 
-// Store a bf16 pair at `p` (4-byte aligned: the wrappers require 16-byte
+// Store an E pair at `p` (4-byte aligned: the wrappers require 16-byte
 // aligned bases and strides).
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
+__device__ __forceinline__ void store_pair(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
 
 // ---- host: tensor maps ------------------------------------------------------
 
-// The tensor map of a bf16 [b, s, h, d] operand at `base` with element
+// The tensor map of a 16-bit [b, s, h, d] operand (`dtype`: bf16 or f16) at `base` with element
 // strides `st` (unit stride on d): 4-D over (d, h, s, b) with the operand's
 // own byte strides (so a view of a packed [b, s, 3, h, d] projection needs
 // no copy), 64 x 64 boxes (64 columns x 1 head x 64 rows x 1 batch), the
@@ -280,7 +319,8 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
 // the base and the strides of dims longer than 1 are 16-byte aligned, as
 // TMA requires; a dim of length 1 is never stepped, so its stride is moot.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int b, int s, int h, int d,
-                            Strides st) {
+                            Strides st,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t moot = 2ull * d;
@@ -289,11 +329,17 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int b, int s, in
                                  b > 1 ? 2ull * st.b : moot};
   const cuuint32_t box[4] = {64, 1, 64, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUresult rc = encode(map, dtype, 4, const_cast<void*>(base),
                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor-map element type of E.
+template <typename E>
+constexpr CUtensorMapDataType map_dtype() {
+  return is_half<E>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 }  // namespace sm90

@@ -6,13 +6,13 @@ layers, ZeRO sharding (``sharding``), the pipeline (``pipeline``),
 mixture-of-experts layer with its experts over ``dp`` (``moe``, the
 exchanges ``utils.global_scatter``/``global_gather``), sequence parallelism
 over ``sep`` (``ring_attention``: ring and Ulysses attention), the host
-actor runtime (``fleet_executor``) and the recommender's embedding table
-in its single-shard form (``embedding``), checkpoints (``checkpoint``,
+actor runtime (``fleet_executor``), the recommender's embedding table,
+row-sharded over ``dp`` with the reference's exchange (``embedding``),
+checkpoints (``checkpoint``,
 ``converter``: written whole, restored onto any mesh), the fault-tolerant
 runtime (``resilience``: ``CheckpointManager``, ``watchdog``,
 ``run_resilient``), elastic membership (``elastic``) and the launcher
-(``launch``). The sharded embedding's exchange waits for a later slice
-(ROADMAP.md, Queue 1 item 13d)."""
+(``launch``)."""
 from . import fleet as fleet_mod  # noqa: F401
 from . import utils  # noqa: F401
 from .collective import (  # noqa: F401

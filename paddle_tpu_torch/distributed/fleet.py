@@ -101,12 +101,12 @@ class Fleet:
         the pipeline's, with ``pipeline_configs.schedule``), and the ZeRO
         stage ``sharding_configs.sharding_stage`` when ``sharding`` is on or
         ``sharding_degree`` is above 1 (or the stage
-        ``group_sharded_parallel`` recorded); ``sharding_configs.offload``
-        raises. ``batch_sharding``: the axes :meth:`shard_batch` splits the
+        ``group_sharded_parallel`` recorded), with its optimizer state in
+        pinned host memory under ``sharding_configs.offload``.
+        ``batch_sharding``: the axes :meth:`shard_batch` splits the
         batch over, a subset of ``("dp", "sdp")`` (default both). Feed it
         :meth:`shard_batch`'s blocks."""
         from ..jit import TrainStep
-        from .sharding import _OFFLOAD
 
         if self._hcg is None:
             raise RuntimeError("call fleet.init(strategy=...) first")
@@ -117,7 +117,7 @@ class Fleet:
         if strat.sharding or (not stage and strat.hybrid_configs.sharding_degree > 1):
             stage = int(strat.sharding_configs.sharding_stage)
         if stage and strat.sharding_configs.offload:
-            raise NotImplementedError(_OFFLOAD)
+            model._sharding_offload = optimizer._sharding_offload = True
         axes = tuple(batch_sharding) if batch_sharding is not None else ("dp", "sdp")
         if not axes or not set(axes) <= {"dp", "sdp"}:
             raise ValueError(f"batch_sharding must name axes of ('dp', 'sdp'), got {axes!r}")

@@ -43,7 +43,7 @@ from torch import nn
 from ..framework.device import resolve_device
 from ..framework.selected_rows import in_compiled_step
 from ..nn import initializer as I
-from ..nn.functional.common import embedding
+from ..nn.functional.common import embedding, linear
 from ..nn.functional.loss import cross_entropy
 from . import collective as C
 
@@ -183,7 +183,7 @@ class ColumnParallelLinear(nn.Module):
 
     def forward(self, x):
         if self.group is None:
-            return x @ self.weight + self.bias if self.bias is not None else x @ self.weight
+            return linear(x, self.weight, self.bias)
         out = copy_to_model_parallel(x, self.group) @ self.weight
         if self.bias is not None:
             out = out + self.bias
@@ -217,7 +217,7 @@ class RowParallelLinear(nn.Module):
 
     def forward(self, x):
         if self.group is None:
-            return x @ self.weight + self.bias if self.bias is not None else x @ self.weight
+            return linear(x, self.weight, self.bias)
         if not self.input_is_parallel:
             x = _ScatterToMP.apply(x, self.group)
         out = reduce_from_model_parallel(x @ self.weight, self.group)

@@ -13,8 +13,9 @@ end of the backward from a callback queued on the autograd engine by the
 first gradient of the pass. ``TrainStep`` over a fleet grid reduces its f32
 master gradients with the same reducer.
 
-A mixture of experts' sharded weights (marked ``expert_group``, the ``dp``
-group: :mod:`.moe`) are left out of the buckets: each owner keeps its own
+A mixture of experts' sharded weights and a row-sharded embedding table
+(marked ``expert_group``, the ``dp`` group: :mod:`.moe`, :mod:`.embedding`)
+are left out of the buckets: each owner keeps its own
 experts' gradient, as GSPMD does for the reference's ``P("dp", ...)``
 weights. That gradient is the sum of every rank's loss terms (their rows
 came through the exchange), so the reducer divides it by the group size,

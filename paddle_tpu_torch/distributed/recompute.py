@@ -35,6 +35,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from .. import amp
 from .moe import routing_replay
 
 _MM = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
@@ -106,14 +107,17 @@ def buffer_replay(module):
 
 def _contexts(saved_ops, replay):
     """The ``(forward, recompute)`` context pair of one checkpointed call:
-    the MoE routing replay and the buffer replay of ``replay``, with the
+    the MoE routing replay and the buffer replay of ``replay``, the AMP
+    scope the forward ran in (the recompute runs outside it), with the
     selective-checkpoint pair where ``saved_ops`` names ops to save."""
     route_fwd, route_rec = routing_replay(replay)
     buf_fwd, buf_rec = buffer_replay(replay)
+    amp_rec = amp.restored(amp._snapshot())
     if not saved_ops:
-        return _entered(route_fwd, buf_fwd), _entered(route_rec, buf_rec)
+        return _entered(route_fwd, buf_fwd), _entered(route_rec, buf_rec, amp_rec)
     sac_fwd, sac_rec = create_selective_checkpoint_contexts(list(saved_ops))
-    return _entered(route_fwd, buf_fwd, sac_fwd), _entered(route_rec, buf_rec, sac_rec)
+    return (_entered(route_fwd, buf_fwd, sac_fwd),
+            _entered(route_rec, buf_rec, sac_rec, amp_rec))
 
 
 def recompute(function, *args, policy="nothing_saveable", replay=None, **kwargs):

@@ -38,8 +38,11 @@ squares of a split gradient are all-reduced over ``sdp`` (the parameter's
 The reference's ``place_state`` is a workaround for JAX's buffer donation
 (a replicated ``device_put`` could alias the model's own array, which the
 donated step then deletes); the port donates nothing, so it has no
-counterpart. ``offload=True`` (optimizer state in pinned host memory)
-raises (ROADMAP.md, Queue 1 item 32).
+counterpart. ``offload=True`` keeps the optimizer state in pinned host
+memory, as the reference's ``memory_kind="pinned_host"`` state shardings
+do: the update streams it through the card chunk by chunk
+(``Optimizer._offload``), bitwise the same step. The parameters (the f32
+masters under O2) stay on the card, as the reference's do.
 """
 from __future__ import annotations
 
@@ -54,8 +57,6 @@ from . import collective as C
 MIN_SIZE = 16384
 #: ``group_sharded_parallel``'s levels and their stages.
 LEVELS = {"os": 1, "os_g": 2, "p_g_os": 3}
-_OFFLOAD = ("ZeRO offload (optimizer state in pinned host memory) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 32)")
 
 
 def partition_dim(shape, sdp, whole_numel=None, mp_axis=None, exclude=()):
@@ -252,14 +253,13 @@ def group_sharded_parallel(model, optimizer, level="os_g", scaler=None, group=No
                            sync_comm=False):
     """API parity (python/paddle/distributed/sharding/group_sharded.py):
     ``level`` ``"os"`` (stage 1), ``"os_g"`` (stage 2) or ``"p_g_os"``
-    (stage 3). Records the stage on the model and the optimizer for
+    (stage 3). Records the stage and ``offload`` (the optimizer state in
+    pinned host memory) on the model and the optimizer for
     ``fleet.distributed_step`` (or a ``TrainStep`` over the fleet's grid)
     and returns them with ``scaler``."""
     if level not in LEVELS:
         raise ValueError(f"level must be one of {sorted(LEVELS)}, got {level!r}")
-    if offload:
-        raise NotImplementedError(_OFFLOAD)
     stage = LEVELS[level]
     model._sharding_stage = optimizer._sharding_stage = stage
-    model._sharding_offload = optimizer._sharding_offload = False
+    model._sharding_offload = optimizer._sharding_offload = bool(offload)
     return model, optimizer, scaler

@@ -20,8 +20,10 @@ CUDA tensor under gloo and on the device under NCCL, counted in
 Both are differentiable: each one's backward is the other. In a world of
 one the counts must agree and the rows pass through.
 
-The reference's cluster, pod and launcher classes wait for the launcher
-(ROADMAP.md, Queue 1 item 13d).
+The reference's legacy launch bookkeeping (``Trainer``, ``Pod``,
+``Cluster``, ``get_cluster``, ``start_local_trainers`` and their helpers)
+has no counterpart: the port's launcher (:mod:`.launch`) starts and
+watches its workers itself, and nothing else calls them.
 """
 from __future__ import annotations
 

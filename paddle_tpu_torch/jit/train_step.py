@@ -5,6 +5,12 @@ The reference traces the step into one XLA program; PyTorch runs it eagerly
 here, so ``run_steps(k)`` is a Python loop of k steps (a CUDA graph of it is
 later work, ROADMAP.md Queue 1 item 8).
 
+AMP O1 runs the model call (not the loss) in an :func:`~paddle_tpu_torch.amp.auto_cast`
+scope of ``amp_dtype``, as the reference's step does: its ops cast by the
+reference's white and black lists; the parameters stay f32 and their
+gradients arrive in f32. float16 raises at either level, as in the
+reference: its loss scaling (``amp.GradScaler``) is the eager path's.
+
 AMP O2 works as in the reference: the model's parameters stay the f32
 masters; each step runs the model on bf16 casts of them
 (``torch.func.functional_call``), so the gradient of each cast lands in f32
@@ -45,7 +51,11 @@ Queue 3). That pass runs whenever a mesh is given, at degree 1 too:
   reduce-scatters the split gradients over ``sdp`` and all-reduces them
   over ``dp``, both then all-gather the parameters; at stage 3 the
   parameters are blocks, gathered for the forward and again in the
-  backward, and their gradients come back reduce-scattered;
+  backward, and their gradients come back reduce-scattered. With
+  offload recorded (``group_sharded_parallel(offload=True)``,
+  ``sharding_configs.offload``) the optimizer's moments live in pinned
+  host memory and stream through the card for the update
+  (:mod:`paddle_tpu_torch.optimizer.optimizer`), bitwise the same step;
 - with ``pp > 1`` the step runs the fleet's pipeline schedule
   (:func:`~paddle_tpu_torch.distributed.pipeline.run_schedule`,
   ``pipeline_configs.schedule``) over ``n_micro =
@@ -99,6 +109,7 @@ from __future__ import annotations
 import torch
 from torch.func import functional_call
 
+from .. import amp
 from ..distributed import collective as C
 from ..distributed.env import get_world_size
 from ..distributed.pipeline import (active_pipeline_plan, active_pipeline_schedule, microbatch,
@@ -141,8 +152,9 @@ class TrainStep:
     """One training step: ``loss_fn(model(*inputs), *labels)``, its
     backward, and ``optimizer``'s update at ``optimizer.lr_at(step)``.
 
-    ``amp_level``: None or ``"O0"`` (the model's dtype) or ``"O2"`` (compute
-    in ``amp_dtype`` over f32 masters). ``remat``: recompute the model call
+    ``amp_level``: None or ``"O0"`` (the model's dtype), ``"O1"`` (the
+    model's ops cast by the AMP lists) or ``"O2"`` (compute in ``amp_dtype``
+    over f32 masters). ``remat``: recompute the model call
     in the backward. ``accumulate_steps``: micro-batches per update.
     ``return_outputs``: the model's outputs (in batch order) in the metrics
     under ``"outputs"``. ``mesh``: the fleet's ``HybridCommunicateGroup``;
@@ -169,12 +181,13 @@ class TrainStep:
             raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
         if amp_level not in (None, "O0", "O1", "O2"):
             raise ValueError(f"amp_level must be None/'O0'/'O1'/'O2', got {amp_level!r}")
-        if amp_level == "O1":
-            raise NotImplementedError(_NOT_PORTED.format("amp_level='O1'", 6))
         self.amp_level = None if amp_level == "O0" else amp_level
         self.amp_dtype = getattr(torch, amp_dtype) if self.amp_level else None
         if self.amp_dtype == torch.float16:
-            raise NotImplementedError(_NOT_PORTED.format("float16 AMP (GradScaler)", 6))
+            # as the reference's step: loss scaling lives on the eager path
+            raise ValueError(
+                "float16 in the fused TrainStep has no loss-scaling hook and gradients "
+                "underflow silently; use bfloat16 or the eager path with amp.GradScaler")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -219,9 +232,15 @@ class TrainStep:
         if stage and (sep > 1 or any(hasattr(p, "expert_axis") for p in params)):
             raise NotImplementedError(_NOT_PORTED.format(
                 "ZeRO together with sequence parallelism or a mixture of experts", "13c"))
+        if stage and any(getattr(p, "expert_group", None) is not None for p in params):
+            # the reference reaches this only through its planner's plans
+            raise NotImplementedError(_NOT_PORTED.format(
+                "ZeRO together with a row-sharded embedding table", "13d part 3"))
         if stage:
             self._zero = ZeroPlan(params, stage, mesh, names=self._param_names)
             self.optimizer._shards = self._zero
+            self.optimizer._offload = bool(getattr(self.model, "_sharding_offload", False)
+                                           or getattr(self.optimizer, "_sharding_offload", False))
             if stage == 3:
                 self._gather = self._stage3_gathers()
         else:
@@ -268,15 +287,22 @@ class TrainStep:
             # block, and stay saved.
             from ..distributed.sharding import gather_param
 
-            amp = self._to_amp if self.amp_level == "O2" else (lambda t: t)
-            state = {n: gather_param(amp(p), *self._gather[n]) if n in self._gather else amp(p)
+            cast = self._to_amp if self.amp_level == "O2" else (lambda t: t)
+            state = {n: gather_param(cast(p), *self._gather[n]) if n in self._gather else cast(p)
                      for n, p in self.model.named_parameters()}
-            inputs = tuple(amp(x) for x in inputs)
+            inputs = tuple(cast(x) for x in inputs)
 
             def call(*xs):
                 return functional_call(self.model, state, xs)
         else:
             call = self.model
+        if self.amp_level == "O1":
+            # the white/black-list casts of the model's ops; the loss runs outside
+            model_call = call
+
+            def call(*xs):
+                with amp.auto_cast(True, level="O1", dtype=str(self.amp_dtype).split(".")[-1]):
+                    return model_call(*xs)
 
         def loss_of(*xs):
             out = call(*xs)
@@ -419,8 +445,8 @@ class TrainStep:
         opt._traced_update(lr, self._param_names)
         if self.guard:
             with torch.no_grad():
-                for t, old in zip(kept, snapshot):
-                    t.copy_(torch.where(bad, old, t))
+                for t, old in zip(kept, snapshot):  # offloaded moments live on the host
+                    t.copy_(torch.where(bad.to(t.device), old, t))
                 if buffers is not None:
                     for b, old in zip(self.model.buffers(), buffers):
                         b.copy_(torch.where(bad, old, b))

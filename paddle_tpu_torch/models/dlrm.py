@@ -60,9 +60,9 @@ def _mlp(sizes, made):
 class DLRM(nn.Module):
     """``forward(dense [B, num_dense] f32, ids [B, F] int) -> logits [B, 1]``.
     Random weights are drawn from a ``torch.Generator`` seeded ``seed`` on
-    ``device`` (None: the card). ``mesh`` is the reference's; a mesh whose
-    degree over ``config.axis`` is above 1 raises (ROADMAP.md, Queue 1 item
-    13d)."""
+    ``device`` (None: the card). ``mesh``: the fleet's grid (None: the
+    active fleet's, if any); at a degree above 1 over ``config.axis`` the
+    table is row-sharded over that axis, each rank holding its rows."""
 
     def __init__(self, config: DLRMConfig, mesh=None, *, device=None, seed=0):
         super().__init__()

@@ -72,6 +72,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import amp
 from ..distributed import collective as C
 from ..distributed.moe import MoELayer
 from ..distributed.recompute import recompute as _recompute
@@ -84,6 +85,8 @@ from ..framework.device import resolve_device
 from ..ops import registry
 from ..ops.layer_norm import layer_norm_fused
 from ..nn.functional.attention import scaled_dot_product_attention
+from ..nn.functional.common import linear
+from ..tensor import matmul
 
 
 class GPTConfig:
@@ -377,10 +380,13 @@ class GPTBlockStack(nn.Module):
         cfg = self.cfg
         _no_training_dropout(self, cfg)
         parts = getattr(self, "_zero_parts", None) or {}
-        return _stack_forward(x, [getattr(self, n) for n in self._order], num_heads=self.num_heads,
-                              recompute=cfg.recompute_granularity if cfg.recompute else None,
-                              mp_group=self.mp_group, gathers=[parts.get(n) for n in self._order],
-                              sep_group=self.sep_group)
+        with amp.unlisted():  # the reference's one "gpt_stack" op: AMP casts nothing in it
+            return _stack_forward(x, [getattr(self, n) for n in self._order],
+                                  num_heads=self.num_heads,
+                                  recompute=cfg.recompute_granularity if cfg.recompute else None,
+                                  mp_group=self.mp_group,
+                                  gathers=[parts.get(n) for n in self._order],
+                                  sep_group=self.sep_group)
 
 
 def _no_training_dropout(module, cfg):
@@ -400,7 +406,7 @@ class _Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out, device=device))
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        return linear(x, self.weight, self.bias)
 
 
 class GPTAttention(nn.Module):
@@ -588,7 +594,7 @@ class GPTForPretraining(nn.Module):
             return h
         if self._grid.mp is not None:  # vocab-sharded logits, for ParallelCrossEntropy
             h = copy_to_model_parallel(h, self._grid.mp)
-        logits = h @ self.gpt.embeddings.word_embeddings.weight.T
+        logits = matmul(h, self.gpt.embeddings.word_embeddings.weight, transpose_y=True)
         if self.gpt.cfg.moe_num_experts:
             return logits, self.gpt.moe_aux_loss
         return logits

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from ...amp import cast_inputs
 from ...framework.flags import flag
 from ...ops import flash_attention_flat as _flat
 from ...ops import registry as _registry
@@ -33,8 +34,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
                                  training=True, generator=None):
     """q/k/v: ``[batch, seq, heads, head_dim]`` (paddle layout). Dispatches
     through the ``sdpa`` registry kernel; ``generator`` draws the dropout
-    mask."""
+    mask. In an ``auto_cast`` scope q, k, v (and a float mask) run in its
+    dtype (the ``sdpa`` op is on the white list)."""
     p = dropout_p if training else 0.0
+    query, key, value, attn_mask = cast_inputs("sdpa", query, key, value, attn_mask)
     return _registry.dispatch("sdpa", query, key, value, attn_mask, is_causal, p, generator)
 
 

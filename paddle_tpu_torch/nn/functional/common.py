@@ -1,10 +1,21 @@
-"""``embedding`` of the port (``paddle_tpu/nn/functional/common.py``)."""
+"""``linear`` and ``embedding`` of the port (``paddle_tpu/nn/functional/common.py``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ...amp import cast_inputs
 from ...framework.selected_rows import in_compiled_step
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight (+ bias)`` with the reference's ``[in, out]`` weight; in an
+    ``auto_cast`` scope all three run in its dtype (the ``linear`` op)."""
+    if bias is None:
+        x, weight = cast_inputs("linear", x, weight)
+        return x @ weight
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
+    return x @ weight + bias
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ...amp import cast_inputs
+
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CHANNELS_FIRST = {1: "NCL", 2: "NCHW", 3: "NCDHW"}
 
@@ -45,6 +47,7 @@ def _conv_padding(padding, n, in_sp, ks, strides, dilations):
 
 
 def _convnd(x, weight, bias, stride, padding, dilation, groups, n, data_format):
+    x, weight, bias = cast_inputs(f"conv{n}d", x, weight, bias)
     if data_format != _CHANNELS_FIRST[n]:
         raise NotImplementedError(
             f"conv{n}d: data_format={data_format!r} is not ported yet, only "

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_inputs
+
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=False, momentum=0.9,
                epsilon=1e-5, data_format="NCHW", use_global_stats=None, name=None):
@@ -29,6 +31,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=Fa
     if not data_format.startswith("NC"):
         raise NotImplementedError(f"batch_norm: data_format={data_format!r} is not ported, "
                                   "only the channels-first layouts")
+    (x,) = cast_inputs("batch_norm", x)  # the running buffers are updated in place
     dtype = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
     w = None if weight is None else weight.to(dtype)
     b = None if bias is None else bias.to(dtype)

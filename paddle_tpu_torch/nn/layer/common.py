@@ -7,7 +7,7 @@ from torch import nn
 from ...framework.device import resolve_device
 from ...framework.selected_rows import in_compiled_step, record_rows
 from .. import initializer as I
-from ..functional.common import embedding
+from ..functional.common import embedding, linear
 
 
 class Linear(nn.Module):
@@ -22,7 +22,7 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        return linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return f"in={self.in_features}, out={self.out_features}"

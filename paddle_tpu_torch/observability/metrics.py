@@ -319,9 +319,10 @@ INGRESS_COUNTERS: Tuple[str, ...] = (
 # The recommender workload (distributed/embedding.py, models/dlrm.py):
 # ``embedding.lookups`` counts ShardedEmbedding forwards; ``rows_touched`` the
 # unique rows of eager lookups (none inside a TrainStep, as the reference
-# counts none in its compiled step); ``ids_exchanged``, ``a2a_bytes`` and
-# ``rows_checkpointed`` stay 0 until the sharded exchange and the checkpoint
-# rotation are ported (ROADMAP.md, Queue 1 item 13d); ``recsys.steps`` and
+# counts none in its compiled step); ``ids_exchanged`` and ``a2a_bytes`` a
+# row-sharded lookup's ids and this rank's share of its exchange bytes (the
+# ranks' counts sum to the reference's); ``rows_checkpointed`` the table rows
+# EmbeddingCheckpointRotation publishes; ``recsys.steps`` and
 # ``recsys.examples`` are bumped by the training driver.
 RECSYS_COUNTERS: Tuple[str, ...] = (
     "recsys.steps", "recsys.examples",

@@ -28,9 +28,9 @@ from . import _cuda
 
 #: Head dims and dtypes the CUDA kernel is compiled for.
 HEAD_DIMS = (64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_GRID_YZ = 65535  # grid.y = heads, grid.z = batch
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def flash_attention_available(q_shape, k_shape=None, dtype=torch.float32, device_type="cuda") -> bool:
@@ -50,16 +50,16 @@ def flash_attention_available(q_shape, k_shape=None, dtype=torch.float32, device
 def needs_copy(t):
     """Whether a ``[b, s, h, d]`` operand must reach the kernels as a
     contiguous copy: its head dim has no unit stride; a dim longer than 1
-    has stride 0 (the expanded gradient of a sum or a mean); or, in bf16,
-    its base address or a ``b``, ``s``, ``h`` byte stride is off a 16-byte
-    boundary (the bf16 kernels read by TMA, which needs that and takes no
-    zero stride, and store bf16 pairs; a dim of length 1 is never stepped,
+    has stride 0 (the expanded gradient of a sum or a mean); or, in bf16 or
+    float16, its base address or a ``b``, ``s``, ``h`` byte stride is off a
+    16-byte boundary (the 16-bit kernels read by TMA, which needs that and
+    takes no zero stride, and store 16-bit pairs; a dim of length 1 is never stepped,
     so its stride is exempt). Views of a packed ``[b, s, 3, h, d]``
     projection need none. f32 tensors take the SIMT kernels, for which
     alignment is moot."""
     if t.stride(-1) != 1 or any(n > 1 and st == 0 for n, st in zip(t.shape, t.stride())):
         return True
-    if t.dtype != torch.bfloat16:
+    if t.dtype not in (torch.bfloat16, torch.float16):
         return False
     size = t.element_size()
     return not _cuda.aligned(t) or any(n > 1 and (st * size) % _cuda.ALIGN
@@ -83,8 +83,8 @@ def gradient_buffers(who, q, grads):
     if any(tuple(g.shape) != tuple(q.shape) or g.dtype != q.dtype or g.device != q.device
            or needs_copy(g) for g in grads):
         raise ValueError(f"{who}: dq, dk, dv buffers must match q's shape, dtype and device, "
-                         f"with unit stride on the head dim, no zero stride and, in bf16, a "
-                         f"16-byte aligned base and b, s, h strides")
+                         f"with unit stride on the head dim, no zero stride and, in bf16 or "
+                         f"float16, a 16-byte aligned base and b, s, h strides")
     return tuple(grads)
 
 
@@ -101,6 +101,14 @@ def _reference_attention(q, k, v, causal):
     return out.transpose(1, 2).to(q.dtype), lse
 
 
+def _count_dtype(wrapper, dtype):
+    """One launch of ``wrapper``'s kernel instance for ``dtype``, in
+    ``wrapper.launches_by_dtype`` (beside ``launches``, which counts them
+    all): the AMP steps read which instance ran."""
+    name = str(dtype).split(".")[-1]
+    wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _cuda.load("flash_attention_fwd").flash_attention_fwd
@@ -115,7 +123,7 @@ def _launch(q, k, v, causal):
         raise ValueError(f"flash_attention_fwd: q, k, v on different devices "
                          f"({q.device}, {k.device}, {v.device})")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention_fwd: the kernel takes float32 or bfloat16 q, k, v "
+        raise TypeError(f"flash_attention_fwd: the kernel takes float32, bfloat16 or float16 q, k, v "
                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not flash_attention_available(tuple(q.shape), tuple(k.shape), q.dtype, "cuda") \
             or tuple(v.shape) != tuple(q.shape):
@@ -136,6 +144,7 @@ def _launch(q, k, v, causal):
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed with CUDA error {rc}")
     flash_attention_fwd.launches += 1
+    _count_dtype(flash_attention_fwd, q.dtype)
     return out, lse
 
 
@@ -172,6 +181,7 @@ def flash_attention_fwd(q, k, v, causal=False):
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_dtype = {}
 
 
 def _reference_attention_bwd(q, k, v, out, lse, dout, causal):
@@ -207,7 +217,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, grads):
     if len({t.device for t in tensors + (lse,)}) != 1:
         raise ValueError("flash_attention_bwd: q, k, v, out, lse, dout on different devices")
     if len({t.dtype for t in tensors}) != 1 or q.dtype not in DTYPES or lse.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd: the kernel takes float32 or bfloat16 q, k, v, out, "
+        raise TypeError(f"flash_attention_bwd: the kernel takes float32, bfloat16 or float16 q, k, v, out, "
                         f"dout of one dtype and a float32 lse; got "
                         f"{[str(t.dtype) for t in tensors]}, lse {lse.dtype}")
     b, s, h, d = q.shape
@@ -236,6 +246,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, grads):
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {rc}")
     flash_attention_bwd.launches += 1
+    _count_dtype(flash_attention_bwd, q.dtype)
     return dq, dk, dv
 
 
@@ -260,3 +271,4 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, grads=None):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_dtype = {}

@@ -37,10 +37,13 @@ import torch
 
 from ..framework.flags import flag
 from . import _cuda
-from .flash_attention import DTYPES, flash_attention_available, gradient_buffers, kernel_operand
+from .flash_attention import flash_attention_available, gradient_buffers, kernel_operand
 
 #: Bias dtypes the kernels are compiled for (a bool mask is converted to
 #: 0 / -1e30 f32 by the caller).
+#: Operand dtypes the flat kernels are compiled for (K1/K2's float16
+#: instances have no flat counterpart yet: ROADMAP.md, Queue 2).
+DTYPES = (torch.float32, torch.bfloat16)
 BIAS_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,8 +51,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def enabled(qkv_shape=None, dtype=torch.float32, device_type="cuda") -> bool:
     """Whether the flat kernels take a call: ``FLAGS_flash_flat`` is on and,
     given the packed shape ``[b, s, 3, h, d]``, the kernels' own limits hold
-    (those of K1: ``d`` of 64 or 128, f32 or bf16, ``b`` and ``h`` within the
-    launch grid, a CUDA or CPU device). The reference's TPU rules (``s >=
+    (those of K1: ``d`` of 64 or 128, ``b`` and ``h`` within the launch
+    grid, a CUDA or CPU device; and f32 or bf16, its own :data:`DTYPES`). The reference's TPU rules (``s >=
     256``, ``s`` a multiple of the block, ``s <= 2048``, the head-group VMEM
     budget) do not apply: the kernels mask a ragged ``s`` and stream any
     length."""
@@ -58,7 +61,8 @@ def enabled(qkv_shape=None, dtype=torch.float32, device_type="cuda") -> bool:
     if qkv_shape is None:
         return True
     b, s, three, h, d = qkv_shape
-    return three == 3 and flash_attention_available((b, s, h, d), None, dtype, device_type)
+    return (three == 3 and dtype in DTYPES
+            and flash_attention_available((b, s, h, d), None, dtype, device_type))
 
 
 def mask_supported(b, s, h, d, mask_shape) -> bool:

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import cast_inputs
+
 
 def _stats(xf, eps):
     mu = xf.mean(dim=-1, keepdim=True)
@@ -48,5 +50,7 @@ class _LayerNorm(torch.autograd.Function):
 
 def layer_norm_fused(x, w, b, eps=1e-5):
     """LayerNorm over the last dim of ``x`` with weight ``w`` and bias ``b``,
-    differentiable in all three by the closed-form backward."""
-    return _LayerNorm.apply(x, w, b, eps)
+    differentiable in all three by the closed-form backward; in an
+    ``auto_cast`` scope its inputs of the scope's dtype go up to f32 (the
+    ``layer_norm`` op is on the black list)."""
+    return _LayerNorm.apply(*cast_inputs("layer_norm", x, w, b), eps)

@@ -25,6 +25,15 @@ in ``_shards``: ``_traced_update`` then updates each parameter's block
 with its block of the averaged gradient, and the state covers the blocks
 only. A norm (Lamb's trust ratio, a clip) sums the squares over the groups
 that hold the rest of a parameter (:func:`paddle_tpu_torch.nn.clip.norm_groups`).
+
+ZeRO offload (``_offload``, set by the step from ``offload=True``) keeps
+the state in host memory, pinned when the parameters are on the card (the
+reference's ``memory_kind="pinned_host"`` optimizer-state shardings). The
+update streams it through the parameters' device in chunks of at most
+:data:`OFFLOAD_CHUNK_BYTES` of state, in parameter order: a side stream
+copies chunk c + 1 in while the core updates chunk c on the current
+stream, then copies chunk c back out. The core runs on the same tensors
+in the same order as without offload, so the result is bitwise the same.
 """
 from __future__ import annotations
 
@@ -34,6 +43,10 @@ from ..framework.selected_rows import take_pending_rows
 from ..regularizer import L1Decay
 from . import functional as Fopt
 from .lr import LRScheduler
+
+#: The most optimizer state (bytes) the offloaded update holds on the device
+#: per chunk; two chunks are in flight (one updating, the next copying in).
+OFFLOAD_CHUNK_BYTES = 256 << 20
 
 
 class Optimizer:
@@ -61,6 +74,9 @@ class Optimizer:
         self._state = None
         self._step_count = 0
         self._shards = None  # a ZeroPlan: the core updates blocks
+        self._offload = False  # the state in host memory, streamed per chunk
+        self._side = None  # the offload's copy stream
+        self._copies = []  # the last update's ("in" or "out", start, end) copy events
 
     # -- lr ---------------------------------------------------------------
     def get_lr(self):
@@ -97,21 +113,125 @@ class Optimizer:
         pen = torch.sign if self._wd_is_l1 else (lambda p: p)
         return [g + wd * pen(self._target(i)) for g, i in zip(grads, live)]
 
-    def _ensure_state(self):
+    def _ensure_state(self, settle=True):
         """The core's state over every parameter (its ZeRO block), made at
-        zero if no update made it yet."""
+        zero if no update made it yet; offloaded, made in host memory, and
+        with ``settle`` the last update's copies out waited for (the host
+        reads it next)."""
         if self._state is None:
-            self._state = self.core.init([self._target(i) for i in range(len(self._params))])
+            targets = [self._target(i) for i in range(len(self._params))]
+            if not self._offload:
+                self._state = self.core.init(targets)
+            else:
+                pin = any(t.is_cuda for t in targets)
+                made = self.core.init([torch.empty(t.shape, dtype=t.dtype) for t in targets])
+                self._state = {k: [t.pin_memory() if pin else t for t in ts]
+                               for k, ts in made.items()}
+        if settle and self._side is not None:
+            self._side.synchronize()
 
     def _core_update(self, grads, live, lr, keys=None):
         """The core's update of the parameters ``live`` (indices) at ``lr``."""
         if not live:
             return
-        self._ensure_state()
-        sub = {k: [v[i] for i in live] for k, v in self._state.items()}
+        self._ensure_state(settle=False)  # the side stream orders the copies
+        if self._offload:
+            self._offload_update(grads, live, lr, keys)
+            return
+        self._core_chunk(grads, live, lr, keys, {k: [v[i] for i in live]
+                                                 for k, v in self._state.items()})
+
+    def _core_chunk(self, grads, live, lr, keys, sub):
+        """The core over the parameters ``live`` with their state ``sub``."""
         self.core.decay_mask = self._decay_mask(live)
         kw = {"keys": keys} if self._keyed_core else {}
         self.core.update(grads, sub, [self._target(i) for i in live], lr, self._step_count, **kw)
+
+    def _offload_chunks(self, live):
+        """``live`` cut, in order, into runs of at most
+        :data:`OFFLOAD_CHUNK_BYTES` of state (one parameter at least)."""
+        chunks, cur, size = [], [], 0
+        for i in live:
+            nbytes = sum(v[i].numel() * v[i].element_size() for v in self._state.values())
+            if cur and size + nbytes > OFFLOAD_CHUNK_BYTES:
+                chunks.append(cur)
+                cur, size = [], 0
+            cur.append(i)
+            size += nbytes
+        return chunks + [cur]
+
+    def _offload_update(self, grads, live, lr, keys):
+        """The core over the host state, streamed through the parameters'
+        device one chunk at a time (see the module docstring)."""
+        device = self._target(live[0]).device
+        grad_of = dict(zip(live, grads))
+        key_of = dict(zip(live, keys)) if keys is not None else None
+        cuda = device.type == "cuda"
+        if cuda and self._side is None:
+            self._side = torch.cuda.Stream(device)
+        main = torch.cuda.current_stream(device) if cuda else None
+        self._copies = []
+
+        def fetch(chunk):
+            if not cuda:
+                return {k: [v[i].to(device, copy=True) for i in chunk]
+                        for k, v in self._state.items()}, None
+            with torch.cuda.stream(self._side):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                dev = {k: [v[i].to(device, non_blocking=True) for i in chunk]
+                       for k, v in self._state.items()}
+                ready = torch.cuda.Event(enable_timing=True)
+                ready.record()
+            for ts in dev.values():
+                for t in ts:
+                    t.record_stream(main)
+            self._copies.append(("in", start, ready))
+            return dev, ready
+
+        chunks = self._offload_chunks(live)
+        pending = fetch(chunks[0])
+        for c, chunk in enumerate(chunks):
+            dev, ready = pending
+            if c + 1 < len(chunks):
+                pending = fetch(chunks[c + 1])
+            if cuda:
+                main.wait_event(ready)
+            self._core_chunk([grad_of[i] for i in chunk], chunk, lr,
+                             None if key_of is None else [key_of[i] for i in chunk], dev)
+            if not cuda:
+                for k, v in self._state.items():
+                    for i, t in zip(chunk, dev[k]):
+                        v[i].copy_(t)
+                continue
+            done = torch.cuda.Event()
+            done.record(main)
+            with torch.cuda.stream(self._side):
+                self._side.wait_event(done)
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for k, v in self._state.items():
+                    for i, t in zip(chunk, dev[k]):
+                        v[i].copy_(t, non_blocking=True)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+            self._copies.append(("out", start, end))
+
+    def offload_stats(self):
+        """The offloaded state's host bytes (``pinned_bytes``) and the last
+        update's copy times in ms on the card (``copy_in_ms``,
+        ``copy_out_ms``; waits for them), or None without offload."""
+        if not self._offload or self._state is None:
+            return None
+        self._ensure_state()
+        ms = {"in": 0.0, "out": 0.0}
+        for way, start, end in self._copies:
+            ms[way] += start.elapsed_time(end)
+        nbytes = sum(t.numel() * t.element_size() for ts in self._state.values() for t in ts)
+        return {"pinned_bytes": nbytes if any(t.is_pinned() for ts in self._state.values()
+                                              for t in ts) else 0,
+                "host_bytes": nbytes, "copy_in_ms": ms["in"], "copy_out_ms": ms["out"],
+                "chunks": sum(1 for way, _, _ in self._copies if way == "in")}
 
     @torch.no_grad()
     def step(self):
@@ -287,7 +407,7 @@ class Lamb(Optimizer):
         super().__init__(learning_rate, parameters, None, grad_clip,
                          core=Fopt.LambCore(beta1, beta2, epsilon, lamb_weight_decay))
 
-    def _core_update(self, grads, live, lr, keys=None):
+    def _core_chunk(self, grads, live, lr, keys, sub):
         """The trust ratio takes each parameter's whole norms: over a sharded
         model the squares are summed over the groups holding the rest."""
         from ..nn.clip import _reduce_terms, norm_groups
@@ -295,7 +415,7 @@ class Lamb(Optimizer):
         groups = [norm_groups(self._params[i], whole_param=True) for i in live]
         self.core.whole_sq = None if not any(groups) else [
             (lambda sq, gs=gs: _reduce_terms([sq], [gs])) if gs else None for gs in groups]
-        super()._core_update(grads, live, lr, keys)
+        super()._core_chunk(grads, live, lr, keys, sub)
 
 
 class Adagrad(Optimizer):

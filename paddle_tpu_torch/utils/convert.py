@@ -219,12 +219,16 @@ def _mp_spec(name):
 
 
 _EXPERT_KEY = re.compile(r"gpt\.layers\.\d+\.moe\.(w1|b1|w2|b2)$")
+#: DLRM's fused table, row-sharded over ``dp`` (``distributed/embedding.py``)
+_ROW_TABLES = ("embedding.weight",)
 
 
 def _expert(name):
-    """Whether ``name`` is a GPT-MoE expert weight, split over the expert
-    group along dim 0."""
-    return bool(_EXPERT_KEY.match(name))
+    """Whether ``name`` is split along dim 0 over the expert group (the
+    ``dp`` group): a GPT-MoE expert weight, or DLRM's row-sharded table
+    (rank r holds rows ``[r V / n, (r + 1) V / n)``, and so do its
+    moments)."""
+    return bool(_EXPERT_KEY.match(name)) or name in _ROW_TABLES
 
 
 def _stacked(name):
@@ -304,7 +308,8 @@ def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: in
     parameters, any stage's moments); for GPT-MoE, at expert degree
     ``ep_degree`` (the ``dp`` degree), its experts: rows ``[ep_rank * E /
     ep, (ep_rank + 1) * E / ep)`` of each expert weight (``moe.w1``,
-    ``b1``, ``w2``, ``b2``)."""
+    ``b1``, ``w2``, ``b2``); for DLRM at dp ``ep_degree``, its rows of the
+    row-sharded table (``embedding.weight``) in the same way."""
     if cfg is not None:
         _check_mp(cfg, mp_degree)
     out = {}
@@ -336,8 +341,8 @@ def gather_state(states, cfg=None, sdp_dims=None) -> Dict[str, np.ndarray]:
     ep_rank)``; with ``sdp_dims`` the entries split over ``sdp`` are joined
     from every sdp rank's block, the rest taken from sdp rank 0 (and the
     replicated ones from mp rank 0, the tied word table from the first
-    stage); GPT-MoE's expert weights are joined from every ep rank's, the
-    rest taken from ep rank 0."""
+    stage); GPT-MoE's expert weights and DLRM's row-sharded table are
+    joined from every ep rank's, the rest taken from ep rank 0."""
     if not isinstance(states, dict):
         states = {(0, 0, m): st for m, st in enumerate(states)}
     if len(next(iter(states))) == 4:

@@ -209,13 +209,13 @@ def test_dist_matches_single_device():
 
 def test_strategy_knobs_and_refusals():
     """What ``distributed_step`` consumes and refuses: sharding sets the
-    ZeRO stage and ``offload`` raises (item 32), float16 AMP raises with
+    ZeRO stage and ``offload`` keeps its state on the host, float16 AMP raises with
     the reference's message, ``comm_overlap=False`` warns,
     ``gradient_merge`` sets the micro-batches and ``recompute`` the remat;
     ``save_inference_model`` raises (14)."""
     errors = run_ranks(ranks.strategy_errors, 1)[0]
     assert errors["sharding"] == "stage 2"
-    assert errors["offload"].startswith("NotImplementedError") and "item 32" in errors["offload"]
+    assert errors["offload"] == "stage 1 offload"
     assert errors["fp16"].startswith("ValueError") and "loss scaling" in errors["fp16"]
     assert errors["warned"] and errors["knobs"] == (2, True, None)
     assert "item 14" in errors["save_inference_model"]

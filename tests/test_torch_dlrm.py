@@ -107,15 +107,20 @@ def test_exchange_stats_match(shards, capacity):
 
 
 def test_unported_exchange_raises():
+    """The exchange runs over the fleet's process groups: a mesh object of
+    another kind (the reference's ``jax.sharding.Mesh`` stands for its
+    devices, which a process of the port does not hold) raises, and so
+    does a rotation period below one step (the exchange itself:
+    ``tests/test_torch_recsys.py``)."""
     class Mesh:
         shape = {"dp": 4}
 
-    with pytest.raises(NotImplementedError, match="13d"):
+    with pytest.raises(TypeError, match="HybridCommunicateGroup"):
         temb.ShardedEmbedding(V, D, mesh=Mesh(), device="cpu")
-    with pytest.raises(NotImplementedError, match="13d"):
+    with pytest.raises(TypeError, match="HybridCommunicateGroup"):
         temb.sharded_embedding_lookup(torch.zeros(4, dtype=torch.int32), torch.zeros(V, D), Mesh())
-    with pytest.raises(NotImplementedError, match="13d"):
-        temb.EmbeddingCheckpointRotation(None, every=10)
+    with pytest.raises(ValueError, match="every"):
+        temb.EmbeddingCheckpointRotation(None, every=0)
 
 
 # ------------------------------------------------------ zero rows, padding

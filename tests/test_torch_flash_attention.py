@@ -86,7 +86,8 @@ def test_availability_predicate():
     assert ok((2, 64, 2, 64), device_type="cpu")          # CPU tensors take the plain version
     assert not ok((2, 128, 2, 32))                        # d outside the compiled head dims
     assert not ok((2, 128, 2, 96))
-    assert not ok((2, 128, 2, 64), dtype=torch.float16)
+    assert ok((2, 128, 2, 64), dtype=torch.float16)           # the float16 instances
+    assert not ok((2, 128, 2, 64), dtype=torch.float64)
     assert not ok((2, 128, 2, 64), (2, 64, 2, 64))        # cross-length attention
     assert not ok((2, 128, 64))
     assert not ok((2, 128, 70000, 64))                    # heads beyond grid.y

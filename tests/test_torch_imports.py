@@ -110,11 +110,17 @@ RESILIENCE_MODULES = {"paddle_tpu_torch.distributed.checkpoint",
                       "paddle_tpu_torch.distributed.launch.__main__"}
 
 
+# modules of AMP (O1, float16 with GradScaler) and the Paddle-named tensor functions
+AMP_MODULES = {"paddle_tpu_torch.amp", "paddle_tpu_torch.tensor",
+               "paddle_tpu_torch.nn.functional.loss", "paddle_tpu_torch.nn.functional.activation"}
+
+
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
               | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES
-              | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES | RESILIENCE_MODULES)
+              | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES | RESILIENCE_MODULES
+              | AMP_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -129,9 +135,12 @@ def test_rank_processes_import_no_jax_or_paddle_tpu():
     import jax  # noqa: F401  (the parent has the reference loaded)
 
     import torch_dist_ranks
+    import torch_recsys_ranks
     from paddle_tpu_torch.testing.dist import run_ranks
 
     assert run_ranks(torch_dist_ranks.imported_reference_modules, 2) == [[], []]
+    # nor does a rank of the row-sharded exchange, AMP and offload tests
+    assert run_ranks(torch_recsys_ranks.imported_reference_modules, 2) == [[], []]
 
 
 # a sitecustomize that records, at exit, the foreign modules its process

@@ -32,6 +32,8 @@ from paddle_tpu_torch.distributed.sharding import MIN_SIZE, partition_dim  # noq
 BASE = dict(lr=1e-3, steps=3, layers=4)
 WORLD2 = [dict(BASE, sdp=2, stage=s) for s in (1, 2, 3)]
 WORLD4 = [dict(BASE, dp=2, sdp=2, stage=s) for s in (1, 2, 3)]
+#: each stage of WORLD2 again with its optimizer state offloaded to the host
+OFFLOAD = [dict(c, offload=True) for c in WORLD2]
 CLIP = 0.3
 LAMB = dict(BASE, sdp=2, mp=2, stage=2, optimizer="lamb", clip=CLIP)
 
@@ -49,7 +51,7 @@ def worlds():
     """This file's worlds of 2 and 4 ranks, queued in the background; each
     test computes the reference's steps while they run."""
     initial = reference_gpt(steps=0)[0]
-    return {2: started(ranks.several, 2, [("gpt_hybrid", (WORLD2, initial, IDS)),
+    return {2: started(ranks.several, 2, [("gpt_hybrid", (WORLD2 + OFFLOAD, initial, IDS)),
                                           ("sharding_levels", ())]),
             4: started(ranks.gpt_hybrid, 4, WORLD4 + [LAMB], initial, IDS)}
 
@@ -158,6 +160,25 @@ def test_group_sharded_parallel_levels_and_refusals(worlds):
         same, scaler, got, qkv_shape = levels[level]
         assert same and scaler is None and got == stage
         assert qkv_shape == ((2, 64, 96) if stage == 3 else (2, 64, 192))
-    assert levels["offload"].startswith("NotImplementedError") and "item 32" in levels["offload"]
+    assert levels["offload"] == (2, True)
     assert levels["level"].startswith("ValueError")
-    assert "item 32" in levels["strategy_offload"]
+    assert levels["strategy_offload"] == (2, True)
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_offload_is_bitwise_the_same_stage(worlds, stage):
+    """ZeRO offload (the optimizer state in host memory, streamed through
+    the parameters' device chunk by chunk) at sdp 2: the losses, every
+    rank's parameters and moments equal the same stage's without offload
+    bit for bit. Here the parameters are on the CPU, so the state is plain
+    host memory (pinned only beside CUDA parameters)."""
+    for o in worlds[2].result():
+        plain, off = o[0][stage - 1], o[0][len(WORLD2) + stage - 1]
+        assert off["losses"] == plain["losses"]
+        assert off["state_devices"] == [("cpu", False)]
+        trees = [("state", plain["state"], off["state"])] + [
+            (k, plain["moments"][k], off["moments"][k]) for k in ("m", "v")]
+        for what, want, got in trees:
+            assert got.keys() == want.keys()
+            for name, v in want.items():
+                np.testing.assert_array_equal(got[name], v, err_msg=f"{what} {name}")

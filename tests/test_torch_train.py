@@ -111,7 +111,10 @@ def test_cross_entropy_forward_backward_match_paddle_tpu(reduction, weighted):
 
 def test_cross_entropy_bf16_logits_and_unported_branches():
     """bf16 logits (AMP O2): the loss is f32 and the logits' gradient comes
-    back in bf16, equal to the reference's to one bf16 rounding."""
+    back in bf16, equal to the reference's to one bf16 rounding, through the
+    fused branch and through each non-fused one (soft labels, smoothing,
+    probabilities), which were once unported (their f32 cases:
+    ``tests/test_torch_amp.py``)."""
     rng = _rng(2)
     logits = (3 * rng.standard_normal((8, 64))).astype(np.float32)
     label = rng.integers(0, 64, 8)
@@ -124,9 +127,21 @@ def test_cross_entropy_bf16_logits_and_unported_branches():
     assert tl.dtype == torch.float32 and t.grad.dtype == torch.bfloat16
     np.testing.assert_allclose(float(tl.detach()), float(jl.numpy()), **VALUE)
     np.testing.assert_allclose(t.grad.float().numpy(), _np(x.grad.numpy()), **BF16)
-    for kw in (dict(soft_label=True), dict(label_smoothing=0.1), dict(use_softmax=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cross_entropy(t, torch.from_numpy(label), **kw)
+    soft = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    for kw, lab in ((dict(soft_label=True), soft.astype(np.float32)),
+                    (dict(label_smoothing=0.1), label), (dict(use_softmax=False), label)):
+        x = paddle.to_tensor(jnp.asarray(soft if "use_softmax" in kw else logits, jnp.bfloat16),
+                             stop_gradient=False)
+        jl = JF.cross_entropy(x, paddle.to_tensor(lab), **kw)
+        jl.backward()
+        t = torch.from_numpy(soft if "use_softmax" in kw else logits).to(
+            torch.bfloat16).requires_grad_()
+        tl = cross_entropy(t, torch.from_numpy(lab), **kw)
+        tl.backward()
+        assert tl.dtype == torch.float32 and t.grad.dtype == torch.bfloat16, kw
+        np.testing.assert_allclose(float(tl.detach()), float(jl.numpy()), **VALUE, err_msg=str(kw))
+        np.testing.assert_allclose(t.grad.float().numpy(), _np(x.grad.numpy()), **BF16,
+                                   err_msg=str(kw))
 
 
 @pytest.mark.parametrize("kind", ["Adam", "AdamW"])
@@ -396,10 +411,12 @@ def test_run_steps_equals_single_steps_and_stacks():
 @pytest.mark.parametrize("kw", [dict(batch_shardings={}), dict(state_shardings={}), dict(guard=True),
                                 dict(amp_level="O1"), dict(amp_level="O2", amp_dtype="float16")])
 def test_unported_train_step_knobs_raise(kw):
-    """The knobs the port lacks raise, citing ROADMAP.md; the state and
-    batch shardings (ZeRO's stage, the batch's axes) are ported and need
-    the fleet's grid as ``mesh``; ``guard`` is ported too (its parity is
-    ``tests/test_torch_stability.py``): a guarded step reports health."""
+    """Each of these knobs was once unported: the state and batch
+    shardings (ZeRO's stage, the batch's axes) need the fleet's grid as
+    ``mesh``; ``guard`` reports health (its parity is
+    ``tests/test_torch_stability.py``); O1 runs a step (its parity is
+    ``tests/test_torch_amp.py``); float16 raises ``ValueError`` as the
+    reference's step does, its loss scaling being the eager path's."""
     pm = GPTForPretraining(GPTConfig.tiny(), device="cpu")
     if "batch_shardings" in kw or "state_shardings" in kw:
         with pytest.raises(ValueError, match="need a mesh"):
@@ -408,8 +425,13 @@ def test_unported_train_step_knobs_raise(kw):
         step = TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
         ids = np.zeros((2, 8), np.int64)
         assert step.guard and not bool(step(ids, ids)["health"]["bad_step"])
+    elif kw.get("amp_level") == "O1":
+        step = TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
+        ids = np.zeros((2, 8), np.int64)
+        assert np.isfinite(float(step(ids, ids)["loss"]))
+        assert all(p.dtype == torch.float32 for p in pm.parameters())
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="GradScaler"):
             TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), **kw)
     with pytest.raises(ValueError, match="amp_level"):
         TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion(), amp_level="O3")

@@ -348,7 +348,8 @@ def strategy_errors():
         try:
             step = fleet.distributed_step(net, SGD(parameters=net.parameters()),
                                           lambda o, t: o.sum())
-            errors[name] = f"stage {step._zero.stage}"
+            errors[name] = f"stage {step._zero.stage}" + (" offload" if step.optimizer._offload
+                                                          else "")
         except (NotImplementedError, ValueError) as e:
             errors[name] = f"{type(e).__name__}: {e}"
     fleet = _fleet(1, 1, sharding_configs={"comm_overlap": False}, gradient_merge=True,
@@ -527,7 +528,7 @@ def _hybrid_fleet(c):
                         "sep_degree": c.get("sep", 1)}
     if c.get("stage"):
         s.sharding = True
-        s.sharding_configs = {"sharding_stage": c["stage"]}
+        s.sharding_configs = {"sharding_stage": c["stage"], "offload": c.get("offload", False)}
     s.pipeline_configs = {"accumulate_steps": c.get("accumulate", 1),
                           "schedule": c.get("schedule", "gpipe")}
     D.fleet.init(is_collective=True, strategy=s, device="cpu")
@@ -598,6 +599,8 @@ def gpt_hybrid(configs, np_state, ids, mask=None):
                                                         mp_rank),
             state={k: _np(v) for k, v in model.state_dict().items()},
             moments=_moments(opt, model), sdp_dims=state_shardings(model, hcg),
+            state_devices=sorted({(t.device.type, t.is_pinned()) for ts in opt._state.values()
+                                  for t in ts}),
             peak_held=None if sched is None else sched.peak_held,
             order=None if sched is None else sched.order, n_micro=step.n_micro,
             counters=metrics.counters("collective."),
@@ -623,19 +626,17 @@ def sharding_levels():
         step = fleet.distributed_step(m, o, GPTPretrainingCriterion())
         out[level] = (m is model and o is opt, scaler, step._zero.stage,
                       tuple(model.gpt.layers.qkv_w.shape))
-    for name, call in (("offload", lambda: D.group_sharded_parallel(model, opt, offload=True)),
-                       ("level", lambda: D.group_sharded_parallel(model, opt, level="os_x"))):
-        try:
-            call()
-            out[name] = None
-        except (NotImplementedError, ValueError) as e:
-            out[name] = f"{type(e).__name__}: {e}"
-    fleet._strategy.sharding_configs.offload = True
     try:
-        fleet.distributed_step(model, opt, GPTPretrainingCriterion())
-        out["strategy_offload"] = None
-    except NotImplementedError as e:
-        out["strategy_offload"] = str(e)
+        D.group_sharded_parallel(model, opt, level="os_x")
+    except ValueError as e:
+        out["level"] = f"{type(e).__name__}: {e}"
+    for name, offload in (("offload", True), ("strategy_offload", False)):
+        model = GPTForPretraining(GPTConfig.tiny(), device="cpu", seed=3)
+        opt = AdamW(parameters=model.parameters())
+        m, o, _ = D.group_sharded_parallel(model, opt, offload=offload)
+        fleet._strategy.sharding_configs.offload = not offload
+        step = fleet.distributed_step(m, o, GPTPretrainingCriterion())
+        out[name] = (step._zero.stage, step.optimizer._offload)
     D.fleet._hcg = None
     return out
 
