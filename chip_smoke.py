@@ -293,15 +293,23 @@ non-zero and prints no result. Phases, one JSON line each:
     ``sharding_configs.offload``: the AdamW moments in pinned host memory,
     streamed through the card chunk by chunk; the losses equal in bits to
     phase 17's, 96 K1 and 48 K2 a step, the peak device memory below phase
-    18's; the pinned bytes and the last update's copy times.
+    18's; the pinned bytes and the last update's copy times. Then
+    ``offload_guard_check``: a 1-layer GPT whose AdamW state is one offload
+    chunk, ZeRO-2 with and without offload under the training guard, NaN
+    gradients at dispatch 1: the bad step leaves every master and moment
+    bitwise, and each dispatch's state and loss are equal in bits with and
+    without offload.
 45. ``dlrm_sharded_train`` (last): phase 31's config at 4 shards as 4 gloo
     processes on ``cuda:0`` (200,000 table rows and a quarter of each
     global batch of 4096 each) against one process's run: lookup and
-    table gradient of one batch bitwise, 8 steps' losses and moments within
-    the reference's dp4-against-dp1 gate, the table by ``DLRM_SHARDED_TOL``,
-    ``exchange_stats``'s bytes equal to the exchange's counters and to
-    the bytes the collectives moved; then the rotation dp 4 -> dp 2 -> dp 4
-    through ``EmbeddingCheckpointRotation``, bitwise.
+    table gradient of one batch bitwise; batch 0's table gradient from the
+    whole model bitwise equal to one process's with its MLPs on the same
+    quarter blocks (``_dlrm_grad_witness``); 8 steps' losses and moments
+    within the reference's dp4-against-dp1 gate, the touched rows of the
+    table by ``DLRM_SHARDED_TOL``, ``exchange_stats``'s bytes equal to the
+    exchange's counters and to the bytes the collectives moved; then the
+    rotation dp 4 -> dp 2 -> dp 4 through ``EmbeddingCheckpointRotation``,
+    bitwise.
 
 The serving phases (5, 25-30, 39), the vision phases (22-24) and DLRM's (31,
 45) launch none of K1-K4b: the reference runs no Pallas kernel on those paths
@@ -655,8 +663,11 @@ def launch_counters():
 
 
 def reset_launches():
+    """Every kernel's launch count set to 0, and K1's and K2's counts by
+    dtype cleared."""
     for wrapper in launch_counters().values():
         wrapper.launches = 0
+        getattr(wrapper, "launches_by_dtype", {}).clear()
 
 
 def read_launches():
@@ -3573,7 +3584,7 @@ def _hybrid_rank(path, ids):
     from paddle_tpu_torch.observability import metrics
     from paddle_tpu_torch.ops import registry
     from paddle_tpu_torch.optimizer import AdamW
-    from paddle_tpu_torch.utils.convert import shard_state
+    from paddle_tpu_torch.utils.convert import expert_split_names, shard_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4773,15 +4784,21 @@ DLRM_SHARDED = dict(shards=4, batch=4096, steps=8, lr=1e-3, timeout=600.0)
 # the losses and the table's moments after the steps against the
 # one-process run: tests/test_recsys.py's dp4-against-dp1 gate (rtol 2e-5,
 # atol 2e-6), the reference's own; the lookup and the table gradient of one
-# batch are held bitwise. The table itself: every entry within the steps'
-# reach (2 lr a step) and the whole within a relative L2 error of
-# table_rel_l2. A rank's MLPs run on a quarter of the batch, for which
-# cuBLAS picks other GEMM kernels than for the whole, so the table's
-# gradients differ in their last bits; Adam moves an entry whose gradient
-# is rounding noise by about lr times its sign (read on the card: losses
-# 6.3e-8, moments 1.5e-6; the table 2.4e-7 relative L2, 35-86 entries a
-# rank outside the reference's gate, the largest 9.7e-4 apart)
-DLRM_SHARDED_TOL = dict(rtol=2e-5, atol=2e-6, table_rel_l2=3e-6)
+# batch are held bitwise. A rank's MLPs run on a quarter of the batch, and
+# cuBLAS's GEMMs for 1024 rows round otherwise than for 4096: batch 0's
+# table gradient from the whole model is bitwise one process's with its
+# MLPs on the same quarter blocks and differs from its whole-batch one
+# (_dlrm_grad_witness, read on the card: 1.4e6 of the table's entries, by
+# up to 9.3e-10; the MLP gradients in 77% of entries, 3.6e-7 relative).
+# From there Adam moves an entry whose moment m is a cancelling sum by
+# up to lr times a sign. So the table: every entry within the steps' reach
+# (2 lr a step); the rows the steps touched within a relative L2 error of
+# touched_rel_l2; and every entry outside the reference's entrywise gate
+# one whose m is noise, off by more than noise_m_rel of itself (read on the
+# card: losses 6.0e-8 apart, moments 1.5e-6; touched rows 7.1e-7 relative
+# L2; 268 entries outside the entrywise gate, up to 9.7e-4 apart, their m
+# off by 0.7% to 47000% of itself)
+DLRM_SHARDED_TOL = dict(rtol=2e-5, atol=2e-6, touched_rel_l2=3e-6, noise_m_rel=1e-3)
 # zero_offload_gpt3_train: zero_gpt3_train's step (GPT-3 1.3B, selective
 # recompute, O2, 2 micro-batches, ZeRO stage 2 at world 1 over NCCL) with
 # sharding_configs.offload: the AdamW moments in pinned host memory
@@ -4819,7 +4836,7 @@ def _dlrm_sharded_rank(root):
     from paddle_tpu_torch.models.dlrm import DLRM, DLRMCriterion
     from paddle_tpu_torch.observability import metrics
     from paddle_tpu_torch.optimizer import RowSparseAdam
-    from paddle_tpu_torch.utils.convert import shard_state
+    from paddle_tpu_torch.utils.convert import expert_split_names, shard_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4842,7 +4859,8 @@ def _dlrm_sharded_rank(root):
     hcg = fleet.get_hybrid_communicate_group()
     r, n = hcg.get_data_parallel_rank(), c["shards"]
     model = DLRM(cfg, seed=SEED)
-    model.load_state_dict(shard_state(full, ep_rank=r, ep_degree=n))
+    model.load_state_dict(shard_state(full, ep_rank=r, ep_degree=n,
+                                      ep_names=expert_split_names(model)))
     lo, hi = model.embedding.rows
     blk = c["batch"] // n
     e = model.embedding(fused[r * blk:(r + 1) * blk])
@@ -4850,6 +4868,20 @@ def _dlrm_sharded_rank(root):
     lookup_bitwise = bool(torch.equal(e, e_one[r * blk:(r + 1) * blk]))
     grad_bitwise = bool(torch.equal(model.embedding.weight.grad, one.weight.grad[lo:hi]))
     del one, e_one, e, dy
+    model.zero_grad(set_to_none=True)
+    # the table gradient of batch 0's loss on this rank's block against the
+    # one-process witness (_dlrm_grad_witness): its MLPs on the same blocks,
+    # and on the whole batch
+    (dense0, ids0), (labels0,) = batches[0]
+    block = [torch.from_numpy(a[r * blk:(r + 1) * blk]).to("cuda") for a in (dense0, ids0, labels0)]
+    DLRMCriterion()(model(*block[:2]), block[2]).backward()
+    g = model.embedding.weight.grad.cpu()
+    witness = torch.load(root / "witness.pt", mmap=True, weights_only=True)
+    step1 = {"blocks_bitwise": bool(torch.equal(g, witness["blocks"][lo:hi])),
+             "whole_bitwise": bool(torch.equal(g, witness["whole"][lo:hi])),
+             "whole_entries_differ": int((g != witness["whole"][lo:hi]).sum()),
+             "whole_max_abs": float((g - witness["whole"][lo:hi]).abs().max())}
+    del witness, g, block
     model.zero_grad(set_to_none=True)
     opt = RowSparseAdam(learning_rate=c["lr"], parameters=model.parameters(),
                         sparse_params=model.sparse_param_names())
@@ -4878,6 +4910,27 @@ def _dlrm_sharded_rank(root):
             "v": err(v, ref["v"][lo:hi])}
     reach = 2 * c["lr"] * c["steps"]
     held["table"]["ok"] = held["table"]["max_abs"] <= reach
+    # the rows the steps touched: the table's error over them alone, and
+    # the entries outside the reference's gate with their moments
+    rows = _fused_rows(cfg, batches)
+    rows = torch.from_numpy(rows[(rows >= lo) & (rows < hi)] - lo)
+    d = (table.cpu()[rows] - ref["table"][lo:hi][rows]).double()
+    held["table"].update(touched_rows=int(rows.numel()), touched_sq_err=float(d.square().sum()),
+                         touched_sq_ref=float(ref["table"][lo:hi][rows].double().square().sum()))
+    want_t = ref["table"][lo:hi]
+    out_of_gate = ((table.cpu() - want_t).abs() > tol["atol"] + tol["rtol"] * want_t.abs())
+    idx = out_of_gate.nonzero(as_tuple=True)
+    outliers = [dict(d_table=float((table.cpu() - want_t)[i, j]), m=float(ref["m"][lo:hi][i, j]),
+                     d_m=float(m.cpu()[i, j] - ref["m"][lo:hi][i, j]),
+                     v=float(ref["v"][lo:hi][i, j]), d_v=float(v.cpu()[i, j] - ref["v"][lo:hi][i, j]))
+                for i, j in zip(idx[0].tolist(), idx[1].tolist())]
+    touched_m = ref["m"][lo:hi][rows].abs().flatten().double()
+    touched_v = ref["v"][lo:hi][rows].flatten().double()
+    moments_touched = {"abs_m_quantiles": [float(x) for x in torch.quantile(
+                           touched_m[:1 << 24], torch.tensor([0.01, 0.5, 0.99], dtype=torch.double))],
+                       "sqrt_v_quantiles": [float(x) for x in torch.quantile(
+                           touched_v[:1 << 24].sqrt(),
+                           torch.tensor([0.01, 0.5, 0.99], dtype=torch.double))]}
     # the rotation's first save: the dp 4 state, written whole
     rot = EmbeddingCheckpointRotation(CheckpointManager(str(root / "ckpt_a"), keep_last_k=1),
                                       every=c["steps"], table_names=model.sparse_param_names())
@@ -4891,8 +4944,36 @@ def _dlrm_sharded_rank(root):
                 host_staged_bytes_per_step=calls.get(collective.HOST_STAGED, 0) / c["steps"],
                 a2a_bytes_per_step=emb.get("embedding.a2a_bytes", 0) / c["steps"],
                 ids_exchanged_per_step=emb.get("embedding.ids_exchanged", 0) / c["steps"],
-                rows_checkpointed=rows_checkpointed, held=held,
-                save_seconds=save_s, launches=read_launches())
+                rows_checkpointed=rows_checkpointed, held=held, step1=step1, outliers=outliers,
+                moments_touched=moments_touched, save_seconds=save_s, launches=read_launches())
+
+
+def _dlrm_grad_witness(model, batch, n):
+    """The gradients of one batch's loss from one process's DLRM, over one
+    lookup of the whole batch: with the MLPs on the whole batch (the loss
+    ``n`` times the batch's mean), and with them on each of ``n`` blocks
+    (the sum of the blocks' means, as ``n`` ranks' losses give it). Returns
+    both table gradients on the host and how far the two runs' table and
+    MLP gradients differ."""
+    from paddle_tpu_torch.models.dlrm import DLRMCriterion
+
+    crit = DLRMCriterion()
+    (dense, ids), (labels,) = batch
+    dense, ids, labels = (torch.from_numpy(a).to("cuda") for a in (dense, ids, labels))
+    w = model.embedding.weight
+    mlp = [p for name, p in model.named_parameters() if not name.startswith("embedding.")]
+    emb = model.lookup(ids)
+    whole = torch.autograd.grad(crit(model.interact(dense, emb), labels) * n, [w] + mlp,
+                                retain_graph=True)
+    blk = dense.shape[0] // n
+    blocks = torch.autograd.grad(
+        sum(crit(model.interact(dense[i * blk:(i + 1) * blk], emb[i * blk:(i + 1) * blk]),
+                 labels[i * blk:(i + 1) * blk]) for i in range(n)), [w] + mlp)
+    mlp_rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(whole[1:], blocks[1:])]
+    return dict(whole=whole[0].cpu(), blocks=blocks[0].cpu(),
+                table_entries_differ=int((whole[0] != blocks[0]).sum()),
+                mlp_entries_differ=sum(int((a != b).sum()) for a, b in zip(whole[1:], blocks[1:])),
+                mlp_entries=sum(p.numel() for p in mlp), mlp_max_rel=max(mlp_rel))
 
 
 def _dp_strategy(dp):
@@ -4981,10 +5062,12 @@ def phase_dlrm_sharded_train():
         model = DLRM(cfg, seed=SEED)
         torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
                    root / "weights.pt")
+        batches = dlrm_batches(cfg, c["batch"], c["steps"], 1, seed=SEED + 1)[0]
+        witness = _dlrm_grad_witness(model, batches[0], c["shards"])
+        torch.save({k: witness.pop(k) for k in ("whole", "blocks")}, root / "witness.pt")
         opt = RowSparseAdam(learning_rate=c["lr"], parameters=model.parameters(),
                             sparse_params=model.sparse_param_names())
         step = TrainStep(model, opt, DLRMCriterion())
-        batches = dlrm_batches(cfg, c["batch"], c["steps"], 1, seed=SEED + 1)[0]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         one = step.run_steps(batches)
@@ -5011,6 +5094,11 @@ def phase_dlrm_sharded_train():
                   for r in ranks for a, b in zip(r["losses"], one_losses))
     table_rel_l2 = math.sqrt(sum(r["held"]["table"]["sq_err"] for r in ranks)
                              / sum(r["held"]["table"]["sq_ref"] for r in ranks))
+    touched_rel_l2 = math.sqrt(sum(r["held"]["table"]["touched_sq_err"] for r in ranks)
+                               / sum(r["held"]["table"]["touched_sq_ref"] for r in ranks))
+    outliers = [o for r in ranks for o in r["outliers"]]
+    step1 = [r["step1"] for r in ranks]
+    noise_m = all(abs(o["d_m"]) > tol["noise_m_rel"] * abs(o["m"]) for o in outliers)
     stats = exchange_stats(c["batch"] * cfg.num_sparse, cfg.total_vocab, cfg.embedding_dim,
                            c["shards"])
     moved = sum(r["host_staged_bytes_per_step"] for r in ranks) / 2  # copied out and back in
@@ -5022,7 +5110,8 @@ def phase_dlrm_sharded_train():
     launches = {n: sum(r["launches"][n] for r in ranks) for n in ranks[0]["launches"]}
     ok = (all(r["lookup_bitwise"] and r["grad_bitwise"] for r in ranks) and loss_ok
           and all(h["ok"] for r in ranks for h in r["held"].values())
-          and table_rel_l2 <= tol["table_rel_l2"]
+          and touched_rel_l2 <= tol["touched_rel_l2"] and noise_m
+          and all(w["blocks_bitwise"] for w in step1)
           and all(np.isfinite(r["losses"]).all() for r in ranks)
           and counted == stats["bytes_total"] and moved == stats["bytes_total"]
           and all(d["at"] == c["steps"] for d in down + up)
@@ -5036,7 +5125,11 @@ def phase_dlrm_sharded_train():
                                    "seconds_per_step", "host_staged_bytes_per_step",
                                    "a2a_bytes_per_step", "ids_exchanged_per_step", "held",
                                    "save_seconds", "rows_checkpointed")} for r in ranks],
-         tol=tol, table_rel_l2=table_rel_l2, table_reach=2 * c["lr"] * c["steps"],
+         tol=tol, table_rel_l2=table_rel_l2, table_touched_rel_l2=touched_rel_l2,
+         table_reach=2 * c["lr"] * c["steps"], witness=witness,
+         step1=step1, outside_ref_gate=len(outliers), outliers_m_noise=noise_m,
+         outliers=outliers,
+         moments_touched=[r["moments_touched"] for r in ranks],
          exchange_stats_bytes_per_step=stats["bytes_total"],
          exchange_counter_bytes_per_step=counted, exchange_moved_bytes_per_step=moved,
          owner_rows_of_batch0_unique_ids=owner_rows, unique_ids_batch0=int(uniq.size),
@@ -5131,6 +5224,104 @@ def phase_zero_offload_gpt3_train(gpt3_losses, zero_peak, zero_ms):
     return launches
 
 
+# offload_guard_check: a GPT small enough that its AdamW state (176 MB) is
+# one offload chunk; ZeRO stage 2 and AMP O2 at world 1 over NCCL, the guard
+# on and NaN gradients at dispatch 1. From dispatch 1 on, a sleep kernel of
+# DP_HOLD_CYCLES (about 50 ms) holds the offload's copy-out stream before
+# each dispatch, so the update's copies back to the host land long after
+# its core: a guard that set the host moments back without waiting for them
+# would be overwritten by the bad step's moments, or would write stale ones
+# back over a clean step's
+OFFLOAD_GUARD = dict(cfg=dict(vocab_size=8192, hidden_size=1024, num_layers=1, num_heads=16,
+                              max_seq_len=1024), batch=4, seq=1024, lr=1e-4, steps=3, nan_at=1)
+
+
+def _offload_guard_run(offload):
+    """``OFFLOAD_GUARD``'s steps through ``fleet.distributed_step``, the
+    optimizer state offloaded or not: the losses, the skipped count, the
+    state after each dispatch (host copies), the offload's chunks, and
+    whether the state was pinned on the host."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import DistributedStrategy, fleet, init_parallel_env
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing import chaos
+
+    c = OFFLOAD_GUARD
+    init_parallel_env()
+    strategy = DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "sharding_degree": 1}
+    strategy.sharding = True
+    strategy.sharding_configs = {"sharding_stage": 2, "offload": offload}
+    strategy.amp = True
+    strategy.amp_configs = {"level": "O2", "dtype": "bfloat16"}
+    fleet.init(is_collective=True, strategy=strategy)
+    try:
+        cfg = GPTConfig(**c["cfg"])
+        model = GPTForPretraining(cfg, seed=SEED)
+        opt = AdamW(learning_rate=c["lr"], parameters=model.parameters())
+        with chaos.inject(FLAGS_chaos_nan_at_step=c["nan_at"], FLAGS_train_guard=True):
+            step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
+        ids = fleet.shard_batch(np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                                   (c["batch"], c["seq"]))
+                                .astype(np.int32))
+        losses, states = [], []
+        for i in range(c["steps"]):
+            if offload and i >= c["nan_at"]:
+                with torch.cuda.stream(opt._side[1]):  # the copy-out stream
+                    torch.cuda._sleep(DP_HOLD_CYCLES)
+            losses.append(float(step(ids, ids)["loss"]))
+            st = step.state  # settles the flag and waits for the offload's copies
+            states.append({"params": {n: t.detach().cpu().clone()
+                                      for n, t in st["params"].items()},
+                           "opt": {k: {n: t.detach().cpu().clone() for n, t in tree.items()}
+                                   for k, tree in st["opt"].items()}})
+        stats = opt.offload_stats()
+        pinned = all(t.device.type == "cpu" and t.is_pinned()
+                     for ts in opt._state.values() for t in ts)
+        skipped = step.skipped
+    finally:
+        dist.destroy_process_group()
+        fleet._hcg = None
+    return dict(losses=losses, skipped=skipped, states=states,
+                chunks=None if stats is None else stats["chunks"], pinned=pinned)
+
+
+def _same_state(a, b):
+    return (a["params"].keys() == b["params"].keys()
+            and all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+            and all(torch.equal(a["opt"][k][n], b["opt"][k][n]) for k in a["opt"]
+                    for n in a["opt"][k]))
+
+
+def phase_offload_guard_check():
+    """ZeRO offload under the training guard (``OFFLOAD_GUARD``): 3 steps
+    with NaN gradients at dispatch 1, with the optimizer state offloaded and
+    without, the offloaded run's copies out held late by a sleep kernel.
+    Gates: the bad step skipped and leaving every f32 master and moment of
+    the offloaded run bitwise; each dispatch's state and loss of the
+    offloaded run equal in bits to the run without offload (the guard reads
+    the moments on the host only after the update's copies out land); the
+    state pinned on the host, in one chunk."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    off, plain = _offload_guard_run(True), _offload_guard_run(False)
+    bad = OFFLOAD_GUARD["nan_at"]
+    unchanged = _same_state(off["states"][bad - 1], off["states"][bad])
+    same = [_same_state(a, b) for a, b in zip(off["states"], plain["states"])]
+    ok = (off["pinned"] and off["chunks"] == 1 and off["skipped"] == plain["skipped"] == 1
+          and unchanged and all(same) and off["losses"] == plain["losses"]
+          and off["losses"][bad + 1] == off["losses"][bad])
+    emit(phase="offload_guard_check", ok=ok, config=OFFLOAD_GUARD, losses=off["losses"],
+         plain_losses=plain["losses"], skipped=off["skipped"], bad_step_state_bitwise=unchanged,
+         state_bitwise_without_offload=same, chunks=off["chunks"], pinned=off["pinned"])
+    if not ok:
+        raise AssertionError("offload_guard_check phase failed")
+
+
 def _amp_gpt_model():
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
 
@@ -5150,8 +5341,8 @@ def _dtype_launches():
             for w in (fa.flash_attention_fwd, fa.flash_attention_bwd)}
 
 
-def _dtype_delta(after, before, dtype):
-    return {n: after[n].get(dtype, 0) - before[n].get(dtype, 0) for n in after}
+def _dtype_counts(dtype):
+    return {n: counts.get(dtype, 0) for n, counts in _dtype_launches().items()}
 
 
 def _with_overrides(overrides, fn):
@@ -5189,15 +5380,13 @@ def phase_amp_o1_gpt_train():
         model.load_state_dict(start)
         step = TrainStep(model, AdamW(learning_rate=c["lr"], parameters=model.parameters()),
                          GPTPretrainingCriterion(), amp_level="O1", amp_dtype="bfloat16")
-        before, before_dt = read_launches(), _dtype_launches()
+        reset_launches()
         losses = [float(step(ids, ids)["loss"])]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses += [float(step(ids, ids)["loss"]) for _ in range(c["o1_steps"] - 1)]
         ms = 1e3 * (time.perf_counter() - t0) / (c["o1_steps"] - 1)
-        after, after_dt = read_launches(), _dtype_launches()
-        return (losses, {n: after[n] - before[n] for n in after},
-                _dtype_delta(after_dt, before_dt, "bfloat16"), ms,
+        return (losses, read_launches(), _dtype_counts("bfloat16"), ms,
                 all(p.dtype == torch.float32 for p in model.parameters()))
 
     losses, launches, bf16, ms, f32_weights = _with_overrides("", run)
@@ -5244,7 +5433,7 @@ def phase_fp16_gpt_train():
         model.load_state_dict(start)
         opt = AdamW(learning_rate=c["lr"], parameters=model.parameters())
         scaler = amp.GradScaler(**FP16_SCALER)
-        before, before_dt = read_launches(), _dtype_launches()
+        reset_launches()
         losses, scales, skipped_unchanged, dtypes = [], [], None, set()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5265,9 +5454,8 @@ def phase_fp16_gpt_train():
             losses.append(float(loss))
             scales.append(scaler.get_loss_scaling())
         ms = 1e3 * (time.perf_counter() - t0) / c["fp16_steps"]
-        after, after_dt = read_launches(), _dtype_launches()
-        return (losses, scales, skipped_unchanged, {n: after[n] - before[n] for n in after},
-                _dtype_delta(after_dt, before_dt, "float16"), ms, sorted(dtypes))
+        return (losses, scales, skipped_unchanged, read_launches(), _dtype_counts("float16"), ms,
+                sorted(dtypes))
 
     losses, scales, unchanged, launches, f16, ms, dtypes = _with_overrides("", run)
     plain, plain_scales, _, plain_launches, _, plain_ms, _ = _with_overrides("sdpa=xla", run)
@@ -5827,6 +6015,8 @@ def main() -> int:
     reset_launches()
     by_path["zero_offload_gpt3_train"] = phase_zero_offload_gpt3_train(gpt3_losses, zero_peak,
                                                                        zero_ms)
+    torch.cuda.empty_cache()
+    phase_offload_guard_check()
     torch.cuda.empty_cache()
     by_path["hybrid_gpt3"] = phase_hybrid_gpt3()
     torch.cuda.empty_cache()

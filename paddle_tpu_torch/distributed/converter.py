@@ -96,16 +96,18 @@ def gather_to_host(tree):
 def _layout(step):
     """``(groups, coords, sdp_dims)`` of ``step``'s mesh: the ``mp``,
     ``sdp`` and ``ep`` groups of more than one rank (else None), this
-    rank's coordinates as ``utils.convert.shard_state``'s keywords, and
-    each parameter's ZeRO split dim by name. Which leaf is split over mp
-    or over the experts, and how, is ``utils.convert``'s rule by name; a
-    parameter the mesh splits that the rule does not name raises."""
-    from ..utils.convert import _expert, _mp_spec
+    rank's coordinates as ``utils.convert.shard_state``'s keywords (with
+    ``ep_names``, the parameters marked ``expert_group``), and each
+    parameter's ZeRO split dim by name. Which leaf is split over mp, and
+    how, is ``utils.convert``'s rule by name; a parameter the mesh splits
+    over mp that the rule does not name raises. A parameter marked
+    ``expert_group`` is split along dim 0 over that group."""
+    from ..utils.convert import _mp_spec
 
     hcg, zero = step.mesh, step._zero
     mp = hcg.get_model_parallel_group()
     sdp = zero.sdp if zero is not None and zero.sdp.nranks > 1 else None
-    ep, dims = None, {}
+    ep, dims, ep_names = None, {}, set()
     for name, p in step.model.named_parameters():
         dims[name] = zero.part(p) if zero is not None else None
         held_by = getattr(p, "mp_group", None)
@@ -114,28 +116,27 @@ def _layout(step):
                                       "not name; a checkpoint cannot join it")
         experts = getattr(p, "expert_group", None)
         if experts is not None and experts.nranks > 1:
-            if not _expert(name):
-                raise NotImplementedError(f"{name}: split over an expert group by a layout "
-                                          "utils.convert does not name")
+            ep_names.add(name)
             ep = experts
     groups = dict(mp=mp if mp.nranks > 1 else None, sdp=sdp, ep=ep)
     coords = dict(mp_rank=mp.rank, mp_degree=mp.nranks,
                   pp_rank=hcg.get_pipe_parallel_rank(),
                   pp_degree=hcg.get_pipe_parallel_world_size(),
                   sdp_rank=sdp.rank if sdp else 0, sdp_degree=sdp.nranks if sdp else 1,
-                  ep_rank=ep.rank if ep else 0, ep_degree=ep.nranks if ep else 1)
+                  ep_rank=ep.rank if ep else 0, ep_degree=ep.nranks if ep else 1,
+                  ep_names=ep_names)
     return groups, coords, dims
 
 
-def _whole(name, t, groups, sdp_dim):
-    """One leaf joined over the groups holding the rest of it: the experts,
-    then the ZeRO blocks (``sdp_dim``), then the mp shards
+def _whole(name, t, groups, sdp_dim, ep_names):
+    """One leaf joined over the groups holding the rest of it: the experts
+    (``ep_names``), then the ZeRO blocks (``sdp_dim``), then the mp shards
     (``utils.convert.shard_state``'s cuts in reverse, by its ``_join``)."""
-    from ..utils.convert import _expert, _join, _mp_spec
+    from ..utils.convert import _join, _mp_spec
     from . import collective as C
 
     t = t.detach().contiguous()
-    if groups["ep"] is not None and _expert(name):
+    if groups["ep"] is not None and name in ep_names:
         t = _join(C.all_gather([], t, group=groups["ep"]), 0, 1)
     if groups["sdp"] is not None and sdp_dim is not None:
         t = _join(C.all_gather([], t, group=groups["sdp"]), sdp_dim, 1)
@@ -154,9 +155,10 @@ def _gather_step(step):
     groups, coords, dims = _layout(step)
     stage3 = step._zero is not None and step._zero.stage == 3
     out = {k: tree_map(_host, v) for k, v in local.items() if k not in ("params", "opt")}
-    out["params"] = {n: _whole(n, t, groups, dims[n] if stage3 else None)
+    ep_names = coords["ep_names"]
+    out["params"] = {n: _whole(n, t, groups, dims[n] if stage3 else None, ep_names)
                      for n, t in local["params"].items()}
-    out["opt"] = {k: {n: _whole(n, t, groups, dims[n]) for n, t in tree.items()}
+    out["opt"] = {k: {n: _whole(n, t, groups, dims[n], ep_names) for n, t in tree.items()}
                   for k, tree in local["opt"].items()}
     if coords["pp_degree"] > 1:
         out = _join_stages(out, hcg)

@@ -43,8 +43,9 @@ The table's weight carries ``dist_spec = (axis,)``, the reference's
 parameter spec, and when split its ``expert_group`` (the ``axis`` group):
 the reducers and clips treat it as they treat a mixture of experts' shard
 (the owner keeps the gradient of its rows, divided by the group's size),
-and the checkpoint converter joins and cuts it over that group
-(:mod:`paddle_tpu_torch.utils.convert`).
+and the checkpoint converter joins and cuts it over that group, as
+``utils.convert.expert_split_names`` names it
+(:mod:`paddle_tpu_torch.distributed.converter`).
 
 :class:`EmbeddingCheckpointRotation` publishes the training state every
 ``every`` steps through :class:`~.resilience.CheckpointManager`, which

@@ -444,8 +444,11 @@ class TrainStep:
         lr = opt.lr_at(opt._step_count)
         opt._traced_update(lr, self._param_names)
         if self.guard:
+            # offloaded moments live on the host: wait for the update's
+            # copies back out before the host reads and sets them back
+            opt._ensure_state()
             with torch.no_grad():
-                for t, old in zip(kept, snapshot):  # offloaded moments live on the host
+                for t, old in zip(kept, snapshot):
                     t.copy_(torch.where(bad.to(t.device), old, t))
                 if buffers is not None:
                     for b, old in zip(self.model.buffers(), buffers):

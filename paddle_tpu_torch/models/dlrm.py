@@ -90,9 +90,18 @@ class DLRM(nn.Module):
         return ["embedding.weight"]
 
     def forward(self, dense, ids):
-        fused = ids + self._offsets.to(ids.dtype)
+        return self.interact(dense, self.lookup(ids))
+
+    def lookup(self, ids):
+        """The table's rows of ``ids [B, F]`` (each feature's ids offset
+        into the fused table): ``[B, F, D]``."""
+        return self.embedding(ids + self._offsets.to(ids.dtype))
+
+    def interact(self, dense, emb):
+        """The logits of ``dense [B, num_dense]`` and the looked-up rows
+        ``emb [B, F, D]``: the bottom MLP, the pairwise dot products and the
+        top MLP."""
         bot = self.bottom(dense)                            # [B, D]
-        emb = self.embedding(fused)                         # [B, F, D]
         z = torch.cat([bot[:, None, :], emb], dim=1)        # [B, F + 1, D]
         zz = torch.bmm(z, z.transpose(1, 2))                # [B, F + 1, F + 1]
         inter = zz[:, self._triu[0], self._triu[1]]         # [B, (F + 1) F / 2]

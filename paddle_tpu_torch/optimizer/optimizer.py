@@ -30,10 +30,12 @@ ZeRO offload (``_offload``, set by the step from ``offload=True``) keeps
 the state in host memory, pinned when the parameters are on the card (the
 reference's ``memory_kind="pinned_host"`` optimizer-state shardings). The
 update streams it through the parameters' device in chunks of at most
-:data:`OFFLOAD_CHUNK_BYTES` of state, in parameter order: a side stream
+:data:`OFFLOAD_CHUNK_BYTES` of state, in parameter order: one side stream
 copies chunk c + 1 in while the core updates chunk c on the current
-stream, then copies chunk c back out. The core runs on the same tensors
-in the same order as without offload, so the result is bitwise the same.
+stream, and a second copies chunk c back out, so that the two directions
+run on the card's two copy engines at once. The core runs on the same
+tensors in the same order as without offload, so the result is bitwise
+the same.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ from . import functional as Fopt
 from .lr import LRScheduler
 
 #: The most optimizer state (bytes) the offloaded update holds on the device
-#: per chunk; two chunks are in flight (one updating, the next copying in).
+#: per chunk; three chunks are in flight (one copying in, one updating, one
+#: copying out).
 OFFLOAD_CHUNK_BYTES = 256 << 20
 
 
@@ -75,7 +78,7 @@ class Optimizer:
         self._step_count = 0
         self._shards = None  # a ZeroPlan: the core updates blocks
         self._offload = False  # the state in host memory, streamed per chunk
-        self._side = None  # the offload's copy stream
+        self._side = None  # the offload's copy streams: (in, out)
         self._copies = []  # the last update's ("in" or "out", start, end) copy events
 
     # -- lr ---------------------------------------------------------------
@@ -128,13 +131,14 @@ class Optimizer:
                 self._state = {k: [t.pin_memory() if pin else t for t in ts]
                                for k, ts in made.items()}
         if settle and self._side is not None:
-            self._side.synchronize()
+            for stream in self._side:
+                stream.synchronize()
 
     def _core_update(self, grads, live, lr, keys=None):
         """The core's update of the parameters ``live`` (indices) at ``lr``."""
         if not live:
             return
-        self._ensure_state(settle=False)  # the side stream orders the copies
+        self._ensure_state(settle=False)  # the side streams order the copies
         if self._offload:
             self._offload_update(grads, live, lr, keys)
             return
@@ -168,15 +172,18 @@ class Optimizer:
         key_of = dict(zip(live, keys)) if keys is not None else None
         cuda = device.type == "cuda"
         if cuda and self._side is None:
-            self._side = torch.cuda.Stream(device)
+            self._side = (torch.cuda.Stream(device), torch.cuda.Stream(device))
         main = torch.cuda.current_stream(device) if cuda else None
+        side_in, side_out = self._side if cuda else (None, None)
+        if cuda:  # the host state is read in only once the last update wrote it back
+            side_in.wait_stream(side_out)
         self._copies = []
 
         def fetch(chunk):
             if not cuda:
                 return {k: [v[i].to(device, copy=True) for i in chunk]
                         for k, v in self._state.items()}, None
-            with torch.cuda.stream(self._side):
+            with torch.cuda.stream(side_in):
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
                 dev = {k: [v[i].to(device, non_blocking=True) for i in chunk]
@@ -184,8 +191,9 @@ class Optimizer:
                 ready = torch.cuda.Event(enable_timing=True)
                 ready.record()
             for ts in dev.values():
-                for t in ts:
+                for t in ts:  # used by the core, then copied out: not reused before
                     t.record_stream(main)
+                    t.record_stream(side_out)
             self._copies.append(("in", start, ready))
             return dev, ready
 
@@ -206,8 +214,8 @@ class Optimizer:
                 continue
             done = torch.cuda.Event()
             done.record(main)
-            with torch.cuda.stream(self._side):
-                self._side.wait_event(done)
+            with torch.cuda.stream(side_out):
+                side_out.wait_event(done)
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
                 for k, v in self._state.items():

@@ -219,16 +219,20 @@ def _mp_spec(name):
 
 
 _EXPERT_KEY = re.compile(r"gpt\.layers\.\d+\.moe\.(w1|b1|w2|b2)$")
-#: DLRM's fused table, row-sharded over ``dp`` (``distributed/embedding.py``)
-_ROW_TABLES = ("embedding.weight",)
 
 
-def _expert(name):
-    """Whether ``name`` is split along dim 0 over the expert group (the
-    ``dp`` group): a GPT-MoE expert weight, or DLRM's row-sharded table
-    (rank r holds rows ``[r V / n, (r + 1) V / n)``, and so do its
-    moments)."""
-    return bool(_EXPERT_KEY.match(name)) or name in _ROW_TABLES
+def expert_split_names(model):
+    """The names of ``model``'s parameters split along dim 0 over an expert
+    group (the ``dp`` group): those marked ``expert_group``, as GPT-MoE's
+    expert weights and a row-sharded embedding table are (rank r holds
+    rows ``[r N / n, (r + 1) N / n)``, and so do their moments)."""
+    return {n for n, p in model.named_parameters() if getattr(p, "expert_group", None) is not None}
+
+
+def _expert(name, ep_names=None):
+    """Whether ``name`` is split along dim 0 over the expert group: named in
+    ``ep_names``, or by default a GPT-MoE expert weight."""
+    return name in ep_names if ep_names is not None else bool(_EXPERT_KEY.match(name))
 
 
 def _stacked(name):
@@ -295,7 +299,8 @@ def _join(parts, axis, blocks):
 
 def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: int = 1, cfg=None,
                 *, pp_rank: int = 0, pp_degree: int = 1, sdp_rank: int = 0, sdp_degree: int = 1,
-                sdp_dims=None, ep_rank: int = 0, ep_degree: int = 1) -> Dict[str, np.ndarray]:
+                sdp_dims=None, ep_rank: int = 0, ep_degree: int = 1,
+                ep_names=None) -> Dict[str, np.ndarray]:
     """What the rank at (``pp_rank``, ``sdp_rank``, ``mp_rank``) of a fleet
     grid holds of a full state (numpy arrays or tensors, returned as they
     came; the reference's names; BERT, ERNIE or stacked GPT): its
@@ -308,8 +313,9 @@ def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: in
     parameters, any stage's moments); for GPT-MoE, at expert degree
     ``ep_degree`` (the ``dp`` degree), its experts: rows ``[ep_rank * E /
     ep, (ep_rank + 1) * E / ep)`` of each expert weight (``moe.w1``,
-    ``b1``, ``w2``, ``b2``); for DLRM at dp ``ep_degree``, its rows of the
-    row-sharded table (``embedding.weight``) in the same way."""
+    ``b1``, ``w2``, ``b2``), or the leaves named in ``ep_names``
+    (:func:`expert_split_names` of the model: a row-sharded table too)
+    cut in the same way."""
     if cfg is not None:
         _check_mp(cfg, mp_degree)
     out = {}
@@ -326,7 +332,7 @@ def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: in
             dim = (sdp_dims or {}).get(name)
             if dim is not None and sdp_degree > 1:
                 arr = _split(arr, dim, 1, sdp_degree, sdp_rank)
-            if ep_degree > 1 and _expert(name):
+            if ep_degree > 1 and _expert(name, ep_names):
                 arr = _split(arr, 0, 1, ep_degree, ep_rank)
         except ValueError as e:
             raise ValueError(f"{name}: {e}") from None
@@ -334,21 +340,22 @@ def shard_state(np_state: Dict[str, np.ndarray], mp_rank: int = 0, mp_degree: in
     return out
 
 
-def gather_state(states, cfg=None, sdp_dims=None) -> Dict[str, np.ndarray]:
+def gather_state(states, cfg=None, sdp_dims=None, ep_names=None) -> Dict[str, np.ndarray]:
     """The full state from the ranks' (numpy arrays or tensors):
     :func:`shard_state`'s inverse. ``states`` is a list in mp rank order, or a dict of them by
     ``(pp_rank, sdp_rank, mp_rank)`` or ``(pp_rank, sdp_rank, mp_rank,
     ep_rank)``; with ``sdp_dims`` the entries split over ``sdp`` are joined
     from every sdp rank's block, the rest taken from sdp rank 0 (and the
     replicated ones from mp rank 0, the tied word table from the first
-    stage); GPT-MoE's expert weights and DLRM's row-sharded table are
-    joined from every ep rank's, the rest taken from ep rank 0."""
+    stage); GPT-MoE's expert weights (or the leaves named in ``ep_names``)
+    are joined from every ep rank's, the rest taken from ep rank 0."""
     if not isinstance(states, dict):
         states = {(0, 0, m): st for m, st in enumerate(states)}
     if len(next(iter(states))) == 4:
         by_ep = [gather_state({k[:3]: st for k, st in states.items() if k[3] == e}, cfg, sdp_dims)
                  for e in range(1 + max(k[3] for k in states))]
-        return {n: _contiguous(_cat([_array(part[n]) for part in by_ep])) if _expert(n) else v
+        return {n: _contiguous(_cat([_array(part[n]) for part in by_ep]))
+                if _expert(n, ep_names) else v
                 for n, v in by_ep[0].items()}
     pp = 1 + max(k[0] for k in states)
     sdp = 1 + max(k[1] for k in states)

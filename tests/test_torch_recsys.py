@@ -238,3 +238,32 @@ def test_embedding_checkpoint_rotation_dp4_dp2_dp4_bitwise(tmp_path):
     assert up[0]["whole"].keys() == whole0.keys()
     for key, v in whole0.items():
         np.testing.assert_array_equal(up[0]["whole"][key], v, err_msg=key)
+
+
+def test_convert_cuts_and_joins_the_named_rows():
+    """``utils/convert.py`` cuts the leaves ``ep_names`` names (a row-sharded
+    table, as ``expert_split_names`` reads it off the model) along their
+    rows over the expert degree and joins them back bitwise; without
+    ``ep_names`` only GPT-MoE's expert weights are cut, so the table stays
+    whole."""
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMConfig
+    from paddle_tpu_torch.utils.convert import expert_split_names, gather_state, shard_state
+
+    model = DLRM(DLRMConfig.tiny(), device="cpu")
+    assert expert_split_names(model) == set()  # one shard: nothing split
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    names = {"embedding.weight"}
+    pieces = [shard_state(state, ep_rank=r, ep_degree=4, ep_names=names) for r in range(4)]
+    rows = state["embedding.weight"].shape[0] // 4
+    for r, piece in enumerate(pieces):
+        np.testing.assert_array_equal(piece["embedding.weight"],
+                                      state["embedding.weight"][r * rows:(r + 1) * rows])
+        for k, v in state.items():
+            if k not in names:
+                np.testing.assert_array_equal(piece[k], v, err_msg=k)
+    joined = gather_state({(0, 0, 0, r): p for r, p in enumerate(pieces)}, ep_names=names)
+    assert joined.keys() == state.keys()
+    for k, v in state.items():
+        np.testing.assert_array_equal(joined[k], v, err_msg=k)
+    whole = shard_state(state, ep_rank=1, ep_degree=4)
+    np.testing.assert_array_equal(whole["embedding.weight"], state["embedding.weight"])

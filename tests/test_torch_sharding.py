@@ -34,6 +34,10 @@ WORLD2 = [dict(BASE, sdp=2, stage=s) for s in (1, 2, 3)]
 WORLD4 = [dict(BASE, dp=2, sdp=2, stage=s) for s in (1, 2, 3)]
 #: each stage of WORLD2 again with its optimizer state offloaded to the host
 OFFLOAD = [dict(c, offload=True) for c in WORLD2]
+#: stage 2 for two steps, then three under the guard with NaN gradients at
+#: dispatch 1, without and with offload
+GUARD = [dict(WORLD2[1], steps=2), dict(WORLD2[1], nan_at=1),
+         dict(WORLD2[1], nan_at=1, offload=True)]
 CLIP = 0.3
 LAMB = dict(BASE, sdp=2, mp=2, stage=2, optimizer="lamb", clip=CLIP)
 
@@ -51,7 +55,7 @@ def worlds():
     """This file's worlds of 2 and 4 ranks, queued in the background; each
     test computes the reference's steps while they run."""
     initial = reference_gpt(steps=0)[0]
-    return {2: started(ranks.several, 2, [("gpt_hybrid", (WORLD2 + OFFLOAD, initial, IDS)),
+    return {2: started(ranks.several, 2, [("gpt_hybrid", (WORLD2 + OFFLOAD + GUARD, initial, IDS)),
                                           ("sharding_levels", ())]),
             4: started(ranks.gpt_hybrid, 4, WORLD4 + [LAMB], initial, IDS)}
 
@@ -182,3 +186,24 @@ def test_offload_is_bitwise_the_same_stage(worlds, stage):
             assert got.keys() == want.keys()
             for name, v in want.items():
                 np.testing.assert_array_equal(got[name], v, err_msg=f"{what} {name}")
+
+
+def test_offload_under_the_guard_skips_the_bad_step_bitwise(worlds):
+    """Stage 2 under the training guard with NaN gradients at dispatch 1,
+    with and without offload: the bad step is skipped and leaves every
+    parameter and moment bit for bit, so three dispatches end where two
+    clean steps end, and the step after the bad one repeats its loss."""
+    first = 2 * len(WORLD2)
+    for o in worlds[2].result():
+        two, guarded, off = o[0][first:first + 3]
+        assert guarded["skipped"] == off["skipped"] == 1
+        assert guarded["losses"] == two["losses"] + two["losses"][1:]
+        assert off["losses"] == guarded["losses"]
+        assert off["state_devices"] == [("cpu", False)]
+        for got in (guarded, off):
+            trees = [("state", two["state"], got["state"])] + [
+                (k, two["moments"][k], got["moments"][k]) for k in ("m", "v")]
+            for what, want, have in trees:
+                assert have.keys() == want.keys()
+                for name, v in want.items():
+                    np.testing.assert_array_equal(have[name], v, err_msg=f"{what} {name}")

@@ -557,24 +557,28 @@ def gpt_hybrid(configs, np_state, ids, mask=None):
     ``sdp``, ZeRO ``stage``, pipeline ``schedule`` and ``accumulate``,
     ``layers``, ``cfg`` (more ``GPTConfig.tiny`` keywords), ``optimizer``,
     ``lr``, ``clip``, ``steps``, and ``state``, the full state to load in
-    place of ``np_state``; its world the whole world) in turn: a stacked
+    place of ``np_state``; ``nan_at``, the dispatch whose gradients the
+    chaos injector fills with NaN, under the training guard; its world the
+    whole world) in turn: a stacked
     GPT built on the meta device and loaded with this rank's part of the
     full state, then
     ``fleet.distributed_step`` over ``shard_batch``'s block of ``ids``
     (labels = ids, with ``mask`` as the loss mask if given). Per config:
     the losses, this rank's coordinates, state, moments and ZeRO split
-    dims, the pipeline's peak of held stage inputs and its order, and the
-    collective counters."""
+    dims, the pipeline's peak of held stage inputs and its order, the
+    collective counters, and under the guard the skipped steps."""
     import paddle_tpu_torch.distributed as D
     from paddle_tpu_torch.distributed.sharding import state_shardings
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
     from paddle_tpu_torch.observability import metrics
     from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.testing import chaos
     from paddle_tpu_torch.utils.convert import shard_state
 
     out = []
     for c in configs:
         state = c.get("state", np_state)
+        guard = c.get("nan_at") is not None
         fleet = _hybrid_fleet(c)
         hcg = fleet.get_hybrid_communicate_group()
         cfg = GPTConfig.tiny(num_layers=c.get("layers", 4), **c.get("cfg", {}))
@@ -585,7 +589,11 @@ def gpt_hybrid(configs, np_state, ids, mask=None):
             state, mp_rank, c.get("mp", 1), cfg, pp_rank=pp_rank,
             pp_degree=c.get("pp", 1)).items()})
         opt = _optimizer(c, model)
-        step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
+        if guard:
+            with chaos.inject(FLAGS_chaos_nan_at_step=c["nan_at"], FLAGS_train_guard=True):
+                step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
+        else:
+            step = fleet.distributed_step(model, opt, GPTPretrainingCriterion())
         leaves = fleet.shard_batch(ids) if mask is None else fleet.shard_batch(ids, mask)
         x = leaves if mask is None else leaves[0]
         labels = x if mask is None else leaves
@@ -594,6 +602,7 @@ def gpt_hybrid(configs, np_state, ids, mask=None):
         registry.clear_cache()
         losses = [float(step(x, labels)["loss"]) for _ in range(c.get("steps", 3))]
         sched = step.last_schedule
+        skipped = step.state["skipped"] if guard else None
         out.append(dict(
             losses=losses, coord=hcg.coord, stage_rank=(pp_rank, hcg.get_sharding_parallel_rank(),
                                                         mp_rank),
@@ -604,7 +613,7 @@ def gpt_hybrid(configs, np_state, ids, mask=None):
             peak_held=None if sched is None else sched.peak_held,
             order=None if sched is None else sched.order, n_micro=step.n_micro,
             counters=metrics.counters("collective."),
-            picked=metrics.counters("kernels.attention_core.")))
+            picked=metrics.counters("kernels.attention_core."), skipped=skipped))
         D.fleet._hcg = None
     return out
 

@@ -130,13 +130,14 @@ def _dlrm_step(state, dp):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.dlrm import DLRM, DLRMConfig, DLRMCriterion
     from paddle_tpu_torch.optimizer import RowSparseAdam
-    from paddle_tpu_torch.utils.convert import shard_state
+    from paddle_tpu_torch.utils.convert import expert_split_names, shard_state
 
     fleet = _fleet(dp)
     hcg = fleet.get_hybrid_communicate_group()
     model = DLRM(DLRMConfig.tiny(), device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in shard_state(
-        state, ep_rank=hcg.get_data_parallel_rank(), ep_degree=dp).items()})
+        state, ep_rank=hcg.get_data_parallel_rank(), ep_degree=dp,
+        ep_names=expert_split_names(model)).items()})
     opt = RowSparseAdam(learning_rate=1e-2, parameters=model.parameters(),
                         sparse_params=model.sparse_param_names())
     if dp == 2:
