@@ -310,6 +310,38 @@ non-zero and prints no result. Phases, one JSON line each:
     exchange's counters and to the bytes the collectives moved; then the
     rotation dp 4 -> dp 2 -> dp 4 through ``EmbeddingCheckpointRotation``,
     bitwise.
+46. ``flat_kernels`` holds K3/K3b's float16 instances too: BERT's call with
+    the f32 padding bias an ``auto_cast(float16)`` step gives them, a
+    float16 ``[1, 1, s, s]`` bias, and GPT's packed causal call, with the
+    times of the kernel, the plain version and float16
+    ``scaled_dot_product_attention`` with the same mask.
+47. ``dropout_gpt_train`` (after ``bert_check``): bench.py's train GPT with
+    dropout 0.1 (``attn_dropout`` 0.0) through ``TrainStep`` O2 at
+    ``[8, 1024]``, 5 steps: 16 K1 and 16 K2 a step; each site's keep share
+    within 5 binomial standard deviations of 0.9, masks differing between
+    steps, layers and sites; a selective-recompute twin's first step with
+    the loss and every gradient bitwise the plain model's; a resume by
+    ``state``/``load_state`` after 5 steps giving the next 2 losses
+    bitwise; a step with ``attn_dropout`` 0.1 launching no K1/K2 (the
+    composite, as the reference's predicates route dropout); then ms a
+    step guarded and unguarded, with dropout and without, whose difference
+    prices the guard's host read at a step's first draw.
+48. ``dropout_bert_train``: BERT-base with dropout 0.1 through ``TrainStep``
+    O2 on the padded ``[16, 512]`` batch: 12 K3 and 12 K3b a step, the
+    losses against ``sdpa=xla`` from the same weights and masks within
+    ``DROPOUT_BERT_RTOL``. Then ``transformer_encoder_train``: BERT-base's
+    encoder built from the layer library (``nn.TransformerEncoder``) on the
+    same batch and padding bias, O2 bf16 through ``TrainStep`` and O1
+    float16 eagerly with a ``GradScaler``: 12 K3 and 12 K3b a step, the bf16
+    instances then the float16 ones, each arm's losses against
+    ``sdpa=xla``.
+49. ``transformer_base_decode``: ``nn.Transformer()`` at its defaults
+    (Transformer-base) under a 37000-token shared vocabulary, 3 f32 steps
+    at src/tgt ``[32, 128]`` (the composite: attention dropout, 2-D
+    masks), then greedy decoding of 32 tokens for 8 sources by full
+    recompute, through ``FixedCache`` (bitwise the same tokens) and through
+    ``QuantizedFixedCache`` (the share of equal tokens printed); the eval
+    encoder's attention takes K1.
 
 The serving phases (5, 25-30, 39), the vision phases (22-24) and DLRM's (31,
 45) launch none of K1-K4b: the reference runs no Pallas kernel on those paths
@@ -321,7 +353,8 @@ stay 0, in the replica processes too.
 Phases 4, 5, 25, 26, 27, 28, 29, 30, 39, 6, 9 (its ``pallas_sorted`` run),
 37 and 38 (the ranks' counts, summed), 40, 41 (this process's steps from
 the checkpoint), 42, 43, 12, 13, ``dp_bert_train``, 16, 17, 34, 44, 35
-(summed), 20, 22, 24, 31 and 45 (the ranks' counts, summed) are the main path: the kernel counts are set
+(summed), 20, 22, 24, 31, 45 (the ranks' counts, summed), 47, 48 (both
+arms of each) and 49 are the main path: the kernel counts are set
 to 0 just before each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
@@ -561,7 +594,9 @@ BERT_TRAIN = dict(batch=16, seq=512, lr=1e-4, warmup=3, steps=10, check_batch=2,
 # largest |kernel - plain| over the largest |plain|, as MOE_TOL (f32 sums in
 # another order; bf16 results rounded once against the plain version in f32
 # on the same bf16 inputs)
-FLAT_TOL = MOE_TOL
+# float16: the relative max error of one float16 rounding (2**-11) of P
+# before P V and of dS before dQ, a few times over
+FLAT_TOL = {**MOE_TOL, torch.float16: 4e-3}
 # K3's row statistics against the plain version's: log l within atol 1e-4,
 # the row max m within 1e-5 of max(1, |m|) (the f32 score of a row whose
 # every key carries the -1e30 bias is about -1e30)
@@ -2520,6 +2555,12 @@ def _flat_cases():
               ("masked_row", 4, 512, 12, 12, 64, False, torch.float32, "masked_row")]
     cases += [("d128", 8, 512, 8, 8, 128, False, dt, "padding")
               for dt in (torch.bfloat16, torch.float32)]
+    # the float16 instances: BERT's call with the f32 padding bias that an
+    # auto_cast(float16) step gives it (sdpa casts q, k, v, not the mask),
+    # a float16 bias, and GPT's packed call
+    cases += [("bert", 16, 512, 12, 12, 64, False, torch.float16, "padding_f32"),
+              ("broadcast", 16, 512, 12, 12, 64, False, torch.float16, "broadcast"),
+              ("gpt_packed", 8, 1024, 16, 16, 64, True, torch.float16, None)]
     return cases
 
 
@@ -2528,6 +2569,8 @@ def _flat_bias(kind, b, s, dtype, gen):
         return None
     if kind == "padding":
         return padding_mask(padding_lengths(b, s), s, dtype)
+    if kind == "padding_f32":
+        return padding_mask(padding_lengths(b, s), s)
     if kind == "broadcast":
         return torch.randn((1, 1, s, s), generator=gen, device="cuda").to(dtype)
     if kind == "banded":  # key >= query - 128
@@ -2541,11 +2584,12 @@ def _flat_bias(kind, b, s, dtype, gen):
 def phase_flat_kernels():
     """K3 and K3b against their plain versions; returns the rows of the
     main path's call (BERT-base's padded bf16 call, as the O2 step makes
-    it)."""
+    it) and those of the float16 instance at BERT's call and GPT's packed
+    call."""
     from paddle_tpu_torch.ops import flash_attention_flat as ff
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    main, failures = {}, []
+    main, f16, failures = {}, {}, []
     for name, b, s, h, h_kv, d, causal, dt, kind in _flat_cases():
         qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(dt)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views, as the models pass them
@@ -2576,7 +2620,7 @@ def phase_flat_kernels():
         # mask (causal folded into it where there is a bias), forward and
         # the backward alone
         qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        lib_mask = bias
+        lib_mask = bias if bias is None or bias.dtype == dt else bias.to(dt)  # SDPA: q's dtype
         if causal and bias is not None:
             upper = torch.ones((s, s), dtype=torch.bool, device="cuda").triu(1)
             lib_mask = bias.masked_fill(upper, float("-inf"))
@@ -2624,11 +2668,13 @@ def phase_flat_kernels():
                 failures.append((K["name"], name, row["dtype"]))
             if name == "bert" and dt == torch.bfloat16:
                 main[K["name"]] = row
+            if dt == torch.float16 and name in ("bert", "gpt_packed"):
+                f16.setdefault(K["name"], {})[f"{name}_call"] = row
         del out, stats, grads, dout, bias, qkv, q, k, v
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"K3/K3b disagree with their plain versions in {failures}")
-    return main
+    return main, f16
 
 
 def bert_batch(b, s, vocab):
@@ -5911,6 +5957,535 @@ def _elastic_serve_check(root):
                 child_kernel_launches=child)
 
 
+# -- slice 11: dropout and the nn layer library -----------------------------------------------
+# dropout_gpt_train: bench.py's train GPT (SERVE_CFG, the stacked trunk)
+# with dropout 0.1 and attn_dropout 0.0, AMP O2 over AdamW at [8, 1024]:
+# `steps` steps timed after `warmup`; the resume takes the state after
+# `resume_at` steps and runs `after` more
+DROPOUT_GPT = dict(batch=8, seq=1024, lr=1e-4, p=0.1, warmup=1, steps=3, resume_at=2, after=2)
+# the guard's cost with dropout: a guarded TrainStep's stream key reads the
+# previous step's bad flag at the step's first draw (a host sync); each of
+# the four arms (guard on or off, dropout p or 0) takes one warm step, then
+# `guard_steps` timed ones
+DROPOUT_GUARD_STEPS = 4
+# the first entries of each recorded mask compared across steps, layers and
+# sites (equal slices would mean the same stream)
+MASK_SLICE = 1 << 16
+# dropout_bert_train: BERT-base with dropout 0.1, AMP O2, bert_batch's
+# padded [16, 512]; the losses through K3/K3b against those through
+# sdpa=xla from the same weights and the same masks (dropout sits outside
+# attention), per step within DROPOUT_BERT_RTOL (about 10x the 2.7e-4 read
+# on the card: bf16 attention rounded at other places)
+DROPOUT_BERT = dict(lr=1e-4, p=0.1, steps=4)
+DROPOUT_BERT_RTOL = 3e-3
+# transformer_encoder_train: BERT-base's encoder built from the layer
+# library, nn.TransformerEncoder(TransformerEncoderLayer(768, 12, 3072,
+# dropout=0.1, activation="gelu", attn_dropout=0.0), 12), under word and
+# position tables and a tied MLM head, on bert_batch's [16, 512] with its
+# padding bias; O2 bf16 through TrainStep, then O1 float16 eagerly with a
+# GradScaler; each arm against sdpa=xla from the same weights and masks,
+# within about 10x the readings on the card (3.1e-5 in bf16, 3.0e-6 in
+# float16)
+ENCODER = dict(d_model=768, nhead=12, ffn=3072, layers=12, p=0.1, lr=1e-4, steps=3)
+ENCODER_RTOL = {"O2": 3e-4, "O1": 3e-5}
+# transformer_base_decode: nn.Transformer() at its defaults (Transformer-base:
+# d 512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1) under shared word
+# tables of Vaswani et al.'s ~37000-token BPE vocabulary and learned
+# positions, f32 (TF32 off), 3 AdamW steps at src/tgt [32, 128]; then greedy
+# decoding of 32 tokens for 8 sources, by full recompute, through FixedCache
+# and through QuantizedFixedCache
+TRANSFORMER_BASE = dict(vocab=37000, batch=32, src=128, tgt=128, lr=1e-4, steps=3, sources=8,
+                        new_tokens=32)
+# FixedCache decoding's logits against the full recompute's: f32 attention
+# over a longer, masked key row sums the same terms in another order
+# (about 10x the 4.8e-7 read on the card)
+DECODE_LOGITS_ATOL = 5e-6
+
+
+def _recording_masks(record):
+    """Wrap every dropout's mask draw: per draw its shape, keep count (on
+    the card) and first MASK_SLICE entries appended to ``record``; returns
+    the function to put back."""
+    from paddle_tpu_torch.nn.functional import common
+
+    real = common.dropout_mask
+
+    def recording(shape, p, generator=None, device=None):
+        keep = real(shape, p, generator, device)
+        record.append((tuple(keep.shape), keep.sum(), keep.reshape(-1)[:MASK_SLICE].clone()))
+        return keep
+
+    common.dropout_mask = recording
+    return real
+
+
+def _restore_masks(real):
+    from paddle_tpu_torch.nn.functional import common
+
+    common.dropout_mask = real
+
+
+def _keep_shares(record, p):
+    """Each recorded draw's keep share and its distance from 1 - p in
+    binomial standard deviations."""
+    out = []
+    for shape, kept, _ in record:
+        n = math.prod(shape)
+        share = float(kept) / n
+        out.append((share, abs(share - (1 - p)) / math.sqrt(p * (1 - p) / n)))
+    return out
+
+
+def phase_dropout_gpt_train():
+    """bench.py's train GPT with dropout 0.1 (attn_dropout 0.0) through
+    TrainStep O2: the embeddings' and every block's two residual masks drawn
+    from the step's stream (keep share within 5 binomial standard
+    deviations of 0.9, masks differing between steps, layers and sites);
+    exactly 16 K1 and 16 K2 a step; a selective-recompute twin's first step
+    with bitwise the loss and gradients of the plain model's; a resume by
+    ``state``/``load_state`` giving bitwise the later losses; and a step
+    with attn_dropout 0.1, whose attention takes the plain composite (0
+    K1/K2), as the reference's predicates route dropout. Returns the
+    launches of the plain model's steps."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = DROPOUT_GPT
+    cfg = GPTConfig(**SERVE_CFG, dropout=c["p"])
+    twin_cfg = GPTConfig(**SERVE_CFG, dropout=c["p"], recompute=True,
+                         recompute_granularity="selective")
+    model, twin = GPTForPretraining(cfg, seed=SEED), GPTForPretraining(twin_cfg, seed=SEED)
+
+    def train_step(m):
+        return TrainStep(m, AdamW(learning_rate=c["lr"], parameters=m.parameters()),
+                         GPTPretrainingCriterion(), amp_level="O2", seed=SEED)
+
+    step, twin_step = train_step(model), train_step(twin)
+    ids = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    record = []
+    real = _recording_masks(record)
+    try:
+        reset_launches()
+        losses = [float(step(ids, ids)["loss"])]
+        first_grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        losses.append(float(step(ids, ids)["loss"]))
+    finally:
+        _restore_masks(real)
+    per_step_draws = len(record) // 2
+    shares = _keep_shares(record, c["p"])
+    first, second = record[:per_step_draws], record[per_step_draws:]
+    differ_steps = not any(torch.equal(a[2], b[2]) for a, b in zip(first, second))
+    # draw 0 the embeddings, then per layer the residuals 1 and 2
+    differ_layers = not torch.equal(first[1][2], first[3][2])
+    differ_sites = not torch.equal(first[1][2], first[2][2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [step(ids, ids)["loss"] for _ in range(c["steps"])]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses += [float(x) for x in timed]
+    launches = read_launches()
+    n_steps = 2 + c["steps"]
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    # the recompute twin's first step: the plain model's first step in bits
+    reset_launches()
+    twin_loss = float(twin_step(ids, ids)["loss"])
+    twin_launches = read_launches()
+    grads_bitwise = all(torch.equal(p.grad, first_grads[n]) for n, p in twin.named_parameters())
+    del first_grads
+    # the resume: the plain model's state after its steps, loaded into the
+    # twin (recompute changes no bit), then the same later steps
+    state = step.state
+    saved = {k: ({n: t.clone() for n, t in v.items()} if k in ("params", "buffers") else v)
+             for k, v in state.items()}
+    saved["opt"] = {k: {n: t.clone() for n, t in tree.items()} for k, tree in state["opt"].items()}
+    later = [float(step(ids, ids)["loss"]) for _ in range(c["after"])]
+    twin_step.load_state(saved)
+    del saved
+    resumed = [float(twin_step(ids, ids)["loss"]) for _ in range(c["after"])]
+    # attention dropout: the composite, no K1/K2
+    twin.gpt.cfg.attn_dropout = c["p"]
+    reset_launches()
+    attn_loss = float(twin_step(ids, ids)["loss"])
+    attn_launches = read_launches()
+    guard = _guard_sync_cost(model, ids, c)
+    L = cfg.num_layers
+    ok = (all(np.isfinite(losses)) and np.isfinite(attn_loss) and guard["finite"]
+          and per_step_draws == 1 + 2 * L and all(z <= 5.0 for _, z in shares)
+          and differ_steps and differ_layers and differ_sites
+          and per_step == {**{K["name"]: 0 for K in KERNELS}, K1["name"]: L, K2["name"]: L}
+          and twin_loss == losses[0] and grads_bitwise
+          and resumed == later
+          and attn_launches[K1["name"]] == 0 and attn_launches[K2["name"]] == 0)
+    emit(phase="dropout_gpt_train", ok=ok, ids=[c["batch"], c["seq"]], amp_level="O2",
+         dropout=c["p"], attn_dropout=0.0, losses=losses, launches=launches,
+         launches_per_step=per_step, draws_per_step=per_step_draws,
+         keep_share_min=min(s for s, _ in shares), keep_share_max=max(s for s, _ in shares),
+         keep_share_max_sigmas=max(z for _, z in shares), masks_differ_steps=differ_steps,
+         masks_differ_layers=differ_layers, masks_differ_sites=differ_sites,
+         seconds=seconds, ms_per_step=1e3 * seconds / c["steps"],
+         tokens_per_s=c["batch"] * c["seq"] * c["steps"] / seconds,
+         selective_recompute=dict(loss=twin_loss, loss_bitwise=twin_loss == losses[0],
+                                  grads_bitwise=grads_bitwise, launches=twin_launches),
+         resume=dict(at_step=n_steps, later=later, resumed=resumed, bitwise=resumed == later),
+         attn_dropout_step=dict(attn_dropout=c["p"], loss=attn_loss, launches=attn_launches),
+         guard=guard)
+    if not ok:
+        raise AssertionError("dropout_gpt_train phase failed")
+    return launches
+
+
+def _guard_sync_cost(model, ids, c):
+    """ms a step of ``model`` through an unguarded and a guarded
+    ``TrainStep``, each with dropout ``c["p"]`` and with dropout 0 (no draw,
+    so the guarded step reads its flag only at its update). ``sync_ms``:
+    what the guard costs with dropout beyond what it costs without, the
+    price of the host read at the first draw."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def make(guard):
+        return TrainStep(model, AdamW(learning_rate=c["lr"], parameters=model.parameters()),
+                         GPTPretrainingCriterion(), amp_level="O2", seed=SEED, guard=guard)
+
+    def ms(step):
+        losses = [step(ids, ids)["loss"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(ids, ids)["loss"] for _ in range(DROPOUT_GUARD_STEPS)]
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / DROPOUT_GUARD_STEPS, losses
+
+    steps, out, losses = {False: make(False), True: make(True)}, {}, []
+    try:
+        for p in (c["p"], 0.0):
+            model.gpt.cfg.dropout = p
+            for guard, step in steps.items():
+                out[f"{'guarded' if guard else 'unguarded'}_p{p}"], ls = ms(step)
+                losses += ls
+    finally:
+        model.gpt.cfg.dropout = c["p"]
+    del steps
+    sync = ((out[f"guarded_p{c['p']}"] - out[f"unguarded_p{c['p']}"])
+            - (out["guarded_p0.0"] - out["unguarded_p0.0"]))
+    return dict(ms_per_step=out, sync_ms=sync, steps=DROPOUT_GUARD_STEPS,
+                finite=bool(all(np.isfinite(float(x)) for x in losses)))
+
+
+def _flat_dtype_counts():
+    from paddle_tpu_torch.ops import flash_attention_flat as ff
+
+    return {w.__name__: dict(w.launches_by_dtype) for w in (ff.flash_flat_fwd, ff.flash_flat_bwd)}
+
+
+def phase_dropout_bert_train():
+    """BERT-base with dropout 0.1 through TrainStep O2 on the padded batch,
+    ``FLAGS_flash_flat`` on: 12 K3 and 12 K3b a step, and the losses
+    against the same steps through ``sdpa=xla`` from the same weights (the
+    same masks: dropout is outside attention and draws from the step's
+    stream). Returns the launches of the kernel run."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = DROPOUT_BERT
+    cfg = BertConfig(dropout=c["p"])
+    inputs, labels, _ = bert_batch(BERT_TRAIN["batch"], BERT_TRAIN["seq"], cfg.vocab_size)
+
+    def run(overrides):
+        model = BertForPretraining(cfg, seed=SEED)
+        step = TrainStep(model, AdamW(learning_rate=c["lr"], parameters=model.parameters()),
+                         bert_loss, amp_level="O2", seed=SEED)
+        set_flags({"FLAGS_flash_flat": True})
+        try:
+            def go():  # the first step warms up; the rest are timed
+                reset_launches()
+                losses = [float(step(inputs, labels)["loss"])]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses += [float(step(inputs, labels)["loss"]) for _ in range(c["steps"] - 1)]
+                return losses, read_launches(), 1e3 * (time.perf_counter() - t0) / (c["steps"] - 1)
+            return _with_overrides(overrides, go)
+        finally:
+            set_flags({"FLAGS_flash_flat": False})
+
+    losses, launches, ms = run("")
+    torch.cuda.empty_cache()
+    plain, plain_launches, plain_ms = run("sdpa=xla")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    L = cfg.num_layers
+    want = L * c["steps"]
+    ok = (launches == {**{K["name"]: 0 for K in KERNELS}, K3["name"]: want, K3B["name"]: want}
+          and all(v == 0 for v in plain_launches.values())
+          and all(np.isfinite(losses + plain)) and max(rel) <= DROPOUT_BERT_RTOL)
+    emit(phase="dropout_bert_train", ok=ok, ids=[BERT_TRAIN["batch"], BERT_TRAIN["seq"]],
+         amp_level="O2", dropout=c["p"], losses=losses, xla_losses=plain, loss_rel_err=rel,
+         loss_rtol=DROPOUT_BERT_RTOL, launches=launches, expected_each=want, ms_per_step=ms,
+         xla_ms_per_step=plain_ms)
+    if not ok:
+        raise AssertionError("dropout_bert_train phase failed")
+    return launches
+
+
+class _EncoderLM(torch.nn.Module):
+    """BERT-base's encoder from the layer library under word and position
+    tables and an MLM head tied to the word table (its logits scaled by
+    1/sqrt(d): the tables are Normal(0, 1))."""
+
+    def __init__(self, c, vocab, max_seq, generator):
+        super().__init__()
+        from paddle_tpu_torch.nn import layer as L
+
+        kw = dict(device="cuda", generator=generator)
+        self.words = L.Embedding(vocab, c["d_model"], **kw)
+        self.positions = L.Embedding(max_seq, c["d_model"], **kw)
+        self.encoder = L.TransformerEncoder(
+            L.TransformerEncoderLayer(c["d_model"], c["nhead"], c["ffn"], dropout=c["p"],
+                                      activation="gelu", attn_dropout=0.0, **kw), c["layers"])
+
+    def forward(self, ids, mask):
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        h = self.encoder(self.words(ids) + self.positions(pos), src_mask=mask)
+        return (h @ self.words.weight.T) / math.sqrt(h.shape[-1])
+
+
+def _mlm_loss(logits, mlm):
+    from paddle_tpu_torch.nn.functional.loss import cross_entropy
+
+    per_tok = cross_entropy(logits.reshape(-1, logits.shape[-1]), mlm.reshape(-1),
+                            ignore_index=-100, reduction="none").reshape(-1)
+    keep = (mlm.reshape(-1) != -100).to(torch.float32)
+    return (per_tok * keep).sum() / keep.sum()
+
+
+def phase_transformer_encoder_train():
+    """BERT-base's encoder from the layer library (``_EncoderLM``) on the
+    padded [16, 512] batch, ``FLAGS_flash_flat`` on: 3 O2 bf16 steps
+    through TrainStep (its [b, 1, s, s] bias cast to bf16 with the inputs)
+    and 3 O1 float16 steps eagerly under ``auto_cast`` with a GradScaler
+    (the bias kept f32); each arm against itself through ``sdpa=xla`` from
+    the same weights and masks. Gates: 12 K3 and 12 K3b a step, the bf16
+    instances in O2 and the float16 ones in O1; finite losses within
+    ``ENCODER_RTOL`` of the xla arm's. Returns the launches of both kernel
+    arms."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as R
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    c = ENCODER
+    b, s, vocab = BERT_TRAIN["batch"], BERT_TRAIN["seq"], BertConfig().vocab_size
+    inputs, labels, lengths = bert_batch(b, s, vocab)
+    ids, mask, mlm = inputs[0].long(), inputs[3], labels[0]
+    model = _EncoderLM(c, vocab, s, torch.Generator(device="cuda").manual_seed(SEED))
+    start = {n: t.clone() for n, t in model.state_dict().items()}
+
+    def o2():
+        model.load_state_dict(start)
+        step = TrainStep(model, AdamW(learning_rate=c["lr"], parameters=model.parameters()),
+                         _mlm_loss, amp_level="O2", seed=SEED)
+        reset_launches()
+        losses = [float(step((ids, mask), (mlm,))["loss"])]  # warm-up, then timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [float(step((ids, mask), (mlm,))["loss"]) for _ in range(c["steps"] - 1)]
+        return (losses, read_launches(), _flat_dtype_counts(),
+                1e3 * (time.perf_counter() - t0) / (c["steps"] - 1))
+
+    def o1():
+        model.load_state_dict(start)
+        opt = AdamW(learning_rate=c["lr"], parameters=model.parameters())
+        scaler = amp.GradScaler()
+        R.seed(SEED)  # the eager path draws from the global stream
+        reset_launches()
+        losses = []
+        for i in range(c["steps"]):
+            if i == 1:  # the first step warms up; the rest are timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            with amp.auto_cast(dtype="float16"):
+                logits = model(ids, mask)
+            loss = _mlm_loss(logits.float(), mlm)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+        return (losses, read_launches(), _flat_dtype_counts(),
+                1e3 * (time.perf_counter() - t0) / (c["steps"] - 1))
+
+    set_flags({"FLAGS_flash_flat": True})
+    try:
+        arms = {}
+        for level, run in (("O2", o2), ("O1", o1)):
+            arms[level] = (_with_overrides("", run), _with_overrides("sdpa=xla", run))
+            torch.cuda.empty_cache()
+    finally:
+        set_flags({"FLAGS_flash_flat": False})
+    want = c["layers"] * c["steps"]
+    report, ok, launches = {}, True, {K["name"]: 0 for K in KERNELS}
+    for level, dtype in (("O2", "bfloat16"), ("O1", "float16")):
+        (losses, got, by_dtype, ms), (plain, plain_got, _, plain_ms) = arms[level]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+        arm_ok = (got == {**{K["name"]: 0 for K in KERNELS}, K3["name"]: want, K3B["name"]: want}
+                  and by_dtype == {K3["name"]: {dtype: want}, K3B["name"]: {dtype: want}}
+                  and all(v == 0 for v in plain_got.values())
+                  and all(np.isfinite(losses + plain)) and max(rel) <= ENCODER_RTOL[level])
+        ok = ok and arm_ok
+        launches = {k: launches[k] + v for k, v in got.items()}
+        report[level] = dict(ok=arm_ok, dtype=dtype, losses=losses, xla_losses=plain,
+                             loss_rel_err=rel, loss_rtol=ENCODER_RTOL[level], launches=got,
+                             launches_by_dtype=by_dtype, ms_per_step=ms, xla_ms_per_step=plain_ms)
+    emit(phase="transformer_encoder_train", ok=ok, ids=[b, s], layers=c["layers"],
+         d_model=c["d_model"], nhead=c["nhead"], dropout=c["p"], attn_dropout=0.0,
+         lengths=lengths.tolist(), expected_each=want, **report)
+    if not ok:
+        raise AssertionError("transformer_encoder_train phase failed")
+    del model, start
+    return launches
+
+
+class _Seq2Seq(torch.nn.Module):
+    """nn.Transformer() at its defaults under a shared source and target
+    word table (Normal(0, d**-0.5), scaled by sqrt(d), as Vaswani et al.),
+    learned positions and an output projection of its own (a tied one
+    makes an untrained model repeat its input token)."""
+
+    def __init__(self, vocab, max_seq, generator):
+        super().__init__()
+        from paddle_tpu_torch.nn import layer as L
+
+        kw = dict(device="cuda", generator=generator)
+        self.transformer = L.Transformer(**kw)
+        d = self.transformer.d_model
+        self.words = L.Embedding(vocab, d, **kw)
+        with torch.no_grad():
+            self.words.weight.normal_(0.0, d ** -0.5, generator=generator)
+        self.positions = L.Embedding(max_seq, d, **kw)
+        self.out = L.Linear(d, vocab, **kw)
+        self.scale = math.sqrt(d)
+
+    def embed(self, ids, start=0):
+        pos = torch.arange(start, start + ids.shape[1], device=ids.device)
+        return self.words(ids) * self.scale + self.positions(pos)
+
+    def logits(self, h):
+        return self.out(h)
+
+    def forward(self, src, tgt):
+        from paddle_tpu_torch.nn import layer as L
+
+        mask = L.Transformer.generate_square_subsequent_mask(tgt.shape[1], device=tgt.device)
+        return self.logits(self.transformer(self.embed(src), self.embed(tgt), tgt_mask=mask))
+
+
+def _greedy(model, src, new_tokens, cache_kind):
+    """Greedy decoding of ``new_tokens`` after a start token 0: by full
+    recompute of the decoder over the tokens so far (``cache_kind`` None),
+    or one token a step through per-layer ``FixedCache`` (or
+    ``QuantizedFixedCache``) self-attention caches and the memory's
+    ``StaticCache``. Returns the tokens and each step's f32 logits."""
+    from paddle_tpu_torch.nn import layer as L
+
+    tr = model.transformer
+    memory = tr.encoder(model.embed(src))
+    toks = torch.zeros((src.shape[0], 1), dtype=torch.long, device=src.device)
+    cache = None
+    if cache_kind is not None:
+        first = model.embed(toks)
+        cache = [(layer.self_attn.gen_cache(first, static=True, max_seq=new_tokens + 1,
+                                            kv_dtype="int8" if cache_kind == "int8" else None),
+                  layer.cross_attn.gen_cache(memory, memory, type=L.MultiHeadAttention.StaticCache))
+                 for layer in tr.decoder.layers]
+    logits = []
+    for t in range(new_tokens):
+        if cache is None:
+            mask = L.Transformer.generate_square_subsequent_mask(t + 1, device=src.device)
+            h = tr.decoder(model.embed(toks), memory, tgt_mask=mask)[:, -1:]
+        else:
+            h, cache = tr.decoder(model.embed(toks[:, -1:], start=t), memory, cache=cache)
+        logits.append(model.logits(h))
+        toks = torch.cat([toks, logits[-1].argmax(-1)], dim=1)
+    return toks[:, 1:], torch.cat(logits, dim=1)
+
+
+def phase_transformer_base_decode():
+    """``nn.Transformer()`` at its defaults (Transformer-base) under a
+    shared vocabulary of 37000 (``_Seq2Seq``): 3 f32 AdamW steps in training at src/tgt
+    [32, 128] (attention dropout 0.1 and 2-D causal masks: the composite,
+    no kernel, as the reference routes them); then in eval greedy decoding
+    of 32 tokens for 8 sources by full recompute, through ``FixedCache``
+    (its tokens bitwise the recompute's, its logits within
+    ``DECODE_LOGITS_ATOL``: an untrained model may decode one token
+    throughout) and ``QuantizedFixedCache`` (the share of equal tokens and
+    the largest logit difference printed). The eval encoder takes K1 (no mask, no
+    dropout): 6 launches per memory. Returns the launches."""
+    from paddle_tpu_torch.nn.functional.loss import cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = TRANSFORMER_BASE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = _Seq2Seq(c["vocab"], max(c["src"], c["tgt"]) + 1, gen)
+    opt = AdamW(learning_rate=c["lr"], parameters=model.parameters())
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    src = torch.randint(1, c["vocab"], (c["batch"], c["src"]), device="cuda", generator=rng)
+    tgt = torch.randint(1, c["vocab"], (c["batch"], c["tgt"] + 1), device="cuda", generator=rng)
+    reset_launches()
+    model.train()
+    losses = []
+    for i in range(c["steps"]):
+        if i == 1:  # the first step warms up; the rest are timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits = model(src, tgt[:, :-1])
+        loss = cross_entropy(logits.reshape(-1, c["vocab"]), tgt[:, 1:].reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    train_ms = 1e3 * (time.perf_counter() - t0) / (c["steps"] - 1)
+    train_launches = read_launches()
+    model.eval()
+    srcs = src[:c["sources"]]
+    out, logits, ms = {}, {}, {}
+    with torch.no_grad():
+        for kind in (None, "fixed", "int8"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[kind], logits[kind] = _greedy(model, srcs, c["new_tokens"], kind)
+            torch.cuda.synchronize()
+            ms[kind] = 1e3 * (time.perf_counter() - t0) / c["new_tokens"]
+    logit_err = {k: (logits[k] - logits[None]).abs().max().item() for k in ("fixed", "int8")}
+    top2 = logits[None].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).min().item()
+    launches = read_launches()
+    decode_launches = {k: launches[k] - train_launches[k] for k in launches}
+    enc_layers = len(model.transformer.encoder.layers)
+    fixed_equal = torch.equal(out["fixed"], out[None])
+    int8_share = float((out["int8"] == out[None]).float().mean())
+    ok = (all(np.isfinite(losses)) and all(v == 0 for v in train_launches.values())
+          and decode_launches == {**{K["name"]: 0 for K in KERNELS}, K1["name"]: 3 * enc_layers}
+          and fixed_equal and logit_err["fixed"] <= DECODE_LOGITS_ATOL
+          and tuple(out[None].shape) == (c["sources"], c["new_tokens"]))
+    emit(phase="transformer_base_decode", ok=ok, config="nn.Transformer() defaults", vocab=c["vocab"],
+         src_tgt=[c["batch"], c["src"], c["tgt"]], train_losses=losses, train_ms_per_step=train_ms,
+         train_launches=train_launches, decode_launches=decode_launches,
+         fixed_cache_tokens_equal_recompute=fixed_equal, int8_cache_equal_token_share=int8_share,
+         logits_max_abs_err=logit_err, logits_atol=DECODE_LOGITS_ATOL, min_top2_margin=margin,
+         ms_per_token={"recompute": ms[None], "fixed_cache": ms["fixed"], "int8_cache": ms["int8"]},
+         distinct_tokens=int(out[None].unique().numel()), tokens=out[None][0].tolist())
+    if not ok:
+        raise AssertionError("transformer_base_decode phase failed")
+    del model, opt
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card", file=sys.stderr)
@@ -5924,7 +6499,8 @@ def main() -> int:
     phase_build()
     k1_row, k1_bf16_row, k1_d128, k1_f16 = phase_k1()
     k2_row, k2_f32_row, k2_d128, k2_f16 = phase_k2()
-    rows = {K1["name"]: k1_row, K2["name"]: k2_row, **phase_flat_kernels()}
+    flat_rows, flat_f16 = phase_flat_kernels()
+    rows = {K1["name"]: k1_row, K2["name"]: k2_row, **flat_rows}
     # the bf16 calls of the O2 steps, beside K1's f32 main row (the forward's
     # call); K3's main row is already BERT's O2 call
     bf16_rows = {K1["name"]: k1_bf16_row, K3["name"]: rows[K3["name"]]}
@@ -5932,8 +6508,9 @@ def main() -> int:
     f32_rows = {K2["name"]: k2_f32_row}
     # K1's and K2's d = 128 calls of the 1.3B and ERNIE steps
     d128_rows = {K1["name"]: k1_d128, K2["name"]: k2_d128}
-    # K1's and K2's float16 instances at the O2 and 1.3B calls
-    f16_rows = {K1["name"]: k1_f16, K2["name"]: k2_f16}
+    # K1's and K2's float16 instances at the O2 and 1.3B calls, K3's and
+    # K3b's at BERT's call and GPT's packed call
+    f16_rows = {K1["name"]: k1_f16, K2["name"]: k2_f16, **flat_f16}
 
     model = GPTForPretraining(GPTConfig(**SERVE_CFG), seed=SEED).eval()
     ids = torch.randint(0, SERVE_CFG["vocab_size"], (8, 1024), device="cuda",
@@ -5998,6 +6575,14 @@ def main() -> int:
     phase_bert_curves(bert_losses)
     torch.cuda.empty_cache()
     phase_bert_check()
+    torch.cuda.empty_cache()
+    by_path["dropout_gpt_train"] = phase_dropout_gpt_train()
+    torch.cuda.empty_cache()
+    by_path["dropout_bert_train"] = phase_dropout_bert_train()
+    torch.cuda.empty_cache()
+    by_path["transformer_encoder_train"] = phase_transformer_encoder_train()
+    torch.cuda.empty_cache()
+    by_path["transformer_base_decode"] = phase_transformer_base_decode()
     torch.cuda.empty_cache()
     phase_dist_two_rank()
     torch.cuda.empty_cache()
@@ -6099,6 +6684,10 @@ def main() -> int:
                 "zero_offload_gpt3_train": [K1["name"], K2["name"]],
                 "hybrid_gpt3": [K1["name"], K2["name"]],
                 "ernie_train": [K1["name"], K2["name"]],
+                "dropout_gpt_train": [K1["name"], K2["name"]],
+                "dropout_bert_train": [K3["name"], K3B["name"]],
+                "transformer_encoder_train": [K3["name"], K3B["name"]],
+                "transformer_base_decode": [K1["name"]],
                 "resnet50_train": [], "lenet_train": [], "dlrm_train": [],
                 "dlrm_sharded_train": []}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]

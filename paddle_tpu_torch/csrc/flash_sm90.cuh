@@ -186,7 +186,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // k0..) goes global -> registers -> shared memory -> its score fragment.
 // The global read is coalesced: thread t of the warpgroup reads rows
 // t / 16 + 8 i (i < 8) at keys 4 (t % 16) .. + 3, one 16-byte (f32) or
-// 8-byte (bf16) load each where the bias's base and strides allow, else
+// 8-byte (bf16, f16) load each where the bias's base and strides allow, else
 // four scalar loads; entries past s read as 0 (the caller masks them).
 // The raw bits wait in registers and are converted as they are stored.
 // The next tile's loads are issued while this tile's scores are computed.
@@ -209,7 +209,7 @@ __device__ __forceinline__ bool bias_vector_ok(const BT* bias, BiasStrides bst) 
 }
 
 // The raw bits of the 32 bias entries a thread reads: 32 f32 words, or 16
-// words of two bf16 each. They are converted to f32 only when stored to
+// words of two bf16 or f16 each. They are converted to f32 only when stored to
 // shared memory, a tile later: converting at the load would stall the
 // warpgroup on the load's latency.
 template <typename BT>
@@ -264,6 +264,11 @@ __device__ __forceinline__ void bias_store(float* buf, const uint32_t (&r)[bias_
     if constexpr (sizeof(BT) == 4) {
       v = make_float4(__uint_as_float(r[4 * i]), __uint_as_float(r[4 * i + 1]),
                       __uint_as_float(r[4 * i + 2]), __uint_as_float(r[4 * i + 3]));
+    } else if constexpr (is_half<BT>()) {  // two f16 per word, converted
+      v = make_float4(__half2float(__ushort_as_half((unsigned short)(r[2 * i] & 0xffffu))),
+                      __half2float(__ushort_as_half((unsigned short)(r[2 * i] >> 16))),
+                      __half2float(__ushort_as_half((unsigned short)(r[2 * i + 1] & 0xffffu))),
+                      __half2float(__ushort_as_half((unsigned short)(r[2 * i + 1] >> 16))));
     } else {  // bf16 is the top half of an f32
       v = make_float4(__uint_as_float(r[2 * i] << 16), __uint_as_float(r[2 * i] & 0xffff0000u),
                       __uint_as_float(r[2 * i + 1] << 16),

@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..framework import random as _random
 from . import collective
 from .resilience import watchdog
 
@@ -192,6 +193,8 @@ class DataParallel(nn.Module):
         self._grad_sync = group is not None and collective._group(group).nranks > 1
         self._sync_enabled = True
         self._hook_handles = []
+        # each rank's dropout draws from the stream with its rank folded in
+        self._rank = collective._group(group).rank if self._grad_sync else None
         if not self._grad_sync:
             return
         g = collective._group(group)
@@ -230,7 +233,13 @@ class DataParallel(nn.Module):
             self._hook_handles.append(p.register_post_accumulate_grad_hook(hook))
 
     def forward(self, *inputs, **kwargs):
-        return self._layers(*inputs, **kwargs)
+        """The wrapped layers' forward; above one rank in a random scope
+        with the rank folded into the current stream's next key, so the
+        ranks' dropout masks differ (drawn only if something draws)."""
+        if self._rank is None:
+            return self._layers(*inputs, **kwargs)
+        with _random.fold_scope(self._rank):
+            return self._layers(*inputs, **kwargs)
 
     def scale_loss(self, loss):
         return loss  # the reducer divides by the group size

@@ -19,6 +19,13 @@ states; a GShard MoE layer draws its jitter from a generator it owns. The
 recompute therefore replays each such layer's routing
 (:func:`paddle_tpu_torch.distributed.moe.routing_replay`) in the module
 given as ``replay`` (by default ``function`` itself, when it is a module).
+Dropout draws from explicit generators made from the keys of the current
+random stream (:mod:`paddle_tpu_torch.framework.random`), which no
+checkpoint replays: a recompute would split new keys and draw new masks,
+and the gradients would be wrong while the loss looked right. So every
+recompute also runs :func:`~paddle_tpu_torch.framework.random.dropout_replay`:
+it splits the keys the forward split, from the same stream, and so draws
+the same masks.
 
 The recompute runs ``forward`` again, and with it every in-place update a
 forward makes to a buffer (BatchNorm's running statistics). The
@@ -36,6 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from .. import amp
+from ..framework.random import dropout_replay
 from .moe import routing_replay
 
 _MM = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
@@ -107,17 +115,20 @@ def buffer_replay(module):
 
 def _contexts(saved_ops, replay):
     """The ``(forward, recompute)`` context pair of one checkpointed call:
-    the MoE routing replay and the buffer replay of ``replay``, the AMP
-    scope the forward ran in (the recompute runs outside it), with the
-    selective-checkpoint pair where ``saved_ops`` names ops to save."""
+    the MoE routing replay and the buffer replay of ``replay``, the dropout
+    replay, the AMP scope the forward ran in (the recompute runs outside
+    it), with the selective-checkpoint pair where ``saved_ops`` names ops
+    to save."""
     route_fwd, route_rec = routing_replay(replay)
     buf_fwd, buf_rec = buffer_replay(replay)
+    drop_fwd, drop_rec = dropout_replay()
     amp_rec = amp.restored(amp._snapshot())
     if not saved_ops:
-        return _entered(route_fwd, buf_fwd), _entered(route_rec, buf_rec, amp_rec)
+        return (_entered(route_fwd, buf_fwd, drop_fwd),
+                _entered(route_rec, buf_rec, drop_rec, amp_rec))
     sac_fwd, sac_rec = create_selective_checkpoint_contexts(list(saved_ops))
-    return (_entered(route_fwd, buf_fwd, sac_fwd),
-            _entered(route_rec, buf_rec, sac_rec, amp_rec))
+    return (_entered(route_fwd, buf_fwd, drop_fwd, sac_fwd),
+            _entered(route_rec, buf_rec, drop_rec, sac_rec, amp_rec))
 
 
 def recompute(function, *args, policy="nothing_saveable", replay=None, **kwargs):

@@ -96,11 +96,30 @@ chaos injector ``FLAGS_chaos_nan_at_step`` fills the gradients with NaN
 at that dispatch (counted as ``step + skipped``), once per process, as
 the reference's does.
 
+Dropout draws from the step's random stream, as the reference's step folds
+its key: each (micro-)batch's forward and backward run in an
+:func:`~paddle_tpu_torch.framework.random.rng_scope` whose key is
+:func:`~paddle_tpu_torch.framework.random.step_key` of ``(seed, step,
+micro-batch, rank)``: ``step`` the count of applied updates (a step the
+guard skips does not advance it, so the retried batch draws the same
+masks), the micro-batch folded in with ``accumulate_steps > 1``, and the
+data-group rank at a data-parallel degree above 1. The key is made at the
+scope's first draw (a step without dropout never makes it). With the
+guard, making it reads the last step's flag first: a host sync, so a
+guarded step with dropout waits at its first draw for the last step's
+update to finish on the card, where the guard otherwise reads the flag
+one step late (``chip_smoke.py``'s ``dropout_gpt_train`` times the step
+guarded and unguarded, with dropout and without). A recompute re-derives
+the same keys (:mod:`paddle_tpu_torch.distributed.recompute`). Dropout at mp,
+pp, sep or ep > 1 raises (ROADMAP.md, Queue 1 item 36).
+
 ``state`` is the step's whole training state as the reference keys it
 (``params``: the f32 masters, or the model's parameters without AMP;
 ``buffers``; ``opt``: each optimizer moment by parameter name; ``step``;
 ``skipped`` with the guard; ``lr``: the LR schedule's state; ``rng``: each
-MoE layer's generator); ``load_state`` puts one back. Under a mesh they
+MoE layer's generator; ``dropout_seed``: the root of the dropout stream,
+which with ``step`` names every later mask, so a resume is bitwise);
+``load_state`` puts one back. Under a mesh they
 are this rank's pieces: :mod:`paddle_tpu_torch.distributed.converter`
 joins and cuts them for a checkpoint.
 """
@@ -115,6 +134,7 @@ from ..distributed.env import get_world_size
 from ..distributed.pipeline import (active_pipeline_plan, active_pipeline_schedule, microbatch,
                                     run_schedule, unmicrobatch)
 from ..distributed.recompute import recompute
+from ..framework import random as _random
 from ..framework.flags import flag
 from ..framework.selected_rows import compiled_step
 from ..nn.clip import _reduce_terms, _shard_groups
@@ -165,9 +185,9 @@ class TrainStep:
     whenever a mesh is given, at degree 1 too (a sum over one rank,
     divided by 1: the same bits). ``batch_shardings``: the axes the batch
     is split over, a subset of ``("dp", "sdp")`` (each rank feeds its own
-    block). ``seed`` is kept for the reference's signature: nothing random
-    runs in the step until dropout is ported. The knobs the port lacks
-    raise ``NotImplementedError``."""
+    block). ``seed``: the root of the step's dropout stream (see the
+    module's docstring). The knobs the port lacks raise
+    ``NotImplementedError``."""
 
     def __init__(self, model, optimizer, loss_fn, mesh=None, state_shardings=None,
                  batch_shardings=None, remat=False, seed=0, amp_level=None, amp_dtype="bfloat16",
@@ -191,7 +211,7 @@ class TrainStep:
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
-        self.seed = seed
+        self.seed = int(seed)
         self.remat = bool(remat) or flag("FLAGS_remat_policy") != "none"
         self.accumulate_steps = int(accumulate_steps)
         self.return_outputs = bool(return_outputs)
@@ -272,6 +292,33 @@ class TrainStep:
         return {n: (z.part(p), z.sdp) for n, p in self.model.named_parameters()
                 if z.part(p) is not None and n not in own}
 
+    def _stream_key(self, micro):
+        """The key of this (micro-)batch's dropout stream, made at its
+        first draw."""
+        self._no_parallel_dropout()
+        self._settle()  # a skipped step does not advance the stream
+        rank = None
+        if self.mesh is not None:
+            group = self.mesh.get_data_sharding_group()
+            rank = group.rank if group.nranks > 1 else None
+        return _random.step_key(self.seed, self.optimizer._step_count, micro, rank)
+
+    def _no_parallel_dropout(self):
+        hcg = self.mesh
+        if hcg is None:
+            return
+        experts = any(getattr(p, "expert_axis", None) is not None
+                      and getattr(p, "expert_group", None) is not None
+                      for p in self.model.parameters())
+        if (hcg.get_model_parallel_world_size() > 1 or hcg.get_pipe_parallel_world_size() > 1
+                or hcg.get_sep_parallel_world_size() > 1 or experts):
+            from ..models.gpt import DROPOUT_PARALLEL_NOT_PORTED
+
+            raise NotImplementedError(DROPOUT_PARALLEL_NOT_PORTED)
+
+    def _stream(self, micro=None):
+        return _random.rng_scope(lambda: self._stream_key(micro))
+
     def _to_amp(self, t):
         return t.to(self.amp_dtype) if t.dtype == torch.float32 else t
 
@@ -345,7 +392,7 @@ class TrainStep:
                 xs = tuple(t[i].contiguous() for t in mb_in)
             else:
                 xs = (x.requires_grad_(),)
-            with compiled_step():
+            with compiled_step(), self._stream(i):
                 loss, out = self._loss(xs, labels_of[i] if last else None)
                 y = loss * weights[i] if last else out
             if last:
@@ -388,7 +435,7 @@ class TrainStep:
         self.model.train()
         try:
             for i in range(k):
-                with compiled_step():
+                with compiled_step(), self._stream(i if k > 1 else None):
                     loss, out = self._loss(tuple(x[i].contiguous() for x in mb_in),
                                            tuple(x[i].contiguous() for x in mb_lb))
                     loss.backward()  # adds this micro-batch's f32 gradients on the masters
@@ -521,6 +568,7 @@ class TrainStep:
                "step": int(opt._step_count)}
         if self.guard:
             out["skipped"] = int(self.skipped)
+        out["dropout_seed"] = self.seed
         if isinstance(opt._lr, LRScheduler):
             out["lr"] = opt._lr.state_dict()
         moe = self._moe_layers()
@@ -553,6 +601,7 @@ class TrainStep:
                 opt._state[k][index[n]].copy_(torch.as_tensor(v))
         opt._step_count = int(state["step"])
         self.skipped = int(state.get("skipped", 0))
+        self.seed = int(state.get("dropout_seed", self.seed))
         self._pending, self._skipped_t = None, None
         self._dispatched = opt._step_count + self.skipped
         if "lr" in state and isinstance(opt._lr, LRScheduler):

@@ -27,9 +27,14 @@ ignored by ``create_parameter`` (an initializer object has no
 ``.initializer``), so the projections are XavierNormal and the position
 and token-type tables Normal(0, 1); the word table is Normal(0, 0.02)
 (ROADMAP.md, Queue 3). So ``BertConfig`` takes no ``initializer_range``:
-no weight of the reference depends on its value. Dropout in training is
-not ported (ROADMAP.md, Queue 1 item 5): a training forward with
-``dropout > 0`` raises.
+no weight of the reference depends on its value.
+
+Dropout (``dropout``) trains as in the reference: after the embeddings'
+LayerNorm and on both residual branches of every layer (one ``Dropout``
+per layer, drawn twice); attention has none, so the kernels keep the
+call. Its masks come from the current random stream
+(:mod:`paddle_tpu_torch.framework.random`), a key per site in call order.
+Dropout in training at mp > 1 raises (ROADMAP.md, Queue 1 item 36).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from ..distributed.mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
                                      RowParallelLinear, VocabParallelEmbedding,
                                      copy_to_model_parallel, model_parallel_degree)
 from ..framework.device import resolve_device
+from ..nn.layer.common import Dropout
 from ..nn.functional.activation import gelu
 from ..nn.functional.attention import scaled_dot_product_attention
 from ..nn.functional.loss import cross_entropy
@@ -82,11 +88,11 @@ class BertConfig:
         return cls(**cfg)
 
 
-def _no_training_dropout(module, cfg):
-    if module.training and cfg.dropout > 0.0:
-        raise NotImplementedError(
-            "dropout in training is not ported yet (ROADMAP.md, Queue 1 item 5): set dropout "
-            "to 0, or call eval()")
+def _no_parallel_dropout(module, cfg):
+    if module.training and cfg.dropout > 0.0 and model_parallel_degree() > 1:
+        from .gpt import DROPOUT_PARALLEL_NOT_PORTED
+
+        raise NotImplementedError(DROPOUT_PARALLEL_NOT_PORTED)
 
 
 class BertSelfAttention(nn.Module):
@@ -126,11 +132,12 @@ class BertLayer(nn.Module):
         self.ffn2 = RowParallelLinear(Ff, H, input_is_parallel=True, device=device,
                                       generator=generator)
         self.norm2 = LayerNorm(H, device=device)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, attn_mask=None):
-        _no_training_dropout(self, self.cfg)
-        x = self.norm1(x + self.attn(x, attn_mask))
-        return self.norm2(x + self.ffn2(gelu(self.ffn1(x), approximate=True)))
+        _no_parallel_dropout(self, self.cfg)
+        x = self.norm1(x + self.dropout(self.attn(x, attn_mask)))
+        return self.norm2(x + self.dropout(self.ffn2(gelu(self.ffn1(x), approximate=True))))
 
 
 class BertEmbeddings(nn.Module):
@@ -143,6 +150,7 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = Embedding(cfg.type_vocab_size, H, device=device,
                                                generator=generator)
         self.norm = LayerNorm(H, device=device)
+        self.dropout = Dropout(cfg.dropout)
 
     def embed(self, input_ids, token_type_ids=None, position_ids=None):
         """The sum of the word, position and token-type embeddings, before
@@ -155,7 +163,7 @@ class BertEmbeddings(nn.Module):
                 + self.token_type_embeddings(token_type_ids))
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
-        return self.norm(self.embed(input_ids, token_type_ids, position_ids))
+        return self.dropout(self.norm(self.embed(input_ids, token_type_ids, position_ids)))
 
 
 class BertModel(nn.Module):

@@ -71,7 +71,7 @@ class ErnieEmbeddings(BertEmbeddings):
             if task_type_ids is None:
                 task_type_ids = torch.zeros_like(input_ids)
             h = h + self.task_type_embeddings(task_type_ids)
-        return self.norm(h)
+        return self.dropout(self.norm(h))
 
 
 class ErnieModel(nn.Module):

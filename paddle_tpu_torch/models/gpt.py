@@ -61,7 +61,20 @@ per-layer trunk) runs at dp > 1 with its experts sharded over ``dp``
 mp > 1 (each rank its heads, its cache and its vocabulary shard); the
 serving engine and the per-layer trunk need mp = pp = sep = 1.
 
-Not ported yet: dropout in training and export; see ``ROADMAP.md``.
+Dropout trains as in the reference (``dropout``: the embeddings and both
+residual branches of every block; ``attn_dropout``: the attention
+probabilities, which takes attention to the plain ``xla`` composite, as the
+reference's kernel predicates refuse dropout). Its masks come from the
+current random stream (:mod:`paddle_tpu_torch.framework.random`): the
+embeddings split one key, the stacked trunk one more, and folds the layer
+and then the site (0 attention, 1 and 2 the residuals) into it, as the
+reference's trunk folds its key; the per-layer trunk's sites split a key
+each, in call order. A recompute draws the same masks
+(:func:`~paddle_tpu_torch.framework.random.dropout_replay`). Dropout in
+training at mp, pp or sep > 1 raises (ROADMAP.md, Queue 1 item 36): the
+replicated activations would need one mask on every tensor-parallel rank.
+
+Not ported yet: export; see ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -81,7 +94,10 @@ from ..distributed.mp_layers import (ParallelCrossEntropy, VocabParallelEmbeddin
                                      _mp_group, _shard, copy_to_model_parallel,
                                      reduce_from_model_parallel)
 from ..distributed.sharding import gather_param, regather_on_backward
+from ..framework import random as _random
 from ..framework.device import resolve_device
+from ..nn.functional import common as _common
+from ..nn.layer.common import Dropout
 from ..ops import registry
 from ..ops.layer_norm import layer_norm_fused
 from ..nn.functional.attention import scaled_dot_product_attention
@@ -221,6 +237,7 @@ class GPTEmbeddings(nn.Module):
                 self.word_embeddings.weight = nn.Parameter(_shard(table, 0, grid.mp))
         if grid.first:
             self.position_embeddings = nn.Embedding.from_pretrained(pos, freeze=False)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, input_ids, position_ids=None):
         """At sep > 1 ``input_ids`` is this rank's block of the sequence, and
@@ -229,7 +246,7 @@ class GPTEmbeddings(nn.Module):
             s = input_ids.shape[1]
             first = 0 if self.sep_group is None else self.sep_group.rank * s
             position_ids = torch.arange(first, first + s, device=input_ids.device)
-        return self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
+        return self.dropout(self.word_embeddings(input_ids) + self.position_embeddings(position_ids))
 
 
 def _attn_core_packed(qkv, attn_dropout=0.0, generator=None):
@@ -238,10 +255,25 @@ def _attn_core_packed(qkv, attn_dropout=0.0, generator=None):
     return registry.dispatch("attention_core", qkv, attn_dropout, generator)
 
 
-def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=1e-5,
-                 mp_group=None, sep_group=None):
+def _drop(v, p, generator):
+    """The stacked trunk's residual dropout: ``v / (1 - p)`` where kept, the
+    mask drawn from ``generator``. It divides where ``common.dropout``
+    multiplies by ``1 / (1 - p)``, because the reference's trunk divides
+    and the two round apart."""
+    if p == 0.0 or generator is None:
+        return v
+    keep = _common.dropout_mask(v.shape, p, generator, v.device)
+    return torch.where(keep, v / (1.0 - p), torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def _block_apply(lp, h, *, num_heads, dropout=0.0, attn_dropout=0.0, key=None, layer=0,
+                 epsilon=1e-5, mp_group=None, sep_group=None):
     """One pre-LN decoder block; ``lp`` holds the 12 parameter slices of one
-    layer in ``GPTBlockStack._order``. With ``mp_group`` they are this
+    layer in ``GPTBlockStack._order``. ``key``: the trunk's dropout key, or
+    None; the block is layer ``layer`` of the trunk, and its sites 0
+    (attention), 1 and 2 (the residuals) draw from
+    :func:`~paddle_tpu_torch.framework.random.site_generator`, as the
+    reference's fold their keys. With ``mp_group`` they are this
     rank's shards and ``num_heads`` its heads: the column layers' input
     goes through the copy region, the row layers' partial products through
     the reduce region before their bias. With ``sep_group`` ``h`` is this
@@ -249,6 +281,11 @@ def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=
     ``[b, s, 3, num_heads / sep, dh]`` for the attention core, and its
     output back to this block."""
     n1w, n1b, qkvw, qkvb, ow, ob, n2w, n2b, f1w, f1b, f2w, f2b = lp
+
+    def site(i, p):
+        return None if key is None or p == 0.0 else _random.site_generator(key, layer, i, h.device)
+
+    generator = site(0, attn_dropout)
     b, s, d = h.shape
     dh = qkvw.shape[1] // (3 * num_heads)
     x1 = layer_norm_fused(h, n1w, n1b, epsilon)
@@ -262,7 +299,7 @@ def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=
                                              attn_dropout, generator), sep_group)
     att = att.reshape(b, s, num_heads * dh)
     if mp_group is None:
-        h = h + att @ ow + ob
+        h = h + _drop(att @ ow + ob, dropout, site(1, dropout))
     else:
         h = h + reduce_from_model_parallel(att @ ow, mp_group) + ob
     x2 = layer_norm_fused(h, n2w, n2b, epsilon)
@@ -270,7 +307,7 @@ def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=
         x2 = copy_to_model_parallel(x2, mp_group)
     y = F.gelu(x2 @ f1w + f1b, approximate="tanh")
     if mp_group is None:
-        return h + y @ f2w + f2b
+        return h + _drop(y @ f2w + f2b, dropout, site(2, dropout))
     return h + reduce_from_model_parallel(y @ f2w, mp_group) + f2b
 
 
@@ -280,8 +317,8 @@ def _block_apply(lp, h, *, num_heads, attn_dropout=0.0, generator=None, epsilon=
 _REMAT_POLICY = {"full": "nothing_saveable", "selective": "dots_saveable"}
 
 
-def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None, recompute=None,
-                   mp_group=None, gathers=None, sep_group=None):
+def _stack_forward(x, params, *, num_heads, dropout=0.0, attn_dropout=0.0, key=None,
+                   recompute=None, mp_group=None, gathers=None, sep_group=None):
     """Whole-trunk forward: the layer loop of the reference at pp = 1 (or
     this stage's layers), each block recomputed in the backward under the
     policy named by ``recompute`` (a granularity, or None for no
@@ -290,29 +327,31 @@ def _stack_forward(x, params, *, num_heads, attn_dropout=0.0, generator=None, re
     ``[L, ...]`` buffers added up. ``gathers`` (ZeRO stage 3): for each
     parameter, None or ``(dim, group)`` of its blocks in the stack; each
     layer's blocks are gathered as the layer runs, and again in its
-    backward (by the recompute, or by :func:`regather_on_backward`)."""
-    block = functools.partial(_block_apply, num_heads=num_heads, attn_dropout=attn_dropout,
-                              generator=generator, mp_group=mp_group, sep_group=sep_group)
+    backward (by the recompute, or by :func:`regather_on_backward`).
+    ``key``: the trunk's dropout key (None: no dropout); layer i draws from
+    it with i and the site folded in, which the recompute re-derives."""
+    block = functools.partial(_block_apply, num_heads=num_heads, dropout=dropout,
+                              attn_dropout=attn_dropout, mp_group=mp_group, sep_group=sep_group)
     gathers = gathers or [None] * len(params)
 
     def gathered(lp):
         return tuple(t if g is None else gather_param(t, g[0] - 1, g[1])
                      for t, g in zip(lp, gathers))
 
-    def layer(lp, h):
-        return block(gathered(lp), h)
+    def layer(lp, h, i):
+        return block(gathered(lp), h, key=key, layer=i)
 
     h = x
-    for lp in zip(*(p.unbind(0) for p in params)):
+    for i, lp in enumerate(zip(*(p.unbind(0) for p in params))):
         if recompute:
-            h = _recompute(layer, lp, h, policy=_REMAT_POLICY[recompute])
+            h = _recompute(layer, lp, h, i, policy=_REMAT_POLICY[recompute])
         elif any(gathers):
             whole = gathered(lp)
             with regather_on_backward([(w, t, g[0] - 1, g[1]) for w, t, g in zip(whole, lp, gathers)
                                        if g is not None]):
-                h = block(whole, h)
+                h = block(whole, h, key=key, layer=i)
         else:
-            h = block(lp, h)
+            h = block(lp, h, key=key, layer=i)
     return h
 
 
@@ -346,6 +385,7 @@ class GPTBlockStack(nn.Module):
         self.cfg = cfg
         self.mp_group = grid.mp
         self.sep_group = grid.sep
+        self.pp = grid.pp
         mp = 1 if grid.mp is None else grid.mp.nranks
         if cfg.num_heads % mp:
             raise ValueError(f"num_heads {cfg.num_heads} does not split over mp degree {mp}")
@@ -378,22 +418,31 @@ class GPTBlockStack(nn.Module):
 
     def forward(self, x):
         cfg = self.cfg
-        _no_training_dropout(self, cfg)
+        dropping = self.training and (cfg.dropout > 0.0 or cfg.attn_dropout > 0.0)
+        if dropping:
+            _no_parallel_dropout(self.mp_group, self.pp, self.sep_group)
         parts = getattr(self, "_zero_parts", None) or {}
         with amp.unlisted():  # the reference's one "gpt_stack" op: AMP casts nothing in it
             return _stack_forward(x, [getattr(self, n) for n in self._order],
                                   num_heads=self.num_heads,
+                                  dropout=cfg.dropout if dropping else 0.0,
+                                  attn_dropout=cfg.attn_dropout if dropping else 0.0,
+                                  key=_random.split_key() if dropping else None,
                                   recompute=cfg.recompute_granularity if cfg.recompute else None,
                                   mp_group=self.mp_group,
                                   gathers=[parts.get(n) for n in self._order],
                                   sep_group=self.sep_group)
 
 
-def _no_training_dropout(module, cfg):
-    if module.training and (cfg.dropout > 0.0 or cfg.attn_dropout > 0.0):
-        raise NotImplementedError(
-            "dropout in training is not ported yet (ROADMAP.md, Queue 1 item 5): "
-            "set dropout and attn_dropout to 0, or call eval()")
+DROPOUT_PARALLEL_NOT_PORTED = (
+    "dropout in training at model, pipeline, sequence or expert parallel degree > 1 is not "
+    "ported yet (ROADMAP.md, Queue 1 item 36): the replicated activations need one mask on "
+    "every tensor-parallel rank; set dropout and attn_dropout to 0, or train at dp only")
+
+
+def _no_parallel_dropout(mp_group, pp, sep_group):
+    if mp_group is not None or pp > 1 or sep_group is not None:
+        raise NotImplementedError(DROPOUT_PARALLEL_NOT_PORTED)
 
 
 class _Linear(nn.Module):
@@ -454,15 +503,15 @@ class GPTBlock(nn.Module):
         else:
             self.ffn1 = _Linear(D, Ff, std, device, generator)
             self.ffn2 = _Linear(Ff, D, std, device, generator)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x):
-        _no_training_dropout(self, self.cfg)
         n1, n2 = self.norm1, self.norm2
-        x = x + self.attn(layer_norm_fused(x, n1.weight, n1.bias, n1.eps))
+        x = x + self.dropout(self.attn(layer_norm_fused(x, n1.weight, n1.bias, n1.eps)))
         x2 = layer_norm_fused(x, n2.weight, n2.bias, n2.eps)
         if self.moe is not None:
-            return x + self.moe(x2)
-        return x + self.ffn2(F.gelu(self.ffn1(x2), approximate="tanh"))
+            return x + self.dropout(self.moe(x2))
+        return x + self.dropout(self.ffn2(F.gelu(self.ffn1(x2), approximate="tanh")))
 
 
 class GPTModel(nn.Module):

@@ -1,7 +1,9 @@
 """Functionals of the port (the ported subset of ``paddle_tpu.nn.functional``)."""
-from .activation import gelu, relu  # noqa: F401
+from .activation import *  # noqa: F401,F403
 from .attention import scaled_dot_product_attention  # noqa: F401
-from .common import embedding  # noqa: F401
+from .common import (alpha_dropout, bilinear, cosine_similarity, dropout, dropout2d,  # noqa: F401
+                     dropout3d, embedding, interpolate, label_smooth, linear, normalize, one_hot,
+                     pad, unfold, upsample)
 from .conv import conv1d, conv2d, conv3d  # noqa: F401
 from .loss import cross_entropy  # noqa: F401
 from .norm import batch_norm, sync_batch_norm  # noqa: F401

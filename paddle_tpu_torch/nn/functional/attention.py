@@ -23,27 +23,42 @@ import math
 import torch
 
 from ...amp import cast_inputs
+from ...framework import random as _random
 from ...framework.flags import flag
 from ...ops import flash_attention_flat as _flat
 from ...ops import registry as _registry
 from ...ops.flash_attention import (flash_attention_available, flash_attention_bwd,
                                    flash_attention_fwd)
+from . import common as _common
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
     """q/k/v: ``[batch, seq, heads, head_dim]`` (paddle layout). Dispatches
     through the ``sdpa`` registry kernel; ``generator`` draws the dropout
-    mask. In an ``auto_cast`` scope q, k, v (and a float mask) run in its
-    dtype (the ``sdpa`` op is on the white list)."""
+    mask (default: the current random stream's next key, drawn only when
+    dropping, as the reference draws its key). In an ``auto_cast`` scope q,
+    k, v run in its dtype (the ``sdpa`` op is on the white list); a float
+    mask keeps its own (the scores it is added to are f32 in every impl).
+    This departs from the reference, whose AMP casts the mask too: there a
+    0 / -1e30 padding mask becomes -inf under float16 and about -1e30 in
+    bf16, here it keeps its dtype. A float16 mask that reaches the flat kernels
+    (K3/K3b) is turned into f32 with -inf at -1e30 first, since they need
+    a finite bias."""
     p = dropout_p if training else 0.0
-    query, key, value, attn_mask = cast_inputs("sdpa", query, key, value, attn_mask)
+    if p > 0.0 and generator is None:
+        generator = _random.next_generator(query.device)
+    query, key, value = cast_inputs("sdpa", query, key, value)
     return _registry.dispatch("sdpa", query, key, value, attn_mask, is_causal, p, generator)
 
 
 def _dropout(probs, p, generator):
-    keep = torch.rand(probs.shape, generator=generator, device=probs.device) >= p
-    return torch.where(keep, probs / (1.0 - p), torch.zeros((), dtype=probs.dtype, device=probs.device))
+    """The reference's attention dropout: the kept probabilities times
+    ``1 / (1 - p)`` in their dtype, the mask drawn by
+    :func:`~paddle_tpu_torch.nn.functional.common.dropout_mask`."""
+    keep = _common.dropout_mask(probs.shape, p, generator, probs.device)
+    scale = torch.tensor(1.0 / (1.0 - p), dtype=probs.dtype, device=probs.device)
+    return torch.where(keep, probs * scale, torch.zeros((), dtype=probs.dtype, device=probs.device))
 
 
 def _sdpa_reference(q, k, v, mask=None, causal=False, dropout_p=0.0, generator=None):
@@ -86,7 +101,7 @@ def _sdpa_flat_available(q, k, v, mask, causal, dropout_p, generator):
     return (_flat.enabled((b, s, 3, h, d), q.dtype, q.device.type) and kv_ok
             and tuple(v.shape) == tuple(k.shape) and q.dtype == k.dtype == v.dtype
             and q.device.type == k.device.type == v.device.type == mask.device.type
-            and mask.dtype in (torch.bool, *_flat.BIAS_DTYPES)
+            and (mask.dtype == torch.bool or mask.dtype in _flat.BIAS_DTYPES)
             and _flat.mask_supported(b, s, h, d, tuple(mask.shape)))
 
 
@@ -94,6 +109,12 @@ def _sdpa_flat(q, k, v, mask, causal, dropout_p, generator):
     if mask.dtype == torch.bool:
         mask = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device).masked_fill(
             ~mask, -1e30)
+    elif mask.dtype == torch.float16 or not _flat.bias_dtype_ok(mask.dtype, q.dtype):
+        # a float16 mask holds -inf where its maker cast -1e30 or -1e9 down
+        # (bf16 keeps them finite); the kernels need a finite bias, so one
+        # pass makes it f32 with -inf at -1e30, as it does a 16-bit mask of
+        # the operands' other type
+        mask = mask.float().clamp_min(-1e30)
     return _flat.flash_flat_gqa(q, k, v, causal=causal, mask=mask)
 
 

@@ -1,11 +1,14 @@
 """Layers of the port with the reference's names, layouts and default
-initialisers (``paddle_tpu/nn/layer/``). ``paddle.nn.Sequential`` is
-``torch.nn.Sequential``, which names its children ``"0"``, ``"1"``, ... as
-the reference's does."""
-from .activation import ReLU  # noqa: F401
-from .common import Embedding, Linear  # noqa: F401
+initialisers (``paddle_tpu/nn/layer/``)."""
+from .activation import *  # noqa: F401,F403
+from .common import (AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2D,  # noqa: F401
+                     Dropout3D, Embedding, Flatten, Identity, Linear, Pad1D, Pad2D, Pad3D, Unfold,
+                     Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D)
+from .container import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
 from .loss import CrossEntropyLoss  # noqa: F401
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm,  # noqa: F401
                    SyncBatchNorm)
 from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D  # noqa: F401
+from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,  # noqa: F401
+                          TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)

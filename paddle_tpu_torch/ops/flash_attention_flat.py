@@ -10,8 +10,8 @@ launches ``csrc/flash_flat_bwd.cu`` (K3b). The reference's "flat lanes"
 and head groups are Mosaic layout rules; on Hopper a flat ``[b, s, h*d]`` or
 packed ``[b, s, 3*h*d]`` operand is a ``[b, s, h, d]`` view with strides, so
 q, k, v are ``[b, s, h, d]`` tensors with a unit head-dim stride and no copy
-is made. The optional additive bias is ``[b|1, 1, s, s]`` (f32 or bf16,
-finite: use -1e30, not -inf), broadcast over heads, read through its own
+is made. The optional additive bias is ``[b|1, 1, s, s]`` (f32, or the
+operands' 16-bit type; finite: use -1e30, not -inf), broadcast over heads, read through its own
 strides (batch stride 0 for ``[1, 1, s, s]``).
 
 The forward gives ``out`` ``[b, s, h, d]`` in the input dtype and
@@ -37,22 +37,31 @@ import torch
 
 from ..framework.flags import flag
 from . import _cuda
-from .flash_attention import flash_attention_available, gradient_buffers, kernel_operand
+from .flash_attention import (_count_dtype, flash_attention_available, gradient_buffers,
+                              kernel_operand)
 
-#: Bias dtypes the kernels are compiled for (a bool mask is converted to
-#: 0 / -1e30 f32 by the caller).
-#: Operand dtypes the flat kernels are compiled for (K1/K2's float16
-#: instances have no flat counterpart yet: ROADMAP.md, Queue 2).
-DTYPES = (torch.float32, torch.bfloat16)
-BIAS_DTYPES = (torch.float32, torch.bfloat16)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: Operand dtypes the flat kernels are compiled for: f32 (the SIMT bodies),
+#: bf16 and float16 (one tensor-core instance each, as K1/K2's).
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: Bias dtypes: f32, or a 16-bit bias of the operands' own type (f32
+#: operands take any of the three). A bool mask is converted to 0 / -1e30
+#: f32 by the caller.
+BIAS_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def bias_dtype_ok(bias_dtype, dtype) -> bool:
+    """Whether the kernels take a bias of ``bias_dtype`` beside operands of
+    ``dtype``."""
+    return bias_dtype == torch.float32 or (bias_dtype in BIAS_DTYPES
+                                           and dtype in (torch.float32, bias_dtype))
 
 
 def enabled(qkv_shape=None, dtype=torch.float32, device_type="cuda") -> bool:
     """Whether the flat kernels take a call: ``FLAGS_flash_flat`` is on and,
     given the packed shape ``[b, s, 3, h, d]``, the kernels' own limits hold
     (those of K1: ``d`` of 64 or 128, ``b`` and ``h`` within the launch
-    grid, a CUDA or CPU device; and f32 or bf16, its own :data:`DTYPES`). The reference's TPU rules (``s >=
+    grid, a CUDA or CPU device; and its own :data:`DTYPES`). The reference's TPU rules (``s >=
     256``, ``s`` a multiple of the block, ``s <= 2048``, the head-group VMEM
     budget) do not apply: the kernels mask a ragged ``s`` and stream any
     length."""
@@ -116,14 +125,14 @@ def _reference_flat_bwd(q, k, v, bias, out, stats, dout, causal):
     return tuple(t.transpose(1, 2).to(q.dtype) for t in (dq, dk, dv))
 
 
-def _check_bias(bias, b, s, device, who):
+def _check_bias(bias, b, s, dtype, device, who):
     """The bias as the kernels take it (unit key stride), and its (batch,
     query) element strides."""
     if bias is None:
         return None, (0, 0)
-    if tuple(bias.shape) not in ((b, 1, s, s), (1, 1, s, s)) or bias.dtype not in BIAS_DTYPES \
-            or bias.device != device:
-        raise ValueError(f"{who}: the bias must be an f32 or bf16 [b|1, 1, s, s] tensor on "
+    if tuple(bias.shape) not in ((b, 1, s, s), (1, 1, s, s)) \
+            or not bias_dtype_ok(bias.dtype, dtype) or bias.device != device:
+        raise ValueError(f"{who}: the bias must be an f32 (or {dtype}) [b|1, 1, s, s] tensor on "
                          f"{device}; got {tuple(bias.shape)} {bias.dtype} on {bias.device}")
     if bias.stride(-1) != 1:
         bias = bias.contiguous()
@@ -135,7 +144,7 @@ def _check_qkv(tensors, who):
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{who}: operands on different devices")
     if len({t.dtype for t in tensors}) != 1 or q.dtype not in DTYPES:
-        raise TypeError(f"{who}: the kernel takes float32 or bfloat16 operands of one dtype; "
+        raise TypeError(f"{who}: the kernel takes float32, bfloat16 or float16 operands of one dtype; "
                         f"got {[str(t.dtype) for t in tensors]}")
     if not flash_attention_available(tuple(q.shape), None, q.dtype, "cuda") \
             or any(tuple(t.shape) != tuple(q.shape) for t in tensors):
@@ -160,7 +169,7 @@ def _launch_fwd(q, k, v, bias, causal):
     _check_qkv((q, k, v), who)
     q, k, v = (kernel_operand(t) for t in (q, k, v))
     b, s, h, d = q.shape
-    bias, bias_strides = _check_bias(bias, b, s, q.device, who)
+    bias, bias_strides = _check_bias(bias, b, s, q.dtype, q.device, who)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -176,6 +185,7 @@ def _launch_fwd(q, k, v, bias, causal):
     if rc != 0:
         raise RuntimeError(f"flash_flat_fwd: kernel launch failed with CUDA error {rc}")
     flash_flat_fwd.launches += 1
+    _count_dtype(flash_flat_fwd, q.dtype)
     return out, stats
 
 
@@ -193,6 +203,7 @@ def flash_flat_fwd(q, k, v, bias=None, causal=False):
 
 
 flash_flat_fwd.launches = 0
+flash_flat_fwd.launches_by_dtype = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,7 +221,7 @@ def _launch_bwd(q, k, v, bias, out, stats, dout, causal, grads):
     dout = kernel_operand(dout)  # e.g. the expanded gradient of a sum or a mean
     _check_qkv((q, k, v, out, dout), who)
     b, s, h, d = q.shape
-    bias, bias_strides = _check_bias(bias, b, s, q.device, who)
+    bias, bias_strides = _check_bias(bias, b, s, q.dtype, q.device, who)
     if tuple(stats.shape) != (2, b, h, s) or stats.dtype != torch.float32 \
             or stats.device != q.device:
         raise ValueError(f"flash_flat_bwd: stats must be f32 [2, b, h, s] on {q.device}; got "
@@ -234,6 +245,7 @@ def _launch_bwd(q, k, v, bias, out, stats, dout, causal, grads):
     if rc != 0:
         raise RuntimeError(f"flash_flat_bwd: kernel launch failed with CUDA error {rc}")
     flash_flat_bwd.launches += 1
+    _count_dtype(flash_flat_bwd, q.dtype)
     return dq, dk, dv
 
 
@@ -259,6 +271,7 @@ def flash_flat_bwd(q, k, v, bias, out, stats, dout, causal=False, grads=None):
 
 
 flash_flat_bwd.launches = 0
+flash_flat_bwd.launches_by_dtype = {}
 
 
 class _FlatFlash(torch.autograd.Function):
@@ -317,7 +330,7 @@ def flash_flat(q, k, v, causal=False):
 
 def flash_flat_masked(q, k, v, mask, causal=False):
     """Masked attention through K3/K3b. ``mask``: additive bias
-    ``[b|1, 1, s, s]``, f32 or bf16 (a bool mask must be converted to
+    ``[b|1, 1, s, s]``, f32 or the operands' 16-bit type (a bool mask must be converted to
     0 / -1e30 by the caller). Gradients flow to q, k, v; the mask gets
     none. A ``[1, 1, s, s]`` mask is read with batch stride 0, where the
     reference broadcasts it to ``b``: the values are the same."""

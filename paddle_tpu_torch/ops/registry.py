@@ -104,10 +104,13 @@ def register(kernel: str, impl_name: str, fn: Optional[Callable] = None, *,
 
 
 def _abstract(v: Any):
-    """Tensors become (shape, dtype, device type); anything else must already
-    be hashable."""
+    """Tensors become (shape, dtype, device type), a random generator its
+    device type (a fresh one per call must not grow the cache); anything
+    else must already be hashable."""
     if isinstance(v, torch.Tensor):
         return ("tensor", tuple(v.shape), str(v.dtype), v.device.type)
+    if isinstance(v, torch.Generator):
+        return ("generator", v.device.type)
     return v
 
 

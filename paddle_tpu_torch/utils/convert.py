@@ -29,7 +29,12 @@ buffers ``_mean`` and ``_variance``; :func:`state_dict_by_name` carries
 such a state across name for name, checked against the target model, and
 DLRM's the same way (``bottom.N.*``, ``embedding.weight`` padded to
 ``pad_multiple`` rows, ``top.N.*``; the model's offset and interaction
-index buffers are not part of the state).
+index buffers are not part of the state). So do the transformer layers of
+``nn.layer.transformer``: ``MultiHeadAttention``'s ``{q,k,v,out}_proj.*``
+(``[in, out]`` weights), an encoder or decoder stack's
+``layers.N.{self_attn,cross_attn}.*``, ``layers.N.linear{1,2}.*``,
+``layers.N.norm{1,2,3}.*`` and its final ``norm.*``, and ``Transformer``'s
+under ``encoder.`` and ``decoder.``.
 """
 from __future__ import annotations
 
@@ -174,8 +179,8 @@ def state_dict_by_name(np_state: Dict[str, np.ndarray],
                        model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """A ``paddle_tpu`` state_dict (parameters and buffers, as numpy
     arrays) as ``model``'s state_dict (CPU tensors), tensor for tensor as
-    it is: a ResNet, LeNet or DLRM, whose names and layouts are the
-    reference's.
+    it is: a ResNet, LeNet, DLRM or a transformer layer or stack, whose
+    names and layouts are the reference's.
     Raises ``KeyError`` unless the names are exactly ``model``'s and
     ``ValueError`` on a shape that differs from ``model``'s."""
     want = model.state_dict()

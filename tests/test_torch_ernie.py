@@ -315,12 +315,18 @@ def test_convert_checks_ernie_names_and_shapes():
     assert set(pm.state_dict()) == set(off)
 
 
-def test_training_with_dropout_raises():
-    """Dropout in training is not ported: a training forward with dropout
-    raises, an eval forward runs."""
+def test_training_with_dropout_raises(monkeypatch):
+    """Dropout trains: each training forward draws new masks, an eval
+    forward none. In training at a model-parallel degree above 1 it raises,
+    citing ROADMAP.md item 36 (one mask on every tensor-parallel rank is
+    not ported)."""
+    import paddle_tpu_torch.models.bert as port_bert
+
     pm = ErnieForPretraining(ErnieConfig.tiny(dropout=0.1), device="cpu")
     ids = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    assert not torch.equal(pm(ids)[0], pm(ids)[0])
+    monkeypatch.setattr(port_bert, "model_parallel_degree", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 36"):
         pm(ids)
     pm.eval()
     assert pm(ids)[0].shape == (1, 8, 512)  # tiny: vocab 512

@@ -212,7 +212,8 @@ def test_availability_rules():
     set_flags({"FLAGS_flash_flat": True})
     try:
         assert ff.enabled() and ff.enabled((2, 100, 3, 4, 64)) and ff.enabled((1, 3000, 3, 2, 128))
-        assert not ff.enabled((2, 128, 3, 4, 32)) and not ff.enabled((2, 128, 3, 4, 64), torch.float16)
+        assert not ff.enabled((2, 128, 3, 4, 32)) and not ff.enabled((2, 128, 3, 4, 64), torch.float64)
+        assert ff.enabled((2, 128, 3, 4, 64), torch.float16)
         assert not ff.enabled((2, 128, 3, 4, 64), torch.float32, "meta")
     finally:
         set_flags({"FLAGS_flash_flat": False})
@@ -265,6 +266,10 @@ def _card_bias(kind, b, s, device, dtype):
         bias = rng.standard_normal((1, 1, s, s))
     else:  # banded
         bias = np.where(np.triu(np.ones((s, s), bool), -40), 0.0, -1e30)[None, None]
+    # float16 has no finite -1e30: a float16 call takes its mask in f32, as
+    # an auto_cast(float16) step passes it
+    if dtype == torch.float16 and kind != "broadcast":
+        dtype = torch.float32
     return torch.from_numpy(bias.astype(np.float32)).to(device, dtype)
 
 
@@ -300,7 +305,7 @@ def _check_kernels_on_card(card, kind, shape, causal, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("case", [("padding", (2, 512, 2, 64)), ("broadcast", (2, 200, 3, 64)),
                                   ("banded", (1, 256, 2, 128)), ("none", (2, 130, 2, 64))])
@@ -386,4 +391,40 @@ def test_bf16_mean_gradient_through_k3b_on_card(card, causal):
     want, _ = ff._reference_flat_fwd(*ref, None, causal)
     (want.mean(dim=1) * g).sum().backward()
     for got, w in zip((q, k, v), ref):
+        torch.testing.assert_close(got.grad.float(), w.grad, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_dtype", ["float16", "bfloat16"])
+def test_sdpa_16bit_inf_padding_mask_on_card(card, flash_flat_on, mask_dtype):
+    """float16 ``sdpa`` with a float16 padding mask holding -inf (a -1e30
+    or -1e9 mask cast down to float16 overflows so), or a bf16 one, goes
+    through K3/K3b, which take it as f32 with -inf at -1e30: the output and q, k, v
+    gradients are finite and match the plain composite on the same inputs
+    and the same -inf mask, in f32, at atol 2e-2 / rtol 1e-2 (one float16
+    rounding of values of a few units)."""
+    rng = np.random.default_rng(31)
+    b, s, h, d = 2, 512, 2, 64
+    host = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+            for _ in range(4)]
+    keep = torch.arange(s)[None, None, None, :] < torch.tensor([37, s])[:, None, None, None]
+    mask = torch.where(keep, 0.0, -1e30).expand(b, 1, s, s).to(card, getattr(torch, mask_dtype))
+    if mask_dtype == "float16":
+        assert torch.isinf(mask).any()
+    q, k, v = (t.to(card, torch.float16).requires_grad_() for t in host[:3])
+    g = host[3].to(card, torch.float16)
+    assert registry.select("sdpa", q, k, v, mask, False, 0.0, None).name == "flash_flat_gqa"
+    before = ff.flash_flat_fwd.launches, ff.flash_flat_bwd.launches
+    out = attn.scaled_dot_product_attention(q, k, v, attn_mask=mask, training=False)
+    (out.float() * g.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (ff.flash_flat_fwd.launches, ff.flash_flat_bwd.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = attn._sdpa_reference(*ref, mask.float())
+    (want * g.float()).sum().backward()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want, atol=2e-2, rtol=1e-2)
+    for got, w in zip((q, k, v), ref):
+        assert torch.isfinite(got.grad).all()
         torch.testing.assert_close(got.grad.float(), w.grad, atol=2e-2, rtol=1e-2)

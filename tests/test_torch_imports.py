@@ -114,13 +114,21 @@ RESILIENCE_MODULES = {"paddle_tpu_torch.distributed.checkpoint",
 AMP_MODULES = {"paddle_tpu_torch.amp", "paddle_tpu_torch.tensor",
                "paddle_tpu_torch.nn.functional.loss", "paddle_tpu_torch.nn.functional.activation"}
 
+# modules of dropout and the first half of the nn layer library
+NN_LIBRARY_MODULES = {"paddle_tpu_torch.framework.random", "paddle_tpu_torch.nn.functional.common",
+                      "paddle_tpu_torch.nn.functional.activation",
+                      "paddle_tpu_torch.nn.layer.common", "paddle_tpu_torch.nn.layer.activation",
+                      "paddle_tpu_torch.nn.layer.container",
+                      "paddle_tpu_torch.nn.layer.transformer", "paddle_tpu_torch.nn.initializer",
+                      "paddle_tpu_torch.distributed.recompute"}
+
 
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
               | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES
               | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES | RESILIENCE_MODULES
-              | AMP_MODULES)
+              | AMP_MODULES | NN_LIBRARY_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr

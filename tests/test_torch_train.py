@@ -441,10 +441,14 @@ def test_unported_train_step_knobs_raise(kw):
 
 
 def test_training_with_dropout_raises():
+    """Dropout trains through ``TrainStep``; on a pipeline stage (pp > 1)
+    the stacked trunk raises, citing ROADMAP.md item 36."""
     pm = GPTForPretraining(GPTConfig.tiny(dropout=0.1), device="cpu")
     step = TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion())
     ids = _batches(1, (1, 8), 512, seed=19)[0]
-    with pytest.raises(NotImplementedError, match="dropout"):
+    assert np.isfinite(float(step(ids, ids)["loss"]))
+    pm.gpt.layers.pp = 2  # as a pipeline stage's trunk sees its grid
+    with pytest.raises(NotImplementedError, match="item 36"):
         step(ids, ids)
 
 

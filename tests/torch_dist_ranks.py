@@ -1049,3 +1049,40 @@ def guarded_mesh_steps(ids, nan_at, steps):
     return dict(bad=_np(m["health"]["bad_step"]).tolist(),
                 skipped=_np(m["health"]["skipped"]).tolist(), losses=_np(m["loss"]).tolist(),
                 params={n: _np(t) for n, t in whole["params"].items()}, step=whole["step"])
+
+
+def dropout_streams(seed, ids):
+    """A tiny dropout GPT's dropout at dp = world: the keep masks one
+    ``fleet.distributed_step`` step draws on this rank (``ids`` is the
+    rank's block of the batch); then the error a dropout GPT's training
+    forward raises at mp = world (ROADMAP.md item 36)."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.nn.functional import common
+    from paddle_tpu_torch.optimizer import AdamW
+
+    drawn, real = [], common.dropout_mask
+
+    def recording(shape, p, generator=None, device=None):
+        keep = real(shape, p, generator, device)
+        drawn.append(_np(keep))
+        return keep
+
+    common.dropout_mask = recording
+    fleet = _hybrid_fleet(dict(dp=D.get_world_size()))
+    model = GPTForPretraining(GPTConfig.tiny(dropout=0.1), device="cpu", seed=1)
+    step = fleet.distributed_step(model, AdamW(parameters=model.parameters()),
+                                  GPTPretrainingCriterion(), seed=seed)
+    x = torch.from_numpy(ids)
+    step(x, x)
+    common.dropout_mask = real
+    D.fleet._hcg = None
+    _hybrid_fleet(dict(mp=D.get_world_size()))
+    model = GPTForPretraining(GPTConfig.tiny(dropout=0.1), device="cpu", seed=1)
+    try:
+        model(x)
+        error = None
+    except NotImplementedError as e:
+        error = str(e)
+    D.fleet._hcg = None
+    return drawn, error
