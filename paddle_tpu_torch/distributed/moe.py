@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..framework.device import resolve_device
+from ..nn import initializer as _I
 from ..ops import moe_pallas as _moe_pallas  # registers 'pallas_sorted'
 from ..ops import registry as _registry
 from ..ops.moe_pallas import sort_pairs
@@ -65,6 +66,18 @@ def _xavier_normal(shape, generator, device):
     return torch.empty(shape, device=device).normal_(0.0, std, generator=generator)
 
 
+def _param_value(shape, default, generator, device, is_bias=False):
+    """A parameter's value as the reference's ``create_parameter`` makes it:
+    the global initialiser where one is set, else ``default(shape,
+    generator, device)``."""
+    return _I.make(shape, None, lambda s, dtype, g, d: default(s, g, d), generator, device,
+                   is_bias=is_bias)
+
+
+def _zeros(shape, generator, device):
+    return torch.zeros(shape, device=device)
+
+
 class NaiveGate(nn.Module):
     """Linear scores + top-k. No jitter, no aux loss, no capacity opinion
     (``capacity = None`` defers to the layer)."""
@@ -76,8 +89,8 @@ class NaiveGate(nn.Module):
         super().__init__()
         self.topk = topk
         self.num_expert = num_expert
-        self.weight = nn.Parameter(_xavier_normal((d_model, num_expert), generator,
-                                                  resolve_device(device)))
+        self.weight = nn.Parameter(_param_value((d_model, num_expert), _xavier_normal, generator,
+                                                resolve_device(device)))
 
     def score(self, x):
         return x @ self.weight
@@ -341,10 +354,15 @@ class MoELayer(nn.Module):
         E, D, H = num_experts, d_model, d_hidden
         lo, hi = (0, E) if n == 1 else (self.expert_group.rank * E // n,
                                         (self.expert_group.rank + 1) * E // n)
-        self.w1 = nn.Parameter(_xavier_normal((E, D, H), generator, device)[lo:hi].contiguous())
-        self.b1 = nn.Parameter(torch.zeros((hi - lo, 1, H), device=device))
-        self.w2 = nn.Parameter(_xavier_normal((E, H, D), generator, device)[lo:hi].contiguous())
-        self.b2 = nn.Parameter(torch.zeros((hi - lo, 1, D), device=device))
+        # all experts' values, then this rank's experts
+        self.w1 = nn.Parameter(_param_value((E, D, H), _xavier_normal, generator,
+                                            device)[lo:hi].contiguous())
+        self.b1 = nn.Parameter(_param_value((E, 1, H), _zeros, generator, device,
+                                            is_bias=True)[lo:hi].contiguous())
+        self.w2 = nn.Parameter(_param_value((E, H, D), _xavier_normal, generator,
+                                            device)[lo:hi].contiguous())
+        self.b2 = nn.Parameter(_param_value((E, 1, D), _zeros, generator, device,
+                                            is_bias=True)[lo:hi].contiguous())
         self.mark_experts()
         self.aux_loss = None
 

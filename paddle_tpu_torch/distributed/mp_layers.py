@@ -43,6 +43,7 @@ from torch import nn
 from ..framework.device import resolve_device
 from ..framework.selected_rows import in_compiled_step
 from ..nn import initializer as I
+from ..nn.layer import _attr
 from ..nn.functional.common import embedding, linear
 from ..nn.functional.loss import cross_entropy
 from . import collective as C
@@ -155,6 +156,12 @@ def gather_from_model_parallel(x, group, blocks=1):
     return _GatherFromMP.apply(x, group, blocks)
 
 
+def _XAVIER(shape, dtype, generator, device):
+    """The layers' default, ``XavierNormal()``, from ``generator`` (None:
+    torch's default generator)."""
+    return I.xavier_normal(shape, generator, device)
+
+
 # -- layers -------------------------------------------------------------------
 class ColumnParallelLinear(nn.Module):
     """``y = x @ W + b``, ``W`` ``[in, out]`` sharded on ``out``."""
@@ -167,11 +174,13 @@ class ColumnParallelLinear(nn.Module):
         self.in_features, self.out_features = in_features, out_features
         self.gather_output, self.blocks = gather_output, blocks
         self.group = _mp_group(mp_group)
-        w = I.xavier_normal((in_features, out_features), generator, device)
-        b = torch.zeros(out_features, device=device) if has_bias else None
+        w = _attr.value((in_features, out_features), weight_attr, _XAVIER, generator, device,
+                        layer="ColumnParallelLinear")
+        b = _attr.value((out_features,), None, I.Constant(0.0), generator, device, is_bias=True,
+                        layer="ColumnParallelLinear", what="bias") if has_bias else None
         if self.group is not None:
             w, b = _shard(w, 1, self.group, blocks), b if b is None else _shard(b, 0, self.group, blocks)
-        self.weight = nn.Parameter(w)
+        self.weight = _attr.finish(nn.Parameter(w), weight_attr)
         self.bias = None if b is None else nn.Parameter(b)
         self.weight.mp_axis = 1  # the dim the layout splits, at any degree (ZeRO's plan)
         if self.bias is not None:
@@ -206,12 +215,15 @@ class RowParallelLinear(nn.Module):
         self.in_features, self.out_features = in_features, out_features
         self.input_is_parallel = input_is_parallel
         self.group = _mp_group(mp_group)
-        w = I.xavier_normal((in_features, out_features), generator, device)
+        w = _attr.value((in_features, out_features), weight_attr, _XAVIER, generator, device,
+                        layer="RowParallelLinear")
         if self.group is not None:
             w = _shard(w, 0, self.group)
-        self.weight = nn.Parameter(w)
+        self.weight = _attr.finish(nn.Parameter(w), weight_attr)
         self.weight.mp_axis = 0
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if has_bias else None
+        self.bias = _attr.param((out_features,), None, I.Constant(0.0), generator, device,
+                                is_bias=True, layer="RowParallelLinear",
+                                what="bias") if has_bias else None
         if self.group is not None:
             _mark(self.weight, self.group, 0)
 
@@ -241,10 +253,13 @@ class VocabParallelEmbedding(nn.Module):
         device = resolve_device(device)
         self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
         self.group = _mp_group(mp_group)
-        w = I.normal((num_embeddings, embedding_dim), self.init_std, generator, device)
+        std = self.init_std
+        w = _attr.value((num_embeddings, embedding_dim), weight_attr,
+                        lambda shape, dtype, g, d: I.normal(shape, std, g, d), generator, device,
+                        layer="VocabParallelEmbedding")
         if self.group is not None:
             w = _shard(w, 0, self.group)
-        self.weight = nn.Parameter(w)
+        self.weight = _attr.finish(nn.Parameter(w), weight_attr)
         self.weight.mp_axis = 0
         if self.group is not None:
             _mark(self.weight, self.group, 0)

@@ -1,0 +1,38 @@
+"""Parameter attributes of the port (``paddle_tpu/framework/param_attr.py``).
+
+A :class:`ParamAttr` bundles what a layer's parameter is made with. The
+port's layers honour what the reference's ``Layer.create_parameter``
+honours (``paddle_tpu/nn/layer/base.py:52-75``): ``initializer`` (before
+the global initialiser of ``nn.initializer.set_global_initializer``, which
+comes before the layer's default), ``name`` (the parameter's ``param_name``: a
+tensor's ``name`` is torch's own and cannot be set) and
+``trainable=False`` (``requires_grad=False``). ``learning_rate``,
+``regularizer``, ``do_model_average`` and ``need_clip`` are stored and not
+read, as in the reference, whose ``create_parameter`` and optimizers never
+read them (ROADMAP.md, "Faults in the reference").
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+__all__ = ["ParamAttr"]
+
+
+class ParamAttr:
+    """The reference's parameter attribute bundle (its fields and
+    defaults)."""
+
+    def __init__(self, name: Optional[str] = None, initializer: Any = None,
+                 learning_rate: float = 1.0, regularizer: Any = None, trainable: bool = True,
+                 do_model_average: bool = True, need_clip: bool = True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.do_model_average = do_model_average
+        self.need_clip = need_clip
+
+    def __repr__(self):
+        return (f"ParamAttr(name={self.name!r}, initializer={self.initializer!r}, "
+                f"learning_rate={self.learning_rate}, trainable={self.trainable})")

@@ -26,6 +26,24 @@ The device side:
   of the stream named by ``(seed, step, micro-batch, layer, site[, rank])``
   through it.
 
+Masks under model parallelism keep the reference's global-program
+semantics (its models are one program under GSPMD, so a rank's mask is
+the part its shard covers of the mask the one-device program draws):
+
+- along the model axes (mp, sep, pp) a site draws the mask the one-process
+  port draws for the same (seed, step, micro-batch, layer, site) key. A
+  site whose activation is replicated over an axis (the residual stream
+  and the embeddings after a model-parallel reduce) draws the whole mask
+  on every rank of that axis; a site whose activation is sharded over an
+  axis (the residual stream at sep > 1; the attention probabilities, whose
+  heads are split over mp and, after ``seq_to_heads``, over sep) draws the
+  global shape and keeps its block (:class:`Shard`, :func:`site_mask`). So
+  a world at mp 2 x sep 2 or mp 2 x pp 2 draws the one process's masks.
+  A sharded site draws mp or sep times the entries it keeps;
+- along the data axes (dp, sdp, and the data axis that carries GPT-MoE's
+  experts) each rank holds its own rows and draws only their masks, from
+  a stream with its data rank folded in (:func:`step_key`).
+
 The host side (``host_generator``) gives ``numpy`` generators for retry
 jitter and trace ids, derived from the same seed and a tag.
 """
@@ -39,7 +57,8 @@ import torch
 
 __all__ = ["seed", "seed_value", "host_generator", "get_rng_state", "set_rng_state",
            "split_key", "fold_in", "generator", "next_generator", "rng_scope", "step_key",
-           "site_generator", "dropout_generator", "dropout_replay", "fold_scope"]
+           "site_generator", "dropout_generator", "dropout_replay", "fold_scope", "Shard",
+           "shard", "site_mask"]
 
 _M64 = (1 << 64) - 1
 
@@ -188,6 +207,56 @@ def dropout_generator(seed, step, layer, site, *, draw, micro=None, rank=None, d
     (:func:`site_generator`). ``draw`` is the trunk's place among the
     model's draws in a step."""
     return site_generator(fold_in(step_key(seed, step, micro, rank), draw), layer, site, device)
+
+
+class Shard:
+    """A dropout site's generator and this rank's block of the site's global
+    mask: ``blocks`` is ``((dim, index, count), ...)``, the rank holding
+    block ``index`` of ``count`` equal blocks along ``dim``. Taken where a
+    generator is (by :func:`site_mask` and so by every dropout of the port);
+    the registry keys a call by its device and blocks, not by the object."""
+
+    __slots__ = ("generator", "blocks")
+
+    def __init__(self, generator, blocks):
+        self.generator, self.blocks = generator, tuple(blocks)
+
+    def _key(self):
+        return ("shard", self.generator.device.type, self.blocks)
+
+    def __eq__(self, other):
+        return isinstance(other, Shard) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+
+def shard(generator, blocks):
+    """``generator`` with this rank's ``blocks`` (``(dim, index, count)``
+    triples); those of count 1 are left out, and with none left the
+    generator itself is returned (None stays None)."""
+    blocks = tuple((int(d), int(i), int(n)) for d, i, n in blocks if n > 1)
+    return generator if generator is None or not blocks else Shard(generator, blocks)
+
+
+def site_mask(shape, p, site, device=None):
+    """The keep mask of ``shape`` at a dropout site: ``site`` a generator
+    (the mask of ``shape``), or a :class:`Shard`, which draws the global
+    shape (each blocked dim ``count`` times longer) from its generator and
+    returns this rank's block of it. Every draw goes through
+    :func:`~paddle_tpu_torch.nn.functional.common.dropout_mask`."""
+    from ..nn.functional import common
+
+    if not isinstance(site, Shard):
+        return common.dropout_mask(shape, p, site, device)
+    shape = list(shape)
+    full = list(shape)
+    for dim, _, n in site.blocks:
+        full[dim] *= n
+    keep = common.dropout_mask(full, p, site.generator, device)
+    for dim, i, _ in site.blocks:
+        keep = keep.narrow(dim, i * shape[dim], shape[dim])
+    return keep
 
 
 def dropout_replay():

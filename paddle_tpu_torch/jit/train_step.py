@@ -110,8 +110,12 @@ guarded step with dropout waits at its first draw for the last step's
 update to finish on the card, where the guard otherwise reads the flag
 one step late (``chip_smoke.py``'s ``dropout_gpt_train`` times the step
 guarded and unguarded, with dropout and without). A recompute re-derives
-the same keys (:mod:`paddle_tpu_torch.distributed.recompute`). Dropout at mp,
-pp, sep or ep > 1 raises (ROADMAP.md, Queue 1 item 36).
+the same keys (:mod:`paddle_tpu_torch.distributed.recompute`). Only the data
+axes fold a rank (dp and sdp; at ep > 1 the data axis that carries the
+experts): along mp, sep and pp a rank draws its part of the one process's
+masks (:mod:`paddle_tpu_torch.framework.random`). Under the pipeline each
+micro-batch's stream is named by its index, whatever order the schedule
+runs the forwards in, and its recompute re-derives it.
 
 ``state`` is the step's whole training state as the reference keys it
 (``params``: the f32 masters, or the model's parameters without AMP;
@@ -295,26 +299,12 @@ class TrainStep:
     def _stream_key(self, micro):
         """The key of this (micro-)batch's dropout stream, made at its
         first draw."""
-        self._no_parallel_dropout()
         self._settle()  # a skipped step does not advance the stream
         rank = None
         if self.mesh is not None:
             group = self.mesh.get_data_sharding_group()
             rank = group.rank if group.nranks > 1 else None
         return _random.step_key(self.seed, self.optimizer._step_count, micro, rank)
-
-    def _no_parallel_dropout(self):
-        hcg = self.mesh
-        if hcg is None:
-            return
-        experts = any(getattr(p, "expert_axis", None) is not None
-                      and getattr(p, "expert_group", None) is not None
-                      for p in self.model.parameters())
-        if (hcg.get_model_parallel_world_size() > 1 or hcg.get_pipe_parallel_world_size() > 1
-                or hcg.get_sep_parallel_world_size() > 1 or experts):
-            from ..models.gpt import DROPOUT_PARALLEL_NOT_PORTED
-
-            raise NotImplementedError(DROPOUT_PARALLEL_NOT_PORTED)
 
     def _stream(self, micro=None):
         return _random.rng_scope(lambda: self._stream_key(micro))

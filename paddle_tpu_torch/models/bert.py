@@ -34,7 +34,10 @@ LayerNorm and on both residual branches of every layer (one ``Dropout``
 per layer, drawn twice); attention has none, so the kernels keep the
 call. Its masks come from the current random stream
 (:mod:`paddle_tpu_torch.framework.random`), a key per site in call order.
-Dropout in training at mp > 1 raises (ROADMAP.md, Queue 1 item 36).
+At mp > 1 every site acts on an activation that is replicated over mp
+(after the embeddings' LayerNorm, and after the row-parallel reduce and
+its bias on both residuals), so every mp rank draws the same whole mask
+from the same stream, as the reference's one program does.
 """
 from __future__ import annotations
 
@@ -88,13 +91,6 @@ class BertConfig:
         return cls(**cfg)
 
 
-def _no_parallel_dropout(module, cfg):
-    if module.training and cfg.dropout > 0.0 and model_parallel_degree() > 1:
-        from .gpt import DROPOUT_PARALLEL_NOT_PORTED
-
-        raise NotImplementedError(DROPOUT_PARALLEL_NOT_PORTED)
-
-
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig, device, generator):
         super().__init__()
@@ -135,7 +131,6 @@ class BertLayer(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, attn_mask=None):
-        _no_parallel_dropout(self, self.cfg)
         x = self.norm1(x + self.dropout(self.attn(x, attn_mask)))
         return self.norm2(x + self.dropout(self.ffn2(gelu(self.ffn1(x), approximate=True))))
 

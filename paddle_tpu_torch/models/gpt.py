@@ -66,13 +66,19 @@ residual branches of every block; ``attn_dropout``: the attention
 probabilities, which takes attention to the plain ``xla`` composite, as the
 reference's kernel predicates refuse dropout). Its masks come from the
 current random stream (:mod:`paddle_tpu_torch.framework.random`): the
-embeddings split one key, the stacked trunk one more, and folds the layer
-and then the site (0 attention, 1 and 2 the residuals) into it, as the
-reference's trunk folds its key; the per-layer trunk's sites split a key
-each, in call order. A recompute draws the same masks
-(:func:`~paddle_tpu_torch.framework.random.dropout_replay`). Dropout in
-training at mp, pp or sep > 1 raises (ROADMAP.md, Queue 1 item 36): the
-replicated activations would need one mask on every tensor-parallel rank.
+embeddings split one key, the stacked trunk one more, and folds the global
+layer index and then the site (0 attention, 1 and 2 the residuals) into
+it, as the reference's trunk folds its key; the per-layer trunk's sites
+split a key each, in call order. A recompute draws the same masks
+(:func:`~paddle_tpu_torch.framework.random.dropout_replay`). At mp, sep
+and pp > 1 a rank draws its part of the one-process model's masks: at
+mp > 1 the residual dropouts act after the model-parallel reduce, on the
+replicated sum (the same whole mask on every mp rank); at sep > 1 the
+embeddings' and the residuals' masks are the global sequence's, of which
+the rank keeps its block; the attention mask is the global heads', of
+which the rank keeps those it attends over; a pipeline stage after the
+first splits the key the first stage's embeddings take, so its trunk's key
+is the one process's, and folds its layers' global indices.
 
 Not ported yet: export; see ``ROADMAP.md``.
 """
@@ -246,7 +252,14 @@ class GPTEmbeddings(nn.Module):
             s = input_ids.shape[1]
             first = 0 if self.sep_group is None else self.sep_group.rank * s
             position_ids = torch.arange(first, first + s, device=input_ids.device)
-        return self.dropout(self.word_embeddings(input_ids) + self.position_embeddings(position_ids))
+        x = self.word_embeddings(input_ids) + self.position_embeddings(position_ids)
+        p = self.dropout.p
+        if self.sep_group is None or not self.training or p == 0.0:
+            return self.dropout(x)
+        # this rank's block of the global sequence's mask
+        g = self.sep_group
+        return _common.dropout(x, p, generator=_random.shard(_random.next_generator(x.device),
+                                                             [(1, g.rank, g.nranks)]))
 
 
 def _attn_core_packed(qkv, attn_dropout=0.0, generator=None):
@@ -257,12 +270,13 @@ def _attn_core_packed(qkv, attn_dropout=0.0, generator=None):
 
 def _drop(v, p, generator):
     """The stacked trunk's residual dropout: ``v / (1 - p)`` where kept, the
-    mask drawn from ``generator``. It divides where ``common.dropout``
-    multiplies by ``1 / (1 - p)``, because the reference's trunk divides
-    and the two round apart."""
+    mask drawn from ``generator`` (or a :class:`~paddle_tpu_torch.framework.
+    random.Shard`: this rank's block of the global mask). It divides where
+    ``common.dropout`` multiplies by ``1 / (1 - p)``, because the
+    reference's trunk divides and the two round apart."""
     if p == 0.0 or generator is None:
         return v
-    keep = _common.dropout_mask(v.shape, p, generator, v.device)
+    keep = _random.site_mask(v.shape, p, generator, v.device)
     return torch.where(keep, v / (1.0 - p), torch.zeros((), dtype=v.dtype, device=v.device))
 
 
@@ -276,16 +290,27 @@ def _block_apply(lp, h, *, num_heads, dropout=0.0, attn_dropout=0.0, key=None, l
     reference's fold their keys. With ``mp_group`` they are this
     rank's shards and ``num_heads`` its heads: the column layers' input
     goes through the copy region, the row layers' partial products through
-    the reduce region before their bias. With ``sep_group`` ``h`` is this
-    rank's block of the sequence: the packed qkv goes by Ulysses to
-    ``[b, s, 3, num_heads / sep, dh]`` for the attention core, and its
-    output back to this block."""
+    the reduce region before their bias, and the residual dropouts act on
+    the reduced sum plus bias, replicated over mp (one whole mask on every
+    mp rank). With ``sep_group`` ``h`` is this rank's block of the
+    sequence: the packed qkv goes by Ulysses to ``[b, s, 3, num_heads /
+    sep, dh]`` for the attention core, and its output back to this block;
+    the residual masks are this block of the global sequence's. The
+    attention mask at mp or sep > 1 is the rank's heads of the global one
+    (heads ``[m H / mp + j H / (mp sep), ...)`` at mp rank m, sep rank j)."""
     n1w, n1b, qkvw, qkvb, ow, ob, n2w, n2b, f1w, f1b, f2w, f2b = lp
+    mp = (0, 1) if mp_group is None else (mp_group.rank, mp_group.nranks)
+    sep = (0, 1) if sep_group is None else (sep_group.rank, sep_group.nranks)
 
-    def site(i, p):
-        return None if key is None or p == 0.0 else _random.site_generator(key, layer, i, h.device)
+    def site(i, p, blocks):
+        if key is None or p == 0.0:
+            return None
+        return _random.shard(_random.site_generator(key, layer, i, h.device), blocks)
 
-    generator = site(0, attn_dropout)
+    # the probabilities [b, heads, s, s]: this rank's heads of the global mask
+    generator = site(0, attn_dropout, [(1, mp[0] * sep[1] + sep[0], mp[1] * sep[1])])
+    # the residual stream [b, s, d]: this rank's block of the global sequence
+    res = [(1, sep[0], sep[1])]
     b, s, d = h.shape
     dh = qkvw.shape[1] // (3 * num_heads)
     x1 = layer_norm_fused(h, n1w, n1b, epsilon)
@@ -298,17 +323,14 @@ def _block_apply(lp, h, *, num_heads, dropout=0.0, attn_dropout=0.0, key=None, l
         att = heads_to_seq(_attn_core_packed(seq_to_heads(qkv, sep_group, head_axis=3),
                                              attn_dropout, generator), sep_group)
     att = att.reshape(b, s, num_heads * dh)
-    if mp_group is None:
-        h = h + _drop(att @ ow + ob, dropout, site(1, dropout))
-    else:
-        h = h + reduce_from_model_parallel(att @ ow, mp_group) + ob
+    o = att @ ow if mp_group is None else reduce_from_model_parallel(att @ ow, mp_group)
+    h = h + _drop(o + ob, dropout, site(1, dropout, res))
     x2 = layer_norm_fused(h, n2w, n2b, epsilon)
     if mp_group is not None:
         x2 = copy_to_model_parallel(x2, mp_group)
     y = F.gelu(x2 @ f1w + f1b, approximate="tanh")
-    if mp_group is None:
-        return h + _drop(y @ f2w + f2b, dropout, site(2, dropout))
-    return h + reduce_from_model_parallel(y @ f2w, mp_group) + f2b
+    o = y @ f2w if mp_group is None else reduce_from_model_parallel(y @ f2w, mp_group)
+    return h + _drop(o + f2b, dropout, site(2, dropout, res))
 
 
 # recompute_granularity -> the recompute policy of each block, as in the
@@ -318,7 +340,7 @@ _REMAT_POLICY = {"full": "nothing_saveable", "selective": "dots_saveable"}
 
 
 def _stack_forward(x, params, *, num_heads, dropout=0.0, attn_dropout=0.0, key=None,
-                   recompute=None, mp_group=None, gathers=None, sep_group=None):
+                   recompute=None, mp_group=None, gathers=None, sep_group=None, first_layer=0):
     """Whole-trunk forward: the layer loop of the reference at pp = 1 (or
     this stage's layers), each block recomputed in the backward under the
     policy named by ``recompute`` (a granularity, or None for no
@@ -328,8 +350,10 @@ def _stack_forward(x, params, *, num_heads, dropout=0.0, attn_dropout=0.0, key=N
     parameter, None or ``(dim, group)`` of its blocks in the stack; each
     layer's blocks are gathered as the layer runs, and again in its
     backward (by the recompute, or by :func:`regather_on_backward`).
-    ``key``: the trunk's dropout key (None: no dropout); layer i draws from
-    it with i and the site folded in, which the recompute re-derives."""
+    ``key``: the trunk's dropout key (None: no dropout); the i-th layer
+    here draws from it with its global index ``first_layer + i`` (a
+    pipeline stage's layers start at ``first_layer``) and the site folded
+    in, which the recompute re-derives."""
     block = functools.partial(_block_apply, num_heads=num_heads, dropout=dropout,
                               attn_dropout=attn_dropout, mp_group=mp_group, sep_group=sep_group)
     gathers = gathers or [None] * len(params)
@@ -342,7 +366,7 @@ def _stack_forward(x, params, *, num_heads, dropout=0.0, attn_dropout=0.0, key=N
         return block(gathered(lp), h, key=key, layer=i)
 
     h = x
-    for i, lp in enumerate(zip(*(p.unbind(0) for p in params))):
+    for i, lp in enumerate(zip(*(p.unbind(0) for p in params)), start=first_layer):
         if recompute:
             h = _recompute(layer, lp, h, i, policy=_REMAT_POLICY[recompute])
         elif any(gathers):
@@ -395,6 +419,7 @@ class GPTBlockStack(nn.Module):
             raise ValueError(f"{self.num_heads} heads a rank do not split over sep degree {sep}")
         L, D, Ff = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size
         lo, hi = stage_layers(L, grid.pp, grid.stage)
+        self.first_layer = lo  # the global index of this stage's first layer
         std = cfg.initializer_range
         shapes = {
             "norm1_w": (L, D), "norm1_b": (L, D), "qkv_w": (L, D, 3 * D), "qkv_b": (L, 3 * D),
@@ -419,8 +444,6 @@ class GPTBlockStack(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         dropping = self.training and (cfg.dropout > 0.0 or cfg.attn_dropout > 0.0)
-        if dropping:
-            _no_parallel_dropout(self.mp_group, self.pp, self.sep_group)
         parts = getattr(self, "_zero_parts", None) or {}
         with amp.unlisted():  # the reference's one "gpt_stack" op: AMP casts nothing in it
             return _stack_forward(x, [getattr(self, n) for n in self._order],
@@ -431,18 +454,7 @@ class GPTBlockStack(nn.Module):
                                   recompute=cfg.recompute_granularity if cfg.recompute else None,
                                   mp_group=self.mp_group,
                                   gathers=[parts.get(n) for n in self._order],
-                                  sep_group=self.sep_group)
-
-
-DROPOUT_PARALLEL_NOT_PORTED = (
-    "dropout in training at model, pipeline, sequence or expert parallel degree > 1 is not "
-    "ported yet (ROADMAP.md, Queue 1 item 36): the replicated activations need one mask on "
-    "every tensor-parallel rank; set dropout and attn_dropout to 0, or train at dp only")
-
-
-def _no_parallel_dropout(mp_group, pp, sep_group):
-    if mp_group is not None or pp > 1 or sep_group is not None:
-        raise NotImplementedError(DROPOUT_PARALLEL_NOT_PORTED)
+                                  sep_group=self.sep_group, first_layer=self.first_layer)
 
 
 class _Linear(nn.Module):
@@ -548,7 +560,14 @@ class GPTModel(nn.Module):
     def forward(self, input_ids, position_ids=None):
         """The ids' hidden states; on a pipeline stage after the first,
         ``input_ids`` is the activation received."""
-        h = self.embeddings(input_ids, position_ids) if self._first else input_ids
+        if self._first:
+            h = self.embeddings(input_ids, position_ids)
+        else:
+            h = input_ids
+            if self.training and self.cfg.dropout > 0.0:
+                # the key the first stage's embeddings draw: every stage's
+                # trunk then splits the one-process trunk's key
+                _random.split_key()
         if isinstance(self.layers, GPTBlockStack):
             h = self.layers(h)
         else:

@@ -55,8 +55,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
 def _dropout(probs, p, generator):
     """The reference's attention dropout: the kept probabilities times
     ``1 / (1 - p)`` in their dtype, the mask drawn by
-    :func:`~paddle_tpu_torch.nn.functional.common.dropout_mask`."""
-    keep = _common.dropout_mask(probs.shape, p, generator, probs.device)
+    :func:`~paddle_tpu_torch.framework.random.site_mask` (``generator`` may
+    be a :class:`~paddle_tpu_torch.framework.random.Shard`: this rank's
+    heads of the global mask)."""
+    keep = _random.site_mask(probs.shape, p, generator, probs.device)
     scale = torch.tensor(1.0 / (1.0 - p), dtype=probs.dtype, device=probs.device)
     return torch.where(keep, probs * scale, torch.zeros((), dtype=probs.dtype, device=probs.device))
 

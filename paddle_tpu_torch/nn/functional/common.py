@@ -42,7 +42,7 @@ def dropout_mask(shape, p, generator=None, device=None):
 def _draw(shape, p, generator, device):
     if generator is None:
         generator = _random.next_generator(device)
-    return dropout_mask(shape, p, generator, device)
+    return _random.site_mask(shape, p, generator, device)
 
 
 def _scalar(value, like):

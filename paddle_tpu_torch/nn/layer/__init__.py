@@ -6,9 +6,13 @@ from .common import (AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2
                      Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D)
 from .container import LayerDict, LayerList, ParameterList, Sequential  # noqa: F401
 from .conv import Conv1D, Conv2D, Conv3D  # noqa: F401
-from .loss import CrossEntropyLoss  # noqa: F401
+from .extension import *  # noqa: F401,F403
+from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,  # noqa: F401
+                   HingeEmbeddingLoss, KLDivLoss, L1Loss, MarginRankingLoss, MSELoss, NLLLoss,
+                   SmoothL1Loss, TripletMarginLoss)
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm,  # noqa: F401
                    SyncBatchNorm)
 from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D  # noqa: F401
+from .rnn import GRU, LSTM, RNN, GRUCell, LSTMCell, SimpleRNN, SimpleRNNCell  # noqa: F401
 from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,  # noqa: F401
                           TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)

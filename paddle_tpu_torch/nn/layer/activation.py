@@ -8,6 +8,7 @@ from torch import nn
 from ...framework.device import resolve_device
 from .. import functional as F
 from .. import initializer as I
+from ._attr import param
 
 
 def _simple(name, fn_name, **fixed):
@@ -102,8 +103,8 @@ class PReLU(nn.Module):
                  *, device=None):
         super().__init__()
         self.data_format = data_format
-        self.weight = nn.Parameter(I.make((num_parameters,), weight_attr, I.Constant(init), None,
-                                          resolve_device(device)))
+        self.weight = param((num_parameters,), weight_attr, I.Constant(init), None,
+                            resolve_device(device), layer="PReLU")
 
     def forward(self, x):
         return F.prelu(x, self.weight, self.data_format)

@@ -3,7 +3,8 @@
 ``Bilinear``, the pads, ``CosineSimilarity`` and ``Unfold``.
 
 A layer with weights draws them from ``generator`` (None: the current
-random stream) on ``device`` (None: the CUDA card). The dropout layers
+random stream) on ``device`` (None: the CUDA card), and takes a
+``ParamAttr`` for each (``nn/layer/_attr.py``). The dropout layers
 draw their masks from the current stream.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ...framework.selected_rows import in_compiled_step, record_rows
 from .. import functional as F
 from .. import initializer as I
 from ..functional import common as _common
+from ._attr import param
 
 
 class Linear(nn.Module):
@@ -32,12 +34,12 @@ class Linear(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.in_features, self.out_features = in_features, out_features
-        self.weight = nn.Parameter(I.make((in_features, out_features), weight_attr,
-                                          I.XavierNormal(), generator, device))
+        self.weight = param((in_features, out_features), weight_attr, I.XavierNormal(), generator,
+                            device, layer="Linear")
         self.bias = None
         if bias_attr is not False:
-            self.bias = nn.Parameter(I.make((out_features,), bias_attr, I.Constant(0.0),
-                                            generator, device, is_bias=True))
+            self.bias = param((out_features,), bias_attr, I.Constant(0.0), generator, device,
+                              is_bias=True, layer="Linear", what="bias")
 
     def forward(self, x):
         return _common.linear(x, self.weight, self.bias)
@@ -58,15 +60,17 @@ class Embedding(nn.Module):
 
     init_std = 1.0
 
-    def __init__(self, num_embeddings, embedding_dim, padding_idx=None, sparse=False, *,
-                 device=None, generator=None):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None, sparse=False,
+                 weight_attr=None, name=None, *, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
         self.padding_idx = padding_idx
         self._sparse = bool(sparse)
-        self.weight = nn.Parameter(
-            I.normal((num_embeddings, embedding_dim), self.init_std, generator, device))
+        std = self.init_std
+        self.weight = param((num_embeddings, embedding_dim), weight_attr,
+                            lambda shape, dtype, g, d: I.normal(shape, std, g, d), generator,
+                            device, layer=type(self).__name__)
 
     def forward(self, x):
         out = _common.embedding(x, self.weight, padding_idx=self.padding_idx)
@@ -169,12 +173,12 @@ class Bilinear(nn.Module):
         super().__init__()
         device = resolve_device(device)
         bound = 1 / math.sqrt(in1_features)
-        self.weight = nn.Parameter(I.make((out_features, in1_features, in2_features), weight_attr,
-                                          I.Uniform(-bound, bound), generator, device))
+        self.weight = param((out_features, in1_features, in2_features), weight_attr,
+                            I.Uniform(-bound, bound), generator, device, layer="Bilinear")
         self.bias = None
         if bias_attr is not False:
-            self.bias = nn.Parameter(I.make((out_features,), bias_attr, I.Constant(0.0),
-                                            generator, device, is_bias=True))
+            self.bias = param((out_features,), bias_attr, I.Constant(0.0), generator, device,
+                              is_bias=True, layer="Bilinear", what="bias")
 
     def forward(self, x1, x2):
         return F.bilinear(x1, x2, self.weight, self.bias)

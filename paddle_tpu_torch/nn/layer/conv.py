@@ -7,7 +7,7 @@ from torch import nn
 from ...framework.device import resolve_device
 from .. import functional as F
 from .. import initializer as I
-from ._attr import wants
+from ._attr import param, wants
 
 
 class _ConvNd(nn.Module):
@@ -32,11 +32,13 @@ class _ConvNd(nn.Module):
         self.kernel_size, self.stride, self.padding = ks, stride, padding
         self.dilation, self.groups = dilation, groups
         self.data_format = data_format or self._format
-        wants(weight_attr, type(self).__name__, "weight")
-        self.weight = nn.Parameter(
-            I.conv_normal([out_channels, in_channels // groups, *ks], generator, device))
-        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
-                     if wants(bias_attr, type(self).__name__, "bias") else None)
+        name = type(self).__name__
+        self.weight = param([out_channels, in_channels // groups, *ks], weight_attr,
+                            lambda shape, dtype, g, d: I.conv_normal(shape, g, d), generator,
+                            device, layer=name)
+        self.bias = (param((out_channels,), bias_attr, I.Constant(0.0), generator, device,
+                           is_bias=True, layer=name, what="bias")
+                     if wants(bias_attr, name, "bias") else None)
 
     def extra_repr(self):
         return (f"{self.in_channels}, {self.out_channels}, kernel_size={self.kernel_size}, "

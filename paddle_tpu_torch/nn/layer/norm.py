@@ -7,7 +7,8 @@ from torch import nn
 from ...framework.device import resolve_device
 from ...ops.layer_norm import layer_norm_fused
 from .. import functional as F
-from ._attr import wants
+from .. import initializer as I
+from ._attr import param, wants
 
 
 class LayerNorm(nn.Module):
@@ -15,7 +16,8 @@ class LayerNorm(nn.Module):
     ``epsilon`` 1e-5, through the fused LayerNorm with its closed-form
     backward."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5, *, device=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None, bias_attr=None, name=None,
+                 *, device=None):
         super().__init__()
         device = resolve_device(device)
         shape = normalized_shape if isinstance(normalized_shape, (list, tuple)) else [normalized_shape]
@@ -23,8 +25,11 @@ class LayerNorm(nn.Module):
             raise NotImplementedError("LayerNorm over more than the last dim is not ported yet")
         self.normalized_shape = list(shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(shape, device=device))
-        self.bias = nn.Parameter(torch.zeros(shape, device=device))
+        if weight_attr is False or bias_attr is False:
+            raise NotImplementedError("LayerNorm without its weight or bias is not ported yet")
+        self.weight = param(shape, weight_attr, I.Constant(1.0), None, device, layer="LayerNorm")
+        self.bias = param(shape, bias_attr, I.Constant(0.0), None, device, is_bias=True,
+                          layer="LayerNorm", what="bias")
 
     def forward(self, x):
         return layer_norm_fused(x, self.weight, self.bias, self.epsilon)
@@ -52,10 +57,10 @@ class _BatchNormBase(nn.Module):
         self.data_format = self._format or data_format
         self.use_global_stats = use_global_stats
         name = type(self).__name__
-        self.weight = (nn.Parameter(torch.ones(num_features, device=device))
-                       if wants(weight_attr, name, "weight") else None)
-        self.bias = (nn.Parameter(torch.zeros(num_features, device=device))
-                     if wants(bias_attr, name, "bias") else None)
+        self.weight = (param((num_features,), weight_attr, I.Constant(1.0), None, device,
+                             layer=name) if wants(weight_attr, name, "weight") else None)
+        self.bias = (param((num_features,), bias_attr, I.Constant(0.0), None, device, is_bias=True,
+                           layer=name, what="bias") if wants(bias_attr, name, "bias") else None)
         self.register_buffer("_mean", torch.zeros(num_features, device=device))
         self.register_buffer("_variance", torch.ones(num_features, device=device))
 

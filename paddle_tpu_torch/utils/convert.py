@@ -34,7 +34,13 @@ index buffers are not part of the state). So do the transformer layers of
 (``[in, out]`` weights), an encoder or decoder stack's
 ``layers.N.{self_attn,cross_attn}.*``, ``layers.N.linear{1,2}.*``,
 ``layers.N.norm{1,2,3}.*`` and its final ``norm.*``, and ``Transformer``'s
-under ``encoder.`` and ``decoder.``.
+under ``encoder.`` and ``decoder.``. So do the recurrent layers, in their
+own ``[gates * hidden, in]`` layout, NOT transposed (a cell's
+``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh``; a stack's
+``weight_ih_l{l}_d{d}`` ...; ``RNN``'s and ``BiRNN``'s under ``cell.``,
+``fw.cell.`` and ``bw.cell.``), ``HSigmoidLoss``'s ``weight``
+``[num_classes - 1, feature]`` and ``bias`` ``[num_classes - 1, 1]``, and
+``Bilinear``'s ``weight`` ``[out, in1, in2]``.
 """
 from __future__ import annotations
 

@@ -21,7 +21,8 @@ seed, step, micro-batch, layer, site or rank; a recompute's gradients
 bitwise equal to those without it; a step the guard skips redraws its
 masks; a resume through ``TrainStep.state`` and through
 ``CheckpointManager`` bitwise; two gloo ranks at dp 2 draw their own
-masks, and mp 2 raises (ROADMAP.md item 36).
+masks, and at mp 2 both draw the one-process stream's (the worlds at mp,
+sep, pp and ep > 1 are in ``tests/test_torch_parallel_dropout.py``).
 """
 import math
 
@@ -406,15 +407,22 @@ def test_resume_is_bitwise(tmp_path):
 
 def test_dp_ranks_draw_their_own_masks_and_mp_raises():
     """Two gloo ranks at dp 2: each rank's embedding mask is its stream's
-    first key with its rank folded in, so the ranks' masks differ; a
-    dropout GPT's training forward at mp 2 raises citing item 36."""
+    first key with its rank folded in, so the ranks' masks differ. At mp 2
+    a dropout GPT's training step no longer raises: both ranks draw the
+    one-process stream's masks, the whole embedding mask (replicated after
+    the vocabulary-parallel reduce) the same on both."""
     ids = _ids((4, 16), 512, seed=14)
     out = run_ranks(ranks.dropout_streams, 2, 6, ids[:2])
-    (m0, e0), (m1, e1) = out
+    (m0, mp0), (m1, mp1) = out
     assert len(m0) == len(m1) == 1 + 2 * 2
     for r, masks in enumerate((m0, m1)):
         want = tcommon.dropout_mask((2, 16, 64), 0.1,
                                     R.generator(R.fold_in(R.step_key(6, 0, None, r), 1)), "cpu")
         np.testing.assert_array_equal(masks[0], want.numpy())
     assert not np.array_equal(m0[0], m1[0])
-    assert e0 is not None and "item 36" in e0 and e1 is not None and "item 36" in e1
+    assert len(mp0) == len(mp1) == 1 + 2 * 2
+    for a, b in zip(mp0, mp1):
+        np.testing.assert_array_equal(a, b)
+    whole = tcommon.dropout_mask((2, 16, 64), 0.1,
+                                 R.generator(R.fold_in(R.step_key(6, 0, None, None), 1)), "cpu")
+    np.testing.assert_array_equal(mp0[0], whole.numpy())

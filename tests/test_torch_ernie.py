@@ -317,16 +317,20 @@ def test_convert_checks_ernie_names_and_shapes():
 
 def test_training_with_dropout_raises(monkeypatch):
     """Dropout trains: each training forward draws new masks, an eval
-    forward none. In training at a model-parallel degree above 1 it raises,
-    citing ROADMAP.md item 36 (one mask on every tensor-parallel rank is
-    not ported)."""
+    forward none. In training at a model-parallel degree above 1 it no
+    longer raises: every site is replicated over mp, so a rank draws the
+    whole masks of the same stream as at mp 1 (the mp 2 parity with the
+    reference is in ``tests/test_torch_parallel_dropout.py``)."""
     import paddle_tpu_torch.models.bert as port_bert
+    from paddle_tpu_torch.framework import random as R
 
     pm = ErnieForPretraining(ErnieConfig.tiny(dropout=0.1), device="cpu")
     ids = torch.zeros((1, 8), dtype=torch.long)
     assert not torch.equal(pm(ids)[0], pm(ids)[0])
+    R.seed(11)
+    one = pm(ids)[0]
     monkeypatch.setattr(port_bert, "model_parallel_degree", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 36"):
-        pm(ids)
+    R.seed(11)
+    assert torch.equal(pm(ids)[0], one)
     pm.eval()
     assert pm(ids)[0].shape == (1, 8, 512)  # tiny: vocab 512

@@ -441,15 +441,28 @@ def test_unported_train_step_knobs_raise(kw):
 
 
 def test_training_with_dropout_raises():
-    """Dropout trains through ``TrainStep``; on a pipeline stage (pp > 1)
-    the stacked trunk raises, citing ROADMAP.md item 36."""
+    """Dropout trains through ``TrainStep``; a pipeline stage's trunk no
+    longer raises: it folds its layers' global indices, so a trunk whose
+    first layer is layer 2 (stage 1 of 2 over 4 layers) draws other masks
+    than the first stage's from the same stream (the pipeline worlds are in
+    ``tests/test_torch_parallel_dropout.py``)."""
+    from paddle_tpu_torch.framework import random as R
+
     pm = GPTForPretraining(GPTConfig.tiny(dropout=0.1), device="cpu")
     step = TrainStep(pm, AdamW(parameters=pm.parameters()), GPTPretrainingCriterion())
     ids = _batches(1, (1, 8), 512, seed=19)[0]
     assert np.isfinite(float(step(ids, ids)["loss"]))
     pm.gpt.layers.pp = 2  # as a pipeline stage's trunk sees its grid
-    with pytest.raises(NotImplementedError, match="item 36"):
-        step(ids, ids)
+    assert np.isfinite(float(step(ids, ids)["loss"]))
+
+    def hidden(first_layer):
+        pm.gpt.layers.first_layer = first_layer
+        R.seed(5)
+        return pm.gpt(torch.as_tensor(ids))
+
+    assert torch.equal(hidden(0), hidden(0))
+    assert not torch.equal(hidden(2), hidden(0))
+    pm.gpt.layers.first_layer = 0
 
 
 def test_adamw_decay_mask_by_name_in_train_step_and_step():

@@ -1052,37 +1052,96 @@ def guarded_mesh_steps(ids, nan_at, steps):
 
 
 def dropout_streams(seed, ids):
-    """A tiny dropout GPT's dropout at dp = world: the keep masks one
-    ``fleet.distributed_step`` step draws on this rank (``ids`` is the
-    rank's block of the batch); then the error a dropout GPT's training
-    forward raises at mp = world (ROADMAP.md item 36)."""
+    """A tiny dropout GPT's dropout at dp = world, then at mp = world: the
+    keep masks one ``fleet.distributed_step`` step draws on this rank
+    (``ids`` is the rank's block of the batch at dp, the whole batch at
+    mp)."""
     import paddle_tpu_torch.distributed as D
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
     from paddle_tpu_torch.nn.functional import common
     from paddle_tpu_torch.optimizer import AdamW
 
-    drawn, real = [], common.dropout_mask
+    real = common.dropout_mask
+    out = []
+    for axis in ("dp", "mp"):
+        drawn = []
 
-    def recording(shape, p, generator=None, device=None):
-        keep = real(shape, p, generator, device)
-        drawn.append(_np(keep))
-        return keep
+        def recording(shape, p, generator=None, device=None):
+            keep = real(shape, p, generator, device)
+            drawn.append(_np(keep))
+            return keep
 
-    common.dropout_mask = recording
-    fleet = _hybrid_fleet(dict(dp=D.get_world_size()))
-    model = GPTForPretraining(GPTConfig.tiny(dropout=0.1), device="cpu", seed=1)
-    step = fleet.distributed_step(model, AdamW(parameters=model.parameters()),
-                                  GPTPretrainingCriterion(), seed=seed)
-    x = torch.from_numpy(ids)
-    step(x, x)
-    common.dropout_mask = real
-    D.fleet._hcg = None
-    _hybrid_fleet(dict(mp=D.get_world_size()))
-    model = GPTForPretraining(GPTConfig.tiny(dropout=0.1), device="cpu", seed=1)
+        common.dropout_mask = recording
+        fleet = _hybrid_fleet({axis: D.get_world_size()})
+        model = GPTForPretraining(GPTConfig.tiny(dropout=0.1), device="cpu", seed=1)
+        step = fleet.distributed_step(model, AdamW(parameters=model.parameters()),
+                                      GPTPretrainingCriterion(), seed=seed)
+        x = torch.from_numpy(ids)
+        step(x, x)
+        common.dropout_mask = real
+        D.fleet._hcg = None
+        out.append(drawn)
+    return tuple(out)
+
+
+# -- dropout at mp, sep, pp and ep > 1 ------------------------------------------------
+def masked(table, name, *args):
+    """This module's ``name(*args)`` with every dropout draw of the port fed
+    from ``table``: the keep mask (a numpy bool array of the shape drawn)
+    by the seed of the generator it is drawn from. Returns its result and
+    the seeds drawn, in order."""
+    from paddle_tpu_torch.nn.functional import common
+
+    real, seeds = common.dropout_mask, []
+
+    def feed(shape, p, generator=None, device=None):
+        seeds.append(generator.initial_seed())
+        keep = table[seeds[-1]]
+        assert keep.shape == tuple(shape), (keep.shape, tuple(shape))
+        return torch.from_numpy(keep).to(device)
+
+    common.dropout_mask = feed
     try:
-        model(x)
-        error = None
-    except NotImplementedError as e:
-        error = str(e)
+        return globals()[name](*args), seeds
+    finally:
+        common.dropout_mask = real
+
+
+def dropout_resume(c, np_state, ids, ck_dir, steps):
+    """A stacked dropout GPT at config ``c``'s degrees (``gpt_hybrid``'s
+    keys) loaded with this rank's part of ``np_state``: ``steps`` steps, a
+    ``CheckpointManager`` save, ``steps`` more; then a fresh step on the
+    same mesh restored from the save and its ``steps`` steps. Returns both
+    runs' later losses and this rank's parameters after each."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed.resilience import CheckpointManager
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.utils.convert import shard_state
+
+    def made():
+        fleet = _hybrid_fleet(c)
+        hcg = fleet.get_hybrid_communicate_group()
+        cfg = GPTConfig.tiny(num_layers=c.get("layers", 4), **c.get("cfg", {}))
+        model = GPTForPretraining(cfg, device="meta")
+        model.to_empty(device="cpu")
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in shard_state(
+            np_state, hcg.get_model_parallel_rank(), c.get("mp", 1), cfg,
+            pp_rank=hcg.get_pipe_parallel_rank(), pp_degree=c.get("pp", 1)).items()})
+        step = fleet.distributed_step(model, _optimizer(c, model), GPTPretrainingCriterion())
+        return fleet, model, step
+
+    fleet, model, step = made()
+    x = fleet.shard_batch(ids)
+    for _ in range(steps):
+        step(x, x)
+    CheckpointManager(ck_dir).save(step, steps)
+    later = [float(step(x, x)["loss"]) for _ in range(steps)]
+    state = {k: _np(v).copy() for k, v in model.state_dict().items()}
     D.fleet._hcg = None
-    return drawn, error
+    fleet, model, fresh = made()
+    assert CheckpointManager(ck_dir).restore_latest(target=fresh) is not None
+    resumed = [float(fresh(x, x)["loss"]) for _ in range(steps)]
+    out = dict(later=later, resumed=resumed, state=state,
+               resumed_state={k: _np(v) for k, v in model.state_dict().items()})
+    D.fleet._hcg = None
+    return out
