@@ -363,9 +363,37 @@ non-zero and prints no result. Phases, one JSON line each:
     beam search over an ``LSTMCell`` with its first layer's weights
     against the CPU's; ``ctc_loss`` at ``RNN_CTC`` and its gradient
     against the CPU's; no kernel of the repository.
+52. ``tensor_api`` (after phase 7): every case of
+    ``paddle_tpu_torch/testing/tensor_cases.py`` (the reference's 281 public
+    tensor functions, the CPU parity sweep's table) on card tensors against
+    the same function on the CPU copy of its inputs: bitwise for the
+    manipulation, logic, search, integer and creation functions, the
+    table's tolerance for the elementwise, reduction and linear-algebra
+    ones, invariants (singular values, reconstructions, moduli) for the
+    factorisations that are not unique, every output on the card, and the
+    gradients of ``sum(out * w)`` within 1e-5 where the table compares
+    them; the
+    random functions for shape, dtype, device, determinism under
+    ``paddle.seed`` and moments; the functions that synchronise with the
+    host (``torch.cuda.set_sync_debug_mode``) and the slowest, by ms a
+    call; a ``PyLayer`` with a hand-written tanh-GELU backward on a
+    ``[8, 1024, 4096]`` bf16 tensor against autograd of the plain formula
+    (both against f32 autograd), and ``jacobian``/``hessian`` on the card
+    against the CPU. No kernel of the repository.
+53. ``paddle_api_gpt_train`` (after phase 52): phase 6's O2 GPT written as
+    a user writes it against the port's ``paddle.*`` API
+    (``import paddle_tpu_torch as paddle``, ``set_device("gpu")``,
+    ``seed``, four id batches drawn by ``paddle.randint``): 2 O2 steps, the
+    model's and the optimizer's ``state_dict()`` through ``paddle.save``
+    into a directory under ``build/``, everything deleted, a fresh model,
+    ``AdamW`` and ``TrainStep`` from ``paddle.load``, steps 3-4. Their losses
+    are bitwise an uninterrupted 4-step run's from the same seed, with 16
+    K1 and 16 K2 a step; ``paddle.device.cuda.max_memory_allocated()``
+    equals torch's; the file bytes, the save and load seconds and ms a
+    step.
 
 The serving phases (5, 25-30, 39), the vision phases (22-24), DLRM's (31,
-45) and the RNN phase (51) launch none of K1-K4b: the reference runs no Pallas kernel on those paths
+45), the RNN phase (51) and the tensor API's (52) launch none of K1-K4b: the reference runs no Pallas kernel on those paths
 (serving attends in jnp, the port in plain PyTorch; convolutions are
 cuDNN's, batch norms and pools ATen's; the embedding lookup is
 ``jnp.take``, the optimizers jnp); the script checks that their counts
@@ -375,7 +403,8 @@ Phases 4, 5, 25, 26, 27, 28, 29, 30, 39, 6, 9 (its ``pallas_sorted`` run),
 37 and 38 (the ranks' counts, summed), 40, 41 (this process's steps from
 the checkpoint), 42, 43, 12, 13, ``dp_bert_train``, 16, 17, 34, 44, 35
 (summed), 20, 22, 24, 31, 45 (the ranks' counts, summed), 47, 48 (both
-arms of each), 49, 50 (the ranks' counts, summed) and 51 are the main path: the kernel counts are set
+arms of each), 49, 50 (the ranks' counts, summed), 51, 52 and 53 (its
+resumed run) are the main path: the kernel counts are set
 to 0 just before each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
@@ -6951,6 +6980,351 @@ def phase_rnn_lm_train():
     if not ok:
         raise AssertionError("rnn_lm_train phase failed")
 
+# the tensor API sweep on the card (phase 52): the PyLayer's tensor, its
+# bf16 outputs and gradients (and autograd's of the same formula) held to
+# f32 autograd within 2 bf16 roundings (2**-7) of the largest value;
+# jacobian/hessian against the CPU at rtol and atol 1e-5
+PYLAYER_SHAPE = (8, 1024, 4096)
+PYLAYER_TOL = 2 ** -7
+JACOBIAN_TOL = (1e-5, 1e-5)
+# the random functions' moments: |mean - mu| within 5 standard errors
+RANDOM_MOMENTS = {"rand": (0.5, 1 / 12), "randn": (0.0, 1.0), "standard_normal": (0.0, 1.0),
+                  "normal": (1.0, 4.0), "uniform": (0.0, 16 / 12), "randint": (4.5, 8.25),
+                  "randint_like": (4.5, 8.25), "bernoulli": (0.3, 0.21), "poisson": (3.0, 3.0),
+                  "multinomial": (2.0, 1.0), "uniform_": (0.5, 1 / 12),
+                  "exponential_": (0.5, 0.25)}
+
+
+def _case_args(obj, device):
+    """A case's numpy arrays as tensors on ``device`` (lists and tuples
+    walked)."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj.copy()).to(device)
+    if isinstance(obj, list):
+        return [_case_args(o, device) for o in obj]
+    if isinstance(obj, tuple):
+        return tuple(_case_args(o, device) for o in obj)
+    return obj
+
+
+def _case_leaves(obj):
+    if isinstance(obj, (list, tuple)) and any(isinstance(o, (torch.Tensor, list, tuple))
+                                              for o in obj):
+        return [x for o in obj for x in _case_leaves(o)]
+    return [obj]
+
+
+def _case_numpy(o):
+    if isinstance(o, torch.Tensor):
+        return o.detach().resolve_conj().cpu().numpy()
+    return np.asarray(o)
+
+
+def _case_arrays(obj):
+    if isinstance(obj, (list, tuple)):
+        return [x for o in obj for x in _case_arrays(o)]
+    return [obj] if isinstance(obj, np.ndarray) else []
+
+
+def _case_call(paddle, case, device):
+    """The case's call with its inputs made (from the seed) and moved to
+    ``device`` already, and ``paddle.set_device`` naming it."""
+    args, kwargs = case.make(np.random.default_rng(SEED))
+    paddle.set_device("gpu" if device == "cuda" else "cpu")
+    if not case.raw:
+        args, kwargs = _case_args(args, device), _case_args(kwargs, device)
+    return lambda: getattr(paddle, case.name)(*args, **kwargs)
+
+
+def _case_grads(paddle, case, device):
+    """The gradients of ``sum(out * w)`` over the case's float outputs (``w``
+    from the next seed) with respect to its float array inputs, as numpy;
+    ``None`` where no output is floating."""
+    args, kwargs = case.make(np.random.default_rng(SEED))
+    paddle.set_device("gpu" if device == "cuda" else "cpu")
+    leaves = []
+
+    def leaf(obj):
+        if isinstance(obj, np.ndarray):
+            t = torch.from_numpy(obj.copy()).to(device)
+            if obj.dtype.kind == "f":
+                t.requires_grad_(True)
+                leaves.append(t)
+            return t
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(leaf(o) for o in obj)
+        return obj
+
+    args, kwargs = leaf(args), {k: leaf(v) for k, v in kwargs.items()}
+    outs = _case_leaves(getattr(paddle, case.name)(*args, **kwargs))
+    rng = np.random.default_rng(SEED + 1)
+    terms = [torch.sum(o * torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(
+                 np.float32)).to(device, o.dtype))
+             for o in outs if isinstance(o, torch.Tensor) and o.is_floating_point()]
+    if not terms or not leaves or not sum(terms).requires_grad:
+        return None
+    grads = torch.autograd.grad(sum(terms), leaves, allow_unused=True)
+    return [np.zeros(tuple(t.shape), np.float32) if g is None else g.cpu().numpy()
+            for g, t in zip(grads, leaves)]
+
+
+def _case_error(case, got, want, inputs):
+    """The largest error of the card's outputs against the CPU's, and
+    whether it is within the case's family tolerance."""
+    from paddle_tpu_torch.testing.tensor_cases import TOLERANCE
+
+    got_l, want_l = _case_leaves(got), _case_leaves(want)
+    if len(got_l) != len(want_l):
+        return float("inf"), False
+    g_np, w_np = [_case_numpy(o) for o in got_l], [_case_numpy(o) for o in want_l]
+    if case.family == "invariant":
+        ins = _case_arrays(inputs)
+        g_u = case.unique(g_np if len(g_np) > 1 else g_np[0], ins)
+        w_u = case.unique(w_np if len(w_np) > 1 else w_np[0], ins)
+        g_np, w_np = [np.asarray(g_u[k]) for k in w_u], [np.asarray(w_u[k]) for k in w_u]
+    rtol, atol = TOLERANCE[case.family]
+    worst, ok = 0.0, True
+    for g, w in zip(g_np, w_np):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), False
+        if g.dtype.kind in "fc":
+            both_nan = np.isnan(g) & np.isnan(w)
+            diff = np.where(both_nan, 0, np.abs(g.astype(np.complex128) - w.astype(np.complex128)))
+            worst = max(worst, float(diff.max(initial=0.0)))
+            ok &= bool(np.all(diff <= atol + rtol * np.abs(w)) & np.all(np.isnan(g) == np.isnan(w)))
+        else:
+            ok &= bool(np.array_equal(g, w))
+    return worst, ok
+
+
+def _random_check(paddle, name, make):
+    args, kwargs = make(np.random.default_rng(SEED))
+    args = _case_args(args, "cuda")
+    before = torch.random.get_rng_state()
+    paddle.seed(7)
+    a = getattr(paddle, name)(*args, **kwargs)
+    b = getattr(paddle, name)(*_case_args(make(np.random.default_rng(SEED))[0], "cuda"), **kwargs)
+    paddle.seed(7)
+    a2 = getattr(paddle, name)(*_case_args(make(np.random.default_rng(SEED))[0], "cuda"), **kwargs)
+    ok = (a.is_cuda and torch.equal(a, a2) and not torch.equal(a, b)
+          and torch.equal(torch.random.get_rng_state(), before))
+    if name == "randperm":
+        return ok and torch.equal(torch.sort(a).values, torch.arange(a.numel(), device="cuda"))
+    mean, var = RANDOM_MOMENTS[name]
+    x = a.double()
+    return ok and abs(float(x.mean()) - mean) < 5 * (var / x.numel()) ** 0.5
+
+
+def _gelu_tanh(x):
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+
+
+def phase_tensor_api():
+    """The tensor API sweep on the card (phase 52)."""
+    import warnings
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as pdevice
+    from paddle_tpu_torch.testing.tensor_cases import CASES, GRAD_TOLERANCE, RANDOM
+
+    prev_device, prev_rng = pdevice._DEVICE[0], paddle.get_rng_state()
+    by_family, bad, syncs, times = {}, [], [], {}
+    grad_cases, grad_err = 0, 0.0
+    for name, case in CASES.items():
+        if case.family == "random":
+            continue
+        want = _case_call(paddle, case, "cpu")()
+        _case_call(paddle, case, "cuda")()  # warm: the first call loads torch's kernels
+        call = _case_call(paddle, case, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        times[name] = 1e3 * (time.perf_counter() - t0)
+        if any("synchroniz" in str(w.message) for w in caught):
+            syncs.append(name)
+        on_card = all(o.is_cuda for o in _case_leaves(got) if isinstance(o, torch.Tensor))
+        err, ok = _case_error(case, got, want, case.make(np.random.default_rng(SEED))[0])
+        del got, want, call
+        fam = by_family.setdefault(case.family, {"cases": 0, "max_abs_err": 0.0})
+        fam["cases"] += 1
+        fam["max_abs_err"] = max(fam["max_abs_err"], err)
+        if not (ok and on_card):
+            bad.append((name, err, on_card))
+        if case.grad:
+            g_cuda, g_cpu = _case_grads(paddle, case, "cuda"), _case_grads(paddle, case, "cpu")
+            if g_cpu is not None:
+                grad_cases += 1
+                g_err = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(g_cuda, g_cpu))
+                grad_err = max(grad_err, g_err)
+                if not all(np.allclose(a, b, rtol=GRAD_TOLERANCE[0], atol=GRAD_TOLERANCE[1])
+                           for a, b in zip(g_cuda, g_cpu)):
+                    bad.append((name, "gradient", g_err))
+    paddle.set_device("gpu")
+    random_bad = [n for n, make in RANDOM.items() if not _random_check(paddle, n, make)]
+
+    # a PyLayer with a hand-written tanh-GELU backward, bf16, against
+    # autograd of the plain formula (both held to f32 autograd)
+    class TanhGelu(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return _gelu_tanh(x.float()).to(x.dtype)
+
+        @staticmethod
+        def backward(ctx, dy):
+            (x,) = ctx.saved_tensor()
+            xf = x.float()
+            c = math.sqrt(2.0 / math.pi)
+            t = torch.tanh(c * (xf + 0.044715 * xf ** 3))
+            d = 0.5 * (1 + t) + 0.5 * xf * (1 - t * t) * c * (1 + 3 * 0.044715 * xf * xf)
+            return (dy.float() * d).to(x.dtype)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(PYLAYER_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(PYLAYER_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def run(fn, dtype=None):
+        xi = (x if dtype is None else x.to(dtype)).detach().requires_grad_(True)
+        out = fn(xi)
+        out.backward(dy if dtype is None else dy.to(dtype))
+        return out.detach(), xi.grad
+
+    def plain(t):  # the plain formula in f32 on the bf16 input, as the PyLayer's forward
+        return _gelu_tanh(t.float()).to(t.dtype)
+
+    truth_out, truth_grad = run(_gelu_tanh, torch.float32)
+    layer_out, layer_grad = run(TanhGelu.apply)
+    plain_out, plain_grad = run(plain)
+    scale_out, scale_grad = float(truth_out.abs().max()), float(truth_grad.abs().max())
+    pylayer = {name: {"out_err": float((o.float() - truth_out).abs().max()) / scale_out,
+                      "grad_err": float((g.float() - truth_grad).abs().max()) / scale_grad,
+                      "ms": cuda_ms(lambda f=f: run(f), iters=5)}
+               for name, o, g, f in (("pylayer", layer_out, layer_grad, TanhGelu.apply),
+                                     ("plain_autograd", plain_out, plain_grad, plain))}
+    pylayer["pylayer_vs_plain"] = {
+        "out_err": float((layer_out.float() - plain_out.float()).abs().max()) / scale_out,
+        "grad_err": float((layer_grad.float() - plain_grad.float()).abs().max()) / scale_grad}
+    del x, dy, truth_out, truth_grad, layer_out, layer_grad, plain_out, plain_grad
+    pylayer_ok = all(v["out_err"] <= PYLAYER_TOL and v["grad_err"] <= PYLAYER_TOL
+                     for v in pylayer.values())
+
+    # jacobian and hessian on the card against the CPU
+    w = torch.randn(48, 32, generator=torch.Generator().manual_seed(SEED))
+    v = torch.randn(32, generator=torch.Generator().manual_seed(SEED + 1))
+    funcs = {}
+    for dev in ("cpu", "cuda"):
+        wd, vd = w.to(dev), v.to(dev)
+        funcs[dev] = (paddle.autograd.jacobian(lambda t, wd=wd: paddle.tanh(paddle.mv(wd, t)), vd),
+                      paddle.autograd.hessian(lambda t: paddle.sum(paddle.sin(t) * t * t), vd))
+    jac_err = [float((a.cpu() - b).abs().max()) for a, b in zip(funcs["cuda"], funcs["cpu"])]
+    jac_ok = all(a.is_cuda for a in funcs["cuda"]) and all(
+        torch.allclose(a.cpu(), b, rtol=JACOBIAN_TOL[0], atol=JACOBIAN_TOL[1])
+        for a, b in zip(funcs["cuda"], funcs["cpu"]))
+    pdevice._DEVICE[0] = prev_device
+    paddle.set_rng_state(prev_rng)
+    slowest = dict(sorted(times.items(), key=lambda kv: -kv[1])[:10])
+    ok = not bad and not random_bad and pylayer_ok and jac_ok
+    emit(phase="tensor_api", ok=ok, cases=sum(f["cases"] for f in by_family.values()),
+         random_cases=len(RANDOM), by_family=by_family, grad_cases=grad_cases,
+         grad_max_abs_err=grad_err, grad_tol=GRAD_TOLERANCE, failed=bad, random_failed=random_bad,
+         host_syncs=syncs, slowest_ms=slowest, total_ms=sum(times.values()),
+         pylayer=dict(pylayer, shape=list(PYLAYER_SHAPE), dtype="bfloat16", tol=PYLAYER_TOL),
+         jacobian_hessian_max_abs_err=jac_err)
+    if not ok:
+        raise AssertionError("tensor_api phase failed")
+
+
+def phase_paddle_api_gpt_train():
+    """Phase 6's O2 GPT trained, saved and resumed through the port's
+    ``paddle.*`` API (phase 53). Returns the resumed run's launches."""
+    import shutil
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as pdevice
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    prev_device, prev_rng = pdevice._DEVICE[0], paddle.get_rng_state()
+    paddle.set_device("gpu")
+    paddle.seed(SEED)
+    cfg = GPTConfig(**SERVE_CFG)
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    batches = [paddle.randint(0, cfg.vocab_size, [b, s]) for _ in range(4)]
+
+    def fresh():
+        model = GPTForPretraining(cfg, seed=SEED)
+        opt = AdamW(learning_rate=TRAIN["lr"], parameters=model.parameters())
+        return model, opt, TrainStep(model, opt, GPTPretrainingCriterion(), amp_level="O2")
+
+    def steps(step, ids_list, ms):
+        out = []
+        for ids in ids_list:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(float(step(ids, ids)["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    # the uninterrupted run
+    model, opt, step = fresh()
+    full_ms = []
+    full = steps(step, batches, full_ms)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # the run the user stops and resumes: 2 steps, save, delete, load, 2 steps
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    model, opt, step = fresh()
+    resumed_ms = []
+    first = steps(step, batches[:2], resumed_ms)
+    root = _ckpt_dir("paddle_api_gpt")
+    t0 = time.perf_counter()
+    paddle.save(model.state_dict(), str(root / "model.pdparams"))
+    paddle.save(opt.state_dict(), str(root / "model.pdopt"))
+    save_s = time.perf_counter() - t0
+    file_bytes = sum(p.stat().st_size for p in root.iterdir())
+    del model, opt, step
+    torch.cuda.empty_cache()
+    model, opt, step = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.load_state_dict(paddle.load(str(root / "model.pdparams")))
+    opt.set_state_dict(paddle.load(str(root / "model.pdopt")))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    second = steps(step, batches[2:], resumed_ms)
+    launches = read_launches()
+    peak_paddle = paddle.device.cuda.max_memory_allocated()
+    peak_torch = torch.cuda.max_memory_allocated()
+    shutil.rmtree(root, ignore_errors=True)
+    del model, opt, step, batches
+    pdevice._DEVICE[0] = prev_device
+    paddle.set_rng_state(prev_rng)
+    per_step = {k: v / 4 for k, v in launches.items()}
+    ok = (first + second == full and all(np.isfinite(full))
+          and per_step == {K1["name"]: cfg.num_layers, K2["name"]: cfg.num_layers,
+                           K3["name"]: 0, K3B["name"]: 0, K4["name"]: 0, K4B["name"]: 0}
+          and peak_paddle == peak_torch)
+    emit(phase="paddle_api_gpt_train", ok=ok, ids=[b, s], amp_level="O2", losses=full,
+         resumed_losses=first + second, bitwise=first + second == full, launches=launches,
+         launches_per_step=per_step, file_bytes=file_bytes, save_s=save_s, load_s=load_s,
+         ms_per_step=float(np.median(full_ms[1:])), step_ms=full_ms, resumed_step_ms=resumed_ms,
+         max_memory_allocated=peak_paddle, torch_max_memory_allocated=peak_torch)
+    if not ok:
+        raise AssertionError("paddle_api_gpt_train phase failed")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card", file=sys.stderr)
@@ -7001,6 +7375,12 @@ def main() -> int:
     by_path["train"], train_losses, train_grad1 = phase_train()
     torch.cuda.empty_cache()
     phase_train_check()
+    torch.cuda.empty_cache()
+    reset_launches()
+    phase_tensor_api()
+    by_path["tensor_api"] = read_launches()
+    torch.cuda.empty_cache()
+    by_path["paddle_api_gpt_train"] = phase_paddle_api_gpt_train()
     torch.cuda.empty_cache()
     by_path["amp_o1_gpt_train"] = phase_amp_o1_gpt_train()
     torch.cuda.empty_cache()
@@ -7140,7 +7520,8 @@ def main() -> int:
     # phases check that every count stays 0)
     expected = {"forward": [K1["name"]], "serve": [], "serve_round2": [], "serve_spec": [],
                 "fleet": [], "procfleet": [], "ingress": [], "alerts": [], "mp_decode": [],
-                "train": [K1["name"], K2["name"]],
+                "train": [K1["name"], K2["name"]], "tensor_api": [],
+                "paddle_api_gpt_train": [K1["name"], K2["name"]],
                 "amp_o1_gpt_train": [K1["name"], K2["name"]],
                 "fp16_gpt_train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],

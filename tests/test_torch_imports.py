@@ -130,12 +130,25 @@ NN_TAIL_MODULES = {"paddle_tpu_torch.framework.param_attr", "paddle_tpu_torch.nn
                    "paddle_tpu_torch.nn.layer.loss", "paddle_tpu_torch.utils.convert"}
 
 
+# modules of the tensor API and the framework core
+FRAMEWORK_CORE_MODULES = {"paddle_tpu_torch.tensor._helpers", "paddle_tpu_torch.tensor.creation",
+                          "paddle_tpu_torch.tensor.math", "paddle_tpu_torch.tensor.manipulation",
+                          "paddle_tpu_torch.tensor.logic", "paddle_tpu_torch.tensor.search",
+                          "paddle_tpu_torch.tensor.stat", "paddle_tpu_torch.tensor.linalg",
+                          "paddle_tpu_torch.framework.dtype", "paddle_tpu_torch.framework.io",
+                          "paddle_tpu_torch.device", "paddle_tpu_torch.autograd",
+                          "paddle_tpu_torch.autograd.py_layer",
+                          "paddle_tpu_torch.autograd.functional",
+                          "paddle_tpu_torch.utils.unique_name",
+                          "paddle_tpu_torch.testing.tensor_cases"}
+
+
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
               | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES
               | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES | RESILIENCE_MODULES
-              | AMP_MODULES | NN_LIBRARY_MODULES | NN_TAIL_MODULES)
+              | AMP_MODULES | NN_LIBRARY_MODULES | NN_TAIL_MODULES | FRAMEWORK_CORE_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr

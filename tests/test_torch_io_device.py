@@ -1,0 +1,206 @@
+"""The port's ``save``/``load`` (the reference's file format, both ways
+across the packages), ``device.py`` (``set_device``/``get_device``, the
+memory functions, the predicates) and ``utils/unique_name.py``."""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as ref
+import paddle_tpu_torch as port
+from paddle_tpu_torch import device as port_device
+
+DTYPES = ["float32", "float16", "int64", "bool", "bfloat16"]
+
+
+@pytest.fixture(autouse=True)
+def port_on_cpu():
+    prev = port_device._DEVICE[0]
+    port.set_device("cpu")
+    yield
+    port_device._DEVICE[0] = prev
+
+
+def _array(dtype, shape=(3, 4)):
+    rng = np.random.default_rng(0)
+    if dtype == "bool":
+        return rng.random(shape) > 0.5
+    if dtype == "int64":
+        return rng.integers(-100, 100, shape).astype(np.int64)
+    if dtype == "bfloat16":
+        import ml_dtypes
+
+        return rng.standard_normal(shape).astype(ml_dtypes.bfloat16)
+    return rng.standard_normal(shape).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_reference_file_loads_in_the_port(tmp_path, dtype):
+    a = _array(dtype)
+    path = str(tmp_path / "ref.pdparams")
+    ref.save({"w": ref.to_tensor(a), "nested": [ref.to_tensor(a), 3], "step": 7}, path)
+    got = port.load(path)
+    want_dtype = {"float32": torch.float32, "float16": torch.float16, "int64": torch.int32,
+                  "bool": torch.bool, "bfloat16": torch.bfloat16}[dtype]
+    # the reference stored int64 as int32 (x64 off); the file holds what it computed
+    assert got["w"].dtype == want_dtype and got["step"] == 7 and got["nested"][1] == 3
+    np.testing.assert_array_equal(got["w"].float().numpy(),
+                                  np.asarray(a).astype(np.float32))
+    assert not got["w"].requires_grad
+    raw = port.load(path, return_numpy=True)
+    assert isinstance(raw["w"], np.ndarray)
+    np.testing.assert_array_equal(raw["nested"][0].astype(np.float32), a.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_port_file_loads_in_the_reference(tmp_path, dtype):
+    a = _array(dtype)
+    t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) if dtype == "bfloat16" else \
+        torch.from_numpy(a)
+    if t.is_floating_point():
+        t = t.clone().requires_grad_(True)
+    path = str(tmp_path / "port.pdparams")
+    port.save({"w": t, "pair": (t, "tag")}, path)
+    got = ref.load(path)
+    np.testing.assert_array_equal(np.asarray(got["w"]._value).astype(np.float32),
+                                  a.astype(np.float32))
+    assert got["w"].stop_gradient == (not t.requires_grad)
+    assert isinstance(got["pair"], tuple) and got["pair"][1] == "tag"
+    raw = ref.load(path, return_numpy=True)
+    assert raw["w"].dtype == a.dtype  # the port wrote what it holds, int64 and bfloat16 too
+    back = port.load(path)
+    assert back["w"].dtype == t.dtype and torch.equal(back["w"].detach(), t.detach())
+
+
+def test_bfloat16_without_ml_dtypes_raises_naming_the_tensor(tmp_path, monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)  # import fails
+    with pytest.raises(TypeError, match=r"obj\['layer'\]\['w'\]"):
+        port.save({"layer": {"w": torch.ones(2, dtype=torch.bfloat16)}}, str(tmp_path / "x"))
+
+
+def test_reference_gpt_state_dict_loads_through_convert_to_the_same_logits(tmp_path):
+    from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
+    from paddle_tpu.models.gpt import GPTForPretraining as JGPT
+
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.utils.convert import state_dict_from_paddle_tpu
+
+    ref.seed(3)
+    jcfg = JGPTConfig.tiny()
+    jm = JGPT(jcfg)
+    jm.eval()
+    path = str(tmp_path / "gpt.pdparams")
+    ref.save(jm.state_dict(), path)
+    pm = GPTForPretraining(GPTConfig(**jcfg.to_dict()), device="cpu")
+    pm.load_state_dict(state_dict_from_paddle_tpu(port.load(path, return_numpy=True)))
+    ids = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
+    want = np.asarray(jm(ref.to_tensor(ids)).numpy())
+    with torch.no_grad():
+        got = pm.eval()(torch.from_numpy(ids).long()).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)  # test_torch_gpt.py's
+
+
+def test_port_state_dict_round_trip_resumes_an_optimizer(tmp_path):
+    from paddle_tpu_torch.optimizer import AdamW
+
+    lin = torch.nn.Linear(4, 3)
+    opt = AdamW(learning_rate=0.1, parameters=lin.parameters())
+    lin(torch.ones(2, 4)).sum().backward()
+    opt.step()
+    port.save(lin.state_dict(), str(tmp_path / "m.pdparams"))
+    port.save(opt.state_dict(), str(tmp_path / "o.pdopt"))
+    lin2 = torch.nn.Linear(4, 3)
+    lin2.load_state_dict(port.load(str(tmp_path / "m.pdparams")))
+    opt2 = AdamW(learning_rate=0.1, parameters=lin2.parameters())
+    opt2.set_state_dict(port.load(str(tmp_path / "o.pdopt")))
+    for o, m in ((opt, lin), (opt2, lin2)):
+        o.clear_grad()
+        m(torch.ones(2, 4)).sum().backward()
+        o.step()
+    for a, b in zip(lin.parameters(), lin2.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_set_device_and_get_device():
+    assert port.get_device() == "cpu" and port.device.current_device().type == "cpu"
+    port.set_device(port.CPUPlace())
+    assert port.get_device() == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        port.set_device("tpu")
+    with pytest.raises(ValueError):
+        port.to_tensor([1.0], place=port.TPUPlace(0))
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="no CUDA device"):
+            port.set_device("gpu:0")
+        assert port.get_device() == "cpu"  # unchanged by the refused call
+        port_device._DEVICE[0] = None
+        assert port.get_device() == "cpu"
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.zeros([1])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.load(__file__)  # the device is resolved before the file is read
+
+
+def test_memory_functions_raise_on_the_cpu():
+    """Torch keeps no registry of live CPU tensors (the reference's CPU
+    fallback sums its live JAX arrays), so the memory functions raise."""
+    D = port.device
+    for fn in (D.memory_stats, D.memory_allocated, D.max_memory_allocated, D.memory_reserved,
+               D.max_memory_reserved, D.device_memory_limit, D.get_device_properties,
+               D.cuda.max_memory_allocated, D.cuda.synchronize):
+        with pytest.raises(RuntimeError, match="allocator"):
+            fn()
+        with pytest.raises(RuntimeError, match="allocator"):
+            fn("cpu")
+    D.empty_cache()  # a no-op without CUDA
+
+
+def test_predicates_answer_for_this_build():
+    D = port.device
+    assert D.is_compiled_with_cuda() == (torch.version.cuda is not None)
+    assert not D.is_compiled_with_xpu() and not D.is_compiled_with_tpu()
+    assert D.device_count() == torch.cuda.device_count()
+    assert D.get_all_device_type()[0] == "cpu" and D.get_all_custom_device_type() == []
+    if not torch.cuda.is_available():
+        assert D.get_available_device() == ["cpu"]
+    v = D.get_cudnn_version()
+    assert v is None or isinstance(v, int)
+
+
+def test_unique_name_generate_and_guard():
+    from paddle_tpu.utils import unique_name as ref_names
+
+    from paddle_tpu_torch.utils import unique_name
+
+    a, b = unique_name.generate("fc"), unique_name.generate("fc")
+    ra, rb = ref_names.generate("fc"), ref_names.generate("fc")
+    assert int(b.rsplit("_", 1)[1]) == int(a.rsplit("_", 1)[1]) + 1
+    assert int(rb.rsplit("_", 1)[1]) == int(ra.rsplit("_", 1)[1]) + 1
+    with unique_name.guard():
+        assert unique_name.generate("fc") == "fc_0"  # a fresh generator
+    with unique_name.guard("blk_"):
+        assert unique_name.generate("fc") == "blk_fc_0"
+    assert unique_name.generate("fc").endswith(f"_{int(b.rsplit('_', 1)[1]) + 1}")
+    with ref_names.guard():  # the reference's guard is a no-op
+        assert ref_names.generate("fc") != "fc_0"
+
+
+def test_root_namespace_mirrors_the_reference():
+    import paddle_tpu
+
+    names = ["to_tensor", "seed", "get_rng_state", "set_rng_state", "set_device", "get_device",
+             "save", "load", "grad", "no_grad", "enable_grad", "set_grad_enabled",
+             "is_grad_enabled", "backward", "set_printoptions", "batch", "ParamAttr", "CPUPlace",
+             "CUDAPlace", "CUDAPinnedPlace", "float32", "bfloat16", "int64", "bool", "Tensor",
+             "convert_dtype", "get_default_dtype", "set_default_dtype", "tensor", "nn",
+             "optimizer", "amp", "jit", "distributed", "autograd", "vision", "inference",
+             "device", "DataParallel", "ParameterList", "device_count"]
+    for n in names:  # the reference keeps the stream state in paddle_tpu.framework
+        assert hasattr(port, n) and (hasattr(paddle_tpu, n) or n.endswith("rng_state")), n
+    for n in paddle_tpu.tensor._public_funcs():
+        if n not in ("ensure_tensor", "op"):
+            assert callable(getattr(port, n)), n
+    assert port.bfloat16 is torch.bfloat16 and port.Tensor is torch.Tensor
+    assert list(port.batch(lambda: iter(range(5)), 2)()) == [[0, 1], [2, 3], [4]]
+    assert port.convert_dtype(torch.float16) == "float16" and port.convert_dtype("fp32") == "float32"
