@@ -391,8 +391,27 @@ non-zero and prints no result. Phases, one JSON line each:
     K1 and 16 K2 a step; ``paddle.device.cuda.max_memory_allocated()``
     equals torch's; the file bytes, the save and load seconds and ms a
     step.
+54. ``vision_zoo_train`` (after phase 24): AlexNet, VGG-16, SqueezeNet 1.1,
+    MobileNet V1, V2 and V3 large, ShuffleNet V2 x1.0, DenseNet-121 and
+    GoogLeNet at 224 x 224 and Inception v3 at 299 x 299, 1000 classes,
+    each at its published widths, trained as phase 22 trains ResNet50
+    (``ZOO_TRAIN``: AMP O2, Momentum, batch 64, 2 warm-up and 5 timed
+    steps, one traced): ms a step, images/s, peak memory, the top device
+    kernels and the model-flops bound share; the losses finite, the
+    running buffers finite and moved, the parameters f32.
+55. ``vision_zoo_check``: each of those models on the card against the
+    CPU from one state at batch 4, f32 with TF32 off (``ZOO_CHECK``): the
+    eval logits, the step's loss, train-mode logits and gradients, and the
+    running buffers after it; and a control (one running variance scaled
+    on the card) that must fail the eval gate.
+56. ``nn_layers_api``: the norms, pools and transposed and channel-last
+    convolutions of the nn library's second half, functions and layers, on
+    card tensors against the CPU, values and gradients, bf16 under
+    ``auto_cast`` where the reference's lists cast; ``ceil_mode``, masks
+    through ``max_unpool*``, transposed convolutions at dilation 2 and
+    ``groups=2``; the calls that synchronise with the host.
 
-The serving phases (5, 25-30, 39), the vision phases (22-24), DLRM's (31,
+The serving phases (5, 25-30, 39), the vision phases (22-24, 54-56), DLRM's (31,
 45), the RNN phase (51) and the tensor API's (52) launch none of K1-K4b: the reference runs no Pallas kernel on those paths
 (serving attends in jnp, the port in plain PyTorch; convolutions are
 cuDNN's, batch norms and pools ATen's; the embedding lookup is
@@ -403,8 +422,8 @@ Phases 4, 5, 25, 26, 27, 28, 29, 30, 39, 6, 9 (its ``pallas_sorted`` run),
 37 and 38 (the ranks' counts, summed), 40, 41 (this process's steps from
 the checkpoint), 42, 43, 12, 13, ``dp_bert_train``, 16, 17, 34, 44, 35
 (summed), 20, 22, 24, 31, 45 (the ranks' counts, summed), 47, 48 (both
-arms of each), 49, 50 (the ranks' counts, summed), 51, 52 and 53 (its
-resumed run) are the main path: the kernel counts are set
+arms of each), 49, 50 (the ranks' counts, summed), 51, 52, 53 (its
+resumed run), 54 and 56 are the main path: the kernel counts are set
 to 0 just before each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
@@ -419,6 +438,7 @@ and the last line is the ``{"ok": true, ...}`` result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -701,6 +721,40 @@ RESNET_CHECK_TOL = {
                         eval_rel_l2_max=1e-5),
     torch.float64: dict(loss_rtol=1e-12, grad_rel_l2_max=1e-9, buffers_atol=1e-12,
                         eval_rel_l2_max=1e-12)}
+# vision_zoo_train: every family of paddle_tpu/vision/models at its
+# published widths (the constructors' defaults, 1000 classes) and ImageNet's
+# 224 x 224 (Inception v3 at its 299 x 299), trained as resnet50_train is:
+# AMP O2 TrainStep over Momentum, CrossEntropyLoss, normal inputs
+# (default_rng(0)) and int64 labels (default_rng(1)), batch 64, 2 warm-up
+# and 5 timed steps on one batch, then one step traced; lr 0.01, AlexNet's
+# and VGG's published rate (at 0.1 VGG-16, with no batch norm, diverges
+# within two steps from random weights)
+ZOO = (("alexnet", 224), ("vgg16", 224), ("squeezenet1_1", 224), ("mobilenet_v1", 224),
+       ("mobilenet_v2", 224), ("mobilenet_v3_large", 224), ("shufflenet_v2_x1_0", 224),
+       ("densenet121", 224), ("googlenet", 224), ("inception_v3", 299))
+ZOO_TRAIN = dict(batch=64, classes=1000, lr=0.01, warmup=2, steps=5)
+# vision_zoo_check: each of those models from one state (the port's draws
+# on the CPU, seed 40; running means Normal(0, 0.1), variances U(0.5, 1.5)),
+# batch 4 at its training size, f32 with TF32 off and dropout at p 0: the
+# card's eval logits and one Momentum step (loss, train-mode logits, the
+# gradients as (before - after) / lr, the running statistics after) against
+# the same on the CPU. The gates stand about 10x above the largest readings
+# of the first card run (PERF.md, PR 21: eval 1.1e-5 relative L2, train
+# logits 4.6e-5, loss 1.7e-6, buffers 7.0e-6 apart, gradients 2.9e-2).
+# Training mode at batch 4 is ill-conditioned in f32, as ResNet50's is
+# (resnet_check): batch norms over few values carry each rounding into the
+# gradients, so their gate catches only a gross fault. The control scales
+# one batch norm's running variance by 1.5 on the card (without batch
+# norms, the first weight by 1.001), which the eval gate must catch.
+ZOO_CHECK = dict(batch=4, lr=0.1, seed=40, control_scale=1.5, control_weight_scale=1.001)
+ZOO_CHECK_TOL = dict(eval_rel_l2=1e-4, train_rel_l2=5e-4, loss_rtol=2e-5, grad_rel_l2=0.3,
+                     buffers_atol=1e-4)
+# nn_layers_api: the functions and layers of the nn library's second half on
+# card tensors against the CPU, values and the gradients of sum(y * w), the
+# largest error over the largest value of each: f32 (TF32 off) 1e-5, bf16
+# under auto_cast O1 (the reference's lists: convolutions white, norms
+# black) 2e-2
+NN_API_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # dlrm_train: bench_recsys.py:_measure's one-chip branch (:49-54, 64-96)
 # uncut: 8 tables of 100,000 x 64 fused into one 800,000-row table, batch
 # 4096, one warm-up run_steps call of k = 8 steps, then 4 timed calls,
@@ -4255,11 +4309,11 @@ def phase_ernie_check():
                            cfg.num_layers)
 
 
-def _resnet_macs(model, size):
+def _vision_macs(model, size):
     """Multiply-adds of one image's forward through ``model``'s convolutions
-    and ``Linear`` head, from their shapes (one eval forward at batch 1 with
-    hooks): ``(all, the stem's)``. A convolution's are its output's elements
-    times ``in / groups * kh * kw``."""
+    and ``Linear`` layers, from their shapes (one eval forward at batch 1
+    with hooks): ``(all, the first convolution's)``. A convolution's are
+    its output's elements times ``in / groups * kh * kw``."""
     from paddle_tpu_torch.nn.layer import Conv2D, Linear
 
     macs = {}
@@ -4280,14 +4334,15 @@ def _resnet_macs(model, size):
         model.train(was_training)
         for h in hooks:
             h.remove()
-    return sum(macs.values()), macs[model.conv1]
+    first = next(v for m, v in macs.items() if isinstance(m, Conv2D))  # in call order
+    return sum(macs.values()), first
 
 
-def _resnet_flops_per_step(model, batch, size):
+def _vision_flops_per_step(model, batch, size):
     """Model flops of one training step: 2 per multiply-add forward and 4
-    backward (input and weight gradients), without the stem's input
-    gradient, which nothing needs."""
-    macs, stem = _resnet_macs(model, size)
+    backward (input and weight gradients), without the first convolution's
+    input gradient, which nothing needs."""
+    macs, stem = _vision_macs(model, size)
     return (6 * macs - 2 * stem) * batch
 
 
@@ -4318,7 +4373,7 @@ def phase_resnet50_train():
                          .astype(np.float32)).to("cuda")
     y = torch.from_numpy(np.random.default_rng(1).integers(0, RESNET_TRAIN["classes"], (b,))
                          .astype(np.int64)).to("cuda")
-    flops = _resnet_flops_per_step(model, b, size)
+    flops = _vision_flops_per_step(model, b, size)
     start = _batch_norm_buffers(model)
     cudnn_benchmark = torch.backends.cudnn.benchmark
     reset_launches()
@@ -4486,6 +4541,339 @@ def phase_lenet_train():
          train_step_losses=step_losses[::20] + step_losses[-1:], launches=launches)
     if not ok:
         raise AssertionError("lenet_train phase failed")
+    return launches
+
+
+def _zoo_model(name, device, **kwargs):
+    from paddle_tpu_torch.vision import models
+
+    return getattr(models, name)(num_classes=ZOO_TRAIN["classes"], device=device, **kwargs)
+
+
+def phase_vision_zoo_train():
+    """Each model of ``ZOO`` trained on the card as ``resnet50_train`` trains
+    ResNet50 (``ZOO_TRAIN``): the losses finite, the batch norms' running
+    buffers finite and moved, the parameters and buffers f32, no K1-K4b
+    launch. Reports each model's ms a step, images/s, peak memory, the
+    traced step's top device kernels and its model-flops bound share.
+    Returns the K1-K4b launches of every counted step (none)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.layer import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    b = ZOO_TRAIN["batch"]
+    rows, ok, t_phase = {}, True, time.perf_counter()
+    reset_launches()
+    for name, size in ZOO:
+        model = _zoo_model(name, "cuda", seed=SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        step = TrainStep(model, Momentum(learning_rate=ZOO_TRAIN["lr"],
+                                         parameters=model.parameters()),
+                         CrossEntropyLoss(), amp_level="O2")
+        x = torch.from_numpy(np.random.default_rng(0).normal(size=(b, 3, size, size))
+                             .astype(np.float32)).to("cuda")
+        y = torch.from_numpy(np.random.default_rng(1).integers(0, ZOO_TRAIN["classes"], (b,))
+                             .astype(np.int64)).to("cuda")
+        flops = _vision_flops_per_step(model, b, size)
+        start = _batch_norm_buffers(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(x, y)["loss"]) for _ in range(ZOO_TRAIN["warmup"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = [step(x, y)["loss"] for _ in range(ZOO_TRAIN["steps"])]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses += [float(v) for v in timed]
+        peak = torch.cuda.max_memory_allocated()
+        after = _batch_norm_buffers(model)
+        breakdown = profile_step(step, x, y)  # outside the counted steps
+        ms = 1e3 * seconds / ZOO_TRAIN["steps"]
+        bound_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
+        moved = all(torch.isfinite(v).all() and not torch.equal(v, start[n])
+                    for n, v in after.items())
+        f32 = (all(p.dtype == torch.float32 for p in model.parameters())
+               and all(v.dtype == torch.float32 for v in after.values()))
+        row_ok = bool(all(np.isfinite(losses)) and moved and f32)
+        ok = ok and row_ok
+        rows[name] = dict(ok=row_ok, images=[b, 3, size, size], params=n_params, losses=losses,
+                          losses_fell=losses[-1] < losses[0], batch_norm_buffers=len(after),
+                          buffers_finite_and_moved=bool(moved), ms_per_step=ms,
+                          images_per_s=b * ZOO_TRAIN["steps"] / seconds,
+                          max_memory_allocated=peak, model_flops_per_step=flops,
+                          model_flops_bound_ms=bound_ms, bound_share=bound_ms / ms,
+                          profile=breakdown and dict(
+                              breakdown, top_kernels_ms=dict(list(
+                                  breakdown["top_kernels_ms"].items())[:6])),
+                          device_busy_share_of_timed_step=breakdown and
+                          breakdown["device_busy_ms"] / ms)
+        del model, step, x, y
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    ok = ok and all(v == 0 for v in launches.values())
+    emit(phase="vision_zoo_train", ok=ok, amp_level="O2", layout="NCHW", models=rows,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("vision_zoo_train phase failed")
+    return launches
+
+
+def _zoo_state(name):
+    """A model's state drawn on the CPU (``ZOO_CHECK``'s seed), with its
+    running statistics drawn too."""
+    model = _zoo_model(name, "cpu", seed=ZOO_CHECK["seed"])
+    rng = np.random.default_rng(ZOO_CHECK["seed"])
+    state = {}
+    for n, v in model.state_dict().items():
+        if n.endswith("._mean"):
+            v = torch.from_numpy((0.1 * rng.standard_normal(tuple(v.shape))).astype(np.float32))
+        elif n.endswith("._variance"):
+            v = torch.from_numpy(rng.uniform(0.5, 1.5, tuple(v.shape)).astype(np.float32))
+        state[n] = v.clone()
+    return state
+
+
+def _zoo_run_on(name, device, state, x, y, control=False):
+    """The eval logits and one f32 Momentum step of ``name`` on ``device``
+    from ``state`` (dropout at p 0), all on the CPU in float64: ``(eval
+    logits, loss, train-mode logits, gradients, running buffers after)``.
+    ``control`` scales the first batch norm's running variance first, or
+    in a model without batch norms its first weight."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.layer import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    model = _zoo_model(name, device)
+    model.load_state_dict(state)
+    if control:  # the first running variance, or without one the first weight, scaled
+        var = [b for n, b in model.named_buffers() if n.endswith("._variance")]
+        with torch.no_grad():
+            (var[0] if var else next(model.parameters())).mul_(
+                ZOO_CHECK["control_scale"] if var else ZOO_CHECK["control_weight_scale"])
+    for m in model.modules():
+        if type(m).__name__ == "Dropout":
+            m.p = 0.0
+    xs, ys = x.to(device), y.to(device)
+    with torch.no_grad():
+        logits = model.eval()(xs).to("cpu", torch.float64)
+    model.train()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = TrainStep(model, Momentum(learning_rate=ZOO_CHECK["lr"], parameters=model.parameters()),
+                     CrossEntropyLoss(), return_outputs=True)
+    out = step(xs, ys)
+    grads = {n: ((before[n] - p.detach()) / ZOO_CHECK["lr"]).to("cpu", torch.float64)
+             for n, p in model.named_parameters()}
+    buffers = {n: v.to("cpu", torch.float64) for n, v in _batch_norm_buffers(model).items()}
+    return (logits, float(out["loss"]), out["outputs"].detach().to("cpu", torch.float64), grads,
+            buffers)
+
+
+def phase_vision_zoo_check():
+    """Each model of ``ZOO`` on the card against the CPU (``ZOO_CHECK``,
+    ``ZOO_CHECK_TOL``), and the control that must fail the eval gate."""
+    b = ZOO_CHECK["batch"]
+    results, ok, t_phase = {}, True, time.perf_counter()
+    tol = ZOO_CHECK_TOL
+    for i, (name, size) in enumerate(ZOO):
+        rng = np.random.default_rng(ZOO_CHECK["seed"] + 1 + i)
+        x = torch.from_numpy(rng.normal(size=(b, 3, size, size)).astype(np.float32))
+        y = torch.from_numpy(rng.integers(0, ZOO_TRAIN["classes"], (b,)).astype(np.int64))
+        state = _zoo_state(name)
+        card = _zoo_run_on(name, "cuda", state, x, y)
+        host = _zoo_run_on(name, "cpu", state, x, y)
+        control = _zoo_run_on(name, "cuda", state, x, y, control=True)
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+
+        g_card = torch.cat([g.reshape(-1) for g in card[3].values()])
+        g_host = torch.cat([host[3][n].reshape(-1) for n in card[3]])
+        row = dict(eval_rel_l2=rel(card[0], host[0]), loss_rel=abs(card[1] - host[1]) / abs(host[1]),
+                   train_rel_l2=rel(card[2], host[2]), grad_rel_l2=rel(g_card, g_host),
+                   buffers_max_abs_err=max([float((card[4][n] - host[4][n]).abs().max())
+                                            for n in host[4]] or [0.0]),
+                   control_eval_rel_l2=rel(control[0], host[0]), images=[b, 3, size, size])
+        row["ok"] = (row["eval_rel_l2"] <= tol["eval_rel_l2"] and row["loss_rel"] <= tol["loss_rtol"]
+                     and row["train_rel_l2"] <= tol["train_rel_l2"]
+                     and row["grad_rel_l2"] <= tol["grad_rel_l2"]
+                     and row["buffers_max_abs_err"] <= tol["buffers_atol"]
+                     and math.isfinite(card[1]))
+        row["control_failed_the_gate"] = row["control_eval_rel_l2"] > tol["eval_rel_l2"]
+        ok = ok and row["ok"] and row["control_failed_the_gate"]
+        results[name] = row
+    emit(phase="vision_zoo_check", ok=ok, tol=tol, models=results,
+         tf32=torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32,
+         seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError("vision_zoo_check phase failed: the card's zoo and the CPU's disagree")
+
+
+def _nn_api_cases():
+    """``(name, fn(F, L, *inputs) -> output, input shapes, dtype)``: the
+    functions and layers of the nn library's second half, with
+    ``ceil_mode``, masks through ``max_unpool*``, channel-last layouts and
+    the transposed convolutions at dilation 2 and ``groups=2``. A layer is
+    made on the CPU from seed 0 and moved with the inputs (``_nn_api_on``)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def unpool(n):
+        def fn(F, L, x):
+            y, mask = getattr(F, f"max_pool{n}d")(x, 3, 2, 1, return_mask=True, ceil_mode=True)
+            return getattr(F, f"max_unpool{n}d")(y, mask, 3, 2, 1, output_size=list(x.shape))
+        return fn
+
+    return [
+        ("layer_norm", lambda F, L, x, w, b: F.layer_norm(x, [16, 64], w, b),
+         [(8, 16, 64), (16, 64), (16, 64)], f32),
+        ("layer_norm_bf16", lambda F, L, x, w, b: F.layer_norm(x, 64, w, b),
+         [(8, 16, 64), (64,), (64,)], bf16),
+        ("instance_norm_nhwc", lambda F, L, x, w, b: F.instance_norm(x, weight=w, bias=b,
+                                                                     data_format="NHWC"),
+         [(4, 14, 14, 32), (32,), (32,)], f32),
+        ("group_norm", lambda F, L, x, w, b: F.group_norm(x, 8, 1e-5, w, b),
+         [(4, 32, 14, 14), (32,), (32,)], f32),
+        ("local_response_norm_nhwc", lambda F, L, x: F.local_response_norm(
+            x, 5, 1e-3, 0.75, 2.0, data_format="NHWC"), [(4, 14, 14, 32)], f32),
+        ("rms_norm_bf16", lambda F, L, x, w: F.rms_norm(x, w), [(8, 16, 64), (64,)], bf16),
+        ("batch_norm_nhwc_bf16", lambda F, L, x, w, b: F.batch_norm(
+            x, torch.zeros(32, device=x.device), torch.ones(32, device=x.device), w, b,
+            training=True, data_format="NHWC"), [(8, 14, 14, 32), (32,), (32,)], bf16),
+        ("max_pool2d_ceil_nhwc", lambda F, L, x: F.max_pool2d(x, 3, 2, 1, ceil_mode=True,
+                                                              data_format="NHWC"),
+         [(4, 15, 15, 16)], f32),
+        ("avg_pool3d_ceil_divisor", lambda F, L, x: F.avg_pool3d(x, 3, 2, 1, ceil_mode=True,
+                                                                 divisor_override=7),
+         [(2, 8, 9, 9, 9)], f32),
+        ("avg_pool1d_inclusive", lambda F, L, x: F.avg_pool1d(x, 4, 3, 2, exclusive=False),
+         [(4, 16, 33)], f32),
+        ("adaptive_max_pool3d_mask", lambda F, L, x: F.adaptive_max_pool3d(x, [3, 2, 4],
+                                                                           return_mask=True)[0],
+         [(2, 8, 7, 9, 10)], f32),
+        ("adaptive_avg_pool1d", lambda F, L, x: F.adaptive_avg_pool1d(x, 5), [(4, 16, 33)], f32),
+        ("max_unpool1d", unpool(1), [(4, 16, 33)], f32),
+        ("max_unpool2d", unpool(2), [(4, 16, 15, 15)], f32),
+        ("max_unpool3d", unpool(3), [(2, 8, 9, 9, 9)], f32),
+        ("conv2d_transpose_dilation2_groups2", lambda F, L, x, w, b: F.conv2d_transpose(
+            x, w, b, stride=2, padding=1, dilation=2, groups=2, output_size=[30, 29]),
+         [(4, 32, 14, 14), (32, 16, 3, 3), (32,)], f32),
+        ("conv3d_transpose_bf16", lambda F, L, x, w, b: F.conv3d_transpose(x, w, b, stride=2,
+                                                                           padding=1),
+         [(2, 16, 6, 6, 6), (16, 8, 3, 3, 3), (8,)], bf16),
+        ("conv1d_transpose_uneven", lambda F, L, x, w: F.conv1d_transpose(
+            x, w, stride=3, padding=[2, 0], output_padding=1), [(4, 16, 20), (16, 8, 4)], f32),
+        ("conv2d_nhwc_bf16", lambda F, L, x, w, b: F.conv2d(x, w, b, stride=2, padding=1,
+                                                            groups=2, data_format="NHWC"),
+         [(4, 14, 14, 32), (64, 16, 3, 3), (64,)], bf16),
+        ("GroupNorm", lambda F, L, x: L["GroupNorm"](x), [(4, 32, 14, 14)], f32),
+        ("InstanceNorm3D", lambda F, L, x: L["InstanceNorm3D"](x), [(2, 8, 6, 6, 6)], f32),
+        ("LocalResponseNorm", lambda F, L, x: L["LocalResponseNorm"](x), [(4, 32, 7, 7)], f32),
+        ("RMSNorm", lambda F, L, x: L["RMSNorm"](x), [(8, 16, 64)], f32),
+        ("MaxPool3D", lambda F, L, x: L["MaxPool3D"](x), [(2, 8, 9, 9, 9)], f32),
+        ("AvgPool1D", lambda F, L, x: L["AvgPool1D"](x), [(4, 16, 33)], f32),
+        ("AdaptiveMaxPool2D", lambda F, L, x: L["AdaptiveMaxPool2D"](x), [(4, 16, 15, 15)], f32),
+        ("Conv2DTranspose", lambda F, L, x: L["Conv2DTranspose"](x), [(4, 32, 14, 14)], f32),
+        ("Conv1DTranspose", lambda F, L, x: L["Conv1DTranspose"](x, output_size=[41]),
+         [(4, 16, 20)], f32),
+    ]
+
+
+def _nn_api_layers(device):
+    """The layers of ``_nn_api_cases``, made on the CPU from seed 0 and
+    moved to ``device``."""
+    from paddle_tpu_torch.nn import layer as L
+
+    made = dict(GroupNorm=L.GroupNorm(8, 32, device="cpu"), InstanceNorm3D=L.InstanceNorm3D(
+        8, device="cpu"), LocalResponseNorm=L.LocalResponseNorm(5),
+        RMSNorm=L.RMSNorm(64, device="cpu"),
+        MaxPool3D=L.MaxPool3D(3, 2, 1, ceil_mode=True), AvgPool1D=L.AvgPool1D(4, 3, 1),
+        AdaptiveMaxPool2D=L.AdaptiveMaxPool2D([4, 5]),
+        Conv2DTranspose=L.Conv2DTranspose(32, 16, 3, stride=2, padding=1, dilation=2, groups=2,
+                                          device="cpu", generator=torch.Generator().manual_seed(0)),
+        Conv1DTranspose=L.Conv1DTranspose(16, 8, 4, stride=2, padding=1, device="cpu",
+                                          generator=torch.Generator().manual_seed(1)))
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for m in made.values():  # affine parameters away from ones and zeros
+            for p in m.parameters():
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return {k: m.to(device) for k, m in made.items()}
+
+
+def _nn_api_inputs(device, arrays, out_shape):
+    """A case's inputs on ``device``, taking gradients, and its output
+    weight ``w`` (seed 1)."""
+    w = np.random.default_rng(1).standard_normal(tuple(out_shape)).astype(np.float32)
+    return ([torch.from_numpy(a).to(device).requires_grad_(True) for a in arrays],
+            torch.from_numpy(w).to(device))
+
+
+def _nn_api_run(name, fn, ins, w, dtype, layers):
+    """Case ``name``: its output and the gradients of ``sum(y * w)`` for its
+    inputs and its layer's parameters (a layer case is named by its
+    layer), on the inputs' device. bf16 cases run under ``auto_cast`` O1
+    with f32 inputs."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+
+    ctx = (amp.auto_cast(level="O1", dtype="bfloat16") if dtype == torch.bfloat16
+           else contextlib.nullcontext())
+    with ctx:
+        out = fn(F, layers, *ins)
+    leaves = ins + (list(layers[name].parameters()) if name in layers else [])
+    grads = torch.autograd.grad((out.float() * w).sum(), leaves, allow_unused=True)
+    return [out.detach()] + [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
+
+
+def phase_nn_layers_api():
+    """Every function and layer of the nn library's second half on card
+    tensors against the CPU (``NN_API_TOL``: the largest error over the
+    largest value of each output and gradient), values and gradients, the
+    layers' parameter gradients too; the calls that synchronise with the
+    host listed, as ``tensor_api`` lists them (the inputs are on the card before the call
+    and copied back after it). Returns the K1-K4b launches (none)."""
+    import warnings
+
+    from paddle_tpu_torch.nn import functional as F
+
+    cases = _nn_api_cases()
+    host_layers, card_layers = _nn_api_layers("cpu"), _nn_api_layers("cuda")
+    rows, bad, syncs = {}, [], []
+    reset_launches()
+    for name, fn, shapes, dtype in cases:
+        rng = np.random.default_rng(SEED)
+        arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        with torch.no_grad():
+            shape = fn(F, host_layers, *[torch.from_numpy(a) for a in arrays]).shape
+        want = _nn_api_run(name, fn, *_nn_api_inputs("cpu", arrays, shape), dtype, host_layers)
+        _nn_api_run(name, fn, *_nn_api_inputs("cuda", arrays, shape), dtype, card_layers)  # warm
+        ins, w = _nn_api_inputs("cuda", arrays, shape)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = _nn_api_run(name, fn, ins, w, dtype, card_layers)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if any("synchroniz" in str(m.message) for m in caught):
+            syncs.append(name)
+        got = [t.float().cpu() for t in got]
+        want = [t.float() for t in want]
+        errs = [float((g - t).abs().max()) / max(float(t.abs().max()), 1e-30)
+                for g, t in zip(got, want)]
+        good = (len(got) == len(want) and all(g.shape == t.shape for g, t in zip(got, want))
+                and max(errs) <= NN_API_TOL[dtype])
+        rows[name] = dict(dtype=str(dtype).replace("torch.", ""), out_err=errs[0],
+                          grad_err=max(errs[1:], default=0.0), tensors=len(got))
+        if not good:
+            bad.append(name)
+    launches = read_launches()
+    ok = not bad and all(v == 0 for v in launches.values())
+    emit(phase="nn_layers_api", ok=ok, cases=len(cases), failed=bad, host_syncs=syncs,
+         tol={str(k).replace("torch.", ""): v for k, v in NN_API_TOL.items()}, rows=rows,
+         launches=launches)
+    if not ok:
+        raise AssertionError(f"nn_layers_api phase failed: {bad}")
     return launches
 
 
@@ -6996,14 +7384,16 @@ RANDOM_MOMENTS = {"rand": (0.5, 1 / 12), "randn": (0.0, 1.0), "standard_normal":
 
 
 def _case_args(obj, device):
-    """A case's numpy arrays as tensors on ``device`` (lists and tuples
-    walked)."""
+    """A case's numpy arrays as tensors on ``device`` (lists, tuples and the
+    keyword arguments' dict walked)."""
     if isinstance(obj, np.ndarray):
         return torch.from_numpy(obj.copy()).to(device)
     if isinstance(obj, list):
         return [_case_args(o, device) for o in obj]
     if isinstance(obj, tuple):
         return tuple(_case_args(o, device) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _case_args(v, device) for k, v in obj.items()}
     return obj
 
 
@@ -7021,6 +7411,8 @@ def _case_numpy(o):
 
 
 def _case_arrays(obj):
+    if isinstance(obj, dict):
+        return [x for o in obj.values() for x in _case_arrays(o)]
     if isinstance(obj, (list, tuple)):
         return [x for o in obj for x in _case_arrays(o)]
     return [obj] if isinstance(obj, np.ndarray) else []
@@ -7471,6 +7863,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["lenet_train"] = phase_lenet_train()
     torch.cuda.empty_cache()
+    by_path["vision_zoo_train"] = phase_vision_zoo_train()
+    torch.cuda.empty_cache()
+    phase_vision_zoo_check()
+    torch.cuda.empty_cache()
+    by_path["nn_layers_api"] = phase_nn_layers_api()
+    torch.cuda.empty_cache()
     by_path["dlrm_train"] = phase_dlrm_train()
     torch.cuda.empty_cache()
     phase_dlrm_check()
@@ -7542,7 +7940,8 @@ def main() -> int:
                 "dropout_bert_train": [K3["name"], K3B["name"]],
                 "transformer_encoder_train": [K3["name"], K3B["name"]],
                 "transformer_base_decode": [K1["name"]],
-                "resnet50_train": [], "lenet_train": [], "dlrm_train": [],
+                "resnet50_train": [], "lenet_train": [], "vision_zoo_train": [],
+                "nn_layers_api": [], "dlrm_train": [],
                 "dlrm_sharded_train": []}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]
     if missing:

@@ -34,12 +34,14 @@ import numpy as _np
 import torch as _torch
 
 from .framework.dtype import convert_dtype, get_default_dtype, set_default_dtype  # noqa: F401
+from .framework.dtype import to_torch_dtype as _to_torch_dtype
 from .framework.flags import get_flags, set_flags  # noqa: F401
 from .framework.random import get_rng_state, seed, set_rng_state  # noqa: F401
 from .device import get_device, is_compiled_with_tpu, set_device  # noqa: F401
 from .tensor import *  # noqa: F401,F403  (the tensor functions, flattened)
 from .tensor import to_tensor  # noqa: F401
 from . import tensor  # noqa: F401
+from .tensor import linalg  # noqa: F401  (paddle.linalg)
 from . import amp  # noqa: F401,E402
 from . import autograd  # noqa: F401,E402
 from . import device  # noqa: F401,E402
@@ -138,6 +140,24 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph=Fal
     if not allow_unused and _builtins.any(g is None for g in grads):
         raise ValueError("input tensor unused in graph; pass allow_unused=True")
     return list(grads)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False, default_initializer=None):
+    """A standalone parameter on the current device (``set_device``), made
+    as a layer's ``create_parameter`` makes one: ``attr``'s initializer,
+    else the global one, else ``default_initializer``, else zeros for a
+    bias and XavierNormal for a weight; ``name`` (or ``attr.name``) as its
+    ``param_name``, ``attr.trainable=False`` as ``requires_grad=False``."""
+    from .device import current_device
+    from .nn import initializer as _init
+    from .nn.layer._attr import finish
+
+    default = default_initializer or (_init.Constant(0.0) if is_bias else _init.XavierNormal())
+    value = _init.make(shape, attr, default, None, current_device(), is_bias=is_bias)
+    p = finish(_torch.nn.Parameter(value.to(_to_torch_dtype(dtype))), attr)
+    if name:
+        p.param_name = name
+    return p
 
 
 def device_count() -> int:

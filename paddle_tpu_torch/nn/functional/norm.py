@@ -1,6 +1,9 @@
 """Normalisation functionals of the port (``paddle_tpu/nn/functional/norm.py``):
-``batch_norm`` with Paddle's semantics, and ``sync_batch_norm``, its
-data-parallel form.
+``batch_norm`` with Paddle's semantics and ``sync_batch_norm``, its
+data-parallel form; ``layer_norm``, ``instance_norm``, ``group_norm``,
+``local_response_norm`` and ``rms_norm``.
+
+Batch norm:
 
 - ``momentum`` is the weight of the OLD running value (0.9), the complement
   of ``torch.nn.functional.batch_norm``'s;
@@ -12,14 +15,30 @@ data-parallel form.
   batch norm wants every operand but ``x`` in f32. Otherwise they run in
   ``x``'s dtype.
 
-It is jnp in the reference, not a Pallas kernel, so here it is
-``torch.native_batch_norm`` (ATen's fused kernel and its backward).
+A ``data_format`` that does not start with ``"NC"`` is channel-last: the
+channels are the last dim. They are jnp in the reference, not Pallas
+kernels, so here they are ATen's (``torch.native_batch_norm``,
+``torch.nn.functional``'s norms) and the fused LayerNorm of
+``ops/layer_norm.py``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ...amp import cast_inputs
+from ...ops.layer_norm import layer_norm_fused
+
+
+def _channel_last(data_format):
+    return not data_format.startswith("NC")
+
+
+def _channels_first(fn, x, data_format):
+    """``fn`` of ``x`` with its channels at dim 1, in ``x``'s layout."""
+    if not _channel_last(data_format):
+        return fn(x)
+    return fn(x.movedim(-1, 1)).movedim(1, -1)
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=False, momentum=0.9,
@@ -27,10 +46,11 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=Fa
     """Normalise ``x`` over every dim but the channels (dim 1). In training
     (and unless ``use_global_stats``) by the batch's mean and biased
     variance, and the running buffers move in place to ``momentum * old +
-    (1 - momentum) * batch``; otherwise by the running buffers, untouched."""
-    if not data_format.startswith("NC"):
-        raise NotImplementedError(f"batch_norm: data_format={data_format!r} is not ported, "
-                                  "only the channels-first layouts")
+    (1 - momentum) * batch``; otherwise by the running buffers, untouched.
+    A channel-last ``data_format`` takes the channels from the last dim."""
+    if _channel_last(data_format):
+        return batch_norm(x.movedim(-1, 1), running_mean, running_var, weight, bias, training,
+                          momentum, epsilon, "NC", use_global_stats).movedim(1, -1)
     (x,) = cast_inputs("batch_norm", x)  # the running buffers are updated in place
     dtype = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
     w = None if weight is None else weight.to(dtype)
@@ -120,11 +140,73 @@ def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None, traini
     if g is None or g.nranks == 1:
         return batch_norm(x, running_mean, running_var, weight, bias, training, momentum, epsilon,
                           data_format, use_global_stats)
-    if not data_format.startswith("NC"):
-        raise NotImplementedError(f"sync_batch_norm: data_format={data_format!r} is not ported, "
-                                  "only the channels-first layouts")
+    if _channel_last(data_format):
+        return sync_batch_norm(x.movedim(-1, 1), running_mean, running_var, weight, bias, training,
+                               momentum, epsilon, "NC", use_global_stats, group).movedim(1, -1)
     y, mean, var = _SyncBatchNorm.apply(x, weight, bias, g, epsilon)
     with torch.no_grad():
         running_mean.mul_(momentum).add_(mean.to(running_mean.dtype), alpha=1.0 - momentum)
         running_var.mul_(momentum).add_(var.to(running_var.dtype), alpha=1.0 - momentum)
     return y
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5, name=None):
+    """Normalise over the last ``len(normalized_shape)`` dims by their mean
+    and biased variance, then ``* weight + bias`` (each optional). Over the
+    last dim with both, the fused LayerNorm with its closed-form backward
+    (``ops/layer_norm.py``), as the reference's hot path."""
+    shape = list(normalized_shape) if isinstance(normalized_shape, (list, tuple)) else [
+        normalized_shape]
+    if len(shape) == 1 and weight is not None and bias is not None:
+        return layer_norm_fused(x, weight, bias, epsilon)
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
+    dtype = x.dtype
+    return F.layer_norm(x, [int(d) for d in shape], None if weight is None else weight.to(dtype),
+                        None if bias is None else bias.to(dtype), epsilon)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None, bias=None,
+                  use_input_stats=True, momentum=0.9, eps=1e-5, data_format="NCHW", name=None):
+    """Normalise each sample's channel over its spatial dims (mean and
+    biased variance), then the per-channel ``weight``/``bias``. With
+    ``use_input_stats=False`` and running buffers, by those instead, as
+    Paddle (the reference ignores both); the buffers are not updated (the
+    ``InstanceNorm`` layers keep none)."""
+    use_running = not use_input_stats and running_mean is not None and running_var is not None
+
+    def fn(v):
+        return F.instance_norm(v, running_mean if use_running else None,
+                               running_var if use_running else None, weight, bias,
+                               use_input_stats=not use_running, eps=eps)
+
+    return _channels_first(fn, x, data_format)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None, data_format="NCHW",
+               name=None):
+    """Normalise each sample over each group of ``C / num_groups`` channels
+    and its spatial dims, then the per-channel ``weight``/``bias``.
+    Channels first only: a channel-last layout raises, as in the
+    reference."""
+    if _channel_last(data_format):
+        raise NotImplementedError(f"group_norm: data_format={data_format!r}: channels first only, "
+                                  "as in the reference")
+    return F.group_norm(x, int(num_groups), weight, bias, epsilon)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0, data_format="NCHW", name=None):
+    """``x / (k + alpha * mean of x**2 over a window of size channels) **
+    beta``, the window centred (``size // 2`` before, the rest after, zero
+    padded); the channels are dim 1, or the last dim for a channel-last
+    ``data_format`` (the reference always takes dim 1)."""
+    return _channels_first(lambda v: F.local_response_norm(v, int(size), alpha, beta, k), x,
+                           data_format)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """``x / sqrt(mean(x**2) + epsilon)`` over the last dim, in f32, cast
+    back to ``x``'s dtype, then ``* weight`` (which promotes as a product
+    does)."""
+    xf = x.float()
+    out = (xf / torch.sqrt(xf.square().mean(-1, keepdim=True) + epsilon)).to(x.dtype)
+    return out if weight is None else out * weight

@@ -1,7 +1,9 @@
-"""Convolution layers of the port (``paddle_tpu/nn/layer/conv.py``)."""
+"""Convolution layers of the port (``paddle_tpu/nn/layer/conv.py``):
+``Conv1D/2D/3D`` and ``Conv1DTranspose/2DTranspose/3DTranspose``."""
 from __future__ import annotations
 
-import torch
+import math
+
 from torch import nn
 
 from ...framework.device import resolve_device
@@ -11,13 +13,16 @@ from ._attr import param, wants
 
 
 class _ConvNd(nn.Module):
-    """``weight`` ``[out, in / groups, *kernel]`` drawn Normal(0, sqrt(2 /
-    fan_in)) and a zero ``bias`` (none with ``bias_attr=False``).
+    """``weight`` ``[out, in / groups, *kernel]`` (a transposed one's ``[in,
+    out / groups, *kernel]``) drawn Normal(0, sqrt(2 / fan_in)), fan_in =
+    ``in / groups`` times the kernel's size, and a zero ``bias`` (none with
+    ``bias_attr=False``), as the reference's ``_ConvNd`` makes them.
     ``padding_mode`` other than ``"zeros"`` is not ported (the reference
     ignores it)."""
 
     _n = 2
     _format = "NCHW"
+    _transposed = False
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dilation=1,
                  groups=1, padding_mode="zeros", weight_attr=None, bias_attr=None, data_format=None,
@@ -33,9 +38,11 @@ class _ConvNd(nn.Module):
         self.dilation, self.groups = dilation, groups
         self.data_format = data_format or self._format
         name = type(self).__name__
-        self.weight = param([out_channels, in_channels // groups, *ks], weight_attr,
-                            lambda shape, dtype, g, d: I.conv_normal(shape, g, d), generator,
-                            device, layer=name)
+        shape = ([in_channels, out_channels // groups, *ks] if self._transposed
+                 else [out_channels, in_channels // groups, *ks])
+        std = math.sqrt(2.0 / (in_channels // groups * math.prod(ks)))
+        self.weight = param(shape, weight_attr, lambda shape, dtype, g, d: I.normal(shape, std, g, d),
+                            generator, device, layer=name)
         self.bias = (param((out_channels,), bias_attr, I.Constant(0.0), generator, device,
                            is_bias=True, layer=name, what="bias")
                      if wants(bias_attr, name, "bias") else None)
@@ -67,3 +74,34 @@ class Conv3D(_ConvNd):
     def forward(self, x):
         return F.conv3d(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
                         self.groups, self.data_format)
+
+
+class _ConvTranspose(_ConvNd):
+    _transposed = True
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
+                 output_padding=0, groups=1, dilation=1, weight_attr=None, bias_attr=None,
+                 data_format=None, *, device=None, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding, dilation, groups,
+                         "zeros", weight_attr, bias_attr, data_format, device=device,
+                         generator=generator)
+        self.output_padding = output_padding
+
+    def forward(self, x, output_size=None):
+        return self._fn(x, self.weight, self.bias, self.stride, self.padding, self.output_padding,
+                        self.dilation, self.groups, output_size, self.data_format)
+
+
+class Conv1DTranspose(_ConvTranspose):
+    _n, _format = 1, "NCL"
+    _fn = staticmethod(F.conv1d_transpose)
+
+
+class Conv2DTranspose(_ConvTranspose):
+    _n, _format = 2, "NCHW"
+    _fn = staticmethod(F.conv2d_transpose)
+
+
+class Conv3DTranspose(_ConvTranspose):
+    _n, _format = 3, "NCDHW"
+    _fn = staticmethod(F.conv3d_transpose)

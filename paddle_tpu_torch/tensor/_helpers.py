@@ -137,3 +137,22 @@ def operands(x, y, tensors_only=False):
     if scalar(y) and tensors_only:
         y = _scalar_like(y, x)
     return x, y
+
+
+def overwrite(x, dest, src):
+    """``x`` with ``src[i]`` written at the flat position ``dest[i]`` (``dest``
+    and ``src`` of one shape), the last of duplicate positions winning, as
+    the reference's ``.at[].set`` does: only the write that lands gets a
+    gradient, and the winner does not depend on a device's order of writes.
+    No host sync."""
+    dest = dest.reshape(-1)
+    pos = torch.arange(dest.numel(), device=x.device)
+    last = torch.full((x.numel(),), -1, dtype=torch.long, device=x.device)
+    last.scatter_reduce_(0, dest, pos, "amax")
+    out = torch.where(last >= 0, src.reshape(-1).to(x.dtype)[last.clamp(min=0)], x.reshape(-1))
+    return out.view(x.shape)
+
+
+def flat_positions(x):
+    """The flat position of each element of ``x``, in its shape."""
+    return torch.arange(x.numel(), device=x.device).view(x.shape)

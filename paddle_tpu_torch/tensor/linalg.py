@@ -152,9 +152,11 @@ def matrix_power(x, n, name=None):
 
 
 def matrix_rank(x, tol=None, hermitian=False, name=None):
-    """The rank with ``tol`` read as a tolerance relative to the largest
-    singular value, as the reference reads it (``rtol``)."""
-    return torch.linalg.matrix_rank(*cast("matrix_rank", ensure_tensor(x)), rtol=tol,
+    """The count of singular values above ``tol``, an absolute tolerance as
+    in Paddle and the reference (whose ``jnp.linalg.matrix_rank(x, tol)``
+    counts ``S > tol`` unscaled); without ``tol``, torch's default relative
+    one."""
+    return torch.linalg.matrix_rank(*cast("matrix_rank", ensure_tensor(x)), atol=tol,
                                     hermitian=hermitian)
 
 

@@ -14,7 +14,8 @@ import math as _math
 
 import torch
 
-from ._helpers import axis as _axis, cast, ensure_tensor, shape_list, to_torch_dtype
+from ._helpers import (axis as _axis, cast, ensure_tensor, flat_positions, overwrite as _overwrite,
+                       shape_list, to_torch_dtype)
 
 __all__ = ["cast", "reshape", "reshape_", "flatten", "transpose", "t", "moveaxis", "swapaxes",
            "squeeze", "unsqueeze", "concat", "stack", "split", "chunk", "unbind", "tile", "expand",
@@ -217,8 +218,9 @@ def _along(x, indices, values, axis, reduce, inplace):
     values = ensure_tensor(values, device=x.device)
     idx = _long(indices)
     src = torch.broadcast_to(values, idx.shape).to(x.dtype)
-    if reduce == "assign":
-        return (x.scatter_ if inplace else x.scatter)(axis, idx, src)
+    if reduce == "assign":  # duplicates: the last write lands, as in the reference
+        out = _overwrite(x, flat_positions(x).gather(axis, idx), src)
+        return x.copy_(out) if inplace else out
     if reduce == "add":
         return (x.scatter_add_ if inplace else x.scatter_add)(axis, idx, src)
     if reduce == "multiply":
@@ -238,8 +240,8 @@ def put_along_axis(arr, indices, values, axis, reduce="assign", name=None):
 def scatter(x, index, updates, overwrite=True, name=None):
     x, updates = _cast_inputs("scatter", ensure_tensor(x), ensure_tensor(updates))
     idx = _long(index).reshape(-1)
-    if overwrite:
-        return x.index_copy(0, idx, updates.to(x.dtype))
+    if overwrite:  # duplicates: the last row lands, as in the reference
+        return _overwrite(x, flat_positions(x).index_select(0, idx), updates)
     return x.index_add(0, idx, updates.to(x.dtype))
 
 
@@ -476,7 +478,9 @@ def unsqueeze_(x, axis, name=None):
 def scatter_(x, index, updates, overwrite=True, name=None):
     idx = _long(index).reshape(-1)
     updates = ensure_tensor(updates, device=x.device).to(x.dtype)
-    return x.index_copy_(0, idx, updates) if overwrite else x.index_add_(0, idx, updates)
+    if overwrite:
+        return x.copy_(_overwrite(x, flat_positions(x).index_select(0, idx), updates))
+    return x.index_add_(0, idx, updates)
 
 
 def put_along_axis_(arr, indices, values, axis, reduce="assign", name=None):

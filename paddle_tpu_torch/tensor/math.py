@@ -510,15 +510,17 @@ def diff(x, n=1, axis=-1, prepend=None, append=None, name=None):
     it = iter(edges)
 
     def edge(e):
+        """An array as it is (any width along ``axis``); a scalar as one
+        slice along it, as ``jnp.diff`` takes them."""
         if e is None:
             return None
-        if isinstance(e, torch.Tensor):
-            e = next(it)
-            if e.ndim == x.ndim:
-                return e
+        e = next(it) if isinstance(e, torch.Tensor) else torch.as_tensor(e, dtype=x.dtype,
+                                                                         device=x.device)
+        if e.ndim:
+            return e
         shape = list(x.shape)
         shape[axis] = 1
-        return torch.broadcast_to(torch.as_tensor(e, dtype=x.dtype, device=x.device), shape)
+        return torch.broadcast_to(e, shape)
 
     pre, app = edge(prepend), edge(append)
     return torch.diff(x, n=n, dim=axis, prepend=pre, append=app)

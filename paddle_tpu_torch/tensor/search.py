@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ._helpers import cast, ensure_tensor, to_torch_dtype
+from ._helpers import cast, ensure_tensor, flat_positions, overwrite, to_torch_dtype
 
 __all__ = ["argmax", "argmin", "argsort", "sort", "topk", "kthvalue", "mode", "nonzero",
            "searchsorted", "bucketize", "index_put"]
@@ -115,4 +115,7 @@ def index_put(x, indices, value, accumulate=False, name=None):
     x, value = cast("index_put", ensure_tensor(x), ensure_tensor(value))
     idx = tuple(i if i.dtype in (torch.int64, torch.bool) else i.long()
                 for i in (ensure_tensor(i, device=x.device) for i in indices))
-    return x.index_put(idx, value.to(x.dtype), accumulate=accumulate)
+    if accumulate:
+        return x.index_put(idx, value.to(x.dtype), accumulate=True)
+    dest = flat_positions(x)[idx]  # duplicates: the last write lands, as in the reference
+    return overwrite(x, dest, torch.broadcast_to(value, dest.shape))

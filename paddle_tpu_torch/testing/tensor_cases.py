@@ -22,7 +22,9 @@ of the package under test. Its ``family`` names the tolerance
 ``grad`` says whether the gradients of ``sum(out * w)`` are compared (the
 default, where an output is floating and an input is a float array);
 ``inplace`` marks a function that writes its first argument; ``raw``, one
-whose arrays are passed as they are (``to_tensor``).
+whose arrays are passed as they are (``to_tensor``). A function's further
+cases, each a branch that its main case does not reach (duplicate indices,
+an absolute ``tol``, edges wider than one), are keyed ``"name[branch]"``.
 """
 from __future__ import annotations
 
@@ -52,8 +54,10 @@ class Case:
 CASES = {}
 
 
-def _case(name, family, make, **kw):
-    CASES[name] = Case(name, family, make, **kw)
+def _case(name, family, make, branch=None, **kw):
+    """A case of ``name``; a ``branch`` case (a non-default argument of a
+    function that has its main case) is keyed ``"name[branch]"``."""
+    CASES[f"{name}[{branch}]" if branch else name] = Case(name, family, make, **kw)
 
 
 # ---- inputs ---------------------------------------------------------------
@@ -406,3 +410,28 @@ _case("multi_dot", "linalg", lambda r: ([[f(r, 3, 4), f(r, 4, 5), f(r, 5, 2)]], 
 _case("lu", "linalg", lambda r: ([well(r, 4)], {"get_infos": True}), grad=False)
 _case("lu_unpack", "linalg", lambda r: (list(_lu_parts(r)), {}), grad=False)
 _case("cond", "linalg", lambda r: ([well(r, 3)], {}))
+
+
+# ---- branches ----------------------------------------------------------------
+
+
+def _ranked(rng):
+    """A 4 x 3 matrix of singular values 3, 1 and 0.2."""
+    u, _ = np.linalg.qr(rng.standard_normal((4, 3)))
+    v, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    return (u @ np.diag([3.0, 1.0, 0.2]) @ v.T).astype(np.float32)
+
+
+# Paddle's tol is absolute: 2 singular values above 0.5 (a relative tol, 1)
+_case("matrix_rank", "exact", lambda r: ([_ranked(r)], {"tol": 0.5}), branch="tol")
+_case("diff", "elementwise",
+      lambda r: ([f(r, 3, 5)], {"axis": 1, "prepend": f(r, 3, 2), "append": f(r, 3, 3)}),
+      branch="wide_edges")
+# duplicate indices: the last write lands and alone takes a gradient
+_case("scatter", "exact", lambda r: ([f(r, 5, 3), np.array([2, 0, 2]), f(r, 3, 3)], {}),
+      branch="duplicates")
+_case("put_along_axis", "exact",
+      lambda r: ([f(r, 3, 4), np.array([[1, 1], [0, 3], [2, 2]]), f(r, 3, 2), 1], {}),
+      branch="duplicates")
+_case("index_put", "exact", lambda r: ([f(r, 4, 3), (np.array([0, 2, 0]),), f(r, 3, 3)], {}),
+      branch="duplicates")

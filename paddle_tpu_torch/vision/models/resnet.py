@@ -13,6 +13,8 @@ from torch import nn
 
 from ...framework.device import resolve_device
 from ...nn.layer import AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D, ReLU
+from ._common import made as _made
+from ._common import refuse_pretrained
 
 
 class BasicBlock(nn.Module):
@@ -93,8 +95,8 @@ class ResNet(nn.Module):
     def __init__(self, block, depth=50, width=64, num_classes=1000, with_pool=True, groups=1, *,
                  device=None, seed=0):
         super().__init__()
-        device = resolve_device(device)
-        made = dict(device=device, generator=torch.Generator(device=device).manual_seed(int(seed)))
+        made = _made(device, seed)
+        device = made["device"]
         layers = _LAYERS[depth]
         self.groups, self.base_width = groups, width
         self.num_classes, self.with_pool = num_classes, with_pool
@@ -138,9 +140,7 @@ class ResNet(nn.Module):
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not available: the port downloads "
-                                  "nothing; load a state with utils.convert instead")
+    refuse_pretrained(pretrained)
     return ResNet(block, depth, **kwargs)
 
 

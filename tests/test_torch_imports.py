@@ -143,12 +143,27 @@ FRAMEWORK_CORE_MODULES = {"paddle_tpu_torch.tensor._helpers", "paddle_tpu_torch.
                           "paddle_tpu_torch.testing.tensor_cases"}
 
 
+# modules of the rest of the nn library and the vision zoo
+ZOO_MODULES = {"paddle_tpu_torch.nn.functional.norm", "paddle_tpu_torch.nn.functional.pooling",
+               "paddle_tpu_torch.nn.functional.conv", "paddle_tpu_torch.nn.layer.norm",
+               "paddle_tpu_torch.nn.layer.pooling", "paddle_tpu_torch.nn.layer.conv",
+               "paddle_tpu_torch.framework", "paddle_tpu_torch.vision.models._common",
+               "paddle_tpu_torch.vision.models.alexnet", "paddle_tpu_torch.vision.models.vgg",
+               "paddle_tpu_torch.vision.models.squeezenet",
+               "paddle_tpu_torch.vision.models.mobilenet",
+               "paddle_tpu_torch.vision.models.shufflenetv2",
+               "paddle_tpu_torch.vision.models.densenet",
+               "paddle_tpu_torch.vision.models.googlenet",
+               "paddle_tpu_torch.vision.models.inceptionv3"}
+
+
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
               | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES
               | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES | RESILIENCE_MODULES
-              | AMP_MODULES | NN_LIBRARY_MODULES | NN_TAIL_MODULES | FRAMEWORK_CORE_MODULES)
+              | AMP_MODULES | NN_LIBRARY_MODULES | NN_TAIL_MODULES | FRAMEWORK_CORE_MODULES
+              | ZOO_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,6 +1,9 @@
 """The port's ``save``/``load`` (the reference's file format, both ways
 across the packages), ``device.py`` (``set_device``/``get_device``, the
 memory functions, the predicates) and ``utils/unique_name.py``."""
+import math
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -195,7 +198,8 @@ def test_root_namespace_mirrors_the_reference():
              "CUDAPlace", "CUDAPinnedPlace", "float32", "bfloat16", "int64", "bool", "Tensor",
              "convert_dtype", "get_default_dtype", "set_default_dtype", "tensor", "nn",
              "optimizer", "amp", "jit", "distributed", "autograd", "vision", "inference",
-             "device", "DataParallel", "ParameterList", "device_count"]
+             "device", "DataParallel", "ParameterList", "device_count", "linalg",
+             "create_parameter"]
     for n in names:  # the reference keeps the stream state in paddle_tpu.framework
         assert hasattr(port, n) and (hasattr(paddle_tpu, n) or n.endswith("rng_state")), n
     for n in paddle_tpu.tensor._public_funcs():
@@ -204,3 +208,41 @@ def test_root_namespace_mirrors_the_reference():
     assert port.bfloat16 is torch.bfloat16 and port.Tensor is torch.Tensor
     assert list(port.batch(lambda: iter(range(5)), 2)()) == [[0, 1], [2, 3], [4]]
     assert port.convert_dtype(torch.float16) == "float16" and port.convert_dtype("fp32") == "float32"
+    # each namespace holds every public name of the reference's, but the
+    # ones left out by decision: the reference's Layer/Parameter and tape
+    # machinery, JAX helpers its star imports leak, and the string tensors
+    # (ROADMAP.md item 12 part d)
+    import paddle_tpu.vision.models  # noqa: F401
+
+    import paddle_tpu_torch.vision.models  # noqa: F401
+
+    left_out = {"Layer", "Parameter", "Tensor", "annotations", "functional_call", "unwrap_tree",
+                "ensure_tensor", "op", "unwrap", "to_jax_dtype", "primitive", "StringTensor",
+                "FasterTokenizer"}
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not isinstance(getattr(mod, n), types.ModuleType)}
+
+    for ref_ns, port_ns in ((paddle_tpu.nn, port.nn), (paddle_tpu.nn.functional, port.nn.functional),
+                            (paddle_tpu.nn.layer, port.nn.layer), (paddle_tpu.linalg, port.linalg),
+                            (paddle_tpu.framework, port.framework),
+                            (paddle_tpu.vision.models, port.vision.models)):
+        missing = public(ref_ns) - public(port_ns) - left_out
+        assert not missing, (ref_ns.__name__, sorted(missing))
+    assert port.Tensor is port.framework.Tensor and port.framework.seed is port.seed
+
+
+def test_create_parameter_as_a_layer_makes_one():
+    from paddle_tpu_torch.framework.param_attr import ParamAttr
+    from paddle_tpu_torch.nn import initializer as I
+
+    w = port.create_parameter([3, 4], "float32")
+    fan = math.sqrt(2.0 / 7)  # XavierNormal over [3, 4]
+    assert isinstance(w, torch.nn.Parameter) and w.requires_grad and w.device.type == "cpu"
+    assert float(w.detach().abs().max()) < 6 * fan
+    b = port.create_parameter([5], "float16", name="b0", is_bias=True)
+    assert b.dtype == torch.float16 and not b.any() and b.param_name == "b0"
+    c = port.create_parameter([2], "float32", attr=ParamAttr(initializer=I.Constant(3.0),
+                                                             trainable=False))
+    assert torch.equal(c, torch.full((2,), 3.0)) and not c.requires_grad

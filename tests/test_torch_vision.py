@@ -148,26 +148,28 @@ def test_pools_match_paddle_tpu(pool):
 
 
 def test_knobs_the_reference_drops_raise():
-    """``ceil_mode``, a channel-last layout, ``divisor_override`` and
-    ``return_mask`` raise in the port (the reference drops them without a
-    word), as do the transposed convolutions and a channel-last conv."""
+    """The knobs the reference drops without a word are ported now and no
+    longer raise: ``ceil_mode``, the channel-last layouts,
+    ``divisor_override``, ``return_mask`` and the transposed convolutions
+    (each held to a window loop or a scatter-add loop in
+    ``tests/test_torch_nn_norm_pool_conv.py``). What still raises: a
+    padding or layout that is none of the reference's, and a
+    ``padding_mode`` other than zeros."""
     x = torch.zeros(1, 2, 6, 6)
     w = torch.zeros(3, 2, 3, 3)
-    for call in (lambda: F.max_pool2d(x, 2, ceil_mode=True),
-                 lambda: F.max_pool2d(x, 2, data_format="NHWC"),
-                 lambda: F.max_pool2d(x, 2, return_mask=True),
-                 lambda: F.avg_pool2d(x, 2, divisor_override=3),
-                 lambda: F.avg_pool2d(x, 2, ceil_mode=True),
-                 lambda: F.adaptive_avg_pool2d(x, 1, data_format="NHWC"),
-                 lambda: F.conv2d(x, w, data_format="NHWC"),
-                 lambda: L.MaxPool2D(2, ceil_mode=True)(x)):
-        with pytest.raises(NotImplementedError):
-            call()
+    assert tuple(F.max_pool2d(x, 2, 2, 1, ceil_mode=True).shape) == (1, 2, 4, 4)
+    assert tuple(F.max_pool2d(x, 2, data_format="NHWC").shape) == (1, 1, 3, 6)
+    assert tuple(F.max_pool2d(x, 2, return_mask=True)[1].shape) == (1, 2, 3, 3)
+    assert tuple(F.avg_pool2d(x, 2, divisor_override=3).shape) == (1, 2, 3, 3)
+    assert tuple(F.adaptive_avg_pool2d(x, 1, data_format="NHWC").shape) == (1, 1, 1, 6)
+    assert tuple(F.conv2d(x.movedim(1, -1), w, data_format="NHWC").shape) == (1, 4, 4, 3)
+    assert tuple(L.MaxPool2D(2, ceil_mode=True)(x).shape) == (1, 2, 3, 3)
     from paddle_tpu_torch.nn.functional import conv
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        conv.conv2d_transpose(x, w)
+    assert tuple(conv.conv2d_transpose(x, w.transpose(0, 1)).shape) == (1, 3, 8, 8)
     with pytest.raises(ValueError, match="SAME"):
         F.conv2d(x, w, padding="FULL")
+    with pytest.raises(ValueError, match="data_format"):
+        F.conv2d(x, w, data_format="NWHC")
     with pytest.raises(NotImplementedError):
         L.Conv2D(2, 3, 3, padding_mode="reflect", device="cpu")
 

@@ -50,6 +50,8 @@ def _convert(obj, make):
         return [_convert(o, make) for o in obj]
     if isinstance(obj, tuple):
         return tuple(_convert(o, make) for o in obj)
+    if isinstance(obj, dict):  # the keyword arguments
+        return {k: _convert(v, make) for k, v in obj.items()}
     return obj
 
 
@@ -67,6 +69,8 @@ def _leaves(obj):
 
 
 def _arrays(obj):
+    if isinstance(obj, dict):
+        return [x for o in obj.values() for x in _arrays(o)]
     if isinstance(obj, (list, tuple)):
         return [x for o in obj for x in _arrays(o)]
     return [obj] if isinstance(obj, np.ndarray) else []
@@ -122,8 +126,8 @@ def run_case(name, seed=0):
     else:
         r_args, r_kwargs = _convert(args, to_ref), _convert(kwargs, to_ref)
         p_args, p_kwargs = _convert(args, to_port), _convert(kwargs, to_port)
-    r_out = getattr(ref, name)(*r_args, **r_kwargs)
-    p_out = getattr(port, name)(*p_args, **p_kwargs)
+    r_out = getattr(ref, case.name)(*r_args, **r_kwargs)
+    p_out = getattr(port, case.name)(*p_args, **p_kwargs)
     r_leaves, p_leaves = _leaves(r_out), _leaves(p_out)
     assert len(r_leaves) == len(p_leaves), (name, len(r_leaves), len(p_leaves))
     for o in p_leaves:
