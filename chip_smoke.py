@@ -410,9 +410,42 @@ non-zero and prints no result. Phases, one JSON line each:
     ``auto_cast`` where the reference's lists cast; ``ceil_mode``, masks
     through ``max_unpool*``, transposed convolutions at dilation 2 and
     ``groups=2``; the calls that synchronise with the host.
+57. ``hapi_gpt_fit`` (after phase 53): phase 6's O2 GPT trained as a
+    Paddle user trains it, ``Model(net).prepare(AdamW, GPTPretrainingCriterion(),
+    amp_configs="O2").fit(loader)`` with ``LRScheduler``, ``ModelCheckpoint``
+    (under ``build/``) and a recording callback, the loader the port's
+    ``DataLoader`` over a ``TensorDataset`` of 64 id rows from the seed (2
+    process workers, each batch pinned and copied to the card one ahead):
+    its 8 losses bitwise equal to a ``TrainStep`` driven by hand with the
+    same batches copied to the card directly (a control fed them in
+    reverse fails that gate), 16 K1 and 16 K2 a fit step, the callbacks in
+    the reference's order; then ``evaluate`` on 2 batches (16 f32 K1 a
+    batch), ``save``, ``load`` into a fresh ``Model``, the eval loss
+    bitwise again, and ``predict(stack_outputs=True)`` on 2 rows; ms a step
+    through fit and by hand, the prefetch stall a step, eval ms a batch.
+58. ``hapi_resnet50_fit`` (after phase 22): ResNet50 as phase 22 trains it,
+    through ``Model.fit`` with ``Accuracy(topk=(1, 5))``, fed 512 synthetic
+    uint8 HWC 256 x 256 images through ``RandomResizedCrop(224)``,
+    ``RandomHorizontalFlip``, ``Normalize`` and ``Transpose`` in one process
+    worker per CPU core, one epoch of 4 batches a worker (every worker busy
+    to its end): a round of warm-up steps, three timed; then ``evaluate``
+    on 2 batches of ``Resize(256)``, ``CenterCrop(224)``, ``Normalize``: the
+    accuracies equal numpy's from the same outputs, a worker's eval batch
+    equals the pipeline run here bitwise, two loaders from one seed give
+    the same first batch; images/s through fit against phase 22's step
+    alone, the prefetch stall a step, each worker's transform and collate
+    seconds. No kernel of the repository.
+59. ``record_feed_dlrm`` (after phase 31): phase 31's DLRM fed by the
+    native record feed (``RecordFileLoader``, the port's copy of the C++
+    readers, built with g++): 16 batches written to 4 record files under
+    ``build/``; with one reader thread the batches are the written columns
+    bitwise in file order, with three each epoch holds the same records; 5
+    steps fed through the device prefetch give bitwise the losses of the
+    same batches fed from host memory; the feed's records/s and MB/s
+    alone, ms a step fed and from memory. No kernel of the repository.
 
-The serving phases (5, 25-30, 39), the vision phases (22-24, 54-56), DLRM's (31,
-45), the RNN phase (51) and the tensor API's (52) launch none of K1-K4b: the reference runs no Pallas kernel on those paths
+The serving phases (5, 25-30, 39), the vision phases (22-24, 54-56, 58), DLRM's (31,
+45, 59), the RNN phase (51) and the tensor API's (52) launch none of K1-K4b: the reference runs no Pallas kernel on those paths
 (serving attends in jnp, the port in plain PyTorch; convolutions are
 cuDNN's, batch norms and pools ATen's; the embedding lookup is
 ``jnp.take``, the optimizers jnp); the script checks that their counts
@@ -423,7 +456,9 @@ Phases 4, 5, 25, 26, 27, 28, 29, 30, 39, 6, 9 (its ``pallas_sorted`` run),
 the checkpoint), 42, 43, 12, 13, ``dp_bert_train``, 16, 17, 34, 44, 35
 (summed), 20, 22, 24, 31, 45 (the ranks' counts, summed), 47, 48 (both
 arms of each), 49, 50 (the ranks' counts, summed), 51, 52, 53 (its
-resumed run), 54 and 56 are the main path: the kernel counts are set
+resumed run), 54, 56, 57 (fit, both evaluations and predict, not the
+hand-driven twins), 58 and 59 (its steps fed by the feed) are the main
+path: the kernel counts are set
 to 0 just before each of them and read just after it. Then one JSON line lists every kernel
 with its launches in those runs (K1 and K3 with a ``bf16_row`` too: their
 O2 steps' bf16 call; K2 with an ``f32_row``: the f32 steps' call; K4 and
@@ -4358,7 +4393,7 @@ def phase_resnet50_train():
     ``torch.backends.cudnn.benchmark`` on, 2 warm-up and 5 timed. The
     losses must be finite and the batch norms' running buffers finite and
     moved; whether the losses fall is reported. Returns the K1-K4b launches
-    of the 23 counted steps (none)."""
+    of the 23 counted steps (none) and the ms a timed step."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn.layer import CrossEntropyLoss
     from paddle_tpu_torch.optimizer import Momentum
@@ -4422,7 +4457,7 @@ def phase_resnet50_train():
          cudnn_benchmark_on_ms_per_step=benchmark_ms)
     if not ok:
         raise AssertionError("resnet50_train phase failed")
-    return launches
+    return launches, ms_per_step
 
 
 def _resnet_step_on(device, dtype, state, x, y):
@@ -4993,7 +5028,7 @@ def phase_dlrm_train():
     of a touched-rows-only one. Gates: the losses finite, one dispatch per
     ``run_steps`` call, and after a further call every table row outside
     its ids with its value and both moments bitwise unchanged. Returns the
-    K1-K4b launches (none)."""
+    K1-K4b launches (none) and the ms a timed step."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.dlrm import DLRM, DLRMCriterion
     from paddle_tpu_torch.observability import metrics
@@ -5083,7 +5118,7 @@ def phase_dlrm_train():
          launches=launches)
     if not ok:
         raise AssertionError("dlrm_train phase failed")
-    return launches
+    return launches, ms_per_step
 
 
 def _bce(logits, labels):
@@ -7717,6 +7752,483 @@ def phase_paddle_api_gpt_train():
     return launches
 
 
+# hapi_gpt_fit: phase 6's O2 GPT trained through hapi's Model.fit over the
+# port's DataLoader: 64 id rows made with numpy from the seed, each row its
+# own label, in batches of 8 from 2 process workers (pinned, copied to the
+# card one batch ahead). Its losses are held bitwise to a TrainStep driven
+# by hand with the same batches copied to the card directly (and a control
+# fed them in reverse must fail that gate); then evaluate on 2 batches,
+# save, load into a fresh Model and evaluate again (bitwise), and predict
+# one batch of 2 rows (a [2, 1024, 50304] f32 host copy)
+HAPI_GPT = dict(rows=64, batch=8, workers=2, eval_batches=2, predict_rows=2)
+# the callbacks fit calls
+FIT_HOOKS = ("on_train_begin", "on_epoch_begin", "on_train_batch_begin", "on_train_batch_end",
+             "on_epoch_end", "on_train_end")
+# hapi_resnet50_fit: ResNet50 as phase 22 trains it (O2, Momentum 0.1,
+# batch 128, 1000 classes) through Model.fit with Accuracy(topk=(1, 5)),
+# fed 512 synthetic uint8 HWC 256 x 256 images from the seed through the
+# ImageNet training pipeline (RandomResizedCrop(224), RandomHorizontalFlip,
+# Normalize, Transpose) in one process worker per CPU core. One epoch of
+# 4 x workers batches (the 512 images indexed modulo): twice the loader's
+# window of workers x prefetch_factor batches in flight, so every worker
+# stays busy to the epoch's end. The first `workers` steps warm up, the
+# other 3 x workers are timed. Then evaluate on 2 batches of the eval
+# pipeline (Resize(256), CenterCrop(224), Transpose, Normalize)
+HAPI_RESNET = dict(images=512, size=256, crop=224, batch=128, warmup_rounds=1, rounds=3,
+                   eval_batches=2, lr=0.1)
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+# record_feed_dlrm: phase 31's one-chip DLRM (f32, RowSparseAdam, batch
+# 4096) fed by the native record feed: 16 batches of bench_recsys.py's
+# generator written to 4 record files under build/, 5 steps fed by
+# RecordFileLoader with 3 reader threads through the DataLoader's device
+# prefetch, held bitwise to the same batches fed from host memory
+RECORD_DLRM = dict(batches=16, files=4, threads=3, steps=5)
+
+
+def _hist_sum(name):
+    """The running sum of the histogram ``name`` (0 before its first
+    observation): a span's total seconds."""
+    from paddle_tpu_torch.observability import metrics
+
+    h = metrics.find_histogram(name)
+    return h.sum if h is not None else 0.0
+
+
+def _recording_callback():
+    """A hapi callback recording each fit hook's name, ``perf_counter`` time
+    and logs in ``calls``, and at each step's end the running sums of the
+    ``dataloader.prefetch`` and ``dataloader.device_put`` spans in
+    ``stalls``."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Record(Callback):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+            self.stalls = []  # the prefetch and device_put spans' sums at each step's end
+
+    for hook in FIT_HOOKS:
+        def fn(self, *args, _hook=hook):
+            logs = args[-1] if args and isinstance(args[-1], dict) else None
+            self.calls.append((_hook, time.perf_counter(), dict(logs or {})))
+            if _hook == "on_train_batch_end":
+                self.stalls.append((_hist_sum("dataloader.prefetch"),
+                                    _hist_sum("dataloader.device_put")))
+        setattr(Record, hook, fn)
+    return Record()
+
+
+def _add_launches(*counts):
+    return {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+
+
+def phase_hapi_gpt_fit():
+    """Phase 57 (see ``HAPI_GPT``). Returns the K1-K4b launches of fit,
+    both evaluations and predict (the twins' steps are comparisons, not
+    counted)."""
+    import shutil
+
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.hapi.callbacks import LRScheduler, ModelCheckpoint
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining, GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.optimizer import AdamW
+
+    c = HAPI_GPT
+    cfg = GPTConfig(**SERVE_CFG)
+    b, s, n_steps = c["batch"], TRAIN["seq"], c["rows"] // c["batch"]
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (c["rows"], s)).astype(np.int64)
+    root = _ckpt_dir("hapi_gpt")
+
+    def loader(rows, **kw):
+        return DataLoader(TensorDataset([rows, rows]), batch_size=b, shuffle=False, **kw)
+
+    registry.clear_cache()
+    metrics.reset_counters("kernels.")
+    net = GPTForPretraining(cfg, seed=SEED)
+    model = Model(net).prepare(AdamW(learning_rate=TRAIN["lr"], parameters=net.parameters()),
+                               GPTPretrainingCriterion(), amp_configs="O2")
+    rec = _recording_callback()
+    train = loader(ids, num_workers=c["workers"], worker_mode="process")
+    stall0, put0 = _hist_sum("dataloader.prefetch"), _hist_sum("dataloader.device_put")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(train, epochs=1, verbose=0,
+              callbacks=[LRScheduler(), ModelCheckpoint(save_freq=2, save_dir=str(root / "ckpt")),
+                         rec])
+    fit_s = time.perf_counter() - t0
+    fit_launches = read_launches()
+    stall_ms = 1e3 * (_hist_sum("dataloader.prefetch") - stall0) / n_steps
+    put_ms = 1e3 * (_hist_sum("dataloader.device_put") - put0) / n_steps
+    ends = [(t, logs) for name, t, logs in rec.calls if name == "on_train_batch_end"]
+    fit_losses = [logs["loss"] for _, logs in ends]
+    # a step through fit: from one step's end to the next's (the loader's
+    # next batch, the callbacks, the step and its loss read back)
+    fit_ms = [1e3 * (t1 - t0_) for (t0_, _), (t1, _) in zip(ends, ends[1:])]
+    order = [name for name, _, _ in rec.calls]
+    want_order = (["on_train_begin", "on_epoch_begin"]
+                  + ["on_train_batch_begin", "on_train_batch_end"] * n_steps
+                  + ["on_epoch_end", "on_train_end"])
+
+    def twin(batch_order):
+        tnet = GPTForPretraining(cfg, seed=SEED)
+        step = TrainStep(tnet, AdamW(learning_rate=TRAIN["lr"], parameters=tnet.parameters()),
+                         GPTPretrainingCriterion(), amp_level="O2")
+        batches = [torch.from_numpy(ids[i * b:(i + 1) * b]).to("cuda") for i in batch_order]
+        losses, ends_ = [], []
+        torch.cuda.synchronize()
+        for x in batches:
+            losses.append(float(step(x, x)["loss"]))
+            ends_.append(time.perf_counter())
+        return losses, [1e3 * (t1 - t0_) for t0_, t1 in zip(ends_, ends_[1:])]
+
+    twin_losses, twin_ms = twin(range(n_steps))
+    control_losses, _ = twin(reversed(range(n_steps)))
+    torch.cuda.empty_cache()
+
+    # evaluate, save, load into a fresh Model, evaluate again, predict
+    eval_rows = ids[:c["eval_batches"] * b]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluated = model.evaluate(loader(eval_rows), verbose=0)
+    eval_ms = 1e3 * (time.perf_counter() - t0) / c["eval_batches"]
+    eval_launches = read_launches()
+    model.save(str(root / "model"), training=False)
+    fresh = Model(GPTForPretraining(cfg, seed=SEED + 1)).prepare(loss=GPTPretrainingCriterion())
+    fresh.load(str(root / "model"))
+    reset_launches()
+    reloaded = fresh.evaluate(loader(eval_rows), verbose=0)
+    reload_launches = read_launches()
+    reset_launches()
+    preds = fresh.predict(DataLoader(TensorDataset([ids[:c["predict_rows"]]]),
+                                     batch_size=c["predict_rows"]), stack_outputs=True, verbose=0)
+    predict_launches = read_launches()
+    picked = metrics.counters("kernels.attention_core.")
+    files = sorted(p.name for p in (root / "ckpt").iterdir())
+    shutil.rmtree(root, ignore_errors=True)
+    del model, fresh, net
+    torch.cuda.empty_cache()
+
+    L = cfg.num_layers
+    none_else = {K3["name"]: 0, K3B["name"]: 0, K4["name"]: 0, K4B["name"]: 0}
+    launches = _add_launches(fit_launches, eval_launches, reload_launches, predict_launches)
+    gates = dict(
+        fit_equals_hand_loop_bitwise=fit_losses == twin_losses,
+        control_fails_the_gate=control_losses != fit_losses,
+        eval_after_load_bitwise=reloaded["loss"] == evaluated["loss"],
+        fit_launches=fit_launches == {K1["name"]: L * n_steps, K2["name"]: L * n_steps,
+                                      **none_else},
+        eval_launches=all(x == {K1["name"]: L * c["eval_batches"], K2["name"]: 0, **none_else}
+                          for x in (eval_launches, reload_launches)),
+        predict_launches=predict_launches == {K1["name"]: L, K2["name"]: 0, **none_else},
+        attention_core_picked=(picked.get("kernels.attention_core.fallback", 0) == 0
+                               and picked.get("kernels.attention_core.picked", 0) >= 1),
+        callback_order=order == want_order,
+        finite=bool(np.isfinite(fit_losses).all() and np.isfinite(evaluated["loss"])
+                    and len(preds) == 1
+                    and preds[0].shape == (c["predict_rows"], s, cfg.vocab_size)
+                    and np.isfinite(preds[0]).all()),
+        checkpoint_files=files == ["final.pdopt", "final.pdparams"])
+    ok = all(gates.values())
+    emit(phase="hapi_gpt_fit", ok=ok, gates=gates, ids=[b, s], rows=c["rows"],
+         workers=c["workers"], amp_level="O2", fit_losses=fit_losses, twin_losses=twin_losses,
+         control_losses=control_losses, eval_loss=evaluated["loss"],
+         eval_loss_after_load=reloaded["loss"], fit_ms_per_step=float(np.median(fit_ms)),
+         twin_ms_per_step=float(np.median(twin_ms)), fit_step_ms=fit_ms, twin_step_ms=twin_ms,
+         prefetch_stall_ms_per_step=stall_ms, device_put_ms_per_step=put_ms, fit_s=fit_s,
+         eval_ms_per_batch=eval_ms, attention_core=picked, fit_launches=fit_launches,
+         eval_launches=eval_launches, predict_launches=predict_launches,
+         checkpoint_files=files, launches=launches)
+    if not ok:
+        raise AssertionError(f"hapi_gpt_fit phase failed: {gates}")
+    return launches
+
+
+def phase_hapi_resnet50_fit(step_ms):
+    """Phase 58 (see ``HAPI_RESNET``); ``step_ms``: phase 22's ms a step on
+    a batch already on the card. Returns the K1-K4b launches (none)."""
+    import multiprocessing
+
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.io import (DataLoader, Dataset, Subset, default_collate_fn,
+                                     get_worker_info)
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn.layer import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+
+    c = HAPI_RESNET
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (c["images"], c["size"], c["size"], 3), dtype=np.uint8)
+    labels = rng.integers(0, RESNET_TRAIN["classes"], c["images"]).astype(np.int64)
+    workers = os.cpu_count()
+    n_warmup, n_timed = c["warmup_rounds"] * workers, c["rounds"] * workers
+    n_steps = n_warmup + n_timed
+    eval_pipeline = T.Compose([T.Resize(c["size"]), T.CenterCrop(c["crop"]), T.Transpose(),
+                               T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    # each worker's transform seconds and images, and collate seconds and
+    # batches, in memory the forked workers share with this process
+    work = multiprocessing.get_context("fork").RawArray("d", 4 * workers)
+
+    class Images(Dataset):
+        def __init__(self, transform, n):
+            self.transform, self.n = transform, n
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, i):
+            t0 = time.perf_counter()
+            out = self.transform(images[i % len(images)]), labels[i % len(images)]
+            info = get_worker_info()
+            if info is not None:
+                work[4 * info.id] += time.perf_counter() - t0
+                work[4 * info.id + 1] += 1
+            return out
+
+    def timed_collate(batch):
+        t0 = time.perf_counter()
+        out = default_collate_fn(batch)
+        info = get_worker_info()
+        if info is not None:
+            work[4 * info.id + 2] += time.perf_counter() - t0
+            work[4 * info.id + 3] += 1
+        return out
+
+    def train_loader():
+        g = np.random.RandomState(SEED)
+        pipeline = T.Compose([T.RandomResizedCrop(c["crop"], generator=g),
+                              T.RandomHorizontalFlip(generator=g),
+                              T.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="HWC"),
+                              T.Transpose()])
+
+        def reseed(_):  # each worker draws its own augmentations
+            g.seed(get_worker_info().seed)
+
+        return DataLoader(Images(pipeline, n_steps * c["batch"]), batch_size=c["batch"],
+                          shuffle=True, drop_last=True, num_workers=workers,
+                          worker_mode="process", worker_init_fn=reseed, collate_fn=timed_collate,
+                          generator=np.random.RandomState(SEED), persistent_workers=True)
+
+    def first_batch():
+        dl = train_loader()
+        x, y = next(iter(dl))
+        out = x.cpu(), y.cpu()
+        dl.shutdown()
+        return out
+
+    (x1, y1), (x2, y2) = first_batch(), first_batch()
+    first_batches_bitwise = torch.equal(x1, x2) and torch.equal(y1, y2)
+
+    # the eval pipeline in the workers against the same transforms here
+    eval_set = Subset(Images(eval_pipeline, len(images)), range(c["eval_batches"] * c["batch"]))
+    xe, _ = next(iter(DataLoader(eval_set, batch_size=c["batch"], num_workers=workers,
+                                 worker_mode="process")))
+    in_parent = np.stack([eval_pipeline(images[i]) for i in range(c["batch"])])
+    eval_worker_bitwise = bool(np.array_equal(xe.cpu().numpy(), in_parent))
+
+    class SeenAccuracy(Accuracy):
+        """Accuracy keeping each batch's outputs and labels (on the card)
+        for the host check after the run."""
+
+        def __init__(self, *args, **kw):
+            self.seen = []
+            super().__init__(*args, **kw)
+
+        def compute(self, pred, label):
+            self.seen.append((pred.detach(), torch.as_tensor(label).detach()))
+            return super().compute(pred, label)
+
+    def numpy_hits(seen):
+        """Top-1 and top-5 hits by numpy (a stable descending sort: the
+        port's tie rule) over the host copies of ``seen``."""
+        hits, n = np.zeros(2, np.int64), 0
+        for pred, label in seen:
+            p, lab = pred.float().cpu().numpy(), label.cpu().numpy().reshape(-1)
+            top = np.argsort(-p, axis=-1, kind="stable")[:, :5] == lab[:, None]
+            hits += [top[:, :1].any(-1).sum(), top.any(-1).sum()]
+            n += len(lab)
+        return hits.tolist(), n
+
+    net = resnet50(num_classes=RESNET_TRAIN["classes"], seed=SEED)
+    acc = SeenAccuracy(topk=(1, 5))
+    model = Model(net).prepare(Momentum(learning_rate=c["lr"], parameters=net.parameters()),
+                               CrossEntropyLoss(), acc, amp_configs="O2")
+    rec = _recording_callback()
+    train = train_loader()
+    work[:] = [0.0] * len(work)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(train, epochs=1, verbose=0, callbacks=[rec])
+    fit_s = time.perf_counter() - t0
+    train.shutdown()
+    per_worker = [dict(images=int(work[4 * w + 1]), batches=int(work[4 * w + 3]),
+                       transform_s=work[4 * w], collate_s=work[4 * w + 2])
+                  for w in range(workers)]
+    busy = sum(1 for w in per_worker if w["batches"])
+    ends = [(t, logs) for name, t, logs in rec.calls if name == "on_train_batch_end"]
+    # over the timed steps: from the last warm-up step's end to the last step's
+    (stall0, put0), (stall1, put1) = rec.stalls[n_warmup - 1], rec.stalls[n_steps - 1]
+    stall_ms, put_ms = 1e3 * (stall1 - stall0) / n_timed, 1e3 * (put1 - put0) / n_timed
+    fit_ms = 1e3 * (ends[n_steps - 1][0] - ends[n_warmup - 1][0]) / n_timed
+    losses = [logs["loss"] for _, logs in ends]
+    images_done = sum(w["images"] for w in per_worker)
+    transform_ms_per_image = 1e3 * sum(w["transform_s"] for w in per_worker) / images_done
+    collate_ms_per_batch = 1e3 * sum(w["collate_s"] for w in per_worker) / n_steps
+    # what the workers could deliver if nothing but the transforms and the
+    # collate held them: workers x images over their busy seconds
+    worker_bound_images_per_s = workers * images_done / sum(
+        w["transform_s"] + w["collate_s"] for w in per_worker)
+    fit_hits, fit_n = numpy_hits(acc.seen[:n_steps])
+    fit_acc_ok = [int(t) for t in acc.total] == fit_hits and acc.count == [fit_n, fit_n]
+    seen_before = len(acc.seen)
+    evaluated = model.evaluate(DataLoader(eval_set, batch_size=c["batch"], num_workers=workers,
+                                          worker_mode="process"), verbose=0)
+    eval_hits, eval_n = numpy_hits(acc.seen[seen_before:])
+    eval_acc_ok = evaluated["acc"] == [h / eval_n for h in eval_hits]
+    launches = read_launches()
+    del model, net, acc
+    torch.cuda.empty_cache()
+    gates = dict(accuracy_equals_numpy=bool(fit_acc_ok and eval_acc_ok),
+                 eval_worker_equals_parent_bitwise=eval_worker_bitwise,
+                 first_batches_bitwise=bool(first_batches_bitwise),
+                 no_kernel_launches=all(v == 0 for v in launches.values()),
+                 finite=bool(np.isfinite(losses).all() and np.isfinite(evaluated["loss"])),
+                 steps=len(ends) == n_steps,
+                 every_worker_busy=busy == workers)
+    ok = all(gates.values())
+    emit(phase="hapi_resnet50_fit", ok=ok, gates=gates, workers=workers, busy_workers=busy,
+         images=[c["batch"], 3, c["crop"], c["crop"]],
+         source_images=[c["images"], c["size"], c["size"], 3], amp_level="O2",
+         steps=n_steps, warmup_steps=n_warmup, timed_steps=n_timed, losses=losses,
+         fit_ms_per_step=fit_ms, images_per_s_fit=c["batch"] / (fit_ms / 1e3), fit_s=fit_s,
+         step_ms=[1e3 * (t1 - t0_) for (t0_, _), (t1, _) in zip(ends, ends[1:])],
+         step_alone_ms=step_ms, images_per_s_step_alone=c["batch"] / (step_ms / 1e3),
+         prefetch_stall_ms_per_step=stall_ms, device_put_ms_per_step=put_ms,
+         transform_ms_per_image=transform_ms_per_image,
+         collate_ms_per_batch=collate_ms_per_batch,
+         worker_bound_images_per_s=worker_bound_images_per_s, per_worker=per_worker,
+         fit_top1_top5=[h / fit_n for h in fit_hits], eval=evaluated, launches=launches)
+    if not ok:
+        raise AssertionError(f"hapi_resnet50_fit phase failed: {gates}")
+    return launches
+
+
+def phase_record_feed_dlrm(step_ms):
+    """Phase 59 (see ``RECORD_DLRM``); ``step_ms``: phase 31's ms a step.
+    Returns the K1-K4b launches (none)."""
+    import shutil
+
+    from paddle_tpu_torch.io import RecordFileLoader, RecordSchema
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMCriterion
+    from paddle_tpu_torch.optimizer import RowSparseAdam
+
+    c = RECORD_DLRM
+    cfg = dlrm_config()
+    b = DLRM_TRAIN["batch"]
+    (batches,) = dlrm_batches(cfg, b, c["batches"], 1)
+    schema = RecordSchema([("dense", "float32", (cfg.num_dense,)),
+                           ("ids", "int32", (cfg.num_sparse,)), ("label", "float32", (1,))])
+    cols = {"dense": np.concatenate([bt[0][0] for bt in batches]),
+            "ids": np.concatenate([bt[0][1] for bt in batches]),
+            "label": np.concatenate([bt[1][0] for bt in batches])}
+    n_records = len(cols["label"])
+    root = _ckpt_dir("record_feed_dlrm")
+    rows = n_records // c["files"]
+    files = []
+    for f in range(c["files"]):
+        files.append(str(root / f"part-{f}.rec"))
+        schema.write_records(files[-1], {k: v[f * rows:(f + 1) * rows] for k, v in cols.items()})
+
+    def records(batch_list):
+        """Each record as one row of int32 words, for a multiset compare."""
+        return np.concatenate([np.concatenate([x["dense"].view(np.int32), x["ids"],
+                                               x["label"].view(np.int32)], 1)
+                               for x in batch_list])
+
+    def host(batch):
+        return {k: v.cpu().numpy() for k, v in batch.items()}
+
+    # one reader thread: the written columns, bitwise, in file order
+    one = [host(x) for x in RecordFileLoader(files, schema, b, num_workers=1)]
+    in_order = all(np.array_equal(np.concatenate([x[k] for x in one]), v)
+                   for k, v in cols.items())
+    # three: each epoch holds the same records; the feed alone timed (the
+    # files just written: warm in the page cache)
+    want = np.unique(records([cols]), axis=0, return_counts=True)
+    feed = RecordFileLoader(files, schema, b, num_workers=c["threads"])
+    epochs_equal, feed_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(feed)
+        torch.cuda.synchronize()
+        feed_s.append(time.perf_counter() - t0)
+        have = np.unique(records([host(x) for x in got]), axis=0, return_counts=True)
+        epochs_equal.append(all(np.array_equal(a, w) for a, w in zip(have, want)))
+    host_feed = RecordFileLoader(files, schema, b, num_workers=c["threads"], device="cpu")
+    t0 = time.perf_counter()
+    n_host = sum(len(x["label"]) for x in host_feed)
+    host_s = time.perf_counter() - t0
+
+    def train(source):
+        model = DLRM(cfg, seed=SEED)
+        opt = RowSparseAdam(learning_rate=DLRM_TRAIN["lr"], parameters=model.parameters(),
+                            sparse_params=model.sparse_param_names())
+        step = TrainStep(model, opt, DLRMCriterion())
+        losses, ends, fed = [], [], []
+        torch.cuda.synchronize()
+        for x in source:
+            losses.append(float(step((x["dense"], x["ids"]), (x["label"],))["loss"]))
+            ends.append(time.perf_counter())
+            fed.append(x)
+            if len(losses) == c["steps"]:
+                break
+        return losses, [1e3 * (t1 - t0_) for t0_, t1 in zip(ends, ends[1:])], fed
+
+    reset_launches()
+    fed_losses, fed_ms, fed = train(RecordFileLoader(files, schema, b, num_workers=c["threads"]))
+    launches = read_launches()
+    held = [host(x) for x in fed]  # the batches as the feed delivered them
+    mem_losses, mem_ms, _ = train({k: torch.from_numpy(v).to("cuda") for k, v in x.items()}
+                                  for x in held)
+    # which written batch each fed one was (the threads interleave the files)
+    firsts = cols["ids"][::b]
+    fed_order = [int(np.flatnonzero((firsts == x["ids"][0]).all(1))[0]) for x in held]
+    del feed, host_feed, fed
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gates = dict(one_thread_in_file_order_bitwise=bool(in_order),
+                 three_threads_same_records=all(epochs_equal),
+                 losses_equal_in_memory_bitwise=fed_losses == mem_losses,
+                 no_kernel_launches=all(v == 0 for v in launches.values()),
+                 finite=bool(np.isfinite(fed_losses).all()),
+                 steps=len(fed_losses) == c["steps"])
+    ok = all(gates.values())
+    mb = n_records * schema.record_bytes / 1e6
+    emit(phase="record_feed_dlrm", ok=ok, gates=gates, files=c["files"], threads=c["threads"],
+         records=n_records, record_bytes=schema.record_bytes, batch=b,
+         feed_to_card_records_per_s=[n_records / t for t in feed_s],
+         feed_to_card_mb_per_s=[mb / t for t in feed_s],
+         feed_host_records_per_s=n_host / host_s, feed_host_mb_per_s=mb / host_s,
+         files_warm=True, losses=fed_losses, memory_losses=mem_losses,
+         fed_ms_per_step=float(np.median(fed_ms)), memory_ms_per_step=float(np.median(mem_ms)),
+         fed_step_ms=fed_ms, memory_step_ms=mem_ms, run_steps_ms_per_step=step_ms,
+         fed_batch_order=fed_order, launches=launches)
+    if not ok:
+        raise AssertionError(f"record_feed_dlrm phase failed: {gates}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card", file=sys.stderr)
@@ -7773,6 +8285,8 @@ def main() -> int:
     by_path["tensor_api"] = read_launches()
     torch.cuda.empty_cache()
     by_path["paddle_api_gpt_train"] = phase_paddle_api_gpt_train()
+    torch.cuda.empty_cache()
+    by_path["hapi_gpt_fit"] = phase_hapi_gpt_fit()
     torch.cuda.empty_cache()
     by_path["amp_o1_gpt_train"] = phase_amp_o1_gpt_train()
     torch.cuda.empty_cache()
@@ -7857,7 +8371,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ernie_check()
     torch.cuda.empty_cache()
-    by_path["resnet50_train"] = phase_resnet50_train()
+    by_path["resnet50_train"], resnet_ms = phase_resnet50_train()
+    torch.cuda.empty_cache()
+    by_path["hapi_resnet50_fit"] = phase_hapi_resnet50_fit(resnet_ms)
     torch.cuda.empty_cache()
     phase_resnet_check()
     torch.cuda.empty_cache()
@@ -7869,7 +8385,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["nn_layers_api"] = phase_nn_layers_api()
     torch.cuda.empty_cache()
-    by_path["dlrm_train"] = phase_dlrm_train()
+    by_path["dlrm_train"], dlrm_ms = phase_dlrm_train()
+    torch.cuda.empty_cache()
+    by_path["record_feed_dlrm"] = phase_record_feed_dlrm(dlrm_ms)
     torch.cuda.empty_cache()
     phase_dlrm_check()
     torch.cuda.empty_cache()
@@ -7920,6 +8438,7 @@ def main() -> int:
                 "fleet": [], "procfleet": [], "ingress": [], "alerts": [], "mp_decode": [],
                 "train": [K1["name"], K2["name"]], "tensor_api": [],
                 "paddle_api_gpt_train": [K1["name"], K2["name"]],
+                "hapi_gpt_fit": [K1["name"], K2["name"]],
                 "amp_o1_gpt_train": [K1["name"], K2["name"]],
                 "fp16_gpt_train": [K1["name"], K2["name"]],
                 "moe_train": [K["name"] for K in (K1, K2, K4, K4B)],
@@ -7941,7 +8460,8 @@ def main() -> int:
                 "transformer_encoder_train": [K3["name"], K3B["name"]],
                 "transformer_base_decode": [K1["name"]],
                 "resnet50_train": [], "lenet_train": [], "vision_zoo_train": [],
-                "nn_layers_api": [], "dlrm_train": [],
+                "nn_layers_api": [], "dlrm_train": [], "hapi_resnet50_fit": [],
+                "record_feed_dlrm": [],
                 "dlrm_sharded_train": []}
     missing = [(path, n) for path, names in expected.items() for n in names if by_path[path][n] == 0]
     if missing:

@@ -7,8 +7,9 @@ Pallas kernel of a ported path is a hand-written CUDA kernel under ``csrc/``,
 built by ``nvcc`` at first use. Entry points (``models.gpt.GPTForPretraining``,
 ``models.bert.BertForPretraining``, ``models.ernie.ErnieForPretraining``,
 ``vision.models.resnet50`` and the other ResNets, ``models.lenet.LeNet``,
-``models.dlrm.DLRM``, ``inference.DecodeEngine``) run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+``models.dlrm.DLRM``, ``inference.DecodeEngine``, ``io.DataLoader``,
+``io.RecordFileLoader``) run on ``cuda`` unless the caller passes
+``device="cpu"``; hapi's ``Model`` runs where its network lives.
 
 As ``paddle_tpu/__init__.py`` does for ``paddle.*``, the root holds the
 tensor functions flattened (``paddle.add``, ``paddle.to_tensor``, ...), the
@@ -57,6 +58,12 @@ from . import stability  # noqa: F401,E402
 from . import analysis  # noqa: F401,E402
 from . import utils  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
+from . import io  # noqa: F401,E402
+from . import metric  # noqa: F401,E402
+from . import hapi  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402
+from .hapi.dynamic_flops import flops  # noqa: F401,E402
+from .hapi.model import Model  # noqa: F401,E402
 from .autograd import backward  # noqa: F401,E402
 from .distributed import DataParallel  # noqa: F401,E402
 from .framework.io import load, save  # noqa: F401,E402
@@ -93,6 +100,11 @@ def batch(reader, batch_size, drop_last=False):
             yield buf
 
     return gen
+
+
+def summary(net, input_size=None, dtypes=None):
+    """``paddle.summary``: hapi ``Model.summary`` of a bare network."""
+    return Model(net).summary(input_size)
 
 
 def check_shape(shape):

@@ -89,3 +89,6 @@ define_flag("FLAGS_chaos_replica_hang_ms", "", "wedge a cross-process replica wi
 define_flag("FLAGS_chaos_socket_drop_at", "", "kill the fast-path RPC socket mid-stream: 'R:K' (replica R) or 'K' (any) right before the K-th socket send (once per replica per process)")
 define_flag("FLAGS_chaos_ingress_disconnect_at", -1, "drop the HTTP client connection after N streamed chunks (once per process; -1 = off)")
 define_flag("FLAGS_chaos_net_delay_ms", 0.0, "sleep this many milliseconds before every fast-path socket frame send")
+
+# the input pipeline (io/dataloader.py)
+define_flag("FLAGS_dataloader_max_bad_batches", 0, "DataLoader: skip up to this many batches whose sample/collate raised (per iteration) instead of killing the iterator; 0 keeps the raise-through behavior")

@@ -22,7 +22,7 @@ __all__ = [
     "histograms", "counter_value", "gauge_value", "find_histogram", "snapshot",
     "prometheus_text", "escape_help", "escape_label_value", "reset_all",
     "FLEET_COUNTERS", "INGRESS_COUNTERS", "SERVING_COUNTERS", "OBS_COUNTERS", "SLO_COUNTERS",
-    "RECSYS_COUNTERS",
+    "RECSYS_COUNTERS", "DATALOADER_COUNTERS", "DATALOADER_SPANS", "HAPI_HISTOGRAMS", "HAPI_GAUGES",
 ]
 
 # Default bucket bounds (seconds): half-decade geometric ladder, 1us to 100s.
@@ -347,6 +347,21 @@ SLO_COUNTERS: Tuple[str, ...] = (
     "regress.checks", "regress.regressions", "regress.cleared",
     "regress.flightrecs",
 )
+# The input pipeline and the training loop (io/, hapi/), as the reference
+# emits them: the DataLoader's counters and its spans (each a histogram of
+# the same name), hapi's ``hapi.step`` histogram (a fit step's wall time,
+# ``paddle_tpu/observability/metrics.py:364``) and the ``hapi.<log key>``
+# gauges of ``MetricsLogger`` (``loss`` and ``lr`` always, a metric's name
+# when metrics are set). Not declared at 0: the reference declares none of
+# them, and an idle scrape stays byte for byte the reference's.
+DATALOADER_COUNTERS: Tuple[str, ...] = (
+    "dataloader.batches", "dataloader.device_puts", "dataloader.bad_batches",
+)
+DATALOADER_SPANS: Tuple[str, ...] = (
+    "dataloader.fetch", "dataloader.prefetch", "dataloader.device_put",
+)
+HAPI_HISTOGRAMS: Tuple[str, ...] = ("hapi.step",)
+HAPI_GAUGES: Tuple[str, ...] = ("hapi.loss", "hapi.lr")
 # ...and the runtime sanitizer's ledger-growth trips (analysis/sanitizer.py)
 for _name in (SERVING_COUNTERS + FLEET_COUNTERS + INGRESS_COUNTERS + RECSYS_COUNTERS
               + OBS_COUNTERS + SLO_COUNTERS + ("sanitizer.ledger_growth",)):

@@ -157,17 +157,67 @@ ZOO_MODULES = {"paddle_tpu_torch.nn.functional.norm", "paddle_tpu_torch.nn.funct
                "paddle_tpu_torch.vision.models.inceptionv3"}
 
 
+# modules of the input pipeline and the training loop
+IO_HAPI_MODULES = {"paddle_tpu_torch.io", "paddle_tpu_torch.io.dataset",
+                   "paddle_tpu_torch.io.dataloader", "paddle_tpu_torch.io.mp_worker",
+                   "paddle_tpu_torch.io.record_feed", "paddle_tpu_torch.framework.native",
+                   "paddle_tpu_torch.metric", "paddle_tpu_torch.jit.eval_step",
+                   "paddle_tpu_torch.hapi", "paddle_tpu_torch.hapi.model",
+                   "paddle_tpu_torch.hapi.callbacks", "paddle_tpu_torch.hapi.dynamic_flops",
+                   "paddle_tpu_torch.callbacks", "paddle_tpu_torch.vision.functional",
+                   "paddle_tpu_torch.vision.transforms", "paddle_tpu_torch.vision.datasets"}
+
+
 def test_port_and_chip_smoke_import_no_jax_or_paddle_tpu():
     names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
     wanted = (TRAINING_MODULES | MOE_MODULES | BERT_MODULES | FLAGSHIP_MODULES | VISION_MODULES
               | SERVING_MODULES | SERVING_STACK_MODULES | OBSERVABILITY_MODULES | RECSYS_MODULES
               | DISTRIBUTED_MODULES | HYBRID_MODULES | EP_SEP_MODULES | RESILIENCE_MODULES
               | AMP_MODULES | NN_LIBRARY_MODULES | NN_TAIL_MODULES | FRAMEWORK_CORE_MODULES
-              | ZOO_MODULES)
+              | ZOO_MODULES | IO_HAPI_MODULES)
     assert wanted <= names, sorted(wanted - names)
     proc = _run(["-c", _IMPORT_ALL], cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.split()[0] == str(len(names)) and len(names) >= 90
+
+
+_LOADER = r"""
+import sys
+import numpy as np
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.io import DataLoader, Dataset
+from paddle_tpu_torch.vision import transforms as T
+
+
+class Probe(Dataset):
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i):
+        img = T.Compose([T.RandomResizedCrop(8, generator=i), T.Transpose()])(
+            np.zeros((12, 12, 3), np.uint8))
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+        return img, np.int64(len(bad))
+
+
+net = paddle.nn.Linear(3 * 8 * 8, 2, device="cpu")
+model = paddle.Model(net)
+model.prepare(paddle.optimizer.SGD(parameters=net.parameters()), paddle.nn.CrossEntropyLoss())
+loader = DataLoader(Probe(), batch_size=2, num_workers=2, worker_mode="process", device="cpu")
+counts = [int(y.sum()) for _, y in loader]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+print(counts, bad)
+sys.exit(1 if bad or any(counts) or len(counts) != 2 else 0)
+"""
+
+
+def test_process_workers_import_no_jax_or_paddle_tpu():
+    """A DataLoader's process workers, running the port's transforms, and
+    the parent with ``hapi.Model`` built import neither ``jax`` nor
+    ``paddle_tpu``."""
+    proc = _run(["-c", _LOADER], cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split("\n")[0] == "[0, 0] []"
 
 
 def test_rank_processes_import_no_jax_or_paddle_tpu():

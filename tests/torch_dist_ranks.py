@@ -1145,3 +1145,20 @@ def dropout_resume(c, np_state, ids, ck_dir, steps):
                resumed_state={k: _np(v) for k, v in model.state_dict().items()})
     D.fleet._hcg = None
     return out
+
+
+def eval_step_dp(np_state, ids):
+    """``EvalStep(mesh=hcg)`` of a tiny GPT at dp = world with ``np_state``:
+    this rank feeds its block of ``ids`` (``fleet.shard_batch``) and gets
+    the global batch's logits back."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.jit import EvalStep
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+
+    fleet = _fleet(D.get_world_size(), 1)
+    model = GPTForPretraining(GPTConfig.tiny(), device="cpu")
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in np_state.items()})
+    step = EvalStep(model, mesh=fleet.get_hybrid_communicate_group())
+    out = _np(step(fleet.shard_batch(ids)))
+    D.fleet._hcg = None
+    return out
